@@ -1,0 +1,505 @@
+"""Drive the torch port's flagship path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints one line or a short block; any failure raises, so the
+run exits non-zero):
+  1. device  : a CUDA device is required; its name and power limit.
+  2. build   : nvcc builds pathintegralgroundstate_torch/csrc into build/.
+  3. kernels : each hand-written kernel against its plain PyTorch form at
+               the flagship's shapes, float32 and float64, then both timed
+               with CUDA events (medians).
+  4. replay  : one flagship step at W=16 in float64 on the card and on the
+               CPU (plain forms) from the same recorded draws: states,
+               counters and statistics must agree.
+  5. main    : the flagship configuration at W=1024 in float32: one warm-up
+               step, three timed steps with the kernels' launch counts, the
+               acceptance table, bead-updates/s, then one step under
+               torch.cuda.set_sync_debug_mode("warn").
+  6. imports : no JAX module was loaded (the port shares only the
+               reference's configuration module, which imports no JAX).
+The last two lines are the kernels JSON and the device JSON.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+
+def _card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def _events_ms(fn, reps=20):
+    """Device ms per call of fn(): reps calls queued behind a device sleep,
+    so the events time the device's work and not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)   # ~0.1 s of device cycles
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _close(name, got, ref, rtol, atol, plain=None, near_cut=None):
+    """Max abs error of got against the float64 reference ref.
+
+    float64 (plain is None): every value within atol + rtol |ref|.
+    float32: atol grows by twice the plain float32 form's own error at the
+    99.99th percentile of the block (32-bit rounding of row sums whose
+    terms cancel); a value beyond that must belong to a row with a partner
+    within 1e-5 of the cutoff (near_cut), where a 32-bit r^2 lands on the
+    other side of the rcut mask than the 64-bit one: V(rcut) = -0.042 K
+    for aziz2 at the flagship's box.  Returns (max abs err, rows excused
+    by the cutoff)."""
+    err = (got.double() - ref).abs()
+    if plain is not None:
+        pe = (plain.double() - ref).abs().flatten()
+        atol = atol + 2.0 * float(torch.quantile(pe, 0.9999))
+    bad = ~(err <= atol + rtol * ref.abs())
+    excused = 0
+    if bool(bad.any()) and near_cut is not None:
+        idx = bad.nonzero()
+        cut = near_cut(idx)
+        excused = int(cut.sum())
+        bad[tuple(idx[cut].T)] = False
+    if bool(bad.any()):
+        i = int(bad.flatten().nonzero()[0])
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} values beyond rtol={rtol} atol={atol}"
+            f" (first: got {got.flatten()[i].item()!r}, "
+            f"ref {ref.flatten()[i].item()!r})")
+    return float(err.max()), excused
+
+
+def _tol(dtype, name):
+    """(rtol, atol).  float64 differs only by the summation order: rtol
+    1e-11, atol 1e-9 for two potential sums that cancel and 1e-7 for the
+    force terms, whose pair forces (~1e2 each) cancel to a net |F| and move
+    |F|^2 by ~2 |F| eps sum|f_j| ~ 1e-9.  float32 takes the tolerances of
+    tests/test_pallas_kernel.py (see _close)."""
+    if dtype == torch.float64:
+        return 1e-11, (1e-7 if name in ("df2", "f2") else 1e-9)
+    return {"dpot": (2e-4, 1e-4), "du": (2e-4, 1e-4), "df2": (2e-4, 1e-3),
+            "pot": (2e-4, 1e-3), "f2": (2e-4, 1e-2)}[name]
+
+
+def _wrap(d, L):
+    return torch.remainder(d + 0.5 * L, L) - 0.5 * L
+
+
+def _near_cut_rows(system, R, xnew, xold, ip, rev):
+    """For [k, 2] (w, b) row indices: whether the row has a partner within
+    1e-5 of rcut^2 on either side (float64)."""
+    L, rc2 = system.geo.Lbox[0], system.geo.rcut2
+
+    def f(idx):
+        w, b = idx[:, 0], idx[:, 1]
+        br = R.shape[1] - 1 - b if rev else b
+        P = R[w, br].double()                              # [k, N, D]
+        if isinstance(ip, int):
+            p = torch.full_like(w, ip)
+        else:
+            p = ip[w] if ip.dim() == 1 else ip[w, b]
+        self_ = torch.arange(P.shape[1], device=P.device) == p[:, None]
+        out = torch.zeros_like(w, dtype=torch.bool)
+        for x in (xnew, xold):
+            d2 = (_wrap(x[w, b].double()[:, None] - P, L) ** 2).sum(-1)
+            near = ((d2 / rc2 - 1.0).abs() < 1e-5) & ~self_
+            out |= near.any(-1)
+        return out
+    return f
+
+
+def _near_cut_confs(system, R):
+    """For [k, 2] (w, b) indices of configurations R: whether any pair lies
+    within 1e-5 of rcut^2 (float64)."""
+    L, rc2 = system.geo.Lbox[0], system.geo.rcut2
+
+    def f(idx):
+        P = R[idx[:, 0], idx[:, 1]].double()               # [k, N, D]
+        d2 = (_wrap(P[:, :, None] - P[:, None], L) ** 2).sum(-1)
+        return ((d2 / rc2 - 1.0).abs() < 1e-5).flatten(1).any(-1)
+    return f
+
+
+def _flagship_paths(cfg, W, dtype, device, seed, dmin=0.95):
+    """Liquid-like worldlines: each walker's particles placed by random
+    sequential addition with a minimum distance dmin (no lattice shell at
+    the cutoff), then 0.03 of gaussian noise per bead."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N, D = cfg.Np, cfg.dim
+    L = (N / cfg.density) ** (1.0 / D)
+    X = torch.zeros(W, N, D, dtype=torch.float64)
+    for i in range(N):
+        todo = torch.ones(W, dtype=torch.bool)
+        while bool(todo.any()):
+            c = (torch.rand(W, D, generator=g, dtype=torch.float64) - 0.5) * L
+            ok = todo.clone()
+            if i:
+                d2 = (_wrap(c[:, None] - X[:, :i], L) ** 2).sum(-1)
+                ok &= d2.min(1).values > dmin * dmin
+            X[ok, i] = c[ok]
+            todo &= ~ok
+    x = X[:, None] + 0.03 * torch.randn(W, cfg.M, N, D, generator=g,
+                                        dtype=torch.float64)
+    return _wrap(x, L).to(device=device, dtype=dtype)
+
+
+def kernel_parity(cfg, card):
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    W, N, D = 1024, cfg.Np, cfg.dim
+    sys64 = make_system(cfg, dev, torch.float64)
+    errs = {"pair_rows": 0.0, "pair_pot": 0.0}   # float64: kernel vs plain
+    excused = {"pair_rows": 0, "pair_pot": 0}    # float32 rows at the cutoff
+    ncase = 0
+    for dtype in (torch.float32, torch.float64):
+        system = make_system(cfg, dev, dtype)
+        paths = _flagship_paths(cfg, W, dtype, dev, seed=1)
+        g = torch.Generator(device=dev).manual_seed(2)
+        rows = torch.arange(W, device=dev)
+        f32 = dtype == torch.float32
+        for B in (15, 16, 30, 32, 33, 65):
+            lo = (cfg.M - B) // 2
+            R = paths[:, lo:lo + B]                     # strided window view
+            ipw = torch.randint(0, N, (W,), generator=g, device=dev)
+            ipwb = torch.randint(0, N, (W, B), generator=g, device=dev)
+            for ip in (7, ipw, ipwb):
+                if isinstance(ip, int):
+                    xold = R[:, :, ip]
+                elif ip.dim() == 1:
+                    xold = R[rows, :, ip]
+                else:
+                    xold = R.gather(2, ip[:, :, None, None].expand(
+                        W, B, 1, D))[:, :, 0]
+                xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
+                                                 device=dev, dtype=dtype)
+                # an exactly coincident partner (the worm-pin case)
+                p3 = ip if isinstance(ip, int) else int(
+                    ip[3] if ip.dim() == 1 else ip[3, B // 2])
+                xnew[3, B // 2] = R[3, B // 2, (p3 + 1) % N]
+                for rev in (False, True):
+                    near = _near_cut_rows(system, R, xnew, xold, ip, rev)
+                    for need_wf in (True, False):
+                        for need_f2 in (True, False):
+                            args = (ip, need_wf, need_f2, rev)
+                            got = K.pair_rows(system, R, xnew, xold, *args)
+                            ref = K.pair_rows_ref(sys64, R.double(),
+                                                  xnew.double(),
+                                                  xold.double(), *args)
+                            plain = (K.pair_rows_ref(system, R, xnew, xold,
+                                                     *args) if f32 else
+                                     (None, None, None))
+                            for i, name in enumerate(("dpot", "df2", "du")):
+                                if got[i] is None:
+                                    continue
+                                e, n = _close(
+                                    f"pair_rows {dtype} B={B} rev={rev} "
+                                    f"{name}", got[i], ref[i],
+                                    *_tol(dtype, name), plain[i],
+                                    near if f32 else None)
+                                excused["pair_rows"] += n
+                                if not f32:
+                                    errs["pair_rows"] = max(
+                                        errs["pair_rows"], e)
+                            ncase += 1
+        for sl in (slice(0, cfg.M - 1, 2), slice(1, cfg.M - 1, 2)):
+            R = paths[:, sl]
+            near = _near_cut_confs(system, R)
+            for wf in (False, True):
+                got = K.pair_pot(system, R, wf)
+                ref = K.pair_pot_ref(sys64, R.double(), wf)
+                plain = K.pair_pot_ref(system, R, wf) if f32 else (None, None)
+                for i, name in enumerate(("pot", "f2")):
+                    e, n = _close(f"pair_pot {dtype} force={wf} {name}",
+                                  got[i], ref[i], *_tol(dtype, name),
+                                  plain[i], near if f32 else None)
+                    excused["pair_pot"] += n
+                    if not f32:
+                        errs["pair_pot"] = max(errs["pair_pot"], e)
+                ncase += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] {ncase} parity cases pass against the plain form in "
+          f"float64 on the same inputs: float64 max abs err pair_rows "
+          f"{errs['pair_rows']:.3e}, pair_pot {errs['pair_pot']:.3e} (rtol "
+          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond tolerance, each at a "
+          f"partner within 1e-5 of rcut^2: pair_rows {excused['pair_rows']},"
+          f" pair_pot {excused['pair_pot']}")
+
+    # timing at the main path's shapes, float32, kernel vs plain form
+    system = make_system(cfg, dev, torch.float32)
+    paths = _flagship_paths(cfg, W, torch.float32, dev, seed=3)
+    ipw = torch.randint(0, N, (W,), generator=g, device=dev)
+    shapes = {}
+
+    def rows_case(B, ip, need_wf, rev=False):
+        R = paths[:, :B]
+        xold = R[:, :, ip] if isinstance(ip, int) else R[rows, :, ip]
+        xnew = (xold + 0.05).contiguous()
+        k = _events_ms(lambda: K.pair_rows(system, R, xnew, xold, ip,
+                                           need_wf, True, rev))
+        p = _events_ms(lambda: K.pair_rows_ref(system, R, xnew, xold, ip,
+                                               need_wf, True, rev))
+        return k, p
+
+    shapes["pair_rows B=16 end move"] = rows_case(16, 5, True)
+    shapes["pair_rows B=15 interior bisection"] = rows_case(15, 5, False)
+    shapes["pair_rows B=65 CM move"] = rows_case(65, 5, True)
+    shapes["pair_rows B=32 worm half, ip[W], reversed"] = rows_case(
+        32, ipw, True, True)
+    for wf in (False, True):
+        R = paths[:, wf::2][:, :cfg.Nb]
+        shapes[f"pair_pot [1024,32,64,3] force={wf}"] = (
+            _events_ms(lambda: K.pair_pot(system, R, wf)),
+            _events_ms(lambda: K.pair_pot_ref(system, R, wf)))
+    for name, (k, p) in shapes.items():
+        print(f"[time] {name}: kernel {k:.4f} ms, plain {p:.4f} ms "
+              f"({card})")
+    return errs, shapes
+
+
+class _Recorder:
+    """A draw source that records what another one returns."""
+
+    def __init__(self, src):
+        self.src, self.log = src, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.src, name)
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            if name != "begin_step":
+                self.log.append(out)
+            return out
+        return call
+
+
+class _Replayer:
+    """Replays recorded draws on another device."""
+
+    def __init__(self, log, device):
+        self.log, self.device, self.i = list(log), device, 0
+
+    def _move(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        if isinstance(x, tuple):
+            return type(x)(*map(self._move, x)) if hasattr(x, "_fields") \
+                else tuple(map(self._move, x))
+        return x
+
+    def __getattr__(self, name):
+        def call(*a, **k):
+            if name == "begin_step":
+                return None
+            out = self.log[self.i]
+            self.i += 1
+            return self._move(out)
+        return call
+
+
+def replay_check(cfg):
+    from pathintegralgroundstate_torch.state import (init_state,
+                                                     state_from_numpy,
+                                                     state_to_numpy)
+    from pathintegralgroundstate_torch.sweep import (Sweeper, stats_to_numpy,
+                                                     zero_stats)
+    from pathintegralgroundstate_torch.system import make_system
+
+    cfg = cfg.replace(n_walkers=16, dtype="float64")
+    out = []
+    rec = start = None
+    for dev in ("cpu", "cuda"):
+        system = make_system(cfg, dev)
+        sweeper = Sweeper(system)
+        if dev == "cpu":
+            state = init_state(system)
+            start = state_to_numpy(state)
+            src = rec = _Recorder(sweeper.draws(state))
+        else:
+            state = state_from_numpy(system, start)
+            src = _Replayer(rec.log, torch.device("cuda"))
+        state, stats = sweeper.step(state, zero_stats(system), src)
+        out.append((state_to_numpy(state), stats_to_numpy(stats)))
+    (s_cpu, t_cpu), (s_gpu, t_gpu) = out
+    for k in s_cpu:
+        if s_cpu[k].dtype.kind == "f":
+            np.testing.assert_allclose(s_gpu[k], s_cpu[k], rtol=1e-9,
+                                       atol=1e-11, err_msg=k)
+        else:
+            np.testing.assert_array_equal(s_gpu[k], s_cpu[k], err_msg=k)
+    np.testing.assert_array_equal(t_gpu["counters"], t_cpu["counters"])
+    for k in t_cpu:
+        if k != "counters":
+            np.testing.assert_allclose(t_gpu[k], t_cpu[k], rtol=1e-9,
+                                       atol=1e-9, err_msg=k)
+    print(f"[replay] flagship step at W=16 float64: card (kernels) == CPU "
+          f"(plain forms) on {len(rec.log)} recorded draw sites; "
+          f"sumE {t_gpu['sumE']:.10g}")
+
+
+def main_path(cfg, card):
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import (COUNTER_NAMES, Sweeper,
+                                                     bead_updates_per_step,
+                                                     run_block)
+    from pathintegralgroundstate_torch.system import make_system
+
+    system = make_system(cfg, torch.device("cuda"))
+    sweeper = Sweeper(system)
+    state = init_state(system)
+    t0 = time.perf_counter()
+    state, warm = run_block(sweeper, state, 1)
+    torch.cuda.synchronize()
+    print(f"[main] warm-up step: {time.perf_counter() - t0:.3f} s")
+
+    nstep = 3
+    K.pair_rows.launches = 0
+    K.pair_pot.launches = 0
+    t0 = time.perf_counter()
+    state, stats = run_block(sweeper, state, nstep)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / nstep
+    launches = {"pair_rows": K.pair_rows.launches,
+                "pair_pot": K.pair_pot.launches}
+
+    sites = (cfg.Np * (cfg.CMFreq > 0) + 3 * cfg.Nstag * cfg.Np
+             + (4 if cfg.CWorm > 0 else 0)
+             + cfg.Nobdm * (8 + cfg.swapping) * (cfg.CWorm > 0))
+    if launches["pair_rows"] < nstep * sites:
+        raise AssertionError(f"pair_rows launched {launches['pair_rows']} "
+                             f"times, < {nstep} steps x {sites} move sites")
+    if launches["pair_pot"] != 2 * nstep:
+        raise AssertionError(f"pair_pot launched {launches['pair_pot']} "
+                             f"times, expected {2 * nstep}")
+
+    c = dict(zip(COUNTER_NAMES, (stats.counters + warm.counters).tolist()))
+    for k in ("try_cm", "try_stag", "try_open"):
+        if c[k] <= 0:
+            raise AssertionError(f"{k} = {c[k]}")
+    if c["acc_open"] > 0:
+        for k in ("try_close", "try_cm_half", "try_stag_half"):
+            if c[k] <= 0:
+                raise AssertionError(f"{k} = {c[k]} with open walkers")
+    table = []
+    pairs = [("acc_cm", "try_cm"), ("acc_head", "try_stag"),
+             ("acc_tail", "try_stag"), ("acc_bd", "try_stag"),
+             ("acc_open", "try_open"), ("acc_close", "try_close"),
+             ("acc_cm_half", "try_cm_half"), ("acc_head_half", "try_stag_half"),
+             ("acc_tail_half", "try_stag_half"),
+             ("acc_bd_half", "try_stag_half"), ("acc_swap", "try_swap")]
+    for a, t in pairs:
+        if c[t] > 0:
+            ratio = c[a] / c[t]
+            if not 0.0 < ratio <= 1.0:
+                raise AssertionError(f"{a}/{t} = {c[a]}/{c[t]} outside (0, 1]")
+            table.append(f"{a}/{t}={c[a]}/{c[t]}={ratio:.4f}")
+    for k in ("sumE", "sumEt"):
+        if not math.isfinite(float(getattr(stats, k))):
+            raise AssertionError(f"{k} is not finite")
+    for k in ("gr", "sk"):
+        if not bool(torch.isfinite(getattr(stats, k)).all()):
+            raise AssertionError(f"{k} is not finite")
+    nd = float(stats.n_diag)
+    bups = cfg.n_walkers * bead_updates_per_step(cfg) / dt
+    print(f"[main] flagship W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} float32: "
+          f"{dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s ({card})")
+    print(f"[main] launches over {nstep} steps: {launches}; "
+          f"<E>/N={float(stats.sumE) / nd / cfg.Np:.4f} "
+          f"<Et>/N={float(stats.sumEt) / nd / cfg.Np:.4f} (n_diag {nd:.0f})")
+    print("[main] acceptance: " + ", ".join(table))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state, _ = run_block(sweeper, state, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    print(f"[main] host syncs in one step under sync_debug_mode('warn'): "
+          f"{len(syncs)}")
+    for w in syncs[:3]:
+        print(f"[main]   {str(w.message)[:160]}")
+    return launches, dt, bups
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    from pathintegralgroundstate_torch.flagship import flagship_cfg
+    from pathintegralgroundstate_torch.utils import build
+
+    card = _card()
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {name} | {card} | torch {torch.__version__} "
+          f"CUDA {torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+
+    _, seconds, log = build.build()
+    build.kernels()
+    print(f"[build] nvcc {seconds:.1f} s -> {build.BUILD_ROOT}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build]   {line.strip()}")
+
+    cfg = flagship_cfg(1024)
+    errs, shapes = kernel_parity(cfg, card)
+    replay_check(cfg)
+    launches, _, _ = main_path(cfg, card)
+
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib"))
+    if jax_mods:
+        raise AssertionError(f"JAX modules were loaded: {jax_mods[:5]}")
+    shared = sorted(m for m in sys.modules
+                    if m.startswith("pathintegralgroundstate_tpu"))
+    print(f"[imports] no JAX module loaded; of the reference package only "
+          f"the shared, JAX-free config: {shared}")
+
+    rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
+    pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
+    print(card)
+    print(json.dumps({"kernels": [
+        {"name": "pair_rows", "route": "cuda",
+         "source": "pathintegralgroundstate_torch/csrc/pair_rows.cu",
+         "replaces": "pathintegralgroundstate_tpu/ops/pallas_kernels.py:300",
+         "launches": launches["pair_rows"],
+         "max_abs_err": errs["pair_rows"], "ms": rows_ms,
+         "plain_ms": rows_plain},
+        {"name": "pair_pot", "route": "cuda",
+         "source": "pathintegralgroundstate_torch/csrc/pair_pot.cu",
+         "replaces": "pathintegralgroundstate_tpu/ops/pallas_kernels.py:437",
+         "launches": launches["pair_pot"],
+         "max_abs_err": errs["pair_pot"], "ms": pot_ms,
+         "plain_ms": pot_plain}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""PyTorch / CUDA port of the PIGS engine, beside the JAX reference.
+
+`pathintegralgroundstate_tpu` is the reference; this package runs the same
+flagship Monte Carlo step (`sweep.Sweeper.step`) in PyTorch, with the two
+pair kernels of its main path written by hand for Hopper (`csrc/`, bound in
+`ops/kernels.py`).  The configuration is shared with the reference: its
+`config` module imports no JAX.
+
+The package imports `torch` and never `jax`.
+"""
+
+import torch
+
+from pathintegralgroundstate_tpu.config import (Geometry, SimConfig,
+                                                geometry,
+                                                load_namelist_config)
+
+# The float32 bridge and dyadic matmuls (ops/moves.segment_regrow,
+# ops/bisection._construct_levels) must not drop to TF32 on the card.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"
+
+__all__ = ["SimConfig", "Geometry", "geometry", "load_namelist_config"]

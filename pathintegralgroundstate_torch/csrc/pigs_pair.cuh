@@ -1,0 +1,111 @@
+// Shared pair physics of the two hand-written Hopper kernels (pair_rows.cu,
+// pair_pot.cu): the single-image minimum image, the closed-form Aziz
+// potential (aziz2 and aziz1 share the form; only the constants differ) and
+// the McMillan Jastrow with the optional C1 shift.  Every formula follows
+// the plain-PyTorch forms in ops/pairwise.py and models/, which follow
+// pathintegralgroundstate_tpu/models/potentials.py operation for operation.
+#pragma once
+
+#include <cuda_runtime.h>
+
+// Host-side parameter block, filled field for field by ops/kernels.py
+// (ctypes.Structure _PairParams).  Doubles first, ints last: no padding.
+struct PairParams {
+  double L[3];
+  double half[3];
+  double rcut2;
+  double V0, V0s, s, s_inv, A, neg_alpha, beta, two_beta;
+  double C6, C8, C10, Dcore, d_min, d_min_inv, two_C8, four_C10;
+  double Rm, rc, u_rc, du_rc;
+  int c1;
+  int dim;
+};
+
+// The same constants in the kernel's working type.
+template <typename T>
+struct Consts {
+  T L[3], half[3], rcut2;
+  T V0, V0s, s, s_inv, A, neg_alpha, beta, two_beta;
+  T C6, C8, C10, Dcore, d_min, d_min_inv, two_C8, four_C10;
+  T Rm, rc, u_rc, du_rc;
+  int c1, dim;
+};
+
+template <typename T>
+inline Consts<T> make_consts(const PairParams& p) {
+  Consts<T> c;
+  for (int k = 0; k < 3; ++k) {
+    c.L[k] = T(p.L[k]);
+    c.half[k] = T(p.half[k]);
+  }
+  c.rcut2 = T(p.rcut2);
+  c.V0 = T(p.V0); c.V0s = T(p.V0s); c.s = T(p.s); c.s_inv = T(p.s_inv);
+  c.A = T(p.A); c.neg_alpha = T(p.neg_alpha); c.beta = T(p.beta);
+  c.two_beta = T(p.two_beta);
+  c.C6 = T(p.C6); c.C8 = T(p.C8); c.C10 = T(p.C10); c.Dcore = T(p.Dcore);
+  c.d_min = T(p.d_min); c.d_min_inv = T(p.d_min_inv);
+  c.two_C8 = T(p.two_C8); c.four_C10 = T(p.four_C10);
+  c.Rm = T(p.Rm); c.rc = T(p.rc); c.u_rc = T(p.u_rc); c.du_rc = T(p.du_rc);
+  c.c1 = p.c1;
+  c.dim = p.dim;
+  return c;
+}
+
+// Single-image wrap of one displacement component (utils/pbc.wrap).
+template <typename T>
+__device__ __forceinline__ T wrap1(T d, T L, T half) {
+  if (d > half) d -= L;
+  if (d < -half) d += L;
+  return d;
+}
+
+// Aziz V(r) in its plain form (models/potentials v).
+template <typename T>
+__device__ __forceinline__ T aziz_v(const Consts<T>& c, T r) {
+  T d = fmax(c.s * r, c.d_min);
+  T d2 = d * d;
+  T rep = c.A * exp(c.neg_alpha * d + c.beta * d2);
+  T q = c.Dcore / d - T(1);
+  T H = (d <= c.Dcore) ? exp(-(q * q)) : T(1);
+  T W = c.C6 + c.C8 / d2 + c.C10 / (d2 * d2);
+  return c.V0 * (rep - W * H / (d2 * d2 * d2));
+}
+
+// Fused (V, dV/dr) from r and 1/r (models/potentials v_dv).
+template <typename T>
+__device__ __forceinline__ void aziz_v_dv(const Consts<T>& c, T r, T rinv,
+                                          T& val, T& dv) {
+  T d = fmax(c.s * r, c.d_min);
+  T di = fmin(c.s_inv * rinv, c.d_min_inv);
+  T d2i = di * di;
+  T rep = c.A * exp(c.neg_alpha * d + c.beta * (d * d));
+  T t = c.Dcore * di - T(1);
+  bool core = d <= c.Dcore;
+  T H = core ? exp(-t * t) : T(1);
+  T dH = core ? H * T(2) * t * c.Dcore * d2i : T(0);
+  T W = c.C6 + d2i * (c.C8 + c.C10 * d2i);
+  T dW = -d2i * di * (c.two_C8 + c.four_C10 * d2i);
+  T d6i = d2i * d2i * d2i;
+  T WH6 = W * H * d6i;
+  val = c.V0 * (rep - WH6);
+  T drep = rep * (c.neg_alpha + c.two_beta * d);
+  T dG = (dW * H + W * dH) * d6i - T(6) * WH6 * di;
+  dv = c.V0s * (drep - dG);
+}
+
+// McMillan log-Jastrow u(r) = -1/2 (Rm/r)^5, C1-shifted at rcut when c1.
+template <typename T>
+__device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
+  T q = c.Rm / r;
+  T q2 = q * q;
+  T u = T(-0.5) * (q2 * q2 * q);
+  if (c.c1) u = u - c.u_rc - c.du_rc * (r - c.rc);
+  return u;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

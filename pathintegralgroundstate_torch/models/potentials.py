@@ -1,0 +1,103 @@
+"""Aziz He-He pair potentials (system_mod.f90:87-182), elementwise on tensors.
+
+The same closed forms as pathintegralgroundstate_tpu/models/potentials.py,
+operation for operation: the D_MIN = 1e-3 hard-core floor and the fused
+reciprocal-based (V, dV/dr).  aziz2 (HFD-B(HE)) and aziz1 (HFDHE2) share the
+form; only the constants differ.  The CUDA kernels (csrc/pigs_pair.cuh)
+evaluate the same formulas from `Potential.consts`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+# Aziz II HFD-B(HE) parameters (system_mod.f90:153-163)
+_AZIZ2 = dict(
+    E0=10.948, rm=2.963, A=1.8443101e5, alpha=10.43329537, beta=-2.27965105,
+    C6=1.36745214, C8=0.42123807, C10=0.17473318, D=1.4826,
+)
+# Aziz I HFDHE2 parameters (system_mod.f90:104-113)
+_AZIZ1 = dict(
+    E0=10.8, rm=2.9673, A=0.54485046e6, alpha=13.353384, beta=0.0,
+    C6=1.3732412, C8=0.4253785, C10=0.1781, D=1.241314,
+)
+_PARAMS = {"aziz2": _AZIZ2, "aziz1": _AZIZ1}
+_UNIT_DENOM = 1.85505153154686  # system_mod.f90:163
+_SIGMA = 2.556                  # Angstrom; system_mod.f90:169
+D_MIN = 1.0e-3                  # hard-core floor of the damped dispersion
+
+
+@dataclasses.dataclass(frozen=True)
+class Potential:
+    name: str
+    v: Callable      # V(r)
+    dvdr: Callable   # dV/dr(r), analytic
+    v_dv: Callable   # fused (V, dV/dr)(r, rinv=None)
+    consts: dict     # the closed form's constants (kernel parameters)
+
+
+def _aziz(name, p) -> Potential:
+    V0 = p["E0"] / _UNIT_DENOM
+    s = _SIGMA / p["rm"]
+    A, alpha, beta = p["A"], p["alpha"], p["beta"]
+    C6, C8, C10, D = p["C6"], p["C8"], p["C10"], p["D"]
+    s_inv = 1.0 / s
+
+    def v(r):
+        d = torch.clamp(s * r, min=D_MIN)
+        d2 = d * d
+        rep = A * torch.exp(-alpha * d + beta * d2)
+        H = torch.where(d <= D, torch.exp(-torch.square(D / d - 1.0)), 1.0)
+        W = C6 + C8 / d2 + C10 / (d2 * d2)
+        return V0 * (rep - W * H / (d2 * d2 * d2))
+
+    def dvdr(r):
+        d = torch.clamp(s * r, min=D_MIN)
+        d2 = d * d
+        rep = A * torch.exp(-alpha * d + beta * d2)
+        drep = rep * (-alpha + 2.0 * beta * d)
+        H = torch.where(d <= D, torch.exp(-torch.square(D / d - 1.0)), 1.0)
+        dH = torch.where(d <= D, H * 2.0 * (D / d - 1.0) * D / d2, 0.0)
+        W = C6 + C8 / d2 + C10 / (d2 * d2)
+        dW = -2.0 * C8 / (d2 * d) - 4.0 * C10 / (d2 * d2 * d)
+        d6 = d2 * d2 * d2
+        dG = (dW * H + W * dH) / d6 - 6.0 * W * H / (d6 * d)
+        return V0 * s * (drep - dG)
+
+    def v_dv(r, rinv=None):
+        if rinv is None:
+            rinv = 1.0 / r
+        d = torch.clamp(s * r, min=D_MIN)
+        di = torch.clamp(s_inv * rinv, max=1.0 / D_MIN)
+        d2i = di * di
+        rep = A * torch.exp(-alpha * d + beta * (d * d))
+        t = D * di - 1.0
+        core = d <= D
+        H = torch.where(core, torch.exp(-t * t), 1.0)
+        dH = torch.where(core, H * 2.0 * t * D * d2i, 0.0)
+        W = C6 + d2i * (C8 + C10 * d2i)
+        dW = -d2i * di * (2.0 * C8 + 4.0 * C10 * d2i)
+        d6i = d2i * d2i * d2i
+        WH6 = W * H * d6i
+        val = V0 * (rep - WH6)
+        drep = rep * (-alpha + 2.0 * beta * d)
+        dG = (dW * H + W * dH) * d6i - 6.0 * WH6 * di
+        return val, V0 * s * (drep - dG)
+
+    consts = dict(V0=V0, V0s=V0 * s, s=s, s_inv=s_inv, A=A, neg_alpha=-alpha,
+                  beta=beta, two_beta=2.0 * beta, C6=C6, C8=C8, C10=C10,
+                  Dcore=D, d_min=D_MIN, d_min_inv=1.0 / D_MIN,
+                  two_C8=2.0 * C8, four_C10=4.0 * C10)
+    return Potential(name, v, dvdr, v_dv, consts)
+
+
+def get_potential(name: str) -> Potential:
+    """aziz2 or aziz1; the port has no other potential yet."""
+    if name not in _PARAMS:
+        raise NotImplementedError(
+            f"potential {name!r}: the torch port has aziz2 and aziz1 only "
+            "(ROADMAP queue 1, slice 12: geometry and model variants)")
+    return _aziz(name, _PARAMS[name])

@@ -1,0 +1,87 @@
+"""Estimators: mixed and thermodynamic energy, g(r), S(k) (sample_mod.f90).
+
+The torch counterpart of pathintegralgroundstate_tpu/ops/estimators.py on
+the flagship path.  Every function takes the whole ensemble (a leading
+walker axis) where the reference vmaps a single walker.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.pbc import minimum_image
+from .pairwise import pair_pot
+
+
+def _pair_geometry(system, R):
+    """All-pairs (mask, r, xij) of configurations R[..., N, D]."""
+    xij, rij2 = minimum_image(R[..., :, None, :] - R[..., None, :, :],
+                              system.L, system.half)
+    N = R.shape[-2]
+    notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
+    m = notself & (rij2 <= system.geo.rcut2)
+    r = torch.sqrt(torch.where(notself, rij2, 1.0))
+    return m, r, xij
+
+
+def local_energy(system, R):
+    """Mixed estimator at a terminal slice (LocalEnergy,
+    sample_mod.f90:154-319): E_L = -1/2 [2 LapLogPsi + |F|^2] + V.
+    R [W, N, D]; returns (E, Kin, Pot), each [W]."""
+    d = system.cfg.dim
+    m, r, xij = _pair_geometry(system, R)
+    dudr = torch.where(m, system.du(r), 0.0)
+    d2u = torch.where(m, system.d2u(r), 0.0)
+    lap = 0.5 * ((d - 1.0) * dudr / r + d2u).sum((-1, -2))
+    pot = 0.5 * torch.where(m, system.potential.v(r), 0.0).sum((-1, -2))
+    F = ((dudr / r)[..., None] * xij).sum(-2)
+    kin = -0.5 * (2.0 * lap + (F * F).sum((-1, -2)))
+    return kin + pot, kin, pot
+
+
+def therm_energy(system, paths):
+    """Thermodynamic estimator over all links (ThermEnergy,
+    sample_mod.f90:323-388), its pair sums on kernel B: even beads
+    0..2Nb-2 need V, odd beads 1..2Nb-1 V and F^2.  paths [W, M, N, D];
+    returns (E, E - Ep, Ep) with Ep the central-bead potential, each [W]."""
+    cfg = system.cfg
+    Nb, dt, M = cfg.Nb, cfg.dt, system.M
+    pot_even, _ = pair_pot(system, paths[:, 0:M - 1:2], False)
+    pot_odd, f2_odd = pair_pot(system, paths[:, 1:M - 1:2], True)
+    w_even = system.const(("therm_w_even", paths.dtype),
+                          lambda: np.r_[1.0 / 3.0, np.full(Nb - 1, 2.0 / 3.0)],
+                          paths.dtype)
+    E = (w_even * pot_even).sum(-1)
+    E = E + (4.0 / 3.0 * (pot_odd + 0.5 * dt * dt * f2_odd)).sum(-1)
+    Ep = pot_even[:, Nb // 2] if Nb % 2 == 0 else pot_odd[:, Nb // 2]
+    _, rij2 = minimum_image(paths[:, :-1] - paths[:, 1:], system.L,
+                            system.half)
+    spring = torch.where(rij2 <= system.geo.rcut2, rij2, 0.0)
+    E = E - 0.5 * spring.sum((-1, -2)) / (dt * dt)
+    E = 0.5 * (E / Nb + cfg.dim * cfg.Np / dt)
+    return E, E - Ep, Ep
+
+
+def pair_correlation(system, R, weight):
+    """g(r) histogram (PairCorrelation, sample_mod.f90:392-431): weight 2
+    per pair within rcut (the full N x N matrix), walker w's pairs
+    scaled by weight[w].  R [W, N, D]; returns gr[Nbin]."""
+    cfg = system.cfg
+    m, r, _ = _pair_geometry(system, R)
+    ibin = torch.clamp((r / system.geo.rbin).long(), 0, cfg.Nbin - 1)
+    w = m.to(R.dtype) * weight[:, None, None]
+    return torch.zeros(cfg.Nbin, dtype=R.dtype, device=R.device).index_add_(
+        0, ibin.flatten(), w.flatten())
+
+
+def structure_factor(system, Nk: int, R):
+    """S(k) along each axis at multiples of 2 pi / L (StructureFactor,
+    sample_mod.f90:435-476).  R [W, N, D]; returns [W, D, Nk]."""
+    qbin = system.const(("qbin", R.dtype), lambda: system.geo.qbin, R.dtype)
+    q = qbin[:, None] * torch.arange(1, Nk + 1, dtype=R.dtype,
+                                     device=R.device)[None, :]
+    qr = q[None, :, :, None] * R.transpose(1, 2)[:, :, None, :]
+    sc = torch.cos(qr).sum(-1)
+    ss = torch.sin(qr).sum(-1)
+    return sc * sc + ss * ss

@@ -1,0 +1,297 @@
+"""Monte Carlo path updates on the whole walker ensemble (vpi_mod.f90).
+
+The torch counterpart of pathintegralgroundstate_tpu/ops/moves.py on the
+flagship path: rigid translations, the Brownian-bridge segment regrow, and
+the worm half-chain moves.  Every move is a function of (paths, ..., draws):
+its random numbers come in as tensors shaped as the JAX move draws them
+(utils/draws.py makes them), so the port can be held against the reference
+on identical draws.
+
+`paths[W, M, N, D]` and `xend[W, 2, D]` are updated IN PLACE (and also
+returned); the window the pair pass reads is a view of `paths`.  A scalar
+particle index is a Python int; a per-walker one (the worm) a long tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..utils.pbc import wrap
+from .pairwise import delta_action_sum
+
+
+# ---------------------------------------------------------------------------
+# Small helpers
+# ---------------------------------------------------------------------------
+
+def metropolis_u(u, dS):
+    """Metropolis accept from a pre-drawn uniform (vpi_mod.f90:356-364)."""
+    return u < torch.exp(-dS)
+
+
+def _mi(system, x):
+    """Single-image wrap of a displacement."""
+    return wrap(x, system.L, system.half)
+
+
+def _wrap_pos(system, x):
+    """BoundaryConditions for absolute positions."""
+    return wrap(x, system.L, system.half)
+
+
+def _rand_ls(gen, W: int, Lmax: int, device):
+    """Ls = int((Lmax-1) u) + 2 in [2, Lmax] (vpi_mod.f90:601)."""
+    return torch.randint(0, Lmax - 1, (W,), generator=gen, device=device) + 2
+
+
+def get_chain(paths, ip):
+    """Worldlines [W, M, D] of particle ip (int: a view; [W]: a copy)."""
+    if isinstance(ip, int):
+        return paths[:, :, ip]
+    return paths[torch.arange(paths.shape[0], device=paths.device), :, ip]
+
+
+def set_chain(paths, ip, chain):
+    """Write chains [W, M, D] into paths at particle(s) ip, in place."""
+    if isinstance(ip, int):
+        paths[:, :, ip] = chain
+    else:
+        paths[torch.arange(paths.shape[0], device=paths.device), :, ip] = chain
+    return paths
+
+
+def _win_write(paths, lo: int, ip, seg):
+    """Write the moved particle's beads seg[W, L, D] at beads lo.. in place."""
+    set_chain(paths[:, lo:lo + seg.shape[1]], ip, seg)
+    return paths
+
+
+def _where(acc, a, b):
+    """Per-walker select over [W, ...] blocks."""
+    return torch.where(acc.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+# ---------------------------------------------------------------------------
+# Brownian-bridge tables: the staging recursion as one matmul
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _bridge_tables(Lmax: int, dt: float):
+    """The staging recursion (vpi_mod.f90:531-533) unrolled into a linear map
+    (a copy of the reference's moves._bridge_tables):
+
+        x_j = (1 - j/L) start + (j/L) anchor + sum_k T_L[j,k] g_k.
+
+    Returns (T[Lmax+1, Lmax-1, Lmax-1], w[Lmax+1, Lmax-1]) as float64 numpy,
+    indexed by the segment length Ls; rows j >= L are zero."""
+    J = Lmax - 1
+    T = np.zeros((Lmax + 1, J, J))
+    w = np.zeros((Lmax + 1, J))
+    for L in range(2, Lmax + 1):
+        a = np.ones(L)
+        s = np.zeros(L)
+        for j in range(1, L):
+            a[j] = (L - j) / (L - j + 1.0)
+            s[j] = np.sqrt((L - j) / (L - j + 1.0) * dt)
+        for j in range(1, L):
+            w[L, j - 1] = j / L
+            T[L, j - 1, j - 1] = s[j]
+            for k in range(j - 1, 0, -1):
+                T[L, j - 1, k - 1] = s[k] * np.prod(a[k + 1:j + 1])
+    return T, w
+
+
+# ---------------------------------------------------------------------------
+# The segment-regrow workhorse
+# ---------------------------------------------------------------------------
+
+def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
+                   first_w: float, g0, gs, first_pos=None, fixed_L=None,
+                   rev=False):
+    """Regrow segments in head orientation (moves.py:229-365), bridge mode.
+
+    seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
+    anchor.  R_seg [W, Lb+1, N, D]: the partners at the segment's beads, in
+    head orientation, or in forward bead order with rev=True (then
+    seg[:, b] sits at R_seg[:, Lb-b]).  ib_seg [Lb+1]: bead indices in head
+    orientation.  Ls [W] long.
+    first_mode: 'gauss' (free gaussian guess of bead 0, sigma sqrt(Ls dt),
+    from g0 [W, D]), 'pin' (bead 0 := first_pos) or 'fixed'.
+    first_w: weight of the first bead's dS (1/2 worm centre, 0 Swap's pin).
+    gs [Lb-1, W, D]: the bridge gaussians, in the reference's draw layout.
+    fixed_L: every walker's Ls equals it (one bridge matrix).
+
+    Returns (seg_new, dS[W])."""
+    dt = system.cfg.dt
+    W, Lbp1, D = seg.shape
+    Lb = Lbp1 - 1
+    dtype = seg.dtype
+    anchor = seg.gather(1, Ls.view(W, 1, 1).expand(W, 1, D))[:, 0]
+    xold0 = seg[:, 0]
+
+    if first_mode == "gauss":
+        xmid = xold0 - _mi(system, xold0 - anchor)
+        sigma = torch.sqrt(Ls.to(dtype) * dt)[:, None]
+        xnew0 = _wrap_pos(system, xmid + sigma * g0)
+    elif first_mode == "pin":
+        xnew0 = first_pos
+    elif first_mode == "fixed":
+        xnew0 = xold0
+    else:
+        raise ValueError(first_mode)
+
+    xolds = seg[:, 1:Lb]
+    T = system.const(("bridge_T", Lb, dtype),
+                     lambda: _bridge_tables(Lb, dt)[0], dtype)
+    wt = system.const(("bridge_w", Lb, dtype),
+                      lambda: _bridge_tables(Lb, dt)[1], dtype)
+    g = gs.transpose(0, 1)                         # [W, Lb-1, D]
+    xdiff = -_mi(system, xnew0 - anchor)
+    if fixed_L is not None:
+        z = torch.einsum("jk,wkd->wjd", T[fixed_L], g)
+        wgt = wt[fixed_L][None, :]
+    else:
+        z = torch.bmm(T[Ls], g)
+        wgt = wt[Ls]
+    mean = xnew0[:, None, :] + wgt[:, :, None] * xdiff[:, None, :]
+    xnews = _wrap_pos(system, mean + z)
+    act = (system.arange(1, Lb)[None, :] < Ls[:, None])[:, :, None]
+    xnews = torch.where(act, xnews, xolds)
+
+    # one pair pass over displaced rows 0..Lb-1; a ZERO-weighted first row
+    # (Swap's pin, which coincides exactly with the worm's bead) is
+    # evaluated at its old position so its singular terms never enter
+    x0_eval = xold0 if first_w == 0.0 else xnew0
+    xnew_all = torch.cat([x0_eval[:, None], xnews], 1)
+    rw = None
+    if first_w not in (0.0, 1.0):
+        rw = system.const(("row_w", Lb, first_w, dtype),
+                          lambda: np.r_[first_w, np.ones(Lb - 1)], dtype)
+    R_rows = R_seg[:, 1:] if rev else R_seg[:, :Lb]
+    dS = delta_action_sum(system, R_rows, xnew_all, seg[:, :Lb], ip,
+                          ib_seg[:Lb], need_wf=first_mode == "gauss",
+                          row_weights=rw, rev=rev)
+    seg_new = torch.cat([xnew0[:, None], xnews, seg[:, Lb:]], 1)
+    return seg_new, dS
+
+
+# ---------------------------------------------------------------------------
+# Rigid translations (TranslateChain, vpi_mod.f90:313-476)
+# ---------------------------------------------------------------------------
+
+def translate_chain(system, paths, ip: int, active, delta, u_dx, u_acc):
+    """Rigid CM displacement of particle ip's whole worldline.
+
+    u_dx [W, 1, D], u_acc [W]: the uniforms of the displacement and the
+    accept.  Returns (paths, acc)."""
+    chain = get_chain(paths, ip)
+    dx = delta * (2.0 * u_dx - 1.0)
+    xnew = _wrap_pos(system, chain + dx)
+    dS = delta_action_sum(system, paths, xnew, chain, ip,
+                          system.arange(system.M))
+    acc = metropolis_u(u_acc, dS) & active
+    set_chain(paths, ip, _where(acc, xnew, chain))
+    return paths, acc
+
+
+def translate_half_chain(system, paths, xend, ip, half: int, active, delta,
+                         u_dx, u_acc):
+    """Rigid displacement of one worm half (vpi_mod.f90:383-476).
+
+    Bead Nb is first pinned to xend[half] (persisting on reject), for
+    active walkers only.  half 1 -> beads 0..Nb, 2 -> Nb..2Nb.
+    Returns (paths, xend, acc)."""
+    Nb = system.cfg.Nb
+    lo, hi = (0, Nb + 1) if half == 1 else (Nb, 2 * Nb + 1)
+    Rw = paths[:, lo:hi]
+    xold = get_chain(Rw, ip).clone()
+    xold[:, Nb - lo] = _where(active, xend[:, half - 1], xold[:, Nb - lo])
+    xnew = _wrap_pos(system, xold + delta * (2.0 * u_dx - 1.0))
+    dS = delta_action_sum(system, Rw, xnew, xold, ip, system.arange(lo, hi))
+    acc = metropolis_u(u_acc, dS) & active
+    seg_fin = _where(acc, xnew, xold)
+    xend[:, half - 1] = _where(active, seg_fin[:, Nb - lo], xend[:, half - 1])
+    _win_write(paths, lo, ip, seg_fin)
+    return paths, xend, acc
+
+
+# ---------------------------------------------------------------------------
+# Worm half-chain staging and end moves (vpi_mod.f90:1376-1817)
+# ---------------------------------------------------------------------------
+
+def _pin_center(system, paths, xend, ip, half: int, active):
+    """Pin bead Nb of particle ip to xend[half], ACTIVE walkers only (closed
+    walkers' xend is stale, vpi_mod.f90:1400-1406).  In place."""
+    Nb = system.cfg.Nb
+    row = paths[:, Nb:Nb + 1]
+    cur = get_chain(row, ip)
+    _win_write(paths, Nb, ip, _where(active, xend[:, None, half - 1], cur))
+    return paths
+
+
+def staging_half_chain(system, paths, xend, ip, half: int, active, L: int,
+                       start: int, gs, u_acc):
+    """Staging confined to one worm half (vpi_mod.f90:1376-1491).
+
+    start: the even window offset inside the half (a host int, shared by
+    every walker); gs [L-1, W, D]; u_acc [W].  Returns (paths, xend, acc)."""
+    W = paths.shape[0]
+    ii = (0 if half == 1 else system.cfg.Nb) + start
+    _pin_center(system, paths, xend, ip, half, active)
+    R_seg = paths[:, ii:ii + L + 1]
+    seg = get_chain(R_seg, ip)
+    Ls = torch.full((W,), L, dtype=torch.long, device=paths.device)
+    seg_new, dS = segment_regrow(system, seg, R_seg,
+                                 system.arange(ii, ii + L + 1), ip, Ls,
+                                 "fixed", 1.0, None, gs, fixed_L=L)
+    acc = metropolis_u(u_acc, dS) & active
+    _win_write(paths, ii, ip, _where(acc, seg_new, seg))
+    return paths, xend, acc
+
+
+def move_head_half_chain(system, paths, xend, ip, half: int, active,
+                         Lmax: int, Ls, g0, gs, u_acc):
+    """MoveHeadHalfChain (vpi_mod.f90:1495-1656): half 1 regrows from bead
+    0, half 2 from the centre bead Nb (weight 1/2 on its dS).
+    Returns (paths, xend, acc)."""
+    Nb = system.cfg.Nb
+    lo = 0 if half == 1 else Nb
+    _pin_center(system, paths, xend, ip, half, active)
+    R_seg = paths[:, lo:lo + Lmax + 1]
+    seg = get_chain(R_seg, ip)
+    seg_new, dS = segment_regrow(system, seg, R_seg,
+                                 system.arange(lo, lo + Lmax + 1), ip, Ls,
+                                 "gauss", 1.0 if half == 1 else 0.5, g0, gs)
+    acc = metropolis_u(u_acc, dS) & active
+    seg_fin = _where(acc, seg_new, seg)
+    _win_write(paths, lo, ip, seg_fin)
+    if half == 2:
+        xend[:, 1] = _where(active, seg_fin[:, 0], xend[:, 1])
+    return paths, xend, acc
+
+
+def move_tail_half_chain(system, paths, xend, ip, half: int, active,
+                         Lmax: int, Ls, g0, gs, u_acc):
+    """MoveTailHalfChain (vpi_mod.f90:1660-1817): half 1 regrows the centre
+    bead Nb (weight 1/2), half 2 the last bead 2Nb.  The partner window is
+    read backwards in place (rev); only the small chain segment is flipped.
+    Returns (paths, xend, acc)."""
+    Nb = system.cfg.Nb
+    hi = Nb if half == 1 else 2 * Nb
+    lo = hi - Lmax
+    _pin_center(system, paths, xend, ip, half, active)
+    R_fwd = paths[:, lo:hi + 1]
+    seg = get_chain(R_fwd, ip).flip(1)
+    seg_new, dS = segment_regrow(system, seg, R_fwd,
+                                 system.arange(hi, lo - 1, -1), ip, Ls,
+                                 "gauss", 0.5 if half == 1 else 1.0, g0, gs,
+                                 rev=True)
+    acc = metropolis_u(u_acc, dS) & active
+    seg_fin = _where(acc, seg_new, seg)
+    _win_write(paths, lo, ip, seg_fin.flip(1))
+    if half == 1:
+        xend[:, 0] = _where(active, seg_fin[:, 0], xend[:, 0])
+    return paths, xend, acc

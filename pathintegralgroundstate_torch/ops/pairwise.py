@@ -1,0 +1,80 @@
+"""Batched pair-interaction action deltas (UpdateAction / UpdatePot /
+UpdateWf, vpi_mod.f90:2491-2841) and the full-configuration pair sums.
+
+The torch counterpart of pathintegralgroundstate_tpu/ops/pairwise.py on the
+main path: the non-fold, non-exact-F^2 branch of delta_action_rows,
+delta_action_sum with row weights, and pair_pot.  The pair passes
+themselves run in ops/kernels.py (a hand-written kernel on the card, its
+plain form on the CPU).
+
+Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
+[W, B, D]; ip an int, [W] or [W, B]; ib [B] or [W, B] bead indices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import kernels
+
+
+def _chin_table(M: int, dt: float):
+    ib = np.arange(M)
+    interior = (ib > 0) & (ib < M - 1)
+    odd = interior & (ib % 2 == 1)
+    even_i = interior & (ib % 2 == 0)
+    wv = np.where(odd, 4.0 * dt / 3.0,
+                  np.where(even_i, 2.0 * dt / 3.0, dt / 3.0))
+    wf = np.where(odd, 2.0 * dt ** 3 / 9.0, 0.0)
+    wpsi = (~interior).astype(np.float64)
+    return np.stack([wv, wf, wpsi])
+
+
+def chin_weights(system, ib, dtype=None):
+    """Per-bead Chin opt=0 weights (global_mod.f90:33-46): (wv, wf, wpsi).
+
+    wv: ends dt/3, even interior 2dt/3, odd 4dt/3; wf: odd interior
+    (4dt/3) dt^2/6, else 0; wpsi: 1 at beads 0 and 2Nb, else 0."""
+    dtype = dtype or system.dtype
+    tab = system.const(("chin", dtype),
+                       lambda: _chin_table(system.M, system.cfg.dt), dtype)
+    w = tab[:, ib]
+    return w[0], w[1], w[2]
+
+
+def delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=True,
+                      need_f2=True, rev=False):
+    """Per-row action deltas dS_b = wv dPot + wf dF2 - wpsi dLogPsi, from ONE
+    pair pass over the window (kernels.pair_rows).
+
+    need_f2=False: every row's F^2 weight is zero, the force pass is
+    skipped and df2 := 0 (the same dS).  need_wf=False: no row is a chain
+    end.  rev=True: R is in forward bead order and row b of xnew/xold/ib
+    pairs with R[:, B-1-b] (a reversed window read without a copy).
+    Returns [W, B]."""
+    wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
+    dpot, df2, du = kernels.pair_rows(system, R, xnew, xold, ip, need_wf,
+                                      need_f2, rev)
+    dS = wv * dpot + wf * df2
+    if need_wf:
+        dS = dS - wpsi * du
+    return dS
+
+
+def delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=True,
+                     row_weights=None, rev=False):
+    """Summed window action delta [W]; row_weights [B] scales each row's
+    whole dS (the worm centre's 1/2, vpi_mod.f90:1573-1577)."""
+    rows = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=need_wf,
+                             rev=rev)
+    if row_weights is not None:
+        rows = rows * row_weights
+    return rows.sum(-1)
+
+
+def pair_pot(system, R, with_force=False):
+    """(Pot, F2) of configurations R[..., N, D] (PotentialEnergy,
+    sample_mod.f90:13-150): 1/2 sum_{i != j} V(r_ij) within rcut and
+    sum_i |F_i|^2 (zeros without force).  On the card R is a 4-D block
+    [W, B, N, D] and kernel B runs."""
+    return kernels.pair_pot(system, R, with_force)

@@ -1,0 +1,91 @@
+"""Walker-ensemble Monte Carlo state.
+
+The torch counterpart of pathintegralgroundstate_tpu/state.py: the same
+fields, with the threefry key replaced by a device `torch.Generator` (the
+moves' tensors) and a host one (the shared window starts), and the step
+counter kept on the host.  `state_from_numpy` / `state_to_numpy` carry the
+reference MCState's fields across (np.asarray of each), as weight
+conversion does for a model port.
+
+Layout: paths[W, M, N, D] with M = 2 Nb + 1 beads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_FIELDS = ("paths", "xend", "isopen", "iworm", "in_cycle", "iperm")
+
+
+@dataclasses.dataclass
+class MCState:
+    paths: torch.Tensor      # [W, M, N, D]
+    xend: torch.Tensor       # [W, 2, D] worm head/tail positions at bead Nb
+    isopen: torch.Tensor     # [W] bool off-diagonal (worm) sector
+    iworm: torch.Tensor      # [W] long worm particle
+    in_cycle: torch.Tensor   # [W, N] bool particles of the current cycle
+    iperm: torch.Tensor      # [W] long current cycle length
+    step: int                # global MC step counter (host)
+    gen: torch.Generator     # device draws
+    host_gen: torch.Generator  # host draws (shared window starts)
+
+    @property
+    def n_walkers(self) -> int:
+        return self.paths.shape[0]
+
+
+def _generators(system, seed: int):
+    gen = torch.Generator(device=system.device)
+    gen.manual_seed(seed)
+    host = torch.Generator()
+    host.manual_seed(seed + 1)
+    return gen, host
+
+
+def init_state(system, seed=None) -> MCState:
+    """Fresh ensemble (vpi_mod.f90:149-259): particles uniform in the box,
+    the one time slice replicated to every bead, xend at the last
+    particle's central bead."""
+    cfg, geo = system.cfg, system.geo
+    W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
+    gen, host = _generators(system, cfg.seed if seed is None else seed)
+    R = system.L * (torch.rand((W, N, D), generator=gen, device=system.device,
+                               dtype=system.dtype) - 0.5)
+    paths = R[:, None].expand(W, M, N, D).contiguous()
+    xend = paths[:, cfg.Nb, N - 1][:, None].expand(W, 2, D).contiguous()
+    kw = dict(device=system.device)
+    return MCState(
+        paths=paths, xend=xend,
+        isopen=torch.zeros(W, dtype=torch.bool, **kw),
+        iworm=torch.zeros(W, dtype=torch.long, **kw),
+        in_cycle=torch.zeros((W, N), dtype=torch.bool, **kw),
+        iperm=torch.ones(W, dtype=torch.long, **kw),
+        step=0, gen=gen, host_gen=host)
+
+
+def state_from_numpy(system, d: dict, seed=None) -> MCState:
+    """MCState from the reference state's fields ({name: array}); the key
+    is not carried: the generators are seeded from `seed` (cfg.seed)."""
+    kw = dict(device=system.device)
+    gen, host = _generators(system, system.cfg.seed if seed is None else seed)
+    return MCState(
+        paths=torch.as_tensor(np.array(d["paths"]), dtype=system.dtype, **kw),
+        xend=torch.as_tensor(np.array(d["xend"]), dtype=system.dtype, **kw),
+        isopen=torch.as_tensor(np.array(d["isopen"]), dtype=torch.bool, **kw),
+        iworm=torch.as_tensor(np.array(d["iworm"]), dtype=torch.long, **kw),
+        in_cycle=torch.as_tensor(np.array(d["in_cycle"]), dtype=torch.bool,
+                                 **kw),
+        iperm=torch.as_tensor(np.array(d["iperm"]), dtype=torch.long, **kw),
+        step=int(np.asarray(d["step"])), gen=gen, host_gen=host)
+
+
+def state_to_numpy(state: MCState) -> dict:
+    """{field: numpy array} of the state, copied (the generators are not
+    carried)."""
+    out = {k: getattr(state, k).detach().cpu().numpy().copy()
+           for k in _FIELDS}
+    out["step"] = np.int32(state.step)
+    return out

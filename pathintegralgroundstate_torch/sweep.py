@@ -1,0 +1,346 @@
+"""One Monte Carlo step over the whole walker ensemble (vpi.f90:297-475).
+
+The torch counterpart of the default branch of
+pathintegralgroundstate_tpu/sweep.py `Sweeper.step` (unfused sweep,
+reference-parity partial dF^2, monoshot bisection on batched randoms):
+
+  1. open/close attempts toggling the per-walker `isopen` mask,
+  2. Np rigid CM translations,
+  3. Nstag*Np particle visits: head, tail and interior monoshot bisection,
+  4. Nobdm worm rounds: half translations, half head/tail/staging, swap,
+     permutation bookkeeping and the OBDM histogram,
+  5. the estimators of the diagonal walkers.
+
+Every random number comes from a draw source (utils/draws.py) at the
+address of the reference's key tree, so tests can replay the reference's
+own draws.  The step calls no .item() and indexes with no boolean mask:
+all Python-side control flow depends on host integers only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .ops import bisection as bis
+from .ops import estimators as est
+from .ops import moves as mv
+from .ops import worm as wm
+from .state import MCState
+from .utils.draws import DeviceDraws
+
+
+class StepStats(NamedTuple):
+    """Per-step statistics summed over walkers (block-accumulated); the
+    fields of the reference's StepStats (sweep.py:35-62)."""
+    n_diag: torch.Tensor
+    n_diag_all: torch.Tensor
+    sumE: torch.Tensor
+    sumK: torch.Tensor
+    sumV: torch.Tensor
+    sumE2: torch.Tensor
+    sumK2: torch.Tensor
+    sumV2: torch.Tensor
+    sumEt: torch.Tensor
+    sumKt: torch.Tensor
+    sumVt: torch.Tensor
+    sumEt2: torch.Tensor
+    sumKt2: torch.Tensor
+    sumVt2: torch.Tensor
+    ngr: torch.Tensor
+    gr: torch.Tensor           # [Nbin]
+    sk: torch.Tensor           # [dim, Nk]
+    nrho: torch.Tensor         # [Npw+1, Nbin] OBDM accumulator
+    dens: torch.Tensor         # [0, 0] (density_map is not ported)
+    perm_hist: torch.Tensor    # [Np]
+    counters: torch.Tensor     # [len(COUNTER_NAMES)] int32
+
+
+COUNTER_NAMES = (
+    "try_cm", "acc_cm", "try_stag", "acc_bd", "acc_head", "acc_tail",
+    "try_cm_half", "acc_cm_half", "try_stag_half", "acc_bd_half",
+    "acc_head_half", "acc_tail_half",
+    "try_open", "acc_open", "try_close", "acc_close", "try_swap", "acc_swap",
+    "try_mala", "acc_mala", "try_int",
+)
+_CIDX = {n: i for i, n in enumerate(COUNTER_NAMES)}
+
+
+def zero_stats(system) -> StepStats:
+    cfg = system.cfg
+    kw = dict(dtype=system.dtype, device=system.device)
+    z = lambda *shape: torch.zeros(shape, **kw)  # noqa: E731
+    return StepStats(
+        n_diag=z(), n_diag_all=z(), sumE=z(), sumK=z(), sumV=z(), sumE2=z(),
+        sumK2=z(), sumV2=z(), sumEt=z(), sumKt=z(), sumVt=z(), sumEt2=z(),
+        sumKt2=z(), sumVt2=z(), ngr=z(), gr=z(cfg.Nbin), sk=z(cfg.dim, cfg.Nk),
+        nrho=z(cfg.Npw + 1, cfg.Nbin), dens=z(0, 0), perm_hist=z(cfg.Np),
+        counters=torch.zeros(len(COUNTER_NAMES), dtype=torch.int32,
+                             device=system.device))
+
+
+def stats_from_numpy(system, d: dict) -> StepStats:
+    """StepStats from the reference's fields ({name: array})."""
+    return StepStats(**{
+        k: torch.as_tensor(np.array(d[k]), device=system.device,
+                           dtype=torch.int32 if k == "counters"
+                           else system.dtype)
+        for k in StepStats._fields})
+
+
+def stats_to_numpy(stats: StepStats) -> dict:
+    """{field: numpy array} of the statistics, copied."""
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in stats._asdict().items()}
+
+
+def bead_updates_per_step(cfg) -> int:
+    """Bead updates attempted per MC step per walker (displaced beads).
+
+    A pure-Python copy of the reference's sweep.bead_updates_per_step (its
+    module imports JAX); tests/test_torch_import.py holds the two equal.
+    THE throughput definition: bead-updates/s = W * this / (s per step)."""
+    M = 2 * cfg.Nb + 1
+    Np = cfg.Np
+    per = 0
+    if cfg.CMFreq > 0:
+        per += Np * M // max(cfg.CMFreq, 1)
+    if cfg.smart_mc > 0.0:
+        per += Np * M
+    if cfg.Nstag > 0:
+        if cfg.sampling == "bis":
+            L = 2 ** cfg.Nlev
+            fused = (cfg.fused_sweep and not cfg.bis_end_random_depth
+                     and 2 * L < M - 1)
+            if fused:
+                K = min(max(1, (M - 1 - L) // L), Np)
+                ngroups = -(-Np // K)
+                per += cfg.Nstag * Np * 2 * L
+                per += cfg.Nstag * ngroups * K * (L - 1)
+            else:
+                per += cfg.Nstag * Np * 3 * L
+        else:
+            n_int = max(cfg.mesh_beads, 1)
+            per += cfg.Nstag * Np * (2 * cfg.Lstag
+                                     + n_int * (cfg.Lstag - 1)
+                                     + (1 if n_int == 1 else 0))
+    if cfg.CWorm > 0.0:
+        per += cfg.Nobdm * (2 * (cfg.Nb + 1) + 2 * 3 * cfg.Lstag)
+    return per
+
+
+class Sweeper:
+    """The flagship Monte Carlo step for one System."""
+
+    def __init__(self, system):
+        cfg = system.cfg
+        self.system = system
+        self.Lstag, self.Nlev = cfg.Lstag, cfg.Nlev
+        self.delta = system.geo.delta_cm
+        L = 2 ** cfg.Nlev
+        if L + 1 > system.M or 2 ** max(cfg.Nlev, 2) + 1 > system.M:
+            raise ValueError(f"bisection windows of 2**Nlev={L} links do not "
+                             f"fit M={system.M} beads")
+        if cfg.CWorm > 0.0 and not 4 <= cfg.Lstag <= cfg.Nb:
+            raise ValueError("the worm moves need 4 <= Lstag <= Nb")
+
+    def draws(self, state: MCState) -> DeviceDraws:
+        """The port's own draw source for `state`."""
+        return DeviceDraws(self.system, state.gen, state.host_gen)
+
+    def step(self, state: MCState, stats: StepStats, draws=None):
+        """One full MC step for every walker; returns (state, stats).
+
+        state.paths is updated in place.  draws: a draw source (default:
+        the state's own generators)."""
+        system = self.system
+        cfg = system.cfg
+        dtype = system.dtype
+        src = draws if draws is not None else self.draws(state)
+        src.begin_step()
+        W = state.paths.shape[0]
+        Np, Lstag = cfg.Np, self.Lstag
+        step_no = state.step + 1
+        ctr = stats.counters.clone()
+        paths, xend = state.paths, state.xend
+        isopen, iworm = state.isopen, state.iworm
+        in_cycle, iperm = state.in_cycle, state.iperm
+        perm_hist = stats.perm_hist.clone()
+        parts = system.arange(Np)
+
+        def count(name, x):
+            ctr[_CIDX[name]] += x.sum()
+
+        # ---- 1. open/close attempts (vpi.f90:302-323) ----
+        if cfg.CWorm > 0.0:
+            iupdate = src.iupdate(W)
+            do_close = isopen & (iupdate == 0)
+            paths, xend, closed = wm.close_chain(
+                system, paths, xend, iworm, do_close, Lstag,
+                src.worm(1, W, Lstag))
+            perm_hist.index_add_(0, (iperm - 1).clamp(0, Np - 1),
+                                 closed.to(dtype))
+            isopen = isopen & ~closed
+            do_open = ~isopen & ~closed & (iupdate == 1)
+            cand = src.cand(W, Np)
+            paths, xend_o, opened = wm.open_chain(
+                system, paths, xend, cand, do_open, Lstag,
+                src.worm(3, W, Lstag))
+            xend = mv._where(do_open, xend_o, xend)
+            iworm = torch.where(opened, cand, iworm)
+            isopen = isopen | opened
+            in_cycle = torch.where(opened[:, None], cand[:, None] == parts,
+                                   in_cycle)
+            iperm = torch.where(opened, 1, iperm)
+            count("try_close", do_close)
+            count("acc_close", closed)
+            count("try_open", do_open)
+            count("acc_open", opened)
+
+        # per-particle activity of the diagonal sweeps: the worm particle
+        # of an open walker stays put
+        active_all = ~isopen[:, None] | (iworm[:, None] != parts)  # [W, Np]
+
+        # ---- 2. CM translations (vpi.f90:329-342 / 412-419) ----
+        if cfg.CMFreq > 0 and step_no % max(cfg.CMFreq, 1) == 0:
+            acc_cm = torch.zeros(W, dtype=torch.int32, device=system.device)
+            for ip in range(Np):
+                u_dx, u_acc = src.translate(10, ip, W)
+                paths, acc = mv.translate_chain(system, paths, ip,
+                                                active_all[:, ip],
+                                                self.delta, u_dx, u_acc)
+                acc_cm += acc
+            count("try_cm", active_all)
+            count("acc_cm", acc_cm)
+
+        # ---- 3. bisection sweeps (vpi.f90:344-366 / 421-439) ----
+        if cfg.Nstag > 0:
+            nl_end = max(self.Nlev, 2)
+            acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
+            for it in range(cfg.Nstag * Np):
+                ip = it % Np
+                active = active_all[:, ip]
+                r_h = src.bisect(25, it, W, nl_end)
+                r_t = src.bisect(26, it, W, nl_end)
+                r_b = src.bisect(27, it, W, self.Nlev, start=True)
+                paths, acc_h = bis.move_head_bisection(system, paths, ip,
+                                                       active, self.Nlev, r_h)
+                paths, acc_t = bis.move_tail_bisection(system, paths, ip,
+                                                       active, self.Nlev, r_t)
+                paths, acc_b = bis.bisection(system, paths, ip, active,
+                                             self.Nlev, r_b)
+                acc3[0] += acc_h
+                acc3[1] += acc_t
+                acc3[2] += acc_b
+            ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
+            count("acc_head", acc3[0])
+            count("acc_tail", acc3[1])
+            count("acc_bd", acc3[2])
+
+        # ---- 4. worm updates + OBDM (vpi.f90:370-404) ----
+        nrho = stats.nrho.clone()
+        if cfg.CWorm > 0.0 and cfg.Nobdm > 0:
+            act = isopen
+            nact = act.sum()
+            n_opts = (cfg.Nb - Lstag) // 2 + 1
+            acc6 = torch.zeros((6, W), dtype=torch.int32, device=system.device)
+            for iobdm in range(cfg.Nobdm):
+                for h in (1, 2):
+                    u_dx, u_acc = src.translate(30 + h, iobdm, W)
+                    paths, xend, acc = mv.translate_half_chain(
+                        system, paths, xend, iworm, h, act, self.delta, u_dx,
+                        u_acc)
+                    acc6[0] += acc
+                for h in (1, 2):
+                    paths, xend, acc_h = mv.move_head_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.regrow_half(40 + h, iobdm, W, Lstag))
+                    paths, xend, acc_t = mv.move_tail_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.regrow_half(42 + h, iobdm, W, Lstag))
+                    paths, xend, acc_s = mv.staging_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.staging_half(44 + h, iobdm, W, n_opts, Lstag))
+                    acc6[1] += acc_h
+                    acc6[2] += acc_t
+                    acc6[3] += acc_s
+                if cfg.swapping:
+                    paths, xend, acc_sw, partner = wm.swap_move(
+                        system, paths, xend, iworm, act, Lstag,
+                        src.swap(iobdm, W, Np, Lstag))
+                    acc6[4] += acc_sw
+                    # permutation-cycle bookkeeping (sample_mod.f90:556-581)
+                    rows = system.arange(W)
+                    already = in_cycle[rows, partner]
+                    iperm = iperm + (acc_sw & ~already)
+                    in_cycle = in_cycle.clone()
+                    in_cycle[rows, partner] = already | acc_sw
+                # OBDM in both geometries (obdm_terms)
+                ibin, wpw, valid = wm.obdm_terms(system, xend)
+                contrib = wpw * (act & valid)[:, None].to(dtype)
+                nrho.index_add_(1, ibin, contrib.T)
+            ctr[_CIDX["try_cm_half"]] += 2 * cfg.Nobdm * nact
+            ctr[_CIDX["try_stag_half"]] += 2 * cfg.Nobdm * nact
+            count("acc_cm_half", acc6[0])
+            count("acc_head_half", acc6[1])
+            count("acc_tail_half", acc6[2])
+            count("acc_bd_half", acc6[3])
+            if cfg.swapping:
+                ctr[_CIDX["try_swap"]] += cfg.Nobdm * nact
+                count("acc_swap", acc6[4])
+
+        # ---- 5. estimators for diagonal walkers (vpi.f90:441-469) ----
+        state = dataclasses.replace(state, paths=paths, xend=xend,
+                                    isopen=isopen, iworm=iworm,
+                                    in_cycle=in_cycle, iperm=iperm,
+                                    step=step_no)
+        base = stats._replace(
+            nrho=nrho, perm_hist=perm_hist, counters=ctr,
+            n_diag_all=stats.n_diag_all + (~isopen).to(dtype).sum())
+        if cfg.measure_every <= 0 or step_no % cfg.measure_every != 0:
+            return state, base
+        return state, self._measure(paths, isopen, base)
+
+    def _measure(self, paths, isopen, st: StepStats) -> StepStats:
+        system = self.system
+        cfg = system.cfg
+        fdiag = (~isopen).to(paths.dtype)
+        nd = fdiag.sum()
+        E1, _, _ = est.local_energy(system, paths[:, 0])
+        E2, _, _ = est.local_energy(system, paths[:, -1])
+        E = 0.5 * (E1 + E2)
+        Et, Kt, Ep = est.therm_energy(system, paths)
+        Kin = E - Ep
+
+        def msum(x):
+            return (x * fdiag).sum()
+
+        centre = paths[:, cfg.Nb]
+        return st._replace(
+            n_diag=st.n_diag + nd,
+            sumE=st.sumE + msum(E), sumK=st.sumK + msum(Kin),
+            sumV=st.sumV + msum(Ep),
+            sumE2=st.sumE2 + msum(E * E),
+            sumK2=st.sumK2 + msum(Kin * Kin),
+            sumV2=st.sumV2 + msum(Ep * Ep),
+            sumEt=st.sumEt + msum(Et), sumKt=st.sumKt + msum(Kt),
+            sumVt=st.sumVt + msum(Ep),
+            sumEt2=st.sumEt2 + msum(Et * Et),
+            sumKt2=st.sumKt2 + msum(Kt * Kt),
+            sumVt2=st.sumVt2 + msum(Ep * Ep),
+            ngr=st.ngr + nd,
+            gr=st.gr + est.pair_correlation(system, centre, fdiag),
+            sk=st.sk + (est.structure_factor(system, cfg.Nk, centre)
+                        * fdiag[:, None, None]).sum(0),
+        )
+
+
+def run_block(sweeper: Sweeper, state: MCState, nstep: int, draws=None):
+    """nstep MC steps from zero statistics: (state, block StepStats)."""
+    stats = zero_stats(sweeper.system)
+    for _ in range(nstep):
+        state, stats = sweeper.step(state, stats, draws)
+    return state, stats

@@ -1,0 +1,133 @@
+"""System bundle: config + geometry + model, with an explicit device/dtype.
+
+The torch counterpart of pathintegralgroundstate_tpu/system.py.  It also
+holds the device copies of the host-built constant tables (bridge and
+dyadic matrices, Chin weights, index ranges), made once per System so the
+Monte Carlo step never copies from the host.
+
+The constructor refuses every configuration outside the ported slice with
+NotImplementedError naming the ROADMAP item it waits for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pathintegralgroundstate_tpu.config import Geometry, SimConfig, geometry
+
+from .models import jastrow as jas
+from .models.potentials import Potential, get_potential
+
+_JASTROWS = ("mcmillan", "mcmillan_c1")
+
+
+def check_supported(cfg: SimConfig) -> None:
+    """Raise NotImplementedError for options the port does not run yet."""
+    waits = [
+        (cfg.fused_sweep, "fused_sweep=True", "slice 9 (fused composites)"),
+        (cfg.exact_f2, "exact_f2=True", "slice 10 (exact-F^2 cache)"),
+        (cfg.cascade, "cascade=True", "slice 9 and kernel 5 (cascade)"),
+        (cfg.paired_ends, "paired_ends=True",
+         "slice 11 (staging and per-level forms)"),
+        (cfg.bis_end_random_depth, "bis_end_random_depth=True",
+         "slice 11 (staging and per-level forms)"),
+        (cfg.smart_mc > 0.0, "smart_mc>0", "slice 13 (autodiff)"),
+        (cfg.sampling != "bis", f"sampling={cfg.sampling!r}",
+         "slice 11 (staging and per-level forms)"),
+        (cfg.regrow != "bridge", f"regrow={cfg.regrow!r}",
+         "slice 11 (staging and per-level forms)"),
+        (not cfg.bis_monoshot, "bis_monoshot=False",
+         "slice 11 (staging and per-level forms)"),
+        (not cfg.shared_windows, "shared_windows=False",
+         "slice 11 (staging and per-level forms)"),
+        (cfg.trap, "trap=True", "slice 12 (geometry and model variants)"),
+        (cfg.v_table or cfg.wf_table, "v_table/wf_table",
+         "slice 2 (table mode)"),
+        (cfg.density_map, "density_map=True", "slice 6 (estimators)"),
+        (max(cfg.mesh_walkers, cfg.mesh_pairs, cfg.mesh_beads) > 1,
+         "mesh_*>1", "slice 14 (multi-device)"),
+        (cfg.jastrow not in _JASTROWS, f"jastrow={cfg.jastrow!r}",
+         "slice 12 (geometry and model variants)"),
+        (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
+         "no slice (float32 and float64 only)"),
+        (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),
+    ]
+    for bad, what, item in waits:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to torch yet: ROADMAP queue 1, {item}")
+    get_potential(cfg.potential)  # raises for anything but aziz2/aziz1
+
+
+@dataclasses.dataclass(eq=False)
+class System:
+    cfg: SimConfig
+    geo: Geometry
+    device: torch.device
+    dtype: torch.dtype
+
+    def __post_init__(self):
+        check_supported(self.cfg)
+        self.potential: Potential = get_potential(self.cfg.potential)
+        kw = dict(dtype=self.dtype, device=self.device)
+        self.L = torch.tensor(self.geo.Lbox, **kw)
+        self.half = 0.5 * self.L
+        rc = self.geo.rcut
+        Rm = self.cfg.Rm
+        c1 = self.cfg.jastrow == "mcmillan_c1"
+        # C1 shift constants, in Python floats as the reference folds them
+        self.u_rc = jas.mcmillan_u(Rm, rc) if c1 else 0.0
+        self.du_rc = jas.mcmillan_du(Rm, rc) if c1 else 0.0
+        self._consts: dict = {}
+
+    @property
+    def M(self) -> int:
+        return self.cfg.M
+
+    @property
+    def pbc(self) -> bool:
+        return not self.cfg.trap
+
+    def u(self, r):
+        """Two-body log-Jastrow; 'mcmillan_c1' is C1-matched at rcut."""
+        u = jas.mcmillan_u(self.cfg.Rm, r)
+        if self.cfg.jastrow == "mcmillan_c1":
+            u = u - self.u_rc - self.du_rc * (r - self.geo.rcut)
+        return u
+
+    def du(self, r):
+        du = jas.mcmillan_du(self.cfg.Rm, r)
+        if self.cfg.jastrow == "mcmillan_c1":
+            du = du - self.du_rc
+        return du
+
+    def d2u(self, r):
+        return jas.mcmillan_d2u(self.cfg.Rm, r)
+
+    # -- device constants ----------------------------------------------------
+
+    def const(self, key, make, dtype=None):
+        """Device copy of the numpy array make(), built once per key."""
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.as_tensor(np.asarray(make()), device=self.device,
+                                dtype=dtype or self.dtype)
+            self._consts[key] = t
+        return t
+
+    def arange(self, lo: int, hi: int = None, step: int = 1):
+        """Cached device index range (torch.long)."""
+        if hi is None:
+            lo, hi = 0, lo
+        return self.const(("arange", lo, hi, step),
+                          lambda: np.arange(lo, hi, step), torch.long)
+
+
+def make_system(cfg: SimConfig, device=None, dtype=None) -> System:
+    """System on `device` (default CPU) in `dtype` (default cfg.dtype)."""
+    device = torch.device(device or "cpu")
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return System(cfg=cfg, geo=geometry(cfg), device=device, dtype=dtype)

@@ -1,0 +1,91 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+`nvcc` compiles every source under pathintegralgroundstate_torch/csrc into
+one shared library with a plain C interface, at first use, into
+build/pigs_torch_kernels/<hash>/ beside the package (the hash covers the
+sources and the flags, so an edited source rebuilds).  The library is bound
+with ctypes.  Nothing comes from outside the checkout; a failed build
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pigs_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "libpigs_kernels.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels in pathintegralgroundstate_torch/csrc")
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if needed: (library path, seconds, compiler log)."""
+    cu, cuh = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    log = out_dir / "nvcc.log"
+    if lib.exists():
+        return lib, 0.0, log.read_text() if log.exists() else ""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    log.write_text(text)
+    os.replace(tmp, lib)
+    return lib, seconds, text
+
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_ROWS_ARGS = [_P, _P, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _I, _LL,
+              _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_POT_ARGS = [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, once per process)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, args in (("pigs_pair_rows_f32", _ROWS_ARGS),
+                       ("pigs_pair_rows_f64", _ROWS_ARGS),
+                       ("pigs_pair_pot_f32", _POT_ARGS),
+                       ("pigs_pair_pot_f64", _POT_ARGS)):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,97 @@
+"""The hand-written kernels on a CUDA device: each against its plain
+PyTorch form, and one whole flagship step on the card against the same step
+on the CPU from the same draws.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports no JAX, so on a machine with a card but without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from pathintegralgroundstate_torch.flagship import flagship_cfg
+from pathintegralgroundstate_torch.ops import kernels
+from pathintegralgroundstate_torch.system import make_system
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _window(cfg, ip_form, W, seed):
+    """(R, xnew, xold, ip) on the CPU, float64: liquid-like worldlines,
+    one row with an exactly coincident partner."""
+    import chip_smoke
+    paths = chip_smoke._flagship_paths(cfg, W, torch.float64, "cpu", seed)
+    g = torch.Generator().manual_seed(seed)
+    N, B = cfg.Np, cfg.M
+    if ip_form == "scalar":
+        ip, xold, p1 = 3, paths[:, :, 3], 3
+    elif ip_form == "walker":
+        ip = torch.randint(0, N, (W,), generator=g)
+        xold, p1 = paths[torch.arange(W), :, ip], int(ip[1])
+    else:
+        ip = torch.randint(0, N, (W, B), generator=g)
+        xold = paths.gather(2, ip[:, :, None, None].expand(W, B, 1, 3))[:, :,
+                                                                        0]
+        p1 = int(ip[1, 2])
+    xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
+                                     dtype=torch.float64)
+    xnew[1, 2] = paths[1, 2, (p1 + 1) % N]
+    return paths, xnew, xold, ip
+
+
+@pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
+def test_pair_rows_matches_plain(cuda, ip_form):
+    """float64: only the summation order differs (rtol 1e-11; atol 1e-7
+    for the force terms, whose pair forces cancel to a net |F|)."""
+    cfg = flagship_cfg(64)
+    system = make_system(cfg, cuda, torch.float64)
+    R, xnew, xold, ip = _window(cfg, ip_form, 64, seed=13)
+    R, xn, xo = R.to(cuda), xnew.to(cuda), xold.to(cuda)
+    ip = ip if isinstance(ip, int) else ip.to(cuda)
+    n = kernels.pair_rows.launches
+    for rev in (False, True):
+        for need_wf, need_f2 in ((True, True), (False, False)):
+            got = kernels.pair_rows(system, R, xn, xo, ip, need_wf, need_f2,
+                                    rev)
+            ref = kernels.pair_rows_ref(system, R, xn, xo, ip, need_wf,
+                                        need_f2, rev)
+            for g, r in zip(got, ref):
+                if r is not None:
+                    torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
+    assert kernels.pair_rows.launches == n + 4
+
+
+@pytest.mark.parametrize("with_force", [False, True])
+def test_pair_pot_matches_plain(cuda, with_force):
+    cfg = flagship_cfg(64)
+    system = make_system(cfg, cuda, torch.float64)
+    R = _window(cfg, "scalar", 64, seed=17)[0].to(cuda)[:, 1::2]
+    for g, r in zip(kernels.pair_pot(system, R, with_force),
+                    kernels.pair_pot_ref(system, R, with_force)):
+        torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
+
+
+def test_pair_rows_refuses_what_it_cannot_read(cuda):
+    system = make_system(flagship_cfg(4), cuda, torch.float64)
+    R = torch.zeros(4, 5, 64, 3, dtype=torch.float64, device=cuda)
+    x = torch.zeros(4, 5, 3, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.pair_rows(system, R.transpose(2, 3), x, x, 0)
+    with pytest.raises(ValueError):
+        kernels.pair_rows(system, R, x.float(), x, 0)
+
+
+def test_flagship_step_on_card_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.replay_check(flagship_cfg(16).replace(Nstag=1, Nobdm=2))

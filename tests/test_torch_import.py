@@ -1,0 +1,102 @@
+"""The torch port imports without JAX, and its copies of the reference's
+flagship configuration and throughput metric equal the originals."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+from torch_bridge import small_cfg
+
+from pathintegralgroundstate_torch.flagship import flagship_cfg
+from pathintegralgroundstate_torch.state import init_state
+from pathintegralgroundstate_torch.sweep import Sweeper, bead_updates_per_step
+from pathintegralgroundstate_torch.system import make_system
+from pathintegralgroundstate_tpu.sweep import \
+    bead_updates_per_step as ref_bead_updates_per_step
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "pathintegralgroundstate_torch", "pathintegralgroundstate_torch.flagship",
+    "pathintegralgroundstate_torch.system", "pathintegralgroundstate_torch.state",
+    "pathintegralgroundstate_torch.sweep",
+    "pathintegralgroundstate_torch.models.potentials",
+    "pathintegralgroundstate_torch.models.jastrow",
+    "pathintegralgroundstate_torch.ops.kernels",
+    "pathintegralgroundstate_torch.ops.pairwise",
+    "pathintegralgroundstate_torch.ops.moves",
+    "pathintegralgroundstate_torch.ops.bisection",
+    "pathintegralgroundstate_torch.ops.worm",
+    "pathintegralgroundstate_torch.ops.estimators",
+    "pathintegralgroundstate_torch.utils.pbc",
+    "pathintegralgroundstate_torch.utils.build",
+    "pathintegralgroundstate_torch.utils.draws",
+    "chip_smoke",
+]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("n_walkers", [8, 64, 1024])
+def test_flagship_cfg_matches_graft_entry(n_walkers):
+    from __graft_entry__ import _flagship_cfg
+    assert flagship_cfg(n_walkers) == _flagship_cfg(n_walkers)
+
+
+@pytest.mark.parametrize("overrides", [
+    {}, {"fused_sweep": True}, {"sampling": "sta"}, {"CWorm": 0.0},
+    {"CMFreq": 2}, {"Nstag": 0}, {"smart_mc": 0.1}, {"mesh_beads": 2},
+    {"fused_sweep": True, "bis_end_random_depth": True},
+], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()) or "flagship")
+def test_bead_updates_per_step_matches_reference(overrides):
+    cfg = flagship_cfg(1024).replace(**overrides)
+    assert bead_updates_per_step(cfg) == ref_bead_updates_per_step(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"fused_sweep": True}, {"exact_f2": True}, {"cascade": True},
+    {"paired_ends": True}, {"bis_end_random_depth": True},
+    {"smart_mc": 0.1}, {"sampling": "sta"}, {"regrow": "scan"},
+    {"bis_monoshot": False}, {"shared_windows": False}, {"trap": True},
+    {"v_table": True}, {"wf_table": True}, {"density_map": True},
+    {"mesh_walkers": 2}, {"mesh_pairs": 2}, {"mesh_beads": 2},
+    {"potential": "soft"}, {"potential": "dipolar"}, {"potential": "none"},
+    {"jastrow": "none"}, {"jastrow": "dipolar2d"},
+], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
+def test_unported_options_raise(overrides):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_system(small_cfg(**overrides))
+
+
+def test_simconfig_default_raises():
+    """SimConfig's own default is the fused sweep, which is not ported."""
+    from pathintegralgroundstate_tpu.config import SimConfig
+    with pytest.raises(NotImplementedError, match="fused_sweep"):
+        make_system(SimConfig(dtype="float64"))
+
+
+def test_init_state_layout():
+    cfg = small_cfg()
+    system = make_system(cfg)
+    st = init_state(system)
+    W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
+    assert st.paths.shape == (W, M, N, D) and st.paths.dtype == torch.float64
+    assert torch.equal(st.paths, st.paths[:, :1].expand(W, M, N, D))
+    assert torch.equal(st.xend[:, 0], st.paths[:, cfg.Nb, N - 1])
+    assert (st.paths.abs() <= 0.5 * system.L).all()
+    assert not st.isopen.any() and st.step == 0
+    Sweeper(system)

@@ -1,22 +1,31 @@
-"""Drive the torch port's flagship path once on one NVIDIA GPU and check it.
+"""Drive the torch port's flagship paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints one line or a short block; any failure raises, so the
 run exits non-zero):
   1. device  : a CUDA device is required; its name and power limit.
-  2. build   : nvcc builds pathintegralgroundstate_torch/csrc into build/.
-  3. kernels : each hand-written kernel against its plain PyTorch form at
-               the flagship's shapes, float32 and float64, then both timed
-               with CUDA events (medians).
-  4. replay  : one flagship step at W=16 in float64 on the card and on the
-               CPU (plain forms) from the same recorded draws: states,
+  2. build   : nvcc builds pathintegralgroundstate_torch/csrc into build/
+               (one nvcc per source, all started together).
+  3. kernels : kernels A and B against their plain PyTorch forms at the
+               flagship's shapes (kernel A also over the fused interior
+               span with a per-window-row ip [1, B]), float32 and float64,
+               then both timed with CUDA events.
+  4. cascade : kernel 5 against its plain form (cascade_ref) at the
+               flagship's shapes, modes 'ends' (S=2) and 'interior' (S=3),
+               float64 and float32, then both timed.
+  5. replay  : one step at W=16 in float64 on the card and on the CPU
+               (plain forms) from the same recorded draws, for the flagship
+               and for the fused sweep with cascade off and on: states,
                counters and statistics must agree.
-  5. main    : the flagship configuration at W=1024 in float32: one warm-up
-               step, three timed steps with the kernels' launch counts, the
-               acceptance table, bead-updates/s, then one step under
+  6. main    : three paths at W=1024 in float32, each with its launch
+               counts set to 0 just before it and read just after: the
+               flagship (unfused sweep), the fused sweep, and the fused
+               sweep with cascade=True.  Each: one warm-up step, three
+               timed steps with the kernels' launch counts, the acceptance
+               table, bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
-  6. imports : no JAX module was loaded (the port shares only the
+  7. imports : no JAX module was loaded (the port shares only the
                reference's configuration module, which imports no JAX).
 The last two lines are the kernels JSON and the device JSON.
 """
@@ -116,7 +125,7 @@ def _near_cut_rows(system, R, xnew, xold, ip, rev):
         if isinstance(ip, int):
             p = torch.full_like(w, ip)
         else:
-            p = ip[w] if ip.dim() == 1 else ip[w, b]
+            p = ip[w] if ip.dim() == 1 else ip.expand(R.shape[0], -1)[w, b]
         self_ = torch.arange(P.shape[1], device=P.device) == p[:, None]
         out = torch.zeros_like(w, dtype=torch.bool)
         for x in (xnew, xold):
@@ -178,6 +187,29 @@ def kernel_parity(cfg, card):
         g = torch.Generator(device=dev).manual_seed(2)
         rows = torch.arange(W, device=dev)
         f32 = dtype == torch.float32
+
+        def rows_check(R, xnew, xold, ip, rev, flags, label):
+            near = _near_cut_rows(system, R, xnew, xold, ip, rev)
+            for need_wf, need_f2 in flags:
+                args = (ip, need_wf, need_f2, rev)
+                got = K.pair_rows(system, R, xnew, xold, *args)
+                ref = K.pair_rows_ref(sys64, R.double(), xnew.double(),
+                                      xold.double(), *args)
+                plain = (K.pair_rows_ref(system, R, xnew, xold, *args)
+                         if f32 else (None, None, None))
+                for i, name in enumerate(("dpot", "df2", "du")):
+                    if got[i] is None:
+                        continue
+                    e, n = _close(f"pair_rows {dtype} {label} rev={rev} "
+                                  f"{name}", got[i], ref[i],
+                                  *_tol(dtype, name), plain[i],
+                                  near if f32 else None)
+                    excused["pair_rows"] += n
+                    if not f32:
+                        errs["pair_rows"] = max(errs["pair_rows"], e)
+            return len(flags)
+
+        every = [(wf, f2) for wf in (True, False) for f2 in (True, False)]
         for B in (15, 16, 30, 32, 33, 65):
             lo = (cfg.M - B) // 2
             R = paths[:, lo:lo + B]                     # strided window view
@@ -198,30 +230,27 @@ def kernel_parity(cfg, card):
                     ip[3] if ip.dim() == 1 else ip[3, B // 2])
                 xnew[3, B // 2] = R[3, B // 2, (p3 + 1) % N]
                 for rev in (False, True):
-                    near = _near_cut_rows(system, R, xnew, xold, ip, rev)
-                    for need_wf in (True, False):
-                        for need_f2 in (True, False):
-                            args = (ip, need_wf, need_f2, rev)
-                            got = K.pair_rows(system, R, xnew, xold, *args)
-                            ref = K.pair_rows_ref(sys64, R.double(),
-                                                  xnew.double(),
-                                                  xold.double(), *args)
-                            plain = (K.pair_rows_ref(system, R, xnew, xold,
-                                                     *args) if f32 else
-                                     (None, None, None))
-                            for i, name in enumerate(("dpot", "df2", "du")):
-                                if got[i] is None:
-                                    continue
-                                e, n = _close(
-                                    f"pair_rows {dtype} B={B} rev={rev} "
-                                    f"{name}", got[i], ref[i],
-                                    *_tol(dtype, name), plain[i],
-                                    near if f32 else None)
-                                excused["pair_rows"] += n
-                                if not f32:
-                                    errs["pair_rows"] = max(
-                                        errs["pair_rows"], e)
-                            ncase += 1
+                    ncase += rows_check(R, xnew, xold, ip, rev, every,
+                                        f"B={B}")
+        # the fused interior span of bisection_multi: K=3 slots of L links
+        # from an even shift s, rows s+1..s+KL-1 read in place, ip [1, B]
+        # per window row; the slot-boundary rows are unmoved (dS exactly 0)
+        L, s0 = 2 ** cfg.Nlev, 2
+        B = 3 * L - 1
+        R = paths[:, s0 + 1:s0 + 1 + B]
+        ip = torch.cat([torch.full((L,), p, dtype=torch.long, device=dev)
+                        for p in (7, 30, 61)])[None, 1:]
+        xold = R.gather(2, ip[:, :, None, None].expand(W, B, 1, D))[:, :, 0]
+        xnew = xold + 0.05 * torch.randn(xold.shape, generator=g, device=dev,
+                                         dtype=dtype)
+        xnew[:, L - 1::L] = xold[:, L - 1::L]
+        xnew[3, B // 2] = R[3, B // 2, (int(ip[0, B // 2]) + 1) % N]
+        ncase += rows_check(R, xnew, xold, ip, False, [(False, True)],
+                            f"B={B} span ip[1, B]")
+        got = K.pair_rows(system, R, xnew, xold, ip, False, True)
+        if bool(got[0][:, L - 1::L].any()) or bool(got[1][:, L - 1::L].any()):
+            raise AssertionError("pair_rows span: an unmoved slot-boundary "
+                                 "row has a nonzero dS")
         for sl in (slice(0, cfg.M - 1, 2), slice(1, cfg.M - 1, 2)):
             R = paths[:, sl]
             near = _near_cut_confs(system, R)
@@ -277,6 +306,114 @@ def kernel_parity(cfg, card):
     return errs, shapes
 
 
+def _cascade_inputs(cfg, W, dtype, mode, seed):
+    """(system, paths, slots, rg, ru, act) of one flagship-shaped cascade
+    move on the card; about one slot in ten inactive."""
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    system = make_system(cfg, dev, dtype)
+    paths = _flagship_paths(cfg, W, dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, M = 2 ** cfg.Nlev, cfg.M
+    if mode == "ends":
+        slots = [(0, 1, 5), (M - 1, -1, 5)]
+    else:
+        slots = [(2 + k * L, 1, p) for k, p in enumerate((7, 30, 61))]
+    S, G = len(slots), cfg.Nlev + (mode == "ends")
+    rg = torch.randn((W, S, L + 1, cfg.dim), generator=g, device=dev,
+                     dtype=dtype)
+    ru = torch.rand((W, S, G), generator=g, device=dev, dtype=dtype)
+    act = torch.rand((W, S), generator=g, device=dev) < 0.9
+    return system, paths, slots, rg, ru, act
+
+
+def cascade_check(cfg, W, dtype, mode, seed=11):
+    """Kernel 5 against cascade_ref (plain pair pass) on the same inputs.
+
+    float64: accepts exactly equal, paths within rtol 1e-11 (atol 1e-12
+    for coordinates near 0).  float32: decisions agree on more than 95 %
+    of the slots, and where they agree the slot's window within rtol 2e-4 /
+    atol 2e-5 (tests/test_cascade.py's criteria); every other bead exactly
+    unchanged.  Returns (agreement share, max abs err where agreeing,
+    accepted slots)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+
+    system, paths, slots, rg, ru, act = _cascade_inputs(cfg, W, dtype, mode,
+                                                        seed)
+    nlev, L = cfg.Nlev, 2 ** cfg.Nlev
+    got, ref = paths.clone(), paths.clone()
+    n = K.cascade.launches
+    acc = K.cascade(system, mode, got, slots, rg, ru, act, nlev)
+    acc_ref = cascade_ref(system, mode, ref, slots, rg, ru, act, nlev,
+                          K.pair_rows_ref)
+    torch.cuda.synchronize()
+    if K.cascade.launches != n + 1:
+        raise AssertionError("cascade did not count its launch")
+    n_acc, n_act = int(acc.sum()), int(act.sum())
+    if not 0 < n_acc < n_act:
+        raise AssertionError(f"cascade {mode}: {n_acc} of {n_act} active "
+                             "slots accepted; the check needs both outcomes")
+    if bool((acc & ~act).any()):
+        raise AssertionError(f"cascade {mode}: an inactive slot accepted")
+    agree = acc == acc_ref
+    share = float(agree.double().mean())
+    moved = torch.zeros(paths.shape[:3], dtype=torch.bool, device=paths.device)
+    err = 0.0
+    for s, (b0, step, ip) in enumerate(slots):
+        beads = torch.arange(L + 1, device=paths.device) * step + b0
+        moved[:, beads, ip] = True
+        a = agree[:, s]
+        wg, wr = got[a][:, beads, ip], ref[a][:, beads, ip]
+        if dtype == torch.float64:
+            torch.testing.assert_close(wg, wr, rtol=1e-11, atol=1e-12)
+        else:
+            torch.testing.assert_close(wg, wr, rtol=2e-4, atol=2e-5)
+        err = max(err, float((wg - wr).abs().max()))
+    if dtype == torch.float64 and share != 1.0:
+        raise AssertionError(f"cascade {mode} float64: accepts differ on "
+                             f"{int((~agree).sum())} slots")
+    if share <= 0.95:
+        raise AssertionError(f"cascade {mode} {dtype}: decisions agree on "
+                             f"{share:.4f} of the slots, not > 0.95")
+    if not (torch.equal(got[~moved], paths[~moved])
+            and torch.equal(ref[~moved], paths[~moved])):
+        raise AssertionError(f"cascade {mode}: a bead outside the slots' "
+                             "windows moved")
+    return share, err, n_acc
+
+
+def cascade_parity(cfg, card):
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+
+    W = 1024
+    err64 = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for mode in ("ends", "interior"):
+            share, err, n_acc = cascade_check(cfg, W, dtype, mode)
+            if dtype == torch.float64:
+                err64 = max(err64, err)
+            print(f"[cascade] {mode} W={W} {str(dtype)[6:]}: decisions "
+                  f"agree on {share:.6f} of the slots, max abs err "
+                  f"{err:.3e} where they agree, {n_acc} slots accepted")
+    times = {}
+    for mode in ("ends", "interior"):
+        system, paths, slots, rg, ru, act = _cascade_inputs(
+            cfg, W, torch.float32, mode, seed=12)
+        k = _events_ms(lambda: K.cascade(system, mode, paths, slots, rg, ru,
+                                         act, cfg.Nlev))
+        p = _events_ms(lambda: cascade_ref(system, mode, paths, slots, rg,
+                                           ru, act, cfg.Nlev,
+                                           K.pair_rows_ref))
+        times[mode] = (k, p)
+        print(f"[time] cascade {mode} S={len(slots)} [1024, {len(slots)}, "
+              f"{2 ** cfg.Nlev + 1}, {cfg.Np}, 3] float32: kernel {k:.4f} ms,"
+              f" plain {p:.4f} ms ({card})")
+    return err64, times
+
+
 class _Recorder:
     """A draw source that records what another one returns."""
 
@@ -318,7 +455,7 @@ class _Replayer:
         return call
 
 
-def replay_check(cfg):
+def replay_check(cfg, label="flagship"):
     from pathintegralgroundstate_torch.state import (init_state,
                                                      state_from_numpy,
                                                      state_to_numpy)
@@ -353,12 +490,34 @@ def replay_check(cfg):
         if k != "counters":
             np.testing.assert_allclose(t_gpu[k], t_cpu[k], rtol=1e-9,
                                        atol=1e-9, err_msg=k)
-    print(f"[replay] flagship step at W=16 float64: card (kernels) == CPU "
+    print(f"[replay] {label} step at W=16 float64: card (kernels) == CPU "
           f"(plain forms) on {len(rec.log)} recorded draw sites; "
           f"sumE {t_gpu['sumE']:.10g}")
 
 
-def main_path(cfg, card):
+def expected_launches(cfg, sweeper):
+    """Per step: (pair_rows at least, pair_pot, cascade exactly), from the
+    move sites the step visits."""
+    Np, Ns = cfg.Np, cfg.Nstag
+    rows = (Np * (cfg.CMFreq > 0)
+            + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
+    casc = 0
+    if sweeper.fused_diag:
+        ends, ints = Ns * Np, Ns * -(-Np // sweeper.K_int)
+        if cfg.cascade and cfg.end_regrow != "sta":
+            casc += ends
+        else:
+            rows += 2 * ends           # one pair pass per end window
+        if cfg.cascade:
+            casc += ints
+        else:
+            rows += ints
+    else:
+        rows += 3 * Ns * Np
+    return rows, 2, casc
+
+
+def main_path(cfg, card, label="main"):
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.state import init_state
     from pathintegralgroundstate_torch.sweep import (COUNTER_NAMES, Sweeper,
@@ -372,30 +531,34 @@ def main_path(cfg, card):
     t0 = time.perf_counter()
     state, warm = run_block(sweeper, state, 1)
     torch.cuda.synchronize()
-    print(f"[main] warm-up step: {time.perf_counter() - t0:.3f} s")
+    print(f"[{label}] warm-up step: {time.perf_counter() - t0:.3f} s")
 
     nstep = 3
-    K.pair_rows.launches = 0
-    K.pair_pot.launches = 0
+    kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
+            "cascade": K.cascade}
+    for fn in kern.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     state, stats = run_block(sweeper, state, nstep)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / nstep
-    launches = {"pair_rows": K.pair_rows.launches,
-                "pair_pot": K.pair_pot.launches}
+    launches = {k: fn.launches for k, fn in kern.items()}
 
-    sites = (cfg.Np * (cfg.CMFreq > 0) + 3 * cfg.Nstag * cfg.Np
-             + (4 if cfg.CWorm > 0 else 0)
-             + cfg.Nobdm * (8 + cfg.swapping) * (cfg.CWorm > 0))
-    if launches["pair_rows"] < nstep * sites:
+    rows, pots, casc = expected_launches(cfg, sweeper)
+    if launches["pair_rows"] < nstep * rows:
         raise AssertionError(f"pair_rows launched {launches['pair_rows']} "
-                             f"times, < {nstep} steps x {sites} move sites")
-    if launches["pair_pot"] != 2 * nstep:
+                             f"times, < {nstep} steps x {rows} move sites")
+    if launches["pair_pot"] != nstep * pots:
         raise AssertionError(f"pair_pot launched {launches['pair_pot']} "
-                             f"times, expected {2 * nstep}")
+                             f"times, expected {nstep * pots}")
+    if launches["cascade"] != nstep * casc:
+        raise AssertionError(f"cascade launched {launches['cascade']} "
+                             f"times, expected {nstep} x {casc}")
 
     c = dict(zip(COUNTER_NAMES, (stats.counters + warm.counters).tolist()))
-    for k in ("try_cm", "try_stag", "try_open"):
+    tries = ("try_cm", "try_stag", "try_open") + (
+        ("try_int",) if sweeper.fused_diag else ())
+    for k in tries:
         if c[k] <= 0:
             raise AssertionError(f"{k} = {c[k]}")
     if c["acc_open"] > 0:
@@ -404,7 +567,8 @@ def main_path(cfg, card):
                 raise AssertionError(f"{k} = {c[k]} with open walkers")
     table = []
     pairs = [("acc_cm", "try_cm"), ("acc_head", "try_stag"),
-             ("acc_tail", "try_stag"), ("acc_bd", "try_stag"),
+             ("acc_tail", "try_stag"),
+             ("acc_bd", "try_int" if sweeper.fused_diag else "try_stag"),
              ("acc_open", "try_open"), ("acc_close", "try_close"),
              ("acc_cm_half", "try_cm_half"), ("acc_head_half", "try_stag_half"),
              ("acc_tail_half", "try_stag_half"),
@@ -423,12 +587,15 @@ def main_path(cfg, card):
             raise AssertionError(f"{k} is not finite")
     nd = float(stats.n_diag)
     bups = cfg.n_walkers * bead_updates_per_step(cfg) / dt
-    print(f"[main] flagship W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} float32: "
-          f"{dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s ({card})")
-    print(f"[main] launches over {nstep} steps: {launches}; "
+    what = ("fused sweep" + (" + cascade" if cfg.cascade else "")
+            if sweeper.fused_diag else "flagship")
+    print(f"[{label}] {what} W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} "
+          f"float32: {dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s "
+          f"({card})")
+    print(f"[{label}] launches over {nstep} steps: {launches}; "
           f"<E>/N={float(stats.sumE) / nd / cfg.Np:.4f} "
           f"<Et>/N={float(stats.sumEt) / nd / cfg.Np:.4f} (n_diag {nd:.0f})")
-    print("[main] acceptance: " + ", ".join(table))
+    print(f"[{label}] acceptance: " + ", ".join(table))
 
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -440,10 +607,12 @@ def main_path(cfg, card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    print(f"[main] host syncs in one step under sync_debug_mode('warn'): "
+    print(f"[{label}] host syncs in one step under sync_debug_mode('warn'): "
           f"{len(syncs)}")
     for w in syncs[:3]:
-        print(f"[main]   {str(w.message)[:160]}")
+        print(f"[{label}]   {str(w.message)[:160]}")
+    if syncs:
+        raise AssertionError(f"{label}: {len(syncs)} host syncs in one step")
     return launches, dt, bups
 
 
@@ -468,8 +637,15 @@ def main():
 
     cfg = flagship_cfg(1024)
     errs, shapes = kernel_parity(cfg, card)
+    cas_err, cas_times = cascade_parity(cfg, card)
     replay_check(cfg)
+    fused = cfg.replace(fused_sweep=True)
+    replay_check(fused, "fused")
+    replay_check(fused.replace(cascade=True), "fused+cascade")
     launches, _, _ = main_path(cfg, card)
+    main_path(fused, card, "fused")
+    cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
+                                   "fused+cascade")
 
     jax_mods = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib"))
@@ -495,7 +671,12 @@ def main():
          "replaces": "pathintegralgroundstate_tpu/ops/pallas_kernels.py:437",
          "launches": launches["pair_pot"],
          "max_abs_err": errs["pair_pot"], "ms": pot_ms,
-         "plain_ms": pot_plain}]}))
+         "plain_ms": pot_plain},
+        {"name": "cascade", "route": "cuda",
+         "source": "pathintegralgroundstate_torch/csrc/cascade.cu",
+         "replaces": "pathintegralgroundstate_tpu/ops/cascade_kernels.py:322",
+         "launches": cas_launches["cascade"], "max_abs_err": cas_err,
+         "ms": cas_times["ends"][0], "plain_ms": cas_times["ends"][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

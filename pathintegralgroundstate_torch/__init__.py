@@ -1,10 +1,10 @@
 """PyTorch / CUDA port of the PIGS engine, beside the JAX reference.
 
 `pathintegralgroundstate_tpu` is the reference; this package runs the same
-flagship Monte Carlo step (`sweep.Sweeper.step`) in PyTorch, with the two
-pair kernels of its main path written by hand for Hopper (`csrc/`, bound in
-`ops/kernels.py`).  The configuration is shared with the reference: its
-`config` module imports no JAX.
+Monte Carlo step (`sweep.Sweeper.step`: the flagship's unfused sweep and the
+fused composite sweep) in PyTorch, with its kernels written by hand for
+Hopper (`csrc/`, bound in `ops/kernels.py`).  The configuration is shared
+with the reference: its `config` module imports no JAX.
 
 The package imports `torch` and never `jax`.
 """

@@ -34,34 +34,6 @@ namespace {
 constexpr int kRowsPerBlock = 8;  // 8 warps = 256 threads
 
 template <typename T>
-__device__ __forceinline__ void side(const Consts<T>& c, const T* x,
-                                     const T* rj, bool notself, bool need_f2,
-                                     bool need_wf, T& pot, T* F, T& u) {
-  // components k >= dim are zero on both sides and add nothing
-  T dx[3];
-  T r2 = T(0);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    dx[k] = wrap1(x[k] - rj[k], c.L[k], c.half[k]);
-    r2 += dx[k] * dx[k];
-  }
-  T r2s = notself ? r2 : T(1);
-  T r = sqrt(r2s);
-  T rinv = rsqrt(r2s);
-  bool m = notself && r2 <= c.rcut2;
-  bool mf = m && r2 > T(0);
-  T v, dv;
-  aziz_v_dv(c, r, rinv, v, dv);
-  if (m) pot += v;
-  if (need_f2 && mf) {
-    T fr = dv * rinv;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
-  }
-  if (need_wf && mf) u += jastrow_u(c, r);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 pair_rows_kernel(Consts<T> c, const T* __restrict__ R, long long sRw,
                  long long sRb, long long sRn, const T* __restrict__ xn,
@@ -77,7 +49,12 @@ pair_rows_kernel(Consts<T> c, const T* __restrict__ R, long long sRw,
   if (row >= (long long)W * B) return;  // whole warps leave together
   const long long w = row / B;
   const long long b = row - w * B;
-  const long long p = ip_mode == 0 ? ip0 : (ip_mode == 1 ? ip[w] : ip[row]);
+  // ip modes: 0 scalar, 1 per walker [W], 2 per row [W, B], 3 per window
+  // row shared by every walker [1, B] (the K-slot interior composite)
+  const long long p = ip_mode == 0   ? ip0
+                      : ip_mode == 1 ? ip[w]
+                      : ip_mode == 2 ? ip[row]
+                                     : ip[b];
 
   T xnv[3], xov[3];
 #pragma unroll
@@ -93,8 +70,8 @@ pair_rows_kernel(Consts<T> c, const T* __restrict__ R, long long sRw,
 #pragma unroll
     for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? Rrow[j * sRn + k] : T(0);
     bool notself = j != p;
-    side(c, xnv, rj, notself, need_f2, need_wf, pot_n, Fn, u_n);
-    side(c, xov, rj, notself, need_f2, need_wf, pot_o, Fo, u_o);
+    pair_side(c, xnv, rj, notself, need_f2, need_wf, pot_n, Fn, u_n);
+    pair_side(c, xov, rj, notself, need_f2, need_wf, pot_o, Fo, u_o);
   }
   pot_n = warp_sum(pot_n);
   pot_o = warp_sum(pot_o);

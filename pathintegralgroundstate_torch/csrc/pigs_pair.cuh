@@ -1,5 +1,5 @@
-// Shared pair physics of the two hand-written Hopper kernels (pair_rows.cu,
-// pair_pot.cu): the single-image minimum image, the closed-form Aziz
+// Shared pair physics of the hand-written Hopper kernels (pair_rows.cu,
+// pair_pot.cu, cascade.cu): the single-image minimum image, the closed-form Aziz
 // potential (aziz2 and aziz1 share the form; only the constants differ) and
 // the McMillan Jastrow with the optional C1 shift.  Every formula follows
 // the plain-PyTorch forms in ops/pairwise.py and models/, which follow
@@ -101,6 +101,38 @@ __device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
   T u = T(-0.5) * (q2 * q2 * q);
   if (c.c1) u = u - c.u_rc - c.du_rc * (r - c.rc);
   return u;
+}
+
+// One Metropolis side of one displaced row against one partner rj: adds the
+// partner's V to pot (m = notself & r^2 <= rc^2), and over mf = m & r^2 > 0
+// its force to F when need_f2 and its u to u when need_wf.  Components
+// k >= dim are zero on both sides and add nothing.
+template <typename T>
+__device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
+                                          const T* rj, bool notself,
+                                          bool need_f2, bool need_wf, T& pot,
+                                          T* F, T& u) {
+  T dx[3];
+  T r2 = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    dx[k] = wrap1(x[k] - rj[k], c.L[k], c.half[k]);
+    r2 += dx[k] * dx[k];
+  }
+  T r2s = notself ? r2 : T(1);
+  T r = sqrt(r2s);
+  T rinv = rsqrt(r2s);
+  bool m = notself && r2 <= c.rcut2;
+  bool mf = m && r2 > T(0);
+  T v, dv;
+  aziz_v_dv(c, r, rinv, v, dv);
+  if (m) pot += v;
+  if (need_f2 && mf) {
+    T fr = dv * rinv;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
+  }
+  if (need_wf && mf) u += jastrow_u(c, r);
 }
 
 template <typename T>

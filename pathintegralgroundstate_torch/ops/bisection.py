@@ -170,3 +170,90 @@ def move_tail_bisection(system, paths, ip: int, active, level: int, rand):
     """Tail-end bisection at the clamped depth max(level, 2)."""
     return _end_bisection_monoshot(system, paths, ip, active, max(level, 2),
                                    True, rand)
+
+
+# ---------------------------------------------------------------------------
+# Fused composites (fused_sweep=True), monoshot form
+#
+# Two single-particle window moves whose displaced beads share no action
+# term (different particles at different beads; the same particle at
+# disjoint, non-adjacent beads) form one product kernel: both proposals
+# are made from the same paths and accepted independently.  The caller
+# guarantees the geometry (Sweeper: 2 * 2**level < M - 1, K slots of
+# 2**level links within M - 1 links).
+# ---------------------------------------------------------------------------
+
+def fused_end_bisections(system, paths, ip: int, active, level: int, rand):
+    """MoveHeadBisection + MoveTailBisection of particle ip as one
+    composite (_fused_ends_monoshot, bisection.py:680-759): one batched
+    construction of both segments, one pair pass per window (the tail read
+    backwards in place), per-level accepts.  rand = (None, g2 [W, 2, L, D],
+    u2 [W, 2, level+1]).  Returns (paths, acc_head[W], acc_tail[W])."""
+    M = system.M
+    L = 2 ** level
+    _, g2, u2 = rand
+    R_head = paths[:, :L + 1]
+    R_tail = paths[:, M - 1 - L:]                         # forward order
+    seg0 = torch.stack([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 1)
+    xold0 = seg0[:, :, 0]
+    xmid = xold0 - _mi(system, xold0 - seg0[:, :, L])
+    xnew0 = _wrap_pos(system, xmid + math.sqrt(L * system.cfg.dt)
+                      * g2[:, :, 0])
+    seg = _construct_levels(system, torch.cat([xnew0[:, :, None],
+                                               seg0[:, :, 1:]], 2),
+                            level, L, g2)
+    rows_h = delta_action_rows(system, R_head[:, :L], seg[:, 0, :L],
+                               seg0[:, 0, :L], ip, system.arange(L))
+    # tail row b (head orientation, bead M-1-b) pairs with forward row L-1-b
+    rows_t = delta_action_rows(system, R_tail[:, 1:], seg[:, 1, :L],
+                               seg0[:, 1, :L], ip,
+                               system.arange(M - 1, M - 1 - L, -1), rev=True)
+    acc_h = _monoshot_accept(system, active, rows_h, u2[:, 0], level, True)
+    acc_t = _monoshot_accept(system, active, rows_t, u2[:, 1], level, True)
+    fin = torch.where(torch.stack([acc_h, acc_t], 1)[:, :, None, None], seg,
+                      seg0)
+    R_head[:, :, ip] = fin[:, 0]
+    R_tail[:, :, ip] = fin[:, 1].flip(1)
+    return paths, acc_h, acc_t
+
+
+def bisection_multi(system, paths, ips, active, level: int, rand):
+    """Interior bisections of the K distinct particles ips as one composite
+    (_bisection_multi_monoshot, bisection.py:891-960).  Slot k regrows the
+    window of L = 2**level links from bead s + k L, one even shift s for
+    every slot.  rand = (u_shift host float, gK [W, K, L, D], uK [W, K,
+    level+1]); active [W] or [W, K].
+
+    ONE pair pass covers every slot: kernel A reads the contiguous span
+    beads s+1 .. s+KL-1 in place with a per-row particle index.  The K-1
+    slot-boundary rows inside the span are not displaced (new == old, so
+    their dS is exactly 0) and are dropped before the accepts.
+    Returns (paths, acc[W, K])."""
+    M = system.M
+    W, D = paths.shape[0], system.cfg.dim
+    L, K = 2 ** level, len(ips)
+    span = K * L
+    if span > M - 1:
+        raise ValueError(f"K={K} slots of {L} links exceed {M - 1} links")
+    if active.dim() == 1:
+        active = active[:, None].expand(W, K)
+    u_shift, gK, uK = rand
+    s = 2 * math.floor(u_shift * ((M - 1 - span) // 2 + 1))
+    R_big = paths[:, s:s + span + 1]
+    seg0 = torch.stack([R_big[:, k * L:(k + 1) * L + 1, p]
+                        for k, p in enumerate(ips)], 1)   # [W, K, L+1, D]
+    seg = _construct_levels(system, seg0, level, L, gK)
+    # span rows 1..KL-1; a slot's row 0 is its (unmoved) boundary bead
+    xnew = seg[:, :, :L].reshape(W, span, D)[:, 1:]
+    xold = seg0[:, :, :L].reshape(W, span, D)[:, 1:]
+    ip_rows = torch.cat([torch.full((L,), p, dtype=torch.long,
+                                    device=paths.device) for p in ips])
+    rows = delta_action_rows(system, R_big[:, 1:span], xnew, xold,
+                             ip_rows[None, 1:], system.arange(s + 1, s + span),
+                             need_wf=False)
+    rows = torch.nn.functional.pad(rows, (1, 0)).view(W, K, L)[:, :, 1:]
+    alive = _monoshot_accept(system, active, rows, uK[:, :, 1:], level, False)
+    fin = torch.where(alive[:, :, None, None], seg, seg0)
+    for k, p in enumerate(ips):
+        R_big[:, k * L + 1:(k + 1) * L, p] = fin[:, k, 1:L]
+    return paths, alive

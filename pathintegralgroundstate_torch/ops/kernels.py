@@ -1,16 +1,20 @@
-"""The main path's two pair kernels: wrappers, launch counts, plain forms.
+"""The hand-written kernels: wrappers, launch counts, plain forms.
 
-The counterpart of pathintegralgroundstate_tpu/ops/pallas_kernels.py.
+The counterpart of pathintegralgroundstate_tpu/ops/pallas_kernels.py and
+of the kernel half of ops/cascade_kernels.py.
 
   pair_rows  kernel A (csrc/pair_rows.cu), replaces pair_rows_pallas: the
              window pass of every move, both Metropolis sides per row.
   pair_pot   kernel B (csrc/pair_pot.cu), replaces pair_pot_pallas: the
              all-pairs potential and force squared of whole configurations.
+  cascade    kernel 5 (csrc/cascade.cu), replaces cascade_pallas: one whole
+             composite bisection move (modes 'ends' and 'interior').
 
-Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref)
-only for tensors on the CPU.  On a CUDA tensor it launches the kernel or
-raises; there is no fallback.  `pair_rows.launches` and `pair_pot.launches`
-count kernel launches, and nothing else.
+Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
+ops/cascade.cascade_ref) only for tensors on the CPU.  On a CUDA tensor it
+launches the kernel or raises; there is no fallback.  `pair_rows.launches`,
+`pair_pot.launches` and `cascade.launches` count kernel launches, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ from ..utils.pbc import minimum_image
 # ---------------------------------------------------------------------------
 
 def self_mask(N: int, ip, device):
-    """notself mask against [..., B, N] pair arrays for ip = int, [W] or
-    [W, B] (long tensors)."""
+    """notself mask against [..., B, N] pair arrays for ip = int, [W],
+    [W, B] or [1, B] (long tensors)."""
     iota = torch.arange(N, device=device)
     if isinstance(ip, int):
         return iota != ip                          # [N]
@@ -159,7 +163,8 @@ def pair_rows(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
 
     R [W, B, N, D] is read in place through its strides (a window view of
     paths); rev=True reads its bead rows backwards through a negative bead
-    stride instead of a flipped copy.  ip: int, [W] or [W, B] long."""
+    stride instead of a flipped copy.  ip: int, or a long tensor [W] (per
+    walker), [W, B] (per row) or [1, B] (per window row, every walker)."""
     if R.device.type == "cpu":
         return pair_rows_ref(system, R, xnew, xold, ip, need_wf, need_f2, rev)
     _check("pair_rows", system, R, xnew, xold)
@@ -171,10 +176,12 @@ def pair_rows(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
         ip_t, mode, ip0 = None, 0, ip
     else:
         if (ip.device != R.device or ip.dtype != torch.long
-                or not ip.is_contiguous() or ip.shape not in ((W,), (W, B))):
+                or not ip.is_contiguous()
+                or ip.shape not in ((W,), (W, B), (1, B))):
             raise ValueError("pair_rows: ip must be an int or a contiguous "
-                             f"long tensor [W] or [W, B] on {R.device}")
-        ip_t, mode, ip0 = ip, ip.dim(), 0
+                             f"long tensor [W], [W, B] or [1, B] on "
+                             f"{R.device}")
+        ip_t, mode, ip0 = ip, (3 if ip.shape == (1, B) else ip.dim()), 0
     out = torch.empty((3 if need_wf else 2, W, B), dtype=R.dtype,
                       device=R.device)
     sW, sB, sN, _ = R.stride()
@@ -226,3 +233,92 @@ def pair_pot(system, R, with_force=False):
 
 
 pair_pot.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5
+# ---------------------------------------------------------------------------
+
+MAX_SLOTS = 64   # kMaxSlots in csrc/cascade.cu
+
+
+class _CascadeArgs(ctypes.Structure):
+    """Mirror of struct CascadeArgs in csrc/cascade.cu."""
+    _fields_ = [(n, ctypes.c_double) for n in (
+        "dt", "wv_end", "wv_odd", "wf_odd", "wv_even")] + [
+        ("bead0", ctypes.c_longlong * MAX_SLOTS),
+        ("dir", ctypes.c_int * MAX_SLOTS), ("ip", ctypes.c_int * MAX_SLOTS)]
+
+
+def _cascade_weights(system) -> dict:
+    """The Chin weights kernel 5 takes per window position, read from the
+    per-bead table of pairwise.chin_weights at bead 0 (an end), bead 1 (odd
+    interior) and bead 2 (even interior): windows are even-aligned, so a
+    position's parity is its bead's (cascade_kernels._chin_row_w)."""
+    w = system._consts.get("cascade_weights")
+    if w is None:
+        from .pairwise import _chin_table
+        wv, wf, _ = _chin_table(system.M, system.cfg.dt)[:, :3]
+        w = dict(wv_end=float(wv[0]), wv_odd=float(wv[1]),
+                 wf_odd=float(wf[1]), wv_even=float(wv[2]))
+        system._consts["cascade_weights"] = w
+    return w
+
+
+def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
+    """One composite cascade move, in place (see ops/cascade.cascade_ref).
+
+    mode 'ends' or 'interior'; slots: S host tuples (bead0, dir, ip), the
+    window of slot s being beads bead0 + dir * p, p = 0..2**nlev, of
+    particle ip; rg [W, S, L+1, D] gaussians by window position; ru
+    [W, S, G] gate uniforms; act [W, S] bool (any strides).  Accepted slots'
+    displaced rows are written into paths.  Returns acc [W, S] bool."""
+    if paths.device.type == "cpu":
+        from .cascade import cascade_ref
+        return cascade_ref(system, mode, paths, slots, rg, ru, act, nlev)
+    if mode not in ("ends", "interior"):
+        raise ValueError(f"cascade: mode 'ends' or 'interior', got {mode!r}")
+    _check("cascade", system, paths, rg, ru)
+    W, M, N, D = paths.shape
+    S, L = len(slots), 2 ** nlev
+    G = nlev + (mode == "ends")
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"cascade: 1..{MAX_SLOTS} slots, got {S}")
+    if rg.shape != (W, S, L + 1, D) or ru.shape != (W, S, G):
+        raise ValueError(f"cascade: rg must be {(W, S, L + 1, D)} and ru "
+                         f"{(W, S, G)}, got {tuple(rg.shape)}, "
+                         f"{tuple(ru.shape)}")
+    if not (rg.is_contiguous() and ru.is_contiguous()):
+        raise ValueError("cascade: rg and ru must be contiguous")
+    if act.shape != (W, S) or act.dtype != torch.bool \
+            or act.device != paths.device:
+        raise ValueError(f"cascade: act must be a bool tensor {(W, S)} on "
+                         f"{paths.device}")
+    if 4 * (L + 1) * 3 * paths.element_size() > 48 * 1024:
+        raise ValueError(f"cascade: windows of {L} links exceed the "
+                         "kernel's shared memory")
+    for b0, step, ip in slots:
+        last = b0 + step * L
+        if step not in (1, -1) or not (0 <= min(b0, last)
+                                       and max(b0, last) < M
+                                       and 0 <= ip < N):
+            raise ValueError(f"cascade: slot {(b0, step, ip)} does not fit "
+                             f"paths {tuple(paths.shape)}")
+    a = _CascadeArgs(dt=system.cfg.dt, **_cascade_weights(system))
+    for s, (b0, step, ip) in enumerate(slots):
+        a.bead0[s], a.dir[s], a.ip[s] = b0, step, ip
+    acc = torch.empty((W, S), dtype=torch.bool, device=paths.device)
+    sW, sM, sN, _ = paths.stride()
+    fn = getattr(kernels(), "pigs_cascade_" + _suffix(paths.dtype))
+    err = fn(ctypes.byref(_params(system)), ctypes.byref(a),
+             paths.data_ptr(), sW, sM, sN, rg.data_ptr(), ru.data_ptr(),
+             act.data_ptr(), act.stride(0), act.stride(1), acc.data_ptr(),
+             W, S, N, L, nlev, int(mode == "ends"),
+             torch.cuda.current_stream(paths.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cascade: kernel launch failed, cudaError {err}")
+    cascade.launches += 1
+    return acc
+
+
+cascade.launches = 0

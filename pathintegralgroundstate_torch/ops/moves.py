@@ -108,23 +108,10 @@ def _bridge_tables(Lmax: int, dt: float):
 # The segment-regrow workhorse
 # ---------------------------------------------------------------------------
 
-def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
-                   first_w: float, g0, gs, first_pos=None, fixed_L=None,
-                   rev=False):
-    """Regrow segments in head orientation (moves.py:229-365), bridge mode.
-
-    seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
-    anchor.  R_seg [W, Lb+1, N, D]: the partners at the segment's beads, in
-    head orientation, or in forward bead order with rev=True (then
-    seg[:, b] sits at R_seg[:, Lb-b]).  ib_seg [Lb+1]: bead indices in head
-    orientation.  Ls [W] long.
-    first_mode: 'gauss' (free gaussian guess of bead 0, sigma sqrt(Ls dt),
-    from g0 [W, D]), 'pin' (bead 0 := first_pos) or 'fixed'.
-    first_w: weight of the first bead's dS (1/2 worm centre, 0 Swap's pin).
-    gs [Lb-1, W, D]: the bridge gaussians, in the reference's draw layout.
-    fixed_L: every walker's Ls equals it (one bridge matrix).
-
-    Returns (seg_new, dS[W])."""
+def bridge_proposal(system, seg, Ls, first_mode: str, g0, gs,
+                    first_pos=None, fixed_L=None):
+    """The proposal of segment_regrow: (xnew0 [W, D], xnews [W, Lb-1, D]),
+    the new end bead and the bridge beads 1..Lb-1 (beads >= Ls kept)."""
     dt = system.cfg.dt
     W, Lbp1, D = seg.shape
     Lb = Lbp1 - 1
@@ -159,23 +146,76 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
     mean = xnew0[:, None, :] + wgt[:, :, None] * xdiff[:, None, :]
     xnews = _wrap_pos(system, mean + z)
     act = (system.arange(1, Lb)[None, :] < Ls[:, None])[:, :, None]
-    xnews = torch.where(act, xnews, xolds)
+    return xnew0, torch.where(act, xnews, xolds)
 
+
+def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
+                   first_w: float, g0, gs, first_pos=None, fixed_L=None,
+                   rev=False):
+    """Regrow segments in head orientation (moves.py:229-365), bridge mode.
+
+    seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
+    anchor.  R_seg [W, Lb+1, N, D]: the partners at the segment's beads, in
+    head orientation, or in forward bead order with rev=True (then
+    seg[:, b] sits at R_seg[:, Lb-b]).  ib_seg [Lb+1]: bead indices in head
+    orientation.  Ls [W] long.
+    first_mode: 'gauss' (free gaussian guess of bead 0, sigma sqrt(Ls dt),
+    from g0 [W, D]), 'pin' (bead 0 := first_pos) or 'fixed'.
+    first_w: weight of the first bead's dS (1/2 worm centre, 0 Swap's pin).
+    gs [Lb-1, W, D]: the bridge gaussians, in the reference's draw layout.
+    fixed_L: every walker's Ls equals it (one bridge matrix).
+
+    Returns (seg_new, dS[W])."""
+    Lb = seg.shape[1] - 1
+    xnew0, xnews = bridge_proposal(system, seg, Ls, first_mode, g0, gs,
+                                   first_pos, fixed_L)
     # one pair pass over displaced rows 0..Lb-1; a ZERO-weighted first row
     # (Swap's pin, which coincides exactly with the worm's bead) is
     # evaluated at its old position so its singular terms never enter
-    x0_eval = xold0 if first_w == 0.0 else xnew0
+    x0_eval = seg[:, 0] if first_w == 0.0 else xnew0
     xnew_all = torch.cat([x0_eval[:, None], xnews], 1)
     rw = None
     if first_w not in (0.0, 1.0):
-        rw = system.const(("row_w", Lb, first_w, dtype),
-                          lambda: np.r_[first_w, np.ones(Lb - 1)], dtype)
+        rw = system.const(("row_w", Lb, first_w, seg.dtype),
+                          lambda: np.r_[first_w, np.ones(Lb - 1)], seg.dtype)
     R_rows = R_seg[:, 1:] if rev else R_seg[:, :Lb]
     dS = delta_action_sum(system, R_rows, xnew_all, seg[:, :Lb], ip,
                           ib_seg[:Lb], need_wf=first_mode == "gauss",
                           row_weights=rw, rev=rev)
     seg_new = torch.cat([xnew0[:, None], xnews, seg[:, Lb:]], 1)
     return seg_new, dS
+
+
+def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
+                       u_acc):
+    """MoveHead + MoveTail of particle ip as ONE composite update
+    (moves.py:686-740; valid when 2 Lmax < M-1, caller-guaranteed).
+
+    The tail segment, bead-reversed into head orientation, is stacked
+    behind the head segment along the walker axis, so one bridge
+    construction regrows both ends: Ls [2W], g0 [2W, D], gs [Lmax-1, 2W,
+    D], u_acc [2W] (head walkers first), as the reference draws them.  The
+    pair pass reads each window in place (the tail backwards), one kernel
+    launch per window, instead of a stacked window copy.
+    Returns (paths, acc_head[W], acc_tail[W])."""
+    M = system.M
+    W = paths.shape[0]
+    R_head = paths[:, :Lmax + 1]
+    R_tail = paths[:, M - 1 - Lmax:]                      # forward order
+    seg = torch.cat([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 0)
+    xnew0, xnews = bridge_proposal(system, seg, Ls, "gauss", g0, gs)
+    xnew = torch.cat([xnew0[:, None], xnews], 1)          # rows 0..Lmax-1
+    dS = torch.cat([
+        delta_action_sum(system, R_head[:, :Lmax], xnew[:W], seg[:W, :Lmax],
+                         ip, system.arange(Lmax)),
+        delta_action_sum(system, R_tail[:, 1:], xnew[W:], seg[W:, :Lmax],
+                         ip, system.arange(M - 1, M - 1 - Lmax, -1),
+                         rev=True)])
+    acc = metropolis_u(u_acc, dS) & torch.cat([active, active])
+    fin = _where(acc, torch.cat([xnew, seg[:, Lmax:]], 1), seg)
+    R_head[:, :, ip] = fin[:W]
+    R_tail[:, :, ip] = fin[W:].flip(1)
+    return paths, acc[:W], acc[W:]
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,18 @@
 """One Monte Carlo step over the whole walker ensemble (vpi.f90:297-475).
 
-The torch counterpart of the default branch of
-pathintegralgroundstate_tpu/sweep.py `Sweeper.step` (unfused sweep,
-reference-parity partial dF^2, monoshot bisection on batched randoms):
+The torch counterpart of pathintegralgroundstate_tpu/sweep.py
+`Sweeper.step` (reference-parity partial dF^2, monoshot bisection on
+batched randoms):
 
   1. open/close attempts toggling the per-walker `isopen` mask,
-  2. Np rigid CM translations,
-  3. Nstag*Np particle visits: head, tail and interior monoshot bisection,
+  2. Np rigid CM translations (as cascades when cfg.cascade),
+  3. the bisection sweep, in one of two orders:
+     unfused: Nstag*Np particle visits, each a head, a tail and an interior
+         monoshot bisection;
+     fused (cfg.fused_sweep, when the windows fit): Nstag*Np head+tail
+         composites (monoshot bisection, staging with end_regrow='sta', or
+         the ends cascade), then Nstag*ceil(Np/K) interior composites of K
+         particles each (monoshot, or the interior cascade),
   4. Nobdm worm rounds: half translations, half head/tail/staging, swap,
      permutation bookkeeping and the OBDM histogram,
   5. the estimators of the diagonal walkers.
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from .ops import bisection as bis
+from .ops import cascade as cas
 from .ops import estimators as est
 from .ops import moves as mv
 from .ops import worm as wm
@@ -146,6 +153,13 @@ class Sweeper:
                              f"fit M={system.M} beads")
         if cfg.CWorm > 0.0 and not 4 <= cfg.Lstag <= cfg.Nb:
             raise ValueError("the worm moves need 4 <= Lstag <= Nb")
+        # the fused composite sweep (sweep.py:258-266): the head and tail
+        # windows disjoint and non-adjacent, K interior slots in the chain
+        self.fused_diag = (cfg.fused_sweep and cfg.sampling == "bis"
+                           and not cfg.bis_end_random_depth
+                           and 2 * L < system.M - 1)
+        self.K_int = (min(max(1, (system.M - 1 - L) // L), cfg.Np)
+                      if self.fused_diag else 1)
 
     def draws(self, state: MCState) -> DeviceDraws:
         """The port's own draw source for `state`."""
@@ -206,18 +220,21 @@ class Sweeper:
 
         # ---- 2. CM translations (vpi.f90:329-342 / 412-419) ----
         if cfg.CMFreq > 0 and step_no % max(cfg.CMFreq, 1) == 0:
+            translate = cas.rigid_cascade if cfg.cascade \
+                else mv.translate_chain
             acc_cm = torch.zeros(W, dtype=torch.int32, device=system.device)
             for ip in range(Np):
                 u_dx, u_acc = src.translate(10, ip, W)
-                paths, acc = mv.translate_chain(system, paths, ip,
-                                                active_all[:, ip],
-                                                self.delta, u_dx, u_acc)
+                paths, acc = translate(system, paths, ip, active_all[:, ip],
+                                       self.delta, u_dx, u_acc)
                 acc_cm += acc
             count("try_cm", active_all)
             count("acc_cm", acc_cm)
 
         # ---- 3. bisection sweeps (vpi.f90:344-366 / 421-439) ----
-        if cfg.Nstag > 0:
+        if cfg.Nstag > 0 and self.fused_diag:
+            self._fused_sweep(src, paths, active_all, ctr)
+        elif cfg.Nstag > 0:
             nl_end = max(self.Nlev, 2)
             acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
             for it in range(cfg.Nstag * Np):
@@ -303,6 +320,54 @@ class Sweeper:
         if cfg.measure_every <= 0 or step_no % cfg.measure_every != 0:
             return state, base
         return state, self._measure(paths, isopen, base)
+
+    def _fused_sweep(self, src, paths, active_all, ctr):
+        """The fused composite sweep (sweep.py:521-618), in place on paths
+        and the counters ctr."""
+        system = self.system
+        cfg = system.cfg
+        W, Np, nlev = paths.shape[0], cfg.Np, self.Nlev
+        L, K = 2 ** nlev, self.K_int
+        acc2 = torch.zeros((2, W), dtype=torch.int32, device=system.device)
+        for it in range(cfg.Nstag * Np):
+            ip = it % Np
+            active = active_all[:, ip]
+            if cfg.end_regrow == "sta":
+                _, acc_h, acc_t = mv.fused_end_stagings(
+                    system, paths, ip, active, L, *src.end_stagings(it, W, L))
+            elif cfg.cascade:
+                _, acc_h, acc_t = cas.fused_ends_cascade(
+                    system, paths, ip, active, nlev,
+                    *src.cascade_ends(it, W, nlev))
+            else:
+                _, acc_h, acc_t = bis.fused_end_bisections(
+                    system, paths, ip, active, nlev,
+                    src.fused_ends(it, W, nlev))
+            acc2[0] += acc_h
+            acc2[1] += acc_t
+        ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
+        ctr[_CIDX["acc_head"]] += acc2[0].sum()
+        ctr[_CIDX["acc_tail"]] += acc2[1].sum()
+
+        n_shift = (system.M - 1 - K * L) // 2 + 1
+        int2 = torch.zeros((2, W, K), dtype=torch.int32, device=system.device)
+        for it in range(cfg.Nstag * -(-Np // K)):
+            # the particle -> slot assignment rotates with a drawn offset,
+            # so every particle sees every slot over the groups
+            off = src.group_offset(it, Np)
+            ips = [(it * K + k + off) % Np for k in range(K)]
+            act = torch.stack([active_all[:, p] for p in ips], 1)
+            if cfg.cascade:
+                _, acc = cas.interior_cascade(
+                    system, paths, ips, act, nlev,
+                    *src.cascade_interior(it, W, K, nlev, n_shift))
+            else:
+                _, acc = bis.bisection_multi(system, paths, ips, act, nlev,
+                                             src.bisect_multi(it, W, K, nlev))
+            int2[0] += act
+            int2[1] += acc
+        ctr[_CIDX["try_int"]] += int2[0].sum()
+        ctr[_CIDX["acc_bd"]] += int2[1].sum()
 
     def _measure(self, paths, isopen, st: StepStats) -> StepStats:
         system = self.system

@@ -27,9 +27,7 @@ _JASTROWS = ("mcmillan", "mcmillan_c1")
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     waits = [
-        (cfg.fused_sweep, "fused_sweep=True", "slice 9 (fused composites)"),
         (cfg.exact_f2, "exact_f2=True", "slice 10 (exact-F^2 cache)"),
-        (cfg.cascade, "cascade=True", "slice 9 and kernel 5 (cascade)"),
         (cfg.paired_ends, "paired_ends=True",
          "slice 11 (staging and per-level forms)"),
         (cfg.bis_end_random_depth, "bis_end_random_depth=True",

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu).
 
-`nvcc` compiles every source under pathintegralgroundstate_torch/csrc into
-one shared library with a plain C interface, at first use, into
+`nvcc` compiles every source under pathintegralgroundstate_torch/csrc, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, at first use, into
 build/pigs_torch_kernels/<hash>/ beside the package (the hash covers the
 sources and the flags, so an edited source rebuilds).  The library is bound
 with ctypes.  Nothing comes from outside the checkout; a failed build
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pigs_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libpigs_kernels.so"
 
 
@@ -55,14 +56,28 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, log.read_text() if log.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)],
-        capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    objs = [out_dir / f"{f.stem}.{os.getpid()}.o" for f in cu]
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(f)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        text = "".join(pr.communicate()[0] for pr in procs)
+        if any(pr.returncode for pr in procs):
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        seconds = time.perf_counter() - t0
+        text += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{text}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     log.write_text(text)
     os.replace(tmp, lib)
     return lib, seconds, text
@@ -74,6 +89,8 @@ _I = ctypes.c_int
 _ROWS_ARGS = [_P, _P, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _I, _LL,
               _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _POT_ARGS = [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]
+_CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
+                 _I, _I, _I, _I, _P]
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +101,9 @@ def kernels() -> ctypes.CDLL:
     for name, args in (("pigs_pair_rows_f32", _ROWS_ARGS),
                        ("pigs_pair_rows_f64", _ROWS_ARGS),
                        ("pigs_pair_pot_f32", _POT_ARGS),
-                       ("pigs_pair_pot_f64", _POT_ARGS)):
+                       ("pigs_pair_pot_f64", _POT_ARGS),
+                       ("pigs_cascade_f32", _CASCADE_ARGS),
+                       ("pigs_cascade_f64", _CASCADE_ARGS)):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

@@ -8,8 +8,9 @@ Two sources implement the same methods:
 
   DeviceDraws (here): the port's own.  Tensors come from the state's device
       generator; the scalar, state-independent values (the shared window
-      starts) from its host generator as Python numbers, so the step never
-      synchronises with the device.  It ignores the addresses.
+      starts, the fused sweep's group offsets and interior shifts) from its
+      host generator as Python numbers, so the step never synchronises with
+      the device.  It ignores the addresses.
   the test bridge (tests/torch_bridge.py): replays the reference's own JAX
       key tree split for split, so the port can be held equal to the
       reference step.
@@ -64,17 +65,55 @@ class DeviceDraws:
                          self._g(Lmax - 3, W, self.D), self._u(W))
 
     def translate(self, tag: int, it: int, W: int):
-        """translate_chain (tag 10) / translate_half_chain (31, 32):
-        (u_dx [W, 1, D], u_acc [W])."""
+        """translate_chain and rigid_cascade (tag 10) / translate_half_chain
+        (31, 32): (u_dx [W, 1, D], u_acc [W])."""
         return self._u(W, 1, self.D), self._u(W)
 
     def bisect(self, tag: int, it: int, W: int, nlev: int,
                start: bool = False):
         """Monoshot bisection (tags 25, 26, 27): (u_start host float or
         None, g [W, 2**nlev, D], u_acc [W, nlev+1])."""
-        s = (torch.rand((), generator=self.host, dtype=torch.float64).item()
-             if start else None)
+        s = self._host_u() if start else None
         return s, self._g(W, 2 ** nlev, self.D), self._u(W, nlev + 1)
+
+    def _host_int(self, hi: int) -> int:
+        return int(torch.randint(0, hi, (), generator=self.host))
+
+    def _host_u(self) -> float:
+        return torch.rand((), generator=self.host, dtype=torch.float64).item()
+
+    def fused_ends(self, it: int, W: int, nlev: int):
+        """Fused head+tail bisection (tag 28): (None, g [W, 2, 2**nlev, D],
+        u [W, 2, nlev+1])."""
+        return None, self._g(W, 2, 2 ** nlev, self.D), self._u(W, 2, nlev + 1)
+
+    def group_offset(self, it: int, Np: int) -> int:
+        """Particle offset of interior group `it` (tag 23): host int."""
+        return self._host_int(Np)
+
+    def bisect_multi(self, it: int, W: int, K: int, nlev: int):
+        """K-slot interior composite (tag 23): (u_shift host float,
+        g [W, K, 2**nlev, D], u [W, K, nlev+1])."""
+        return (self._host_u(), self._g(W, K, 2 ** nlev, self.D),
+                self._u(W, K, nlev + 1))
+
+    def end_stagings(self, it: int, W: int, Lmax: int):
+        """Fused head+tail staging (tag 20), head walkers then tail
+        walkers: (Ls [2W], g0 [2W, D], gs [Lmax-1, 2W, D], u_acc [2W])."""
+        return self.regrow_half(20, it, 2 * W, Lmax)
+
+    def cascade_ends(self, it: int, W: int, nlev: int):
+        """Ends cascade (tag 20): (rg [W, 2, 2**nlev+1, D],
+        ru [W, 2, nlev+1])."""
+        return (self._g(W, 2, 2 ** nlev + 1, self.D),
+                self._u(W, 2, nlev + 1))
+
+    def cascade_interior(self, it: int, W: int, K: int, nlev: int,
+                         n_shift: int):
+        """Interior cascade (tag 23): (even shift host int,
+        rg [W, K, 2**nlev+1, D], ru [W, K, nlev])."""
+        return (2 * self._host_int(n_shift),
+                self._g(W, K, 2 ** nlev + 1, self.D), self._u(W, K, nlev))
 
     def regrow_half(self, tag: int, it: int, W: int, Lmax: int):
         """move_head/tail_half_chain (tags 41-44): (Ls, g0, gs, u_acc)."""
@@ -83,7 +122,7 @@ class DeviceDraws:
 
     def staging_half(self, tag: int, it: int, W: int, n_opts: int, L: int):
         """staging_half_chain (tags 45, 46): (start host int, gs, u_acc)."""
-        start = 2 * int(torch.randint(0, n_opts, (), generator=self.host))
+        start = 2 * self._host_int(n_opts)
         return start, self._g(L - 1, W, self.D), self._u(W)
 
     def swap(self, it: int, W: int, Np: int, Lmax: int) -> SwapDraws:

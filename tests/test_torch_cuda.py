@@ -1,6 +1,7 @@
 """The hand-written kernels on a CUDA device: each against its plain
-PyTorch form, and one whole flagship step on the card against the same step
-on the CPU from the same draws.
+PyTorch form, and whole steps on the card (the flagship, and the fused
+sweep with cascade off and on) against the same steps on the CPU from the
+same draws.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a card but without JAX it runs as
@@ -72,6 +73,28 @@ def test_pair_rows_matches_plain(cuda, ip_form):
     assert kernels.pair_rows.launches == n + 4
 
 
+def test_pair_rows_span_matches_plain(cuda):
+    """The fused interior span of bisection_multi: K=3 slots of L=16 links
+    read in place as one window of B=47 rows, ip [1, B] per window row; the
+    unmoved slot-boundary rows give exactly 0."""
+    cfg = flagship_cfg(64)
+    system = make_system(cfg, cuda, torch.float64)
+    R = _window(cfg, "scalar", 64, seed=19)[0].to(cuda)[:, 3:50]
+    ip = torch.cat([torch.full((16,), p, dtype=torch.long, device=cuda)
+                    for p in (7, 30, 61)])[None, 1:]
+    xold = R.gather(2, ip[:, :, None, None].expand(64, 47, 1, 3))[:, :, 0]
+    g = torch.Generator(device=cuda).manual_seed(19)
+    xnew = xold + 0.05 * torch.randn(xold.shape, generator=g, device=cuda,
+                                     dtype=torch.float64)
+    xnew[:, 15::16] = xold[:, 15::16]
+    got = kernels.pair_rows(system, R, xnew, xold, ip, False, True)
+    ref = kernels.pair_rows_ref(system, R, xnew, xold, ip, False, True)
+    for g_, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g_, r, rtol=1e-11, atol=1e-7)
+        assert not bool(g_[:, 15::16].any())
+    assert got[2] is None
+
+
 @pytest.mark.parametrize("with_force", [False, True])
 def test_pair_pot_matches_plain(cuda, with_force):
     cfg = flagship_cfg(64)
@@ -95,3 +118,48 @@ def test_pair_rows_refuses_what_it_cannot_read(cuda):
 def test_flagship_step_on_card_matches_cpu(cuda):
     import chip_smoke
     chip_smoke.replay_check(flagship_cfg(16).replace(Nstag=1, Nobdm=2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["ends", "interior"])
+def test_cascade_matches_plain(cuda, mode, dtype):
+    """Kernel 5 against cascade_ref (plain pair pass), some slots inactive:
+    float64 accepts exactly equal and windows within rtol 1e-11; float32
+    decisions agree on more than 95 % of the slots and windows agree within
+    rtol 2e-4 / atol 2e-5 where they do (chip_smoke.cascade_check)."""
+    import chip_smoke
+    share, err, n_acc = chip_smoke.cascade_check(flagship_cfg(256), 256,
+                                                 dtype, mode)
+    print(f"cascade {mode} {dtype}: decisions agree on {share:.6f}, "
+          f"max abs err {err:.3e}, {n_acc} accepted")
+
+
+def test_cascade_refuses_what_it_cannot_run(cuda):
+    system = make_system(flagship_cfg(4), cuda, torch.float64)
+    paths = torch.zeros(4, 65, 64, 3, dtype=torch.float64, device=cuda)
+    rg = torch.zeros(4, 2, 17, 3, dtype=torch.float64, device=cuda)
+    ru = torch.zeros(4, 2, 5, dtype=torch.float64, device=cuda)
+    act = torch.ones(4, 2, dtype=torch.bool, device=cuda)
+    slots = [(0, 1, 0), (64, -1, 0)]
+    with pytest.raises(ValueError):
+        kernels.cascade(system, "rigid", paths, slots, rg, ru, act, 4)
+    with pytest.raises(ValueError):
+        kernels.cascade(system, "ends", paths, [(60, 1, 0), (64, -1, 0)], rg,
+                        ru, act, 4)
+    with pytest.raises(ValueError):
+        kernels.cascade(system, "ends", paths, slots, rg, ru[:, :, :4], act, 4)
+    n = kernels.cascade.launches
+    kernels.cascade(system, "ends", paths, slots, rg, ru, act, 4)
+    assert kernels.cascade.launches == n + 1
+
+
+def test_fused_step_on_card_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.replay_check(flagship_cfg(16).replace(
+        Nstag=1, Nobdm=2, fused_sweep=True), "fused")
+
+
+def test_fused_cascade_step_on_card_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.replay_check(flagship_cfg(16).replace(
+        Nstag=1, Nobdm=2, fused_sweep=True, cascade=True), "fused+cascade")

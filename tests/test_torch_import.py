@@ -29,6 +29,7 @@ MODULES = [
     "pathintegralgroundstate_torch.ops.pairwise",
     "pathintegralgroundstate_torch.ops.moves",
     "pathintegralgroundstate_torch.ops.bisection",
+    "pathintegralgroundstate_torch.ops.cascade",
     "pathintegralgroundstate_torch.ops.worm",
     "pathintegralgroundstate_torch.ops.estimators",
     "pathintegralgroundstate_torch.utils.pbc",
@@ -68,7 +69,10 @@ def test_bead_updates_per_step_matches_reference(overrides):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"fused_sweep": True}, {"exact_f2": True}, {"cascade": True},
+    {"fused_sweep": True, "exact_f2": True}, {"exact_f2": True},
+    {"cascade": True, "bis_monoshot": False},
+    {"fused_sweep": True, "bis_monoshot": False},
+    {"fused_sweep": True, "cascade": True, "regrow": "scan"},
     {"paired_ends": True}, {"bis_end_random_depth": True},
     {"smart_mc": 0.1}, {"sampling": "sta"}, {"regrow": "scan"},
     {"bis_monoshot": False}, {"shared_windows": False}, {"trap": True},
@@ -83,10 +87,12 @@ def test_unported_options_raise(overrides):
 
 
 def test_simconfig_default_raises():
-    """SimConfig's own default is the fused sweep, which is not ported."""
+    """SimConfig's own default, the fused sweep, is ported and builds; the
+    same default with the exact-F^2 cache still raises."""
     from pathintegralgroundstate_tpu.config import SimConfig
-    with pytest.raises(NotImplementedError, match="fused_sweep"):
-        make_system(SimConfig(dtype="float64"))
+    assert Sweeper(make_system(SimConfig(dtype="float64"))).fused_diag
+    with pytest.raises(NotImplementedError, match="exact_f2.*slice 10"):
+        make_system(SimConfig(dtype="float64", exact_f2=True))
 
 
 def test_init_state_layout():

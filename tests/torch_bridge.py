@@ -32,7 +32,9 @@ def ti(x):
 
 
 def translate_draws(key, W, D, dtype):
-    """moves.translate_chain / translate_half_chain: (u_dx, u_acc)."""
+    """moves.translate_chain / translate_half_chain: (u_dx, u_acc).  Also
+    cascade_kernels.rigid_cascade, which splits its key the same way and
+    draws as many uniforms ([W, 1, 1, D] and [W, 1, 1]): the same values."""
     k_dx, k_acc = split(key)
     return (tt(jax.random.uniform(k_dx, (W, 1, D), dtype)),
             tt(jax.random.uniform(k_acc, (W,), dtype)))
@@ -93,6 +95,37 @@ def bisect_draws(kk, W, nlev, D, dtype, start=False):
     return (s, g, u), (None if s is None else float(s), tt(g), tt(u))
 
 
+def fused_ends_draws(kk, W, nlev, D, dtype):
+    """The fused ends' blocks at tag 28 (sweep.py:546-558), as the rand of
+    the reference move and as the port's tensors."""
+    g = jax.random.normal(fold_in(kk, 0), (W, 2, 2 ** nlev, D), dtype)
+    u = jax.random.uniform(fold_in(kk, 1), (W, 2, nlev + 1), dtype)
+    return (None, g, u), (None, tt(g), tt(u))
+
+
+def bisect_multi_draws(kk, W, K, nlev, D, dtype):
+    """The K-slot interior blocks at tag 23 (sweep.py:589-599)."""
+    g = jax.random.normal(fold_in(kk, 2), (W, K, 2 ** nlev, D), dtype)
+    u = jax.random.uniform(fold_in(kk, 3), (W, K, nlev + 1), dtype)
+    s = jax.random.uniform(fold_in(kk, 4), (), dtype)
+    return (s, g, u), (float(s), tt(g), tt(u))
+
+
+def cascade_ends_draws(key, W, nlev, D, dtype):
+    """cascade_kernels.fused_ends_cascade: (rg, ru)."""
+    k_g, k_u = split(key)
+    return (tt(jax.random.normal(k_g, (W, 2, 2 ** nlev + 1, D), dtype)),
+            tt(jax.random.uniform(k_u, (W, 2, nlev + 1), dtype)))
+
+
+def cascade_interior_draws(key, W, K, nlev, n_shift, D, dtype):
+    """cascade_kernels.interior_cascade: (shift, rg, ru)."""
+    k_s, k_g, k_u = split(key, 3)
+    s = 2 * int(jax.random.randint(k_s, (), 0, n_shift, dtype=jnp.int32))
+    return (s, tt(jax.random.normal(k_g, (W, K, 2 ** nlev + 1, D), dtype)),
+            tt(jax.random.uniform(k_u, (W, K, nlev), dtype)))
+
+
 class JaxDraws:
     """Draw source replaying the reference Sweeper.step's key tree."""
 
@@ -125,6 +158,32 @@ class JaxDraws:
 
     def regrow_half(self, tag, it, W, Lmax):
         return half_draws(self._site(tag, it), W, Lmax, self.D, self.dtype)
+
+    # -- the fused composite sweep (sweep.py:521-618) -----------------------
+
+    def fused_ends(self, it, W, nlev):
+        return fused_ends_draws(self._site(28, it), W, nlev, self.D,
+                                self.dtype)[1]
+
+    def group_offset(self, it, Np):
+        return int(jax.random.randint(fold_in(self._site(23, it), 0), (), 0,
+                                      Np, dtype=jnp.int32))
+
+    def bisect_multi(self, it, W, K, nlev):
+        return bisect_multi_draws(self._site(23, it), W, K, nlev, self.D,
+                                  self.dtype)[1]
+
+    def end_stagings(self, it, W, Lmax):
+        return half_draws(self._site(20, it), 2 * W, Lmax, self.D,
+                          self.dtype)
+
+    def cascade_ends(self, it, W, nlev):
+        return cascade_ends_draws(self._site(20, it), W, nlev, self.D,
+                                  self.dtype)
+
+    def cascade_interior(self, it, W, K, nlev, n_shift):
+        return cascade_interior_draws(fold_in(self._site(23, it), 1), W, K,
+                                      nlev, n_shift, self.D, self.dtype)
 
     def staging_half(self, tag, it, W, n_opts, L):
         return staging_half_draws(self._site(tag, it), W, n_opts, L, self.D,

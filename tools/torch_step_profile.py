@@ -1,14 +1,20 @@
-"""Where the torch port's flagship step spends its time, on one CUDA device.
+"""Where the torch port's step spends its time, on one CUDA device.
 
-    python3 tools/torch_step_profile.py [--walkers 1024] [--scan 256,1024,4096]
+    python3 tools/torch_step_profile.py [--walkers 1024]
+        [--scan 256,1024,4096] [--forms flagship,fused,cascade]
 
-Prints, for the flagship configuration in float32 after one warm-up step:
+--forms lists the steps: `flagship` (the unfused sweep), `fused`
+(fused_sweep=True) or `cascade` (fused_sweep=True, cascade=True).
+Prints, for the first of them in float32 after one warm-up step:
   1. host time per move function in one step, first without and then with a
      device sync after each call (the second shows what the device adds);
   2. one step under torch.profiler: the device's busy share of the step's
      wall time (kernel time only), the number of kernel launches and the
      kernels that take the most time;
-  3. ms/step and bead-updates/s at each W of --scan (2 steps after 1 warm-up).
+  3. ms/step and bead-updates/s at each W of --scan for each form of
+     --forms (2 steps after 1 warm-up); two or more forms are timed in the
+     order given and then in reverse, so that drift in the host's speed
+     shows.
 Every time is printed beside the card's name and power limit.
 """
 
@@ -34,7 +40,12 @@ PHASES = [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
           (SW.mv, "translate_half_chain"), (SW.mv, "move_head_half_chain"),
           (SW.mv, "move_tail_half_chain"), (SW.mv, "staging_half_chain"),
           (SW.wm, "swap_move"), (SW.wm, "obdm_terms"),
+          (SW.bis, "fused_end_bisections"), (SW.bis, "bisection_multi"),
+          (SW.mv, "fused_end_stagings"), (SW.cas, "fused_ends_cascade"),
+          (SW.cas, "interior_cascade"), (SW.cas, "rigid_cascade"),
           (SW.Sweeper, "_measure")]
+FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
+         "cascade": {"fused_sweep": True, "cascade": True}}
 
 
 def timed_step(sweeper, state):
@@ -103,7 +114,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--walkers", type=int, default=1024)
     ap.add_argument("--scan", default="256,1024,4096")
+    ap.add_argument("--forms", default="flagship",
+                    help=f"comma-separated forms of {sorted(FORMS)}; the "
+                         "first is profiled")
     args = ap.parse_args()
+    forms = args.forms.split(",")
+    for f in forms:
+        if f not in FORMS:
+            ap.error(f"unknown form {f!r}: one of {sorted(FORMS)}")
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
     card = subprocess.run(
@@ -111,15 +129,20 @@ def main():
         capture_output=True, text=True).stdout.strip()
     print(f"[device] {card} | torch {torch.__version__}")
 
-    system = make_system(flagship_cfg(args.walkers), "cuda")
+    print(f"[form] {forms[0]}: {FORMS[forms[0]]}")
+    system = make_system(flagship_cfg(args.walkers).replace(
+        **FORMS[forms[0]]), "cuda")
     sweeper = SW.Sweeper(system)
     state, _ = SW.run_block(sweeper, init_state(system), 1)
     for sync in (False, True):
         state = phase_times(sweeper, state, sync)
     device_profile(sweeper, state, card)
 
-    for W in map(int, filter(None, args.scan.split(","))):
-        cfg = flagship_cfg(W)
+    order = forms + forms[::-1] if len(forms) > 1 else forms
+    runs = [(W, f) for W in map(int, filter(None, args.scan.split(",")))
+            for f in order]
+    for W, form in runs:
+        cfg = flagship_cfg(W).replace(**FORMS[form])
         system = make_system(cfg, "cuda")
         sweeper = SW.Sweeper(system)
         state, _ = SW.run_block(sweeper, init_state(system), 1)
@@ -128,7 +151,7 @@ def main():
         state, _ = SW.run_block(sweeper, state, 2)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / 2
-        print(f"[scan] W={W}: {dt * 1e3:.1f} ms/step, "
+        print(f"[scan] {form} W={W}: {dt * 1e3:.1f} ms/step, "
               f"{W * SW.bead_updates_per_step(cfg) / dt:.4e} bead-updates/s "
               f"({card})")
 

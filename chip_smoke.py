@@ -14,20 +14,34 @@ run exits non-zero):
   4. cascade : kernel 5 against its plain form (cascade_ref) at the
                flagship's shapes, modes 'ends' (S=2) and 'interior' (S=3),
                float64 and float32, then both timed.
-  5. replay  : one step at W=16 in float64 on the card and on the CPU
-               (plain forms) from the same recorded draws, for the flagship
-               and for the fused sweep with cascade off and on: states,
-               counters and statistics must agree.
-  6. main    : three paths at W=1024 in float32, each with its launch
+  5. dense   : kernels 3 and 4 (the dense delta_action's UpdatePot and
+               UpdateWf) against their plain forms at the end gate's shape
+               [1024, 1, 64, 3] with ip scalar and at [1024, 16, 64, 3]
+               with ip [W] and [W, B], kernel 3 with and without force,
+               float64 and float32, then both timed at the gate's shape.
+  6. replay  : one step at W=16 in float64 on the card and on the CPU
+               (plain forms) from the same recorded draws, for the flagship,
+               the fused sweep with cascade off and on, the reference-order
+               step (per-level bisection, random end depth), the staging
+               sampler with regrow='scan' and the fused sweep in per-level
+               form: states, counters and statistics must agree.
+  7. main    : four paths at W=1024 in float32, each with its launch
                counts set to 0 just before it and read just after: the
-               flagship (unfused sweep), the fused sweep, and the fused
-               sweep with cascade=True.  Each: one warm-up step, three
-               timed steps with the kernels' launch counts, the acceptance
-               table, bead-updates/s, then one step under
+               flagship (unfused sweep), the fused sweep, the fused sweep
+               with cascade=True, and the reference-order step.  Each: one
+               warm-up step, timed steps with the kernels' launch counts
+               (exact where the move sites fix them; kernel A's from the
+               end moves' drawn depths), the acceptance table,
+               bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
-  7. imports : no JAX module was loaded (the port shares only the
-               reference's configuration module, which imports no JAX).
-The last two lines are the kernels JSON and the device JSON.
+  8. imports : no JAX module and no module of the reference package
+               (pathintegralgroundstate_tpu) was loaded.
+The last two lines are the kernels JSON and the device JSON.  Each kernel's
+bound_ms is the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its operations over 67 TFLOP/s (float32
+outside the tensor cores), the H100 SXM's published peaks, counted from
+the inputs of its timed case; library_ms is null, as no single PyTorch
+call computes these Aziz pair sums.
 """
 
 import json
@@ -64,6 +78,29 @@ def _events_ms(fn, reps=20):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+# Operations per pair and Metropolis side, counted from csrc/pigs_pair.cuh
+# (an FMA counts two; exp, sqrt, rsqrt and a division one each): the
+# minimum image and r^2 12, V and dV/dr 45 (V alone 25), the force sum 7,
+# u 8, one per masked accumulate.
+_OPS = {"rows": 12 + 2 + 45 + 1 + 7 + 8 + 1,        # kernel A, f2 and u
+        "delta_force": 12 + 2 + 45 + 1 + 7,          # kernel 3
+        "delta_pot": 12 + 1 + 25 + 1,                # kernel 3, no force
+        "u": 12 + 1 + 8 + 1,                         # kernel 4
+        "pot_pair": 12 + 2 + 45 + 1 + 2 * 7}         # kernel B, per pair
+_PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12              # H100 SXM, float32
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    tb, to = nbytes / _PEAK_BYTES * 1e3, ops / _PEAK_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def _close(name, got, ref, rtol, atol, plain=None, near_cut=None):
@@ -270,8 +307,9 @@ def kernel_parity(cfg, card):
     print(f"[kernels] {ncase} parity cases pass against the plain form in "
           f"float64 on the same inputs: float64 max abs err pair_rows "
           f"{errs['pair_rows']:.3e}, pair_pot {errs['pair_pot']:.3e} (rtol "
-          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond tolerance, each at a "
-          f"partner within 1e-5 of rcut^2: pair_rows {excused['pair_rows']},"
+          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond tolerance, "
+          f"each at a partner within 1e-5 of rcut^2: pair_rows "
+          f"{excused['pair_rows']},"
           f" pair_pot {excused['pair_pot']}")
 
     # timing at the main path's shapes, float32, kernel vs plain form
@@ -291,6 +329,10 @@ def kernel_parity(cfg, card):
         return k, p
 
     shapes["pair_rows B=16 end move"] = rows_case(16, 5, True)
+    R16 = paths[:, :16]
+    bounds = {"pair_rows": _bound(
+        _nbytes(R16) + 2 * W * 16 * D * 4 + 3 * W * 16 * 4,
+        2 * W * 16 * N * _OPS["rows"])}
     shapes["pair_rows B=15 interior bisection"] = rows_case(15, 5, False)
     shapes["pair_rows B=65 CM move"] = rows_case(65, 5, True)
     shapes["pair_rows B=32 worm half, ip[W], reversed"] = rows_case(
@@ -300,10 +342,17 @@ def kernel_parity(cfg, card):
         shapes[f"pair_pot [1024,32,64,3] force={wf}"] = (
             _events_ms(lambda: K.pair_pot(system, R, wf)),
             _events_ms(lambda: K.pair_pot_ref(system, R, wf)))
+    R = paths[:, 1::2][:, :cfg.Nb]
+    bounds["pair_pot"] = _bound(_nbytes(R) + 2 * W * cfg.Nb * 4,
+                                W * cfg.Nb * N * (N - 1) // 2
+                                * _OPS["pot_pair"])
     for name, (k, p) in shapes.items():
         print(f"[time] {name}: kernel {k:.4f} ms, plain {p:.4f} ms "
               f"({card})")
-    return errs, shapes
+    for name, (b, by) in bounds.items():
+        print(f"[bound] {name} at its timed case: {b:.5f} ms ({by}; "
+              f"{card})")
+    return errs, shapes, bounds
 
 
 def _cascade_inputs(cfg, W, dtype, mode, seed):
@@ -407,11 +456,125 @@ def cascade_parity(cfg, card):
         p = _events_ms(lambda: cascade_ref(system, mode, paths, slots, rg,
                                            ru, act, cfg.Nlev,
                                            K.pair_rows_ref))
-        times[mode] = (k, p)
+        # the bound counts what these inputs need: every displaced row of
+        # an accepted slot, the first row pass of a rejected one (it may
+        # have read more before its first failed gate: a lower bound)
+        acc = K.cascade(system, mode, paths.clone(), slots, rg, ru, act,
+                        cfg.Nlev)
+        L, N, D = 2 ** cfg.Nlev, cfg.Np, cfg.dim
+        n_acc = int(acc.sum())
+        nrows = (n_acc * (L if mode == "ends" else L - 1)
+                 + int((act & ~acc).sum()))
+        es = paths.element_size()
+        times[mode] = (k, p, _bound(
+            nrows * N * D * es + _nbytes(rg, ru, act)
+            + W * len(slots) * (L + 1) * D * es + n_acc * L * D * es,
+            2 * nrows * N * _OPS["delta_force"]))
         print(f"[time] cascade {mode} S={len(slots)} [1024, {len(slots)}, "
-              f"{2 ** cfg.Nlev + 1}, {cfg.Np}, 3] float32: kernel {k:.4f} ms,"
-              f" plain {p:.4f} ms ({card})")
+              f"{L + 1}, {N}, 3] float32: kernel {k:.4f} ms, plain "
+              f"{p:.4f} ms, bound {times[mode][2][0]:.5f} ms "
+              f"({times[mode][2][1]}; {card})")
     return err64, times
+
+
+def dense_parity(cfg, card):
+    """Kernels 3 and 4 against pair_delta_ref / pair_u_ref on the same
+    inputs: the end gate's row view [1024, 1, 64, 3] (bead 0 and bead M-1)
+    with ip scalar, and a strided window [1024, 16, 64, 3] with ip [W] and
+    [W, B]; kernel 3 with and without force.  float64 within rtol 1e-11,
+    float32 within tests/test_pallas_kernel.py's tolerances plus twice the
+    plain float32 form's own 99.99th-percentile error (see _close).  The
+    partners keep a minimum distance: the dense forms have no r^2 > 0
+    guard.  Then both kernels timed at the gate's shape, float32."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    W, N, D, M = 1024, cfg.Np, cfg.dim, cfg.M
+    sys64 = make_system(cfg, dev, torch.float64)
+    errs = {"pair_delta": 0.0, "pair_u": 0.0}     # float64: kernel vs plain
+    excused, ncase = 0, 0
+    n0 = K.pair_delta.launches, K.pair_u.launches
+    for dtype in (torch.float64, torch.float32):
+        system = make_system(cfg, dev, dtype)
+        paths = _flagship_paths(cfg, W, dtype, dev, seed=21)
+        g = torch.Generator(device=dev).manual_seed(22)
+        f32 = dtype == torch.float32
+        lo = (M - 16) // 2
+        Rw = paths[:, lo:lo + 16]
+        cases = [(paths[:, :1], 5, "gate bead 0"),
+                 (paths[:, M - 1:], 5, "gate bead M-1"),
+                 (Rw, torch.randint(0, N, (W,), generator=g, device=dev),
+                  "B=16 ip[W]"),
+                 (Rw, torch.randint(0, N, (W, 16), generator=g, device=dev),
+                  "B=16 ip[W, B]")]
+        for R, ip, label in cases:
+            B = R.shape[1]
+            if isinstance(ip, int):
+                xold = R[:, :, ip]
+            else:
+                ipb = ip[:, None].expand(W, B) if ip.dim() == 1 else ip
+                xold = R.gather(2, ipb[:, :, None, None].expand(
+                    W, B, 1, D))[:, :, 0]
+            xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
+                                             device=dev, dtype=dtype)
+            near = _near_cut_rows(system, R, xnew, xold, ip, False) \
+                if f32 else None
+            args64 = (R.double(), xnew.double(), xold.double(), ip)
+            for wf in (True, False):
+                got = K.pair_delta(system, R, xnew, xold, ip, wf)
+                ref = K.pair_delta_ref(sys64, *args64, wf)
+                plain = (K.pair_delta_ref(system, R, xnew, xold, ip, wf)
+                         if f32 else (None, None))
+                for i, name in enumerate(("dpot", "df2")):
+                    e, n = _close(f"pair_delta {dtype} {label} force={wf} "
+                                  f"{name}", got[i], ref[i],
+                                  *_tol(dtype, name), plain[i], near)
+                    excused += n
+                    if not f32:
+                        errs["pair_delta"] = max(errs["pair_delta"], e)
+                ncase += 1
+            got = K.pair_u(system, R, xnew, xold, ip)
+            ref = K.pair_u_ref(sys64, *args64)
+            plain = K.pair_u_ref(system, R, xnew, xold, ip) if f32 else None
+            e, n = _close(f"pair_u {dtype} {label} du", got, ref,
+                          *_tol(dtype, "du"), plain, near)
+            excused += n
+            if not f32:
+                errs["pair_u"] = max(errs["pair_u"], e)
+            ncase += 1
+    torch.cuda.synchronize()
+    if (K.pair_delta.launches - n0[0], K.pair_u.launches - n0[1]) != (16, 8):
+        raise AssertionError("pair_delta / pair_u did not count their "
+                             "launches")
+    print(f"[dense] {ncase} parity cases of kernels 3 and 4 pass against the "
+          f"plain forms: float64 max abs err pair_delta "
+          f"{errs['pair_delta']:.3e}, pair_u {errs['pair_u']:.3e} (rtol "
+          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond "
+          f"tolerance, each at a partner within 1e-5 of rcut^2: {excused}")
+
+    # timing at the end gate's shape, float32: the row view of bead 0
+    system = make_system(cfg, dev, torch.float32)
+    paths = _flagship_paths(cfg, W, torch.float32, dev, seed=23)
+    R = paths[:, :1]
+    xold = R[:, :, 5]
+    xnew = (xold + 0.05).contiguous()
+    xb = 2 * W * D * 4
+    times = {
+        "pair_delta": (
+            _events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5)),
+            _events_ms(lambda: K.pair_delta_ref(system, R, xnew, xold, 5)),
+            _bound(_nbytes(R) + xb + 2 * W * 4,
+                   2 * W * (N - 1) * _OPS["delta_force"])),
+        "pair_u": (
+            _events_ms(lambda: K.pair_u(system, R, xnew, xold, 5)),
+            _events_ms(lambda: K.pair_u_ref(system, R, xnew, xold, 5)),
+            _bound(_nbytes(R) + xb + W * 4, 2 * W * (N - 1) * _OPS["u"]))}
+    for name, (k, p, (b, by)) in times.items():
+        print(f"[time] {name} [1024,1,64,3] ip scalar float32: kernel "
+              f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.5f} ms ({by}; "
+              f"{card})")
+    return errs, times
 
 
 class _Recorder:
@@ -495,15 +658,36 @@ def replay_check(cfg, label="flagship"):
           f"sumE {t_gpu['sumE']:.10g}")
 
 
-def expected_launches(cfg, sweeper):
-    """Per step: (pair_rows at least, pair_pot, cascade exactly), from the
-    move sites the step visits."""
+class _Depths:
+    """A draw source that passes another one through and keeps the depths
+    that its end moves drew."""
+
+    def __init__(self, src):
+        self.src, self.depths = src, []
+
+    def __getattr__(self, name):
+        return getattr(self.src, name)
+
+    def end_bisect(self, *a, **k):
+        out = self.src.end_bisect(*a, **k)
+        self.depths.append(out[0])
+        return out
+
+
+def expected_launches(cfg, sweeper, nstep, use_rand, depths):
+    """Launches over nstep steps, from the move sites the steps visit:
+    {kernel: (count, exact)}.  Kernel A's count is a lower bound (CM and
+    worm sites at one pass each); its diagonal sweep part is exact, in the
+    per-level form from the end moves' drawn depths: one pass per level,
+    plus the gate's own pass with batched randoms (without them the gate
+    is the dense delta_action, one launch each of kernels 3 and 4)."""
     Np, Ns = cfg.Np, cfg.Nstag
     rows = (Np * (cfg.CMFreq > 0)
             + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
-    casc = 0
+    rows, casc, dense = nstep * rows, 0, 0
+    visits = nstep * Ns * Np
     if sweeper.fused_diag:
-        ends, ints = Ns * Np, Ns * -(-Np // sweeper.K_int)
+        ends, ints = visits, nstep * Ns * -(-Np // sweeper.K_int)
         if cfg.cascade and cfg.end_regrow != "sta":
             casc += ends
         else:
@@ -512,15 +696,29 @@ def expected_launches(cfg, sweeper):
             casc += ints
         else:
             rows += ints
+    elif cfg.sampling != "bis" or cfg.bis_monoshot:
+        rows += 3 * visits
     else:
-        rows += 3 * Ns * Np
-    return rows, 2, casc
+        nlev = cfg.Nlev
+        rows += visits * nlev
+        if use_rand:
+            rows += 2 * visits * (max(nlev, 2) + 1)
+        else:
+            if len(depths) != 2 * visits:
+                raise AssertionError(f"{len(depths)} end-move depths drawn, "
+                                     f"expected {2 * visits}")
+            rows += sum(depths)
+            dense = 2 * visits
+    return {"pair_rows": (rows, False), "pair_pot": (2 * nstep, True),
+            "cascade": (casc, True), "pair_delta": (dense, True),
+            "pair_u": (dense, True)}
 
 
 def main_path(cfg, card, label="main"):
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.state import init_state
-    from pathintegralgroundstate_torch.sweep import (COUNTER_NAMES, Sweeper,
+    from pathintegralgroundstate_torch.sweep import (BATCH_RAND_MAX_W,
+                                                     COUNTER_NAMES, Sweeper,
                                                      bead_updates_per_step,
                                                      run_block)
     from pathintegralgroundstate_torch.system import make_system
@@ -535,25 +733,24 @@ def main_path(cfg, card, label="main"):
 
     nstep = 3
     kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
-            "cascade": K.cascade}
+            "cascade": K.cascade, "pair_delta": K.pair_delta,
+            "pair_u": K.pair_u}
+    src = _Depths(sweeper.draws(state))
     for fn in kern.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    state, stats = run_block(sweeper, state, nstep)
+    state, stats = run_block(sweeper, state, nstep, src)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / nstep
     launches = {k: fn.launches for k, fn in kern.items()}
 
-    rows, pots, casc = expected_launches(cfg, sweeper)
-    if launches["pair_rows"] < nstep * rows:
-        raise AssertionError(f"pair_rows launched {launches['pair_rows']} "
-                             f"times, < {nstep} steps x {rows} move sites")
-    if launches["pair_pot"] != nstep * pots:
-        raise AssertionError(f"pair_pot launched {launches['pair_pot']} "
-                             f"times, expected {nstep * pots}")
-    if launches["cascade"] != nstep * casc:
-        raise AssertionError(f"cascade launched {launches['cascade']} "
-                             f"times, expected {nstep} x {casc}")
+    use_rand = sweeper.batch_rand and cfg.n_walkers <= BATCH_RAND_MAX_W
+    want = expected_launches(cfg, sweeper, nstep, use_rand, src.depths)
+    for k, (n, exact) in want.items():
+        if (launches[k] != n) if exact else (launches[k] < n):
+            raise AssertionError(f"{k} launched {launches[k]} times over "
+                                 f"{nstep} steps, expected "
+                                 f"{'' if exact else 'at least '}{n}")
 
     c = dict(zip(COUNTER_NAMES, (stats.counters + warm.counters).tolist()))
     tries = ("try_cm", "try_stag", "try_open") + (
@@ -570,7 +767,8 @@ def main_path(cfg, card, label="main"):
              ("acc_tail", "try_stag"),
              ("acc_bd", "try_int" if sweeper.fused_diag else "try_stag"),
              ("acc_open", "try_open"), ("acc_close", "try_close"),
-             ("acc_cm_half", "try_cm_half"), ("acc_head_half", "try_stag_half"),
+             ("acc_cm_half", "try_cm_half"),
+             ("acc_head_half", "try_stag_half"),
              ("acc_tail_half", "try_stag_half"),
              ("acc_bd_half", "try_stag_half"), ("acc_swap", "try_swap")]
     for a, t in pairs:
@@ -588,10 +786,14 @@ def main_path(cfg, card, label="main"):
     nd = float(stats.n_diag)
     bups = cfg.n_walkers * bead_updates_per_step(cfg) / dt
     what = ("fused sweep" + (" + cascade" if cfg.cascade else "")
-            if sweeper.fused_diag else "flagship")
+            if sweeper.fused_diag else "flagship" if cfg.bis_monoshot
+            else "reference order")
     print(f"[{label}] {what} W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} "
           f"float32: {dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s "
           f"({card})")
+    if src.depths:
+        hist = {d: src.depths.count(d) for d in sorted(set(src.depths))}
+        print(f"[{label}] end-move depths drawn over {nstep} steps: {hist}")
     print(f"[{label}] launches over {nstep} steps: {launches}; "
           f"<E>/N={float(stats.sumE) / nd / cfg.Np:.4f} "
           f"<Et>/N={float(stats.sumEt) / nd / cfg.Np:.4f} (n_diag {nd:.0f})")
@@ -602,7 +804,7 @@ def main_path(cfg, card, label="main"):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            state, _ = run_block(sweeper, state, 1)
+            state, _ = run_block(sweeper, state, 1, src)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -636,47 +838,59 @@ def main():
             print(f"[build]   {line.strip()}")
 
     cfg = flagship_cfg(1024)
-    errs, shapes = kernel_parity(cfg, card)
+    errs, shapes, bounds = kernel_parity(cfg, card)
     cas_err, cas_times = cascade_parity(cfg, card)
-    replay_check(cfg)
+    dense_err, dense_times = dense_parity(cfg, card)
     fused = cfg.replace(fused_sweep=True)
+    ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
+    replay_check(cfg)
     replay_check(fused, "fused")
     replay_check(fused.replace(cascade=True), "fused+cascade")
+    replay_check(ref_order, "reference order")
+    replay_check(cfg.replace(sampling="sta", regrow="scan"),
+                 "staging + scan")
+    replay_check(fused.replace(bis_monoshot=False), "fused per level")
     launches, _, _ = main_path(cfg, card)
     main_path(fused, card, "fused")
     cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
                                    "fused+cascade")
+    ref_launches, _, _ = main_path(ref_order, card, "reference order")
 
-    jax_mods = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib"))
-    if jax_mods:
-        raise AssertionError(f"JAX modules were loaded: {jax_mods[:5]}")
-    shared = sorted(m for m in sys.modules
-                    if m.startswith("pathintegralgroundstate_tpu"))
-    print(f"[imports] no JAX module loaded; of the reference package only "
-          f"the shared, JAX-free config: {shared}")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "pathintegralgroundstate_tpu"))
+    if loaded:
+        raise AssertionError(f"JAX or reference modules were loaded: "
+                             f"{loaded[:5]}")
+    print("[imports] no module of jax, jaxlib or pathintegralgroundstate_tpu "
+          "was loaded")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"pathintegralgroundstate_torch/csrc/{source}",
+                "replaces": f"pathintegralgroundstate_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
+    ends = cas_times["ends"]
     print(card)
     print(json.dumps({"kernels": [
-        {"name": "pair_rows", "route": "cuda",
-         "source": "pathintegralgroundstate_torch/csrc/pair_rows.cu",
-         "replaces": "pathintegralgroundstate_tpu/ops/pallas_kernels.py:300",
-         "launches": launches["pair_rows"],
-         "max_abs_err": errs["pair_rows"], "ms": rows_ms,
-         "plain_ms": rows_plain},
-        {"name": "pair_pot", "route": "cuda",
-         "source": "pathintegralgroundstate_torch/csrc/pair_pot.cu",
-         "replaces": "pathintegralgroundstate_tpu/ops/pallas_kernels.py:437",
-         "launches": launches["pair_pot"],
-         "max_abs_err": errs["pair_pot"], "ms": pot_ms,
-         "plain_ms": pot_plain},
-        {"name": "cascade", "route": "cuda",
-         "source": "pathintegralgroundstate_torch/csrc/cascade.cu",
-         "replaces": "pathintegralgroundstate_tpu/ops/cascade_kernels.py:322",
-         "launches": cas_launches["cascade"], "max_abs_err": cas_err,
-         "ms": cas_times["ends"][0], "plain_ms": cas_times["ends"][1]}]}))
+        entry("pair_rows", "pair_rows.cu", "pallas_kernels.py:300",
+              launches["pair_rows"], errs["pair_rows"], rows_ms, rows_plain,
+              bounds["pair_rows"]),
+        entry("pair_pot", "pair_pot.cu", "pallas_kernels.py:437",
+              launches["pair_pot"], errs["pair_pot"], pot_ms, pot_plain,
+              bounds["pair_pot"]),
+        entry("pair_delta", "pair_delta.cu", "pallas_kernels.py:392",
+              ref_launches["pair_delta"], dense_err["pair_delta"],
+              *dense_times["pair_delta"]),
+        entry("pair_u", "pair_delta.cu", "pallas_kernels.py:413",
+              ref_launches["pair_u"], dense_err["pair_u"],
+              *dense_times["pair_u"]),
+        entry("cascade", "cascade.cu", "cascade_kernels.py:322",
+              cas_launches["cascade"], cas_err, *ends)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

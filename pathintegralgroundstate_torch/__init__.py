@@ -1,19 +1,18 @@
 """PyTorch / CUDA port of the PIGS engine, beside the JAX reference.
 
 `pathintegralgroundstate_tpu` is the reference; this package runs the same
-Monte Carlo step (`sweep.Sweeper.step`: the flagship's unfused sweep and the
-fused composite sweep) in PyTorch, with its kernels written by hand for
-Hopper (`csrc/`, bound in `ops/kernels.py`).  The configuration is shared
-with the reference: its `config` module imports no JAX.
+Monte Carlo step (`sweep.Sweeper.step`: the unfused sweep in monoshot and
+per-level bisection or staging form, and the fused composite sweep) in
+PyTorch, with its kernels written by hand for Hopper (`csrc/`, bound in
+`ops/kernels.py`).  `config` is the port's own copy of the reference's
+configuration module.
 
-The package imports `torch` and never `jax`.
+The package imports `torch` and never `jax` or the reference package.
 """
 
 import torch
 
-from pathintegralgroundstate_tpu.config import (Geometry, SimConfig,
-                                                geometry,
-                                                load_namelist_config)
+from .config import Geometry, SimConfig, geometry, load_namelist_config
 
 # The float32 bridge and dyadic matmuls (ops/moves.segment_regrow,
 # ops/bisection._construct_levels) must not drop to TF32 on the card.

@@ -1,6 +1,6 @@
 """The flagship workload: He-4, N=64, Chin action (the reference's vpi.in)."""
 
-from pathintegralgroundstate_tpu.config import SimConfig
+from .config import SimConfig
 
 
 def flagship_cfg(n_walkers: int = 64) -> SimConfig:

@@ -1,17 +1,28 @@
-"""Multilevel bisection moves in monoshot form (Bisection /
-MoveHeadBisection / MoveTailBisection, vpi_mod.f90:864-1372).
+"""Multilevel bisection moves (Bisection / MoveHeadBisection /
+MoveTailBisection, vpi_mod.f90:864-1372) and their fused composites.
 
-The torch counterpart of the monoshot path of
-pathintegralgroundstate_tpu/ops/bisection.py: the construction of all
-levels is a deterministic function of (window, gaussians), so ONE pair pass
-evaluates every displaced row and the per-level accepts factorize:
+The torch counterpart of pathintegralgroundstate_tpu/ops/bisection.py, in
+its two forms (cfg.bis_monoshot):
 
-    alive = active AND_k [ u_k < exp(-sum_{rows of level k} dS) ].
+  monoshot (the default): the construction of all levels is a deterministic
+      function of (window, gaussians), so ONE pair pass evaluates every
+      displaced row and the per-level accepts factorize,
+          alive = active AND_k [ u_k < exp(-sum_{rows of level k} dS) ];
+  per level (bis_monoshot=False, the Fortran's own order): one pair pass
+      per level on the level's midpoints, each built on the previous
+      levels' beads, the accept chain cut short by the first rejection.
 
-Every move takes `rand = (u_start, g_rows [W, L, D], u_acc [W, ngroups])`,
-the blocks the reference's batched-randoms path draws (sweep.py:428-447);
-u_start is a host float (shared window start), None for the end moves.
-`paths` is updated in place.
+Every move takes `rand = (start, g_rows [W, L, D], u_acc [W, ngroups])`:
+start is the window's even first bead (a host int, shared by every walker;
+None for the end moves), g_rows the gaussians by window position (the end
+gate takes row 0, level ilev rows d2::delta), u_acc the accept uniforms
+(column 0 the end gate, column ilev level ilev).  The reference's batched
+randoms come in this layout; its per-level key draws are laid out so by
+the draw source (utils/draws.py).  `paths` is updated in place.
+
+The end moves' depth is the caller's: the reference's random depth Nlev ~
+U{2..level} (vpi_mod.f90:1023; bisection.py:628-653) is a host int drawn
+with the move's randoms, so each depth runs its own static body.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import numpy as np
 import torch
 
 from .moves import _mi, _where, _wrap_pos, metropolis_u
-from .pairwise import delta_action_rows
+from .pairwise import delta_action, delta_action_rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +101,39 @@ def _construct_levels(system, seg, level: int, L: int, g_rows):
     return torch.cat([seg[..., :1, :], x, seg[..., L:, :]], -2)
 
 
+def _level_geometry(ilev: int, nlev: int):
+    """(delta, m, d2) of bisection level ilev of nlev: its m midpoints sit
+    at window positions d2, d2 + delta, ..."""
+    delta = 2 ** (nlev - ilev + 1)
+    return delta, 2 ** (ilev - 1), delta // 2
+
+
+def _level_proposal(system, seg, ilev: int, nlev: int, g_rows):
+    """Midpoint proposal of one level (bisection.py:78-106): (d2, delta,
+    xold, xnew), xold/xnew [..., m, D].  seg [..., 2**nlev+1, D]; g_rows
+    [..., L, D] by window position, level ilev taking rows d2::delta;
+    sigma = sqrt(delta dt / 4) (vpi_mod.f90:905-907)."""
+    L = seg.shape[-2] - 1
+    delta, _, d2 = _level_geometry(ilev, nlev)
+    xold = seg[..., d2::delta, :]
+    xprev = xold + _mi(system, seg[..., 0:L:delta, :] - xold)
+    xnext = xold - _mi(system, xold - seg[..., delta::delta, :])
+    sigma = math.sqrt(0.25 * delta * system.cfg.dt)
+    xnew = _wrap_pos(system, 0.5 * (xprev + xnext)
+                     + sigma * g_rows[..., d2::delta, :])
+    return d2, delta, xold, xnew
+
+
+def _construct_levels_loop(system, seg, level: int, g_rows):
+    """The literal level-by-level construction (bisection.py:185-193), the
+    anchor of _construct_levels' matmul form.  Returns a new segment."""
+    seg = seg.clone()
+    for ilev in range(1, level + 1):
+        d2, delta, _, xnew = _level_proposal(system, seg, ilev, level, g_rows)
+        seg[..., d2::delta, :] = xnew
+    return seg
+
+
 def _monoshot_accept(system, active, rows, u_acc, level: int, gate: bool,
                      flip: bool = False):
     """Per-level accept chain from the one-pass row dS values; flip maps
@@ -104,10 +148,8 @@ def _monoshot_accept(system, active, rows, u_acc, level: int, gate: bool,
 def _bisection_monoshot(system, paths, ip: int, active, level: int, rand):
     """Interior bisection over an even-aligned window of 2**level links,
     one pair pass for all levels.  Returns (paths, alive)."""
-    M = system.M
     L = 2 ** level
-    u_start, g_rows, u_acc = rand
-    ii = 2 * math.floor(u_start * ((M - 1 - L) // 2 + 1))
+    ii, g_rows, u_acc = rand
     R_seg = paths[:, ii:ii + L + 1]
     seg0 = R_seg[:, :, ip]
     seg = _construct_levels(system, seg0, level, L, g_rows)
@@ -119,57 +161,179 @@ def _bisection_monoshot(system, paths, ip: int, active, level: int, rand):
     return paths, alive
 
 
+def _bisection_per_level(system, paths, ip: int, active, level: int, rand):
+    """Interior bisection level by level (bisection.py:442-510): one pair
+    pass per level on its midpoints, need_f2 only on the last (the only
+    level on odd beads).  Returns (paths, alive)."""
+    L = 2 ** level
+    ii, g_rows, u_acc = rand
+    R_seg = paths[:, ii:ii + L + 1]
+    seg0 = R_seg[:, :, ip]
+    seg, alive = seg0.clone(), active
+    for ilev in range(1, level + 1):
+        d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level,
+                                                g_rows)
+        dS = delta_action_rows(system, R_seg[:, d2::delta], xnew, xold, ip,
+                               system.arange(ii + d2, ii + L, delta),
+                               need_wf=False, need_f2=ilev == level).sum(-1)
+        seg[:, d2::delta] = xnew
+        alive = alive & metropolis_u(u_acc[:, ilev], dS)
+    R_seg[:, :, ip] = _where(alive, seg, seg0)
+    return paths, alive
+
+
+def _end_window(system, paths, ip: int, nlev: int, tail: bool):
+    """(seg0 [W, L+1, D] in head orientation, the terminal guess's partners
+    [W, 1, N, D] and bead) of an end window of 2**nlev links."""
+    M, L = system.M, 2 ** nlev
+    if tail:
+        return paths[:, M - 1 - L:, ip].flip(1), paths[:, M - 1:], M - 1
+    return paths[:, :L + 1, ip], paths[:, :1], 0
+
+
+def _end_level_rows(system, paths, nlev: int, ilev: int, tail: bool):
+    """(partners, bead indices, rev) of level ilev's midpoints in an end
+    window, rows in head orientation.  The tail's midpoints d2 + j delta sit
+    at beads M-1-d2-j delta: a forward strided view read backwards."""
+    M, L = system.M, 2 ** nlev
+    delta, _, d2 = _level_geometry(ilev, nlev)
+    if tail:
+        return (paths[:, M - 1 - L + d2:M - d2:delta],
+                system.arange(M - 1 - d2, M - 1 - L, -delta), True)
+    return paths[:, d2:L:delta], system.arange(d2, L, delta), False
+
+
+def _end_guess(system, seg0, nlev: int, g0):
+    """Free-gaussian guess of the terminal bead of seg0 [..., L+1, D],
+    sigma sqrt(2**nlev dt) (vpi_mod.f90:1039-1076)."""
+    xold0 = seg0[..., 0, :]
+    xmid = xold0 - _mi(system, xold0 - seg0[..., 2 ** nlev, :])
+    return _wrap_pos(system, xmid + math.sqrt(2 ** nlev * system.cfg.dt) * g0)
+
+
+def _end_write(system, paths, ip: int, nlev: int, tail: bool, seg_fin):
+    """Write an end window (head orientation) back into paths."""
+    if tail:
+        paths[:, system.M - 1 - 2 ** nlev:, ip] = seg_fin.flip(1)
+    else:
+        paths[:, :2 ** nlev + 1, ip] = seg_fin
+
+
 def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
-                            tail: bool, rand):
+                            tail: bool, rand, defer_write: bool = False):
     """End-segment bisection: the free-gaussian terminal guess (g row 0,
     accept group 0) and all levels in one pair pass.  The tail's partner
     block is read in FORWARD bead order; only the moved particle's small
-    segment is reversed.  Returns (paths, alive)."""
+    segment is reversed.  Returns (paths, alive), or (the window as it
+    would be written, alive) with defer_write."""
     M = system.M
-    dt = system.cfg.dt
     L = 2 ** nlev
     _, g_rows, u_acc = rand
-    if tail:
-        R_fwd = paths[:, M - 1 - L:]
-        seg0 = R_fwd[:, :, ip].flip(1)
-    else:
-        R_fwd = paths[:, :L + 1]
-        seg0 = R_fwd[:, :, ip]
-    xold0 = seg0[:, 0]
-    xmid = xold0 - _mi(system, xold0 - seg0[:, L])
-    xnew0 = _wrap_pos(system, xmid + math.sqrt(L * dt) * g_rows[:, 0])
+    seg0, _, _ = _end_window(system, paths, ip, nlev, tail)
+    xnew0 = _end_guess(system, seg0, nlev, g_rows[:, 0])
     seg = _construct_levels(system, torch.cat([xnew0[:, None], seg0[:, 1:]],
                                               1), nlev, L, g_rows)
     if tail:
         # forward row r (beads M-L..M-1) <-> reversed-segment row L-r
-        rows = delta_action_rows(system, R_fwd[:, 1:], seg[:, :L].flip(1),
+        rows = delta_action_rows(system, paths[:, M - L:], seg[:, :L].flip(1),
                                  seg0[:, :L].flip(1), ip,
                                  system.arange(M - L, M))
     else:
-        rows = delta_action_rows(system, R_fwd[:, :L], seg[:, :L],
+        rows = delta_action_rows(system, paths[:, :L], seg[:, :L],
                                  seg0[:, :L], ip, system.arange(L))
     alive = _monoshot_accept(system, active, rows, u_acc, nlev, True,
                              flip=tail)
     seg_fin = _where(alive, seg, seg0)
-    R_fwd[:, :, ip] = seg_fin.flip(1) if tail else seg_fin
+    if defer_write:
+        return seg_fin, alive
+    _end_write(system, paths, ip, nlev, tail, seg_fin)
+    return paths, alive
+
+
+def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
+                             tail: bool, rand, dense_gate: bool):
+    """MoveHead/TailBisection level by level (bisection.py:529-625).
+
+    The terminal guess has its own gate: through the dense delta_action
+    (kernels 3 and 4) with dense_gate, the reference's form without batched
+    randoms, else through delta_action_rows without forces (kernel A).
+    Then one pass per level, need_f2 only on the last.  Returns (paths,
+    alive)."""
+    _, g_rows, u_acc = rand
+    seg0, R0, b0 = _end_window(system, paths, ip, nlev, tail)
+    xold0 = seg0[:, 0]
+    xnew0 = _end_guess(system, seg0, nlev, g_rows[:, 0])
+    ib0 = system.arange(b0, b0 + 1)
+    if dense_gate:
+        dS0 = delta_action(system, R0, xnew0[:, None], xold0[:, None], ip,
+                           ib0)
+    else:
+        dS0 = delta_action_rows(system, R0, xnew0[:, None], xold0[:, None],
+                                ip, ib0, need_f2=False)
+    alive = active & metropolis_u(u_acc[:, 0], dS0.sum(-1))
+    seg = seg0.clone()
+    seg[:, 0] = xnew0
+    for ilev in range(1, nlev + 1):
+        d2, delta, xold, xnew = _level_proposal(system, seg, ilev, nlev,
+                                                g_rows)
+        R, ib, rev = _end_level_rows(system, paths, nlev, ilev, tail)
+        dS = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=False,
+                               need_f2=ilev == nlev, rev=rev).sum(-1)
+        seg[:, d2::delta] = xnew
+        alive = alive & metropolis_u(u_acc[:, ilev], dS)
+    _end_write(system, paths, ip, nlev, tail, _where(alive, seg, seg0))
     return paths, alive
 
 
 def bisection(system, paths, ip: int, active, level: int, rand):
-    """Interior multilevel bisection (monoshot)."""
-    return _bisection_monoshot(system, paths, ip, active, level, rand)
+    """Interior multilevel bisection, in the form cfg.bis_monoshot names."""
+    fn = (_bisection_monoshot if system.cfg.bis_monoshot
+          else _bisection_per_level)
+    return fn(system, paths, ip, active, level, rand)
 
 
-def move_head_bisection(system, paths, ip: int, active, level: int, rand):
-    """Head-end bisection at the clamped depth max(level, 2)."""
-    return _end_bisection_monoshot(system, paths, ip, active, max(level, 2),
-                                   False, rand)
+def _end_bisection(system, paths, ip: int, active, level: int, tail: bool,
+                   rand, dense_gate: bool):
+    nlev = max(level, 2)
+    if system.cfg.bis_monoshot:
+        return _end_bisection_monoshot(system, paths, ip, active, nlev, tail,
+                                       rand)
+    return _end_bisection_per_level(system, paths, ip, active, nlev, tail,
+                                    rand, dense_gate)
 
 
-def move_tail_bisection(system, paths, ip: int, active, level: int, rand):
-    """Tail-end bisection at the clamped depth max(level, 2)."""
-    return _end_bisection_monoshot(system, paths, ip, active, max(level, 2),
-                                   True, rand)
+def move_head_bisection(system, paths, ip: int, active, level: int, rand,
+                        dense_gate: bool = False):
+    """Head-end bisection at the depth max(level, 2); dense_gate: the
+    per-level form's gate through the dense delta_action (the reference's
+    form without batched randoms)."""
+    return _end_bisection(system, paths, ip, active, level, False, rand,
+                          dense_gate)
+
+
+def move_tail_bisection(system, paths, ip: int, active, level: int, rand,
+                        dense_gate: bool = False):
+    """Tail-end bisection at the depth max(level, 2) (see
+    move_head_bisection)."""
+    return _end_bisection(system, paths, ip, active, level, True, rand,
+                          dense_gate)
+
+
+def paired_end_bisections(system, paths, ip: int, active, level: int,
+                          rand_h, rand_t):
+    """Head + tail monoshot end bisections of one particle from the SAME
+    input paths, both written back afterwards (bisection.py:394-420): the
+    same outcome as the sequential order, as the windows are disjoint and
+    non-adjacent (the caller's 2**(level+1) < M-1).
+    Returns (paths, acc_h, acc_t)."""
+    nlev = max(level, 2)
+    fin_h, acc_h = _end_bisection_monoshot(system, paths, ip, active, nlev,
+                                           False, rand_h, defer_write=True)
+    fin_t, acc_t = _end_bisection_monoshot(system, paths, ip, active, nlev,
+                                           True, rand_t, defer_write=True)
+    _end_write(system, paths, ip, nlev, False, fin_h)
+    _end_write(system, paths, ip, nlev, True, fin_t)
+    return paths, acc_h, acc_t
 
 
 # ---------------------------------------------------------------------------
@@ -183,22 +347,17 @@ def move_tail_bisection(system, paths, ip: int, active, level: int, rand):
 # 2**level links within M - 1 links).
 # ---------------------------------------------------------------------------
 
-def fused_end_bisections(system, paths, ip: int, active, level: int, rand):
-    """MoveHeadBisection + MoveTailBisection of particle ip as one
-    composite (_fused_ends_monoshot, bisection.py:680-759): one batched
-    construction of both segments, one pair pass per window (the tail read
-    backwards in place), per-level accepts.  rand = (None, g2 [W, 2, L, D],
-    u2 [W, 2, level+1]).  Returns (paths, acc_head[W], acc_tail[W])."""
+def _fused_ends_monoshot(system, paths, ip: int, active, level: int, rand):
+    """The head+tail composite in monoshot form (bisection.py:680-759): one
+    batched construction of both segments, one pair pass per window (the
+    tail read backwards in place), per-level accepts."""
     M = system.M
     L = 2 ** level
     _, g2, u2 = rand
     R_head = paths[:, :L + 1]
     R_tail = paths[:, M - 1 - L:]                         # forward order
     seg0 = torch.stack([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 1)
-    xold0 = seg0[:, :, 0]
-    xmid = xold0 - _mi(system, xold0 - seg0[:, :, L])
-    xnew0 = _wrap_pos(system, xmid + math.sqrt(L * system.cfg.dt)
-                      * g2[:, :, 0])
+    xnew0 = _end_guess(system, seg0, level, g2[:, :, 0])
     seg = _construct_levels(system, torch.cat([xnew0[:, :, None],
                                                seg0[:, :, 1:]], 2),
                             level, L, g2)
@@ -217,28 +376,18 @@ def fused_end_bisections(system, paths, ip: int, active, level: int, rand):
     return paths, acc_h, acc_t
 
 
-def bisection_multi(system, paths, ips, active, level: int, rand):
-    """Interior bisections of the K distinct particles ips as one composite
-    (_bisection_multi_monoshot, bisection.py:891-960).  Slot k regrows the
-    window of L = 2**level links from bead s + k L, one even shift s for
-    every slot.  rand = (u_shift host float, gK [W, K, L, D], uK [W, K,
-    level+1]); active [W] or [W, K].
+def _bisection_multi_monoshot(system, paths, ips, active, level: int,
+                              rand):
+    """The K-slot interior composite in monoshot form (bisection.py:891-960).
 
     ONE pair pass covers every slot: kernel A reads the contiguous span
     beads s+1 .. s+KL-1 in place with a per-row particle index.  The K-1
     slot-boundary rows inside the span are not displaced (new == old, so
-    their dS is exactly 0) and are dropped before the accepts.
-    Returns (paths, acc[W, K])."""
-    M = system.M
+    their dS is exactly 0) and are dropped before the accepts."""
     W, D = paths.shape[0], system.cfg.dim
     L, K = 2 ** level, len(ips)
     span = K * L
-    if span > M - 1:
-        raise ValueError(f"K={K} slots of {L} links exceed {M - 1} links")
-    if active.dim() == 1:
-        active = active[:, None].expand(W, K)
-    u_shift, gK, uK = rand
-    s = 2 * math.floor(u_shift * ((M - 1 - span) // 2 + 1))
+    s, gK, uK = rand
     R_big = paths[:, s:s + span + 1]
     seg0 = torch.stack([R_big[:, k * L:(k + 1) * L + 1, p]
                         for k, p in enumerate(ips)], 1)   # [W, K, L+1, D]
@@ -246,14 +395,110 @@ def bisection_multi(system, paths, ips, active, level: int, rand):
     # span rows 1..KL-1; a slot's row 0 is its (unmoved) boundary bead
     xnew = seg[:, :, :L].reshape(W, span, D)[:, 1:]
     xold = seg0[:, :, :L].reshape(W, span, D)[:, 1:]
-    ip_rows = torch.cat([torch.full((L,), p, dtype=torch.long,
-                                    device=paths.device) for p in ips])
     rows = delta_action_rows(system, R_big[:, 1:span], xnew, xold,
-                             ip_rows[None, 1:], system.arange(s + 1, s + span),
-                             need_wf=False)
+                             _ip_rows(ips, L, paths.device)[:, 1:],
+                             system.arange(s + 1, s + span), need_wf=False)
     rows = torch.nn.functional.pad(rows, (1, 0)).view(W, K, L)[:, :, 1:]
     alive = _monoshot_accept(system, active, rows, uK[:, :, 1:], level, False)
     fin = torch.where(alive[:, :, None, None], seg, seg0)
     for k, p in enumerate(ips):
         R_big[:, k * L + 1:(k + 1) * L, p] = fin[:, k, 1:L]
     return paths, alive
+
+
+def _ip_rows(ips, m: int, device):
+    """[1, K m] long: particle ips[k] for rows k m .. (k+1) m - 1."""
+    return torch.cat([torch.full((m,), p, dtype=torch.long, device=device)
+                      for p in ips])[None]
+
+
+def _fused_ends_per_level(system, paths, ip: int, active, level: int, rand):
+    """The head+tail composite level by level (bisection.py:778-888): one
+    gate pass over beads 0 and M-1 together, then per level one pass per
+    window (the tail's forward strided midpoints read backwards), 1 + 2
+    level launches of kernel A."""
+    M = system.M
+    L = 2 ** level
+    _, g2, u2 = rand
+    seg0 = torch.stack([paths[:, :L + 1, ip],
+                        paths[:, M - 1 - L:, ip].flip(1)], 1)  # [W,2,L+1,D]
+    xold0 = seg0[:, :, 0]
+    xnew0 = _end_guess(system, seg0, level, g2[:, :, 0])
+    # beads 0 and M-1 as one strided view; even, so no force pass
+    dS0 = delta_action_rows(system, paths[:, ::M - 1], xnew0, xold0, ip,
+                            system.arange(0, M, M - 1), need_f2=False)
+    alive = active[:, None] & metropolis_u(u2[:, :, 0], dS0)
+    seg = seg0.clone()
+    seg[:, :, 0] = xnew0
+    for ilev in range(1, level + 1):
+        d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level, g2)
+        dS = []
+        for e, tail in enumerate((False, True)):
+            R, ib, rev = _end_level_rows(system, paths, level, ilev, tail)
+            dS.append(delta_action_rows(
+                system, R, xnew[:, e], xold[:, e], ip, ib, need_wf=False,
+                need_f2=ilev == level, rev=rev).sum(-1))
+        seg[:, :, d2::delta] = xnew
+        alive = alive & metropolis_u(u2[:, :, ilev], torch.stack(dS, 1))
+    fin = torch.where(alive[:, :, None, None], seg, seg0)
+    _end_write(system, paths, ip, level, False, fin[:, 0])
+    _end_write(system, paths, ip, level, True, fin[:, 1])
+    return paths, alive[:, 0], alive[:, 1]
+
+
+def _bisection_multi_per_level(system, paths, ips, active, level: int,
+                               rand):
+    """The K-slot interior composite level by level (bisection.py:985-1077).
+    Level ilev's K m midpoints sit at beads s + d2 + j delta over the whole
+    span, one arithmetic sequence: one kernel-A pass per level over that
+    strided view, with a per-row particle index [1, K m]."""
+    W, D = paths.shape[0], system.cfg.dim
+    L, K = 2 ** level, len(ips)
+    span = K * L
+    s, gK, uK = rand
+    R_big = paths[:, s:s + span + 1]
+    seg0 = torch.stack([R_big[:, k * L:(k + 1) * L + 1, p]
+                        for k, p in enumerate(ips)], 1)   # [W, K, L+1, D]
+    seg, alive = seg0.clone(), active
+    for ilev in range(1, level + 1):
+        d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level, gK)
+        m = L // delta
+        rows = delta_action_rows(
+            system, R_big[:, d2:span:delta], xnew.reshape(W, K * m, D),
+            xold.reshape(W, K * m, D), _ip_rows(ips, m, paths.device),
+            system.arange(s + d2, s + span, delta), need_wf=False,
+            need_f2=ilev == level)
+        seg[:, :, d2::delta] = xnew
+        alive = alive & metropolis_u(uK[:, :, ilev],
+                                     rows.view(W, K, m).sum(-1))
+    fin = torch.where(alive[:, :, None, None], seg, seg0)
+    for k, p in enumerate(ips):
+        R_big[:, k * L + 1:(k + 1) * L, p] = fin[:, k, 1:L]
+    return paths, alive
+
+
+def fused_end_bisections(system, paths, ip: int, active, level: int, rand):
+    """MoveHeadBisection + MoveTailBisection of particle ip as one
+    composite, in the form cfg.bis_monoshot names.  rand = (None, g2
+    [W, 2, L, D], u2 [W, 2, level+1]).  Returns (paths, acc_head[W],
+    acc_tail[W])."""
+    fn = (_fused_ends_monoshot if system.cfg.bis_monoshot
+          else _fused_ends_per_level)
+    return fn(system, paths, ip, active, level, rand)
+
+
+def bisection_multi(system, paths, ips, active, level: int, rand):
+    """Interior bisections of the K distinct particles ips as one composite
+    (bisection.py:963-1077), in the form cfg.bis_monoshot names.  Slot k
+    regrows the window of L = 2**level links from bead s + k L, one even
+    shift s for every slot.  rand = (s host int, gK [W, K, L, D], uK [W, K,
+    level+1]); active [W] or [W, K].  Returns (paths, acc[W, K])."""
+    W, K, L = paths.shape[0], len(ips), 2 ** level
+    if K * L > system.M - 1:
+        raise ValueError(f"K={K} slots of {L} links exceed {system.M - 1} "
+                         "links")
+    if active.dim() == 1:
+        active = active[:, None].expand(W, K)
+    fn = (_bisection_multi_monoshot if system.cfg.bis_monoshot
+          else _bisection_multi_per_level)
+    return fn(system, paths, ips, active, level, rand)

@@ -7,13 +7,17 @@ of the kernel half of ops/cascade_kernels.py.
              window pass of every move, both Metropolis sides per row.
   pair_pot   kernel B (csrc/pair_pot.cu), replaces pair_pot_pallas: the
              all-pairs potential and force squared of whole configurations.
+  pair_delta kernel 3 (csrc/pair_delta.cu), replaces pair_delta_pallas:
+             UpdatePot of the dense delta_action, (dpot, df2) per row.
+  pair_u     kernel 4 (csrc/pair_delta.cu), replaces pair_u_pallas:
+             UpdateWf of the dense delta_action, du per row.
   cascade    kernel 5 (csrc/cascade.cu), replaces cascade_pallas: one whole
              composite bisection move (modes 'ends' and 'interior').
 
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
-ops/cascade.cascade_ref) only for tensors on the CPU.  On a CUDA tensor it
-launches the kernel or raises; there is no fallback.  `pair_rows.launches`,
-`pair_pot.launches` and `cascade.launches` count kernel launches, and
+pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) only for tensors on
+the CPU.  On a CUDA tensor it launches the kernel or raises; there is no
+fallback.  Each wrapper's `.launches` counts its kernel's launches, and
 nothing else.
 """
 
@@ -103,6 +107,56 @@ def pair_pot_ref(system, R, with_force=False):
     return pot, f2
 
 
+def _dense_side_terms(system, x, R, notself):
+    """(xij, rij2, r2s, m) of x[..., B, D] against R[..., B, N, D] with the
+    dense forms' masks (pairwise.py:84-99, 247-303): m = notself & r^2 <=
+    rc^2, with no r^2 > 0 guard."""
+    xij, rij2 = minimum_image(x[..., None, :] - R, system.L, system.half)
+    ns = notself.expand(rij2.shape)
+    r2s = torch.where(ns, rij2, 1.0)
+    return xij, rij2, r2s, ns & (rij2 <= system.geo.rcut2)
+
+
+def pair_delta_ref(system, R, xnew, xold, ip, with_force=True):
+    """Plain form of kernel 3: per row (dpot, df2) of xnew/xold[W, B, D]
+    against the partners R[W, B, N, D], as the jnp branch of the
+    reference's delta_pot (pairwise.py:247-276, PBC, closed form).
+
+    Unlike kernel A's rows there is no r^2 > 0 guard on the force; without
+    force the potential is V(r), not V of v_dv, and df2 is zero.
+    ip: int, [W], [W, B] or [1, B]."""
+    notself = self_mask(R.shape[-2], ip, R.device)
+
+    def side(x):
+        xij, _, r2s, m = _dense_side_terms(system, x, R, notself)
+        r = torch.sqrt(r2s)
+        if not with_force:
+            return torch.where(m, system.potential.v(r), 0.0).sum(-1), None
+        rinv = torch.rsqrt(r2s)
+        vv, dv = system.potential.v_dv(r, rinv)
+        pot = torch.where(m, vv, 0.0).sum(-1)
+        F = (torch.where(m, dv * rinv, 0.0)[..., None] * xij).sum(-2)
+        return pot, (F * F).sum(-1)
+
+    pot_n, f2_n = side(xnew)
+    pot_o, f2_o = side(xold)
+    dpot = pot_n - pot_o
+    return dpot, (f2_n - f2_o if with_force else torch.zeros_like(dpot))
+
+
+def pair_u_ref(system, R, xnew, xold, ip):
+    """Plain form of kernel 4: per row du = sum u(new) - sum u(old) over the
+    partners, as the jnp branch of the reference's delta_wf
+    (pairwise.py:291-303): m = notself & r^2 <= rc^2, no r^2 > 0 guard."""
+    notself = self_mask(R.shape[-2], ip, R.device)
+
+    def side(x):
+        _, _, r2s, m = _dense_side_terms(system, x, R, notself)
+        return torch.where(m, system.u(torch.sqrt(r2s)), 0.0).sum(-1)
+
+    return side(xnew) - side(xold)
+
+
 # ---------------------------------------------------------------------------
 # Kernel parameters
 # ---------------------------------------------------------------------------
@@ -149,6 +203,30 @@ def _check(name, system, R, *xs):
                              f"stride 1, got strides {t.stride()}")
 
 
+def _check_rows(name, system, R, xnew, xold):
+    """_check, and xnew/xold [W, B, D] beside R [W, B, N, D]."""
+    _check(name, system, R, xnew, xold)
+    W, B, _, D = R.shape
+    if xnew.shape != (W, B, D) or xold.shape != (W, B, D):
+        raise ValueError(f"{name}: xnew/xold must be {(W, B, D)}, got "
+                         f"{tuple(xnew.shape)}, {tuple(xold.shape)}")
+
+
+def _ip_args(name, R, ip):
+    """(ip tensor or None, ip mode, scalar ip) of the row kernels: ip an
+    int (mode 0) or a contiguous long tensor [W] (1), [W, B] (2) or [1, B]
+    (3) on R's device."""
+    if isinstance(ip, int):
+        return None, 0, ip
+    W, B = R.shape[:2]
+    if (ip.device != R.device or ip.dtype != torch.long
+            or not ip.is_contiguous()
+            or ip.shape not in ((W,), (W, B), (1, B))):
+        raise ValueError(f"{name}: ip must be an int or a contiguous long "
+                         f"tensor [W], [W, B] or [1, B] on {R.device}")
+    return ip, (3 if ip.shape == (1, B) else ip.dim()), 0
+
+
 def _suffix(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
@@ -167,21 +245,9 @@ def pair_rows(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
     walker), [W, B] (per row) or [1, B] (per window row, every walker)."""
     if R.device.type == "cpu":
         return pair_rows_ref(system, R, xnew, xold, ip, need_wf, need_f2, rev)
-    _check("pair_rows", system, R, xnew, xold)
+    _check_rows("pair_rows", system, R, xnew, xold)
     W, B, N, D = R.shape
-    if xnew.shape != (W, B, D) or xold.shape != (W, B, D):
-        raise ValueError(f"pair_rows: xnew/xold must be {(W, B, D)}, got "
-                         f"{tuple(xnew.shape)}, {tuple(xold.shape)}")
-    if isinstance(ip, int):
-        ip_t, mode, ip0 = None, 0, ip
-    else:
-        if (ip.device != R.device or ip.dtype != torch.long
-                or not ip.is_contiguous()
-                or ip.shape not in ((W,), (W, B), (1, B))):
-            raise ValueError("pair_rows: ip must be an int or a contiguous "
-                             f"long tensor [W], [W, B] or [1, B] on "
-                             f"{R.device}")
-        ip_t, mode, ip0 = ip, (3 if ip.shape == (1, B) else ip.dim()), 0
+    ip_t, mode, ip0 = _ip_args("pair_rows", R, ip)
     out = torch.empty((3 if need_wf else 2, W, B), dtype=R.dtype,
                       device=R.device)
     sW, sB, sN, _ = R.stride()
@@ -233,6 +299,74 @@ def pair_pot(system, R, with_force=False):
 
 
 pair_pot.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels 3 and 4
+# ---------------------------------------------------------------------------
+
+class _RowArgs(ctypes.Structure):
+    """Mirror of struct RowArgs in csrc/pair_delta.cu."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "sRw", "sRb", "sRn", "sNw", "sNb", "sOw", "sOb")] + [
+        ("ip_mode", ctypes.c_int), ("ip0", ctypes.c_longlong),
+        ("W", ctypes.c_int), ("B", ctypes.c_int), ("N", ctypes.c_int)]
+
+
+def _row_args(name, system, R, xnew, xold, ip):
+    """Checked (_RowArgs, ip tensor or None) of one dense pass."""
+    _check_rows(name, system, R, xnew, xold)
+    ip_t, mode, ip0 = _ip_args(name, R, ip)
+    W, B, N, _ = R.shape
+    sW, sB, sN, _ = R.stride()
+    a = _RowArgs(sRw=sW, sRb=sB, sRn=sN, sNw=xnew.stride(0),
+                 sNb=xnew.stride(1), sOw=xold.stride(0), sOb=xold.stride(1),
+                 ip_mode=mode, ip0=ip0, W=W, B=B, N=N)
+    return a, ip_t
+
+
+def pair_delta(system, R, xnew, xold, ip, with_force=True):
+    """Per row (dpot, df2) of UpdatePot (see pair_delta_ref); R [W, B, N,
+    D] is read in place through its strides."""
+    if R.device.type == "cpu":
+        return pair_delta_ref(system, R, xnew, xold, ip, with_force)
+    a, ip_t = _row_args("pair_delta", system, R, xnew, xold, ip)
+    out = torch.empty((2, a.W, a.B), dtype=R.dtype, device=R.device)
+    fn = getattr(kernels(), "pigs_pair_delta_" + _suffix(R.dtype))
+    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
+             xnew.data_ptr(), xold.data_ptr(),
+             ip_t.data_ptr() if ip_t is not None else None, int(with_force),
+             out[0].data_ptr(), out[1].data_ptr(),
+             torch.cuda.current_stream(R.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"pair_delta: kernel launch failed, cudaError "
+                           f"{err}")
+    pair_delta.launches += 1
+    return out[0], out[1]
+
+
+pair_delta.launches = 0
+
+
+def pair_u(system, R, xnew, xold, ip):
+    """Per row du of UpdateWf (see pair_u_ref); R [W, B, N, D] is read in
+    place through its strides."""
+    if R.device.type == "cpu":
+        return pair_u_ref(system, R, xnew, xold, ip)
+    a, ip_t = _row_args("pair_u", system, R, xnew, xold, ip)
+    out = torch.empty((a.W, a.B), dtype=R.dtype, device=R.device)
+    fn = getattr(kernels(), "pigs_pair_u_" + _suffix(R.dtype))
+    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
+             xnew.data_ptr(), xold.data_ptr(),
+             ip_t.data_ptr() if ip_t is not None else None, out.data_ptr(),
+             torch.cuda.current_stream(R.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"pair_u: kernel launch failed, cudaError {err}")
+    pair_u.launches += 1
+    return out
+
+
+pair_u.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Monte Carlo path updates on the whole walker ensemble (vpi_mod.f90).
 
-The torch counterpart of pathintegralgroundstate_tpu/ops/moves.py on the
-flagship path: rigid translations, the Brownian-bridge segment regrow, and
-the worm half-chain moves.  Every move is a function of (paths, ..., draws):
+The torch counterpart of pathintegralgroundstate_tpu/ops/moves.py: rigid
+translations, the segment regrow (the one-matmul Brownian bridge, or the
+reference's sequential staging recursion with cfg.regrow='scan'), the
+staging sampler's moves (staging_move, move_head, move_tail) and the worm
+half-chain moves.  Every move is a function of (paths, ..., draws):
 its random numbers come in as tensors shaped as the JAX move draws them
 (utils/draws.py makes them), so the port can be held against the reference
 on identical draws.
@@ -108,10 +110,29 @@ def _bridge_tables(Lmax: int, dt: float):
 # The segment-regrow workhorse
 # ---------------------------------------------------------------------------
 
-def bridge_proposal(system, seg, Ls, first_mode: str, g0, gs,
+def _scan_regrow(system, seg, Ls, xnew0, anchor, gs):
+    """Beads 1..Lb-1 by the staging recursion itself (moves.py:318-335,
+    vpi_mod.f90:509-549), bead after bead; beads >= Ls keep their place."""
+    dt = system.cfg.dt
+    prev, out = xnew0, []
+    for j in range(1, seg.shape[1] - 1):
+        xold_j = seg[:, j]
+        nrem = torch.clamp(Ls - j, min=1).to(seg.dtype)[:, None]
+        xprev = xold_j + _mi(system, prev - xold_j)
+        xnext = xold_j - _mi(system, xold_j - anchor)
+        sigma = torch.sqrt(nrem / (nrem + 1.0) * dt)
+        xmid = (xnext + xprev * nrem) / (nrem + 1.0)
+        prev = _where(j < Ls, _wrap_pos(system, xmid + sigma * gs[j - 1]),
+                      xold_j)
+        out.append(prev)
+    return torch.stack(out, 1)
+
+
+def regrow_proposal(system, seg, Ls, first_mode: str, g0, gs,
                     first_pos=None, fixed_L=None):
     """The proposal of segment_regrow: (xnew0 [W, D], xnews [W, Lb-1, D]),
-    the new end bead and the bridge beads 1..Lb-1 (beads >= Ls kept)."""
+    the new end bead and beads 1..Lb-1 (beads >= Ls kept), by the bridge
+    matmul or, with cfg.regrow='scan', the sequential recursion."""
     dt = system.cfg.dt
     W, Lbp1, D = seg.shape
     Lb = Lbp1 - 1
@@ -129,6 +150,8 @@ def bridge_proposal(system, seg, Ls, first_mode: str, g0, gs,
         xnew0 = xold0
     else:
         raise ValueError(first_mode)
+    if system.cfg.regrow == "scan":
+        return xnew0, _scan_regrow(system, seg, Ls, xnew0, anchor, gs)
 
     xolds = seg[:, 1:Lb]
     T = system.const(("bridge_T", Lb, dtype),
@@ -152,7 +175,7 @@ def bridge_proposal(system, seg, Ls, first_mode: str, g0, gs,
 def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
                    first_w: float, g0, gs, first_pos=None, fixed_L=None,
                    rev=False):
-    """Regrow segments in head orientation (moves.py:229-365), bridge mode.
+    """Regrow segments in head orientation (moves.py:229-365).
 
     seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
     anchor.  R_seg [W, Lb+1, N, D]: the partners at the segment's beads, in
@@ -167,7 +190,7 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
 
     Returns (seg_new, dS[W])."""
     Lb = seg.shape[1] - 1
-    xnew0, xnews = bridge_proposal(system, seg, Ls, first_mode, g0, gs,
+    xnew0, xnews = regrow_proposal(system, seg, Ls, first_mode, g0, gs,
                                    first_pos, fixed_L)
     # one pair pass over displaced rows 0..Lb-1; a ZERO-weighted first row
     # (Swap's pin, which coincides exactly with the worm's bead) is
@@ -203,7 +226,7 @@ def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
     R_head = paths[:, :Lmax + 1]
     R_tail = paths[:, M - 1 - Lmax:]                      # forward order
     seg = torch.cat([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 0)
-    xnew0, xnews = bridge_proposal(system, seg, Ls, "gauss", g0, gs)
+    xnew0, xnews = regrow_proposal(system, seg, Ls, "gauss", g0, gs)
     xnew = torch.cat([xnew0[:, None], xnews], 1)          # rows 0..Lmax-1
     dS = torch.cat([
         delta_action_sum(system, R_head[:, :Lmax], xnew[:W], seg[:W, :Lmax],
@@ -259,8 +282,80 @@ def translate_half_chain(system, paths, xend, ip, half: int, active, delta,
 
 
 # ---------------------------------------------------------------------------
-# Worm half-chain staging and end moves (vpi_mod.f90:1376-1817)
+# Staging and end moves (Staging, MoveHead, MoveTail, vpi_mod.f90:480-860)
+# and their worm half-chain forms (vpi_mod.f90:1376-1817)
 # ---------------------------------------------------------------------------
+
+def _stage(system, paths, ip, active, ii: int, L: int, gs, u_acc):
+    """Interior staging of beads ii+1..ii+L-1 of particle ip, anchored at
+    ii and ii+L: gs [L-1, W, D], u_acc [W].  In place; returns acc."""
+    W = paths.shape[0]
+    R_seg = paths[:, ii:ii + L + 1]
+    seg = get_chain(R_seg, ip)
+    Ls = torch.full((W,), L, dtype=torch.long, device=paths.device)
+    seg_new, dS = segment_regrow(system, seg, R_seg,
+                                 system.arange(ii, ii + L + 1), ip, Ls,
+                                 "fixed", 1.0, None, gs, fixed_L=L)
+    acc = metropolis_u(u_acc, dS) & active
+    _win_write(paths, ii, ip, _where(acc, seg_new, seg))
+    return acc
+
+
+def _regrow_head(system, paths, ip, active, lo: int, Lmax: int, first_w,
+                 Ls, g0, gs, u_acc):
+    """Regrow beads lo..lo+Ls-1 of particle ip from a gaussian guess of
+    bead lo (its dS weighted first_w) toward the anchor lo+Ls.  In place;
+    returns (the window [W, Lmax+1, D] as written, acc)."""
+    R_seg = paths[:, lo:lo + Lmax + 1]
+    seg = get_chain(R_seg, ip)
+    seg_new, dS = segment_regrow(system, seg, R_seg,
+                                 system.arange(lo, lo + Lmax + 1), ip, Ls,
+                                 "gauss", first_w, g0, gs)
+    acc = metropolis_u(u_acc, dS) & active
+    seg_fin = _where(acc, seg_new, seg)
+    _win_write(paths, lo, ip, seg_fin)
+    return seg_fin, acc
+
+
+def _regrow_tail(system, paths, ip, active, hi: int, Lmax: int, first_w,
+                 Ls, g0, gs, u_acc):
+    """The mirror of _regrow_head: beads hi, hi-1, .., hi-Ls+1 from a guess
+    of bead hi.  The partner window is read backwards in place (rev); only
+    the small chain segment is flipped.  Returns (the window in head
+    orientation, acc)."""
+    lo = hi - Lmax
+    R_fwd = paths[:, lo:hi + 1]
+    seg = get_chain(R_fwd, ip).flip(1)
+    seg_new, dS = segment_regrow(system, seg, R_fwd,
+                                 system.arange(hi, lo - 1, -1), ip, Ls,
+                                 "gauss", first_w, g0, gs, rev=True)
+    acc = metropolis_u(u_acc, dS) & active
+    seg_fin = _where(acc, seg_new, seg)
+    _win_write(paths, lo, ip, seg_fin.flip(1))
+    return seg_fin, acc
+
+
+def staging_move(system, paths, ip: int, active, L: int, start: int, gs,
+                 u_acc):
+    """Interior staging over the even-aligned window start..start+L
+    (moves.py:507-542): start a host int shared by every walker, gs
+    [L-1, W, D], u_acc [W].  Returns (paths, acc)."""
+    return paths, _stage(system, paths, ip, active, start, L, gs, u_acc)
+
+
+def move_head(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc):
+    """MoveHead (moves.py:631-654): regrow the first Ls [W] beads from a
+    free-gaussian guess of bead 0.  Returns (paths, acc)."""
+    return paths, _regrow_head(system, paths, ip, active, 0, Lmax, 1.0, Ls,
+                               g0, gs, u_acc)[1]
+
+
+def move_tail(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc):
+    """MoveTail (moves.py:657-683): the mirror of move_head at bead M-1.
+    Returns (paths, acc)."""
+    return paths, _regrow_tail(system, paths, ip, active, system.M - 1,
+                               Lmax, 1.0, Ls, g0, gs, u_acc)[1]
+
 
 def _pin_center(system, paths, xend, ip, half: int, active):
     """Pin bead Nb of particle ip to xend[half], ACTIVE walkers only (closed
@@ -278,18 +373,9 @@ def staging_half_chain(system, paths, xend, ip, half: int, active, L: int,
 
     start: the even window offset inside the half (a host int, shared by
     every walker); gs [L-1, W, D]; u_acc [W].  Returns (paths, xend, acc)."""
-    W = paths.shape[0]
     ii = (0 if half == 1 else system.cfg.Nb) + start
     _pin_center(system, paths, xend, ip, half, active)
-    R_seg = paths[:, ii:ii + L + 1]
-    seg = get_chain(R_seg, ip)
-    Ls = torch.full((W,), L, dtype=torch.long, device=paths.device)
-    seg_new, dS = segment_regrow(system, seg, R_seg,
-                                 system.arange(ii, ii + L + 1), ip, Ls,
-                                 "fixed", 1.0, None, gs, fixed_L=L)
-    acc = metropolis_u(u_acc, dS) & active
-    _win_write(paths, ii, ip, _where(acc, seg_new, seg))
-    return paths, xend, acc
+    return paths, xend, _stage(system, paths, ip, active, ii, L, gs, u_acc)
 
 
 def move_head_half_chain(system, paths, xend, ip, half: int, active,
@@ -298,16 +384,10 @@ def move_head_half_chain(system, paths, xend, ip, half: int, active,
     0, half 2 from the centre bead Nb (weight 1/2 on its dS).
     Returns (paths, xend, acc)."""
     Nb = system.cfg.Nb
-    lo = 0 if half == 1 else Nb
     _pin_center(system, paths, xend, ip, half, active)
-    R_seg = paths[:, lo:lo + Lmax + 1]
-    seg = get_chain(R_seg, ip)
-    seg_new, dS = segment_regrow(system, seg, R_seg,
-                                 system.arange(lo, lo + Lmax + 1), ip, Ls,
-                                 "gauss", 1.0 if half == 1 else 0.5, g0, gs)
-    acc = metropolis_u(u_acc, dS) & active
-    seg_fin = _where(acc, seg_new, seg)
-    _win_write(paths, lo, ip, seg_fin)
+    seg_fin, acc = _regrow_head(system, paths, ip, active,
+                                0 if half == 1 else Nb, Lmax,
+                                1.0 if half == 1 else 0.5, Ls, g0, gs, u_acc)
     if half == 2:
         xend[:, 1] = _where(active, seg_fin[:, 0], xend[:, 1])
     return paths, xend, acc
@@ -316,22 +396,13 @@ def move_head_half_chain(system, paths, xend, ip, half: int, active,
 def move_tail_half_chain(system, paths, xend, ip, half: int, active,
                          Lmax: int, Ls, g0, gs, u_acc):
     """MoveTailHalfChain (vpi_mod.f90:1660-1817): half 1 regrows the centre
-    bead Nb (weight 1/2), half 2 the last bead 2Nb.  The partner window is
-    read backwards in place (rev); only the small chain segment is flipped.
+    bead Nb (weight 1/2), half 2 the last bead 2Nb.
     Returns (paths, xend, acc)."""
     Nb = system.cfg.Nb
-    hi = Nb if half == 1 else 2 * Nb
-    lo = hi - Lmax
     _pin_center(system, paths, xend, ip, half, active)
-    R_fwd = paths[:, lo:hi + 1]
-    seg = get_chain(R_fwd, ip).flip(1)
-    seg_new, dS = segment_regrow(system, seg, R_fwd,
-                                 system.arange(hi, lo - 1, -1), ip, Ls,
-                                 "gauss", 0.5 if half == 1 else 1.0, g0, gs,
-                                 rev=True)
-    acc = metropolis_u(u_acc, dS) & active
-    seg_fin = _where(acc, seg_new, seg)
-    _win_write(paths, lo, ip, seg_fin.flip(1))
+    seg_fin, acc = _regrow_tail(system, paths, ip, active,
+                                Nb if half == 1 else 2 * Nb, Lmax,
+                                0.5 if half == 1 else 1.0, Ls, g0, gs, u_acc)
     if half == 1:
         xend[:, 0] = _where(active, seg_fin[:, 0], xend[:, 0])
     return paths, xend, acc

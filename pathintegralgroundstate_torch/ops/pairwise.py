@@ -1,11 +1,12 @@
 """Batched pair-interaction action deltas (UpdateAction / UpdatePot /
 UpdateWf, vpi_mod.f90:2491-2841) and the full-configuration pair sums.
 
-The torch counterpart of pathintegralgroundstate_tpu/ops/pairwise.py on the
-main path: the non-fold, non-exact-F^2 branch of delta_action_rows,
-delta_action_sum with row weights, and pair_pot.  The pair passes
-themselves run in ops/kernels.py (a hand-written kernel on the card, its
-plain form on the CPU).
+The torch counterpart of pathintegralgroundstate_tpu/ops/pairwise.py: the
+non-fold, non-exact-F^2 branch of delta_action_rows, delta_action_sum with
+row weights, the dense delta_pot / delta_wf / delta_action (the per-level
+end gate's form), and pair_pot.  The pair passes themselves run in
+ops/kernels.py (a hand-written kernel on the card, its plain form on the
+CPU).
 
 Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 [W, B, D]; ip an int, [W] or [W, B]; ib [B] or [W, B] bead indices.
@@ -14,6 +15,7 @@ Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import kernels
 
@@ -70,6 +72,40 @@ def delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=True,
     if row_weights is not None:
         rows = rows * row_weights
     return rows.sum(-1)
+
+
+def delta_pot(system, R, xnew, xold, ip, with_force=True):
+    """UpdatePot (pairwise.py:208-276, closed form, PBC): per row (dPot,
+    dF2) of the moved particle against its partners, by kernel 3.  Unlike
+    delta_action_rows' rows there is no r^2 > 0 guard; dF2 is zero without
+    force.  The exact-F^2 form waits for ROADMAP queue 1, slice 10."""
+    if with_force and system.cfg.exact_f2:
+        raise NotImplementedError("delta_pot with exact_f2 is not ported to "
+                                  "torch yet: ROADMAP queue 1, slice 10")
+    return kernels.pair_delta(system, R, xnew, xold, ip, with_force)
+
+
+def delta_wf(system, R, xnew, xold, ip):
+    """UpdateWf (pairwise.py:279-303): per row sum u(new) - sum u(old) over
+    the partners, by kernel 4."""
+    return kernels.pair_u(system, R, xnew, xold, ip)
+
+
+def delta_action(system, R, xnew, xold, ip, ib, with_force=True):
+    """The dense per-row action delta (UpdateAction, pairwise.py:306-343):
+    wv dPot + wf dF2 - [ib at a chain end] dLogPsi, from two passes (kernels
+    3 and 4).  The F^2 weight is written as the reference writes it here,
+    (4 dt/3) dt^2/6, which can differ from the table's 2 dt^3/9 in the last
+    bit; it is zero without force.  ib [B] or [W, B]."""
+    dt = system.cfg.dt
+    wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
+    dpot, df2 = delta_pot(system, R, xnew, xold, ip, with_force)
+    dS = wv * dpot
+    if with_force:
+        dS = dS + (wf > 0).to(dS.dtype) * ((4.0 * dt / 3.0) * dt * dt / 6.0) \
+            * df2
+    du = delta_wf(system, R, xnew, xold, ip)
+    return dS - torch.where(wpsi > 0, du, 0.0)
 
 
 def pair_pot(system, R, with_force=False):

@@ -1,25 +1,28 @@
 """One Monte Carlo step over the whole walker ensemble (vpi.f90:297-475).
 
 The torch counterpart of pathintegralgroundstate_tpu/sweep.py
-`Sweeper.step` (reference-parity partial dF^2, monoshot bisection on
-batched randoms):
+`Sweeper.step` (reference-parity partial dF^2):
 
   1. open/close attempts toggling the per-walker `isopen` mask,
   2. Np rigid CM translations (as cascades when cfg.cascade),
-  3. the bisection sweep, in one of two orders:
+  3. the diagonal sweep, in one of two orders:
      unfused: Nstag*Np particle visits, each a head, a tail and an interior
-         monoshot bisection;
+         move: bisections (monoshot or per level, the ends at a random
+         depth with cfg.bis_end_random_depth, head and tail paired with
+         cfg.paired_ends) or, with sampling='sta', staging moves;
      fused (cfg.fused_sweep, when the windows fit): Nstag*Np head+tail
-         composites (monoshot bisection, staging with end_regrow='sta', or
-         the ends cascade), then Nstag*ceil(Np/K) interior composites of K
-         particles each (monoshot, or the interior cascade),
+         composites (bisection, staging with end_regrow='sta', or the ends
+         cascade), then Nstag*ceil(Np/K) interior composites of K particles
+         each (bisection, or the interior cascade),
   4. Nobdm worm rounds: half translations, half head/tail/staging, swap,
      permutation bookkeeping and the OBDM histogram,
   5. the estimators of the diagonal walkers.
 
 Every random number comes from a draw source (utils/draws.py) at the
 address of the reference's key tree, so tests can replay the reference's
-own draws.  The step calls no .item() and indexes with no boolean mask:
+own draws; as in the reference, the bisections take batched randoms up to
+BATCH_RAND_MAX_W walkers and per-move draws above (or with random end
+depths).  The step calls no .item() and indexes with no boolean mask:
 all Python-side control flow depends on host integers only.
 """
 
@@ -74,6 +77,10 @@ COUNTER_NAMES = (
     "try_mala", "acc_mala", "try_int",
 )
 _CIDX = {n: i for i, n in enumerate(COUNTER_NAMES)}
+
+# the reference's walker count up to which the bisections take batched
+# randoms (sweep.py:82); a copy, held equal by tests/test_torch_import.py
+BATCH_RAND_MAX_W = 1024
 
 
 def zero_stats(system) -> StepStats:
@@ -160,6 +167,12 @@ class Sweeper:
                            and 2 * L < system.M - 1)
         self.K_int = (min(max(1, (system.M - 1 - L) // L), cfg.Np)
                       if self.fused_diag else 1)
+        # the reference's gates of batched randoms and paired ends
+        # (sweep.py:216-228)
+        self.batch_rand = (cfg.sampling == "bis" and cfg.shared_windows
+                           and not cfg.bis_end_random_depth)
+        self.paired_ends = (cfg.paired_ends and cfg.bis_monoshot
+                            and 2 ** (max(cfg.Nlev, 2) + 1) < system.M - 1)
 
     def draws(self, state: MCState) -> DeviceDraws:
         """The port's own draw source for `state`."""
@@ -231,31 +244,12 @@ class Sweeper:
             count("try_cm", active_all)
             count("acc_cm", acc_cm)
 
-        # ---- 3. bisection sweeps (vpi.f90:344-366 / 421-439) ----
+        # ---- 3. staging/bisection sweeps (vpi.f90:344-366 / 421-439) ----
+        use_rand = self.batch_rand and W <= BATCH_RAND_MAX_W
         if cfg.Nstag > 0 and self.fused_diag:
-            self._fused_sweep(src, paths, active_all, ctr)
+            self._fused_sweep(src, paths, active_all, ctr, use_rand)
         elif cfg.Nstag > 0:
-            nl_end = max(self.Nlev, 2)
-            acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
-            for it in range(cfg.Nstag * Np):
-                ip = it % Np
-                active = active_all[:, ip]
-                r_h = src.bisect(25, it, W, nl_end)
-                r_t = src.bisect(26, it, W, nl_end)
-                r_b = src.bisect(27, it, W, self.Nlev, start=True)
-                paths, acc_h = bis.move_head_bisection(system, paths, ip,
-                                                       active, self.Nlev, r_h)
-                paths, acc_t = bis.move_tail_bisection(system, paths, ip,
-                                                       active, self.Nlev, r_t)
-                paths, acc_b = bis.bisection(system, paths, ip, active,
-                                             self.Nlev, r_b)
-                acc3[0] += acc_h
-                acc3[1] += acc_t
-                acc3[2] += acc_b
-            ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
-            count("acc_head", acc3[0])
-            count("acc_tail", acc3[1])
-            count("acc_bd", acc3[2])
+            self._unfused_sweep(src, paths, active_all, ctr, use_rand)
 
         # ---- 4. worm updates + OBDM (vpi.f90:370-404) ----
         nrho = stats.nrho.clone()
@@ -321,13 +315,65 @@ class Sweeper:
             return state, base
         return state, self._measure(paths, isopen, base)
 
-    def _fused_sweep(self, src, paths, active_all, ctr):
+    def _unfused_sweep(self, src, paths, active_all, ctr, use_rand):
+        """The reference-order sweep (sweep.py:412-519), in place on paths
+        and the counters ctr: per particle visit a head, a tail and an
+        interior move."""
+        system = self.system
+        cfg = system.cfg
+        W, Np, nlev, Lstag = paths.shape[0], cfg.Np, self.Nlev, self.Lstag
+        per_level = not cfg.bis_monoshot
+        n_bis = (system.M - 1 - 2 ** nlev) // 2 + 1
+        n_sta = (system.M - 1 - Lstag) // 2 + 1
+        acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
+        for it in range(cfg.Nstag * Np):
+            ip = it % Np
+            active = active_all[:, ip]
+            if cfg.sampling != "bis":
+                paths, acc_h = mv.move_head(system, paths, ip, active, Lstag,
+                                            *src.regrow_half(20, it, W, Lstag))
+                paths, acc_t = mv.move_tail(system, paths, ip, active, Lstag,
+                                            *src.regrow_half(21, it, W, Lstag))
+                paths, acc_b = mv.staging_move(
+                    system, paths, ip, active, Lstag,
+                    *src.staging_half(22, it, W, n_sta, Lstag))
+            else:
+                if use_rand:
+                    d_h = d_t = max(nlev, 2)
+                    r_h = src.bisect(25, it, W, d_h)
+                    r_t = src.bisect(26, it, W, d_t)
+                    r_b = src.bisect(27, it, W, nlev, n_bis)
+                else:
+                    # paired ends keep the fixed depth (bisection.py:406)
+                    rd = cfg.bis_end_random_depth and not self.paired_ends
+                    d_h, r_h = src.end_bisect(20, it, W, nlev, per_level, rd)
+                    d_t, r_t = src.end_bisect(21, it, W, nlev, per_level, rd)
+                    r_b = src.bisect_keyed(22, it, W, nlev, n_bis, per_level)
+                if self.paired_ends:
+                    paths, acc_h, acc_t = bis.paired_end_bisections(
+                        system, paths, ip, active, nlev, r_h, r_t)
+                else:
+                    paths, acc_h = bis.move_head_bisection(
+                        system, paths, ip, active, d_h, r_h, not use_rand)
+                    paths, acc_t = bis.move_tail_bisection(
+                        system, paths, ip, active, d_t, r_t, not use_rand)
+                paths, acc_b = bis.bisection(system, paths, ip, active, nlev,
+                                             r_b)
+            acc3[0] += acc_h
+            acc3[1] += acc_t
+            acc3[2] += acc_b
+        ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
+        for i, name in enumerate(("acc_head", "acc_tail", "acc_bd")):
+            ctr[_CIDX[name]] += acc3[i].sum()
+
+    def _fused_sweep(self, src, paths, active_all, ctr, use_rand):
         """The fused composite sweep (sweep.py:521-618), in place on paths
         and the counters ctr."""
         system = self.system
         cfg = system.cfg
         W, Np, nlev = paths.shape[0], cfg.Np, self.Nlev
         L, K = 2 ** nlev, self.K_int
+        per_level = not cfg.bis_monoshot
         acc2 = torch.zeros((2, W), dtype=torch.int32, device=system.device)
         for it in range(cfg.Nstag * Np):
             ip = it % Np
@@ -340,9 +386,10 @@ class Sweeper:
                     system, paths, ip, active, nlev,
                     *src.cascade_ends(it, W, nlev))
             else:
+                rand = (src.fused_ends(it, W, nlev) if use_rand else
+                        src.fused_ends_keyed(it, W, nlev, per_level))
                 _, acc_h, acc_t = bis.fused_end_bisections(
-                    system, paths, ip, active, nlev,
-                    src.fused_ends(it, W, nlev))
+                    system, paths, ip, active, nlev, rand)
             acc2[0] += acc_h
             acc2[1] += acc_t
         ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
@@ -362,8 +409,11 @@ class Sweeper:
                     system, paths, ips, act, nlev,
                     *src.cascade_interior(it, W, K, nlev, n_shift))
             else:
+                rand = (src.bisect_multi(it, W, K, nlev, n_shift) if use_rand
+                        else src.bisect_multi_keyed(it, W, K, nlev, n_shift,
+                                                    per_level))
                 _, acc = bis.bisection_multi(system, paths, ips, act, nlev,
-                                             src.bisect_multi(it, W, K, nlev))
+                                             rand)
             int2[0] += act
             int2[1] += acc
         ctr[_CIDX["try_int"]] += int2[0].sum()

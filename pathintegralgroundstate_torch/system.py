@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pathintegralgroundstate_tpu.config import Geometry, SimConfig, geometry
+from .config import Geometry, SimConfig, geometry
 
 from .models import jastrow as jas
 from .models.potentials import Potential, get_potential
@@ -28,19 +28,9 @@ def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     waits = [
         (cfg.exact_f2, "exact_f2=True", "slice 10 (exact-F^2 cache)"),
-        (cfg.paired_ends, "paired_ends=True",
-         "slice 11 (staging and per-level forms)"),
-        (cfg.bis_end_random_depth, "bis_end_random_depth=True",
-         "slice 11 (staging and per-level forms)"),
         (cfg.smart_mc > 0.0, "smart_mc>0", "slice 13 (autodiff)"),
-        (cfg.sampling != "bis", f"sampling={cfg.sampling!r}",
-         "slice 11 (staging and per-level forms)"),
-        (cfg.regrow != "bridge", f"regrow={cfg.regrow!r}",
-         "slice 11 (staging and per-level forms)"),
-        (not cfg.bis_monoshot, "bis_monoshot=False",
-         "slice 11 (staging and per-level forms)"),
         (not cfg.shared_windows, "shared_windows=False",
-         "slice 11 (staging and per-level forms)"),
+         "slice 11 (per-walker windows)"),
         (cfg.trap, "trap=True", "slice 12 (geometry and model variants)"),
         (cfg.v_table or cfg.wf_table, "v_table/wf_table",
          "slice 2 (table mode)"),

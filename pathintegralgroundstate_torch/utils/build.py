@@ -89,6 +89,8 @@ _I = ctypes.c_int
 _ROWS_ARGS = [_P, _P, _LL, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _I, _LL,
               _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _POT_ARGS = [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]
+_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P]
+_U_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P]
 _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _P]
 
@@ -102,6 +104,10 @@ def kernels() -> ctypes.CDLL:
                        ("pigs_pair_rows_f64", _ROWS_ARGS),
                        ("pigs_pair_pot_f32", _POT_ARGS),
                        ("pigs_pair_pot_f64", _POT_ARGS),
+                       ("pigs_pair_delta_f32", _DELTA_ARGS),
+                       ("pigs_pair_delta_f64", _DELTA_ARGS),
+                       ("pigs_pair_u_f32", _U_ARGS),
+                       ("pigs_pair_u_f64", _U_ARGS),
                        ("pigs_cascade_f32", _CASCADE_ARGS),
                        ("pigs_cascade_f64", _CASCADE_ARGS)):
         fn = getattr(lib, name)

@@ -8,12 +8,18 @@ Two sources implement the same methods:
 
   DeviceDraws (here): the port's own.  Tensors come from the state's device
       generator; the scalar, state-independent values (the shared window
-      starts, the fused sweep's group offsets and interior shifts) from its
-      host generator as Python numbers, so the step never synchronises with
-      the device.  It ignores the addresses.
+      starts, the end moves' random depths, the fused sweep's group offsets
+      and interior shifts) from its host generator as Python ints, so the
+      step never synchronises with the device.  It ignores the addresses.
   the test bridge (tests/torch_bridge.py): replays the reference's own JAX
       key tree split for split, so the port can be held equal to the
       reference step.
+
+A bisection move's randoms come as (start, g [W, L, D], u [W, ngroups]),
+the reference's batched-randoms layout (ops/bisection.py); the `*_keyed`
+sites are the reference's draws without batched randoms (W above
+sweep.BATCH_RAND_MAX_W, or the random end depth), which the bridge lays
+out the same way.  Here both are the same draws.
 """
 
 from __future__ import annotations
@@ -70,32 +76,55 @@ class DeviceDraws:
         return self._u(W, 1, self.D), self._u(W)
 
     def bisect(self, tag: int, it: int, W: int, nlev: int,
-               start: bool = False):
-        """Monoshot bisection (tags 25, 26, 27): (u_start host float or
-        None, g [W, 2**nlev, D], u_acc [W, nlev+1])."""
-        s = self._host_u() if start else None
-        return s, self._g(W, 2 ** nlev, self.D), self._u(W, nlev + 1)
+               n_opts: int = None):
+        """Bisection with batched randoms (tags 25, 26, 27): (even window
+        start host int, of n_opts choices, or None for an end move;
+        g [W, 2**nlev, D], u [W, nlev+1])."""
+        ii = 2 * self._host_int(n_opts) if n_opts else None
+        return ii, self._g(W, 2 ** nlev, self.D), self._u(W, nlev + 1)
+
+    def bisect_keyed(self, tag: int, it: int, W: int, nlev: int,
+                     n_opts: int, per_level: bool):
+        """Interior bisection without batched randoms (tag 22): as
+        bisect."""
+        return self.bisect(tag, it, W, nlev, n_opts)
+
+    def end_bisect(self, tag: int, it: int, W: int, level: int,
+                   per_level: bool, random_depth: bool):
+        """End bisection without batched randoms (tags 20, 21): (depth,
+        rand).  The depth is max(level, 2), or with random_depth the
+        Fortran's U{2..level} (vpi_mod.f90:1023), a host int."""
+        depth = (2 + self._host_int(level - 1) if random_depth and level > 2
+                 else max(level, 2))
+        return depth, self.bisect(tag, it, W, depth)
 
     def _host_int(self, hi: int) -> int:
         return int(torch.randint(0, hi, (), generator=self.host))
-
-    def _host_u(self) -> float:
-        return torch.rand((), generator=self.host, dtype=torch.float64).item()
 
     def fused_ends(self, it: int, W: int, nlev: int):
         """Fused head+tail bisection (tag 28): (None, g [W, 2, 2**nlev, D],
         u [W, 2, nlev+1])."""
         return None, self._g(W, 2, 2 ** nlev, self.D), self._u(W, 2, nlev + 1)
 
+    def fused_ends_keyed(self, it: int, W: int, nlev: int, per_level: bool):
+        """Fused head+tail bisection without batched randoms (tag 20)."""
+        return self.fused_ends(it, W, nlev)
+
     def group_offset(self, it: int, Np: int) -> int:
         """Particle offset of interior group `it` (tag 23): host int."""
         return self._host_int(Np)
 
-    def bisect_multi(self, it: int, W: int, K: int, nlev: int):
-        """K-slot interior composite (tag 23): (u_shift host float,
-        g [W, K, 2**nlev, D], u [W, K, nlev+1])."""
-        return (self._host_u(), self._g(W, K, 2 ** nlev, self.D),
+    def bisect_multi(self, it: int, W: int, K: int, nlev: int,
+                     n_shift: int):
+        """K-slot interior composite (tag 23): (even shift host int, of
+        n_shift choices; g [W, K, 2**nlev, D], u [W, K, nlev+1])."""
+        return (2 * self._host_int(n_shift), self._g(W, K, 2 ** nlev, self.D),
                 self._u(W, K, nlev + 1))
+
+    def bisect_multi_keyed(self, it: int, W: int, K: int, nlev: int,
+                           n_shift: int, per_level: bool):
+        """K-slot interior composite without batched randoms (tag 23)."""
+        return self.bisect_multi(it, W, K, nlev, n_shift)
 
     def end_stagings(self, it: int, W: int, Lmax: int):
         """Fused head+tail staging (tag 20), head walkers then tail
@@ -116,12 +145,14 @@ class DeviceDraws:
                 self._g(W, K, 2 ** nlev + 1, self.D), self._u(W, K, nlev))
 
     def regrow_half(self, tag: int, it: int, W: int, Lmax: int):
-        """move_head/tail_half_chain (tags 41-44): (Ls, g0, gs, u_acc)."""
+        """move_head/tail_half_chain (tags 41-44) and the staging sampler's
+        move_head/tail (tags 20, 21): (Ls, g0, gs, u_acc)."""
         return (_rand_ls(self.gen, W, Lmax, self.device), self._g(W, self.D),
                 self._g(Lmax - 1, W, self.D), self._u(W))
 
     def staging_half(self, tag: int, it: int, W: int, n_opts: int, L: int):
-        """staging_half_chain (tags 45, 46): (start host int, gs, u_acc)."""
+        """staging_half_chain (tags 45, 46) and staging_move (tag 22):
+        (start host int, gs, u_acc)."""
         start = 2 * self._host_int(n_opts)
         return start, self._g(L - 1, W, self.D), self._u(W)
 

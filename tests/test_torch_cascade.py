@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_bridge import cascade_ends_draws, cascade_interior_draws, \
-    lattice_paths, small_cfg, translate_draws, tt
+    lattice_paths, other_cfg, small_cfg, translate_draws, tt
 
 from pathintegralgroundstate_torch.ops import cascade as cas
 from pathintegralgroundstate_torch.system import make_system
@@ -36,7 +36,8 @@ ACTIVE = np.array([True, True, False, True, True, True, False, True])
 def case():
     cfg = small_cfg(fused_sweep=True, cascade=True)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(cfg), lattice_paths(cfg)
+    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)),
+            lattice_paths(cfg))
 
 
 def _slots(mode, M, L, ip):
@@ -146,7 +147,7 @@ def test_cascade_he4_window_hygiene():
                     potential="aziz2", seed=4)
     jsys = j_make_system(cfg)
     tables = make_tables(jsys)
-    system = make_system(cfg)
+    system = make_system(other_cfg(cfg))
     W_, N, M, D = cfg.n_walkers, cfg.Np, system.M, cfg.dim
     jpaths = jnp.asarray(jsys.geo.Lbox) * (
         jax.random.uniform(jax.random.key(9), (W_, M, N, 3), jnp.float64)

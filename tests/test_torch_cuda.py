@@ -1,7 +1,8 @@
 """The hand-written kernels on a CUDA device: each against its plain
-PyTorch form, and whole steps on the card (the flagship, and the fused
-sweep with cascade off and on) against the same steps on the CPU from the
-same draws.
+PyTorch form, and whole steps on the card (the flagship, the fused sweep
+with cascade off and on, the reference-order step, the staging sampler
+with the scan, the fused sweep in per-level form) against the same steps
+on the CPU from the same draws.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a card but without JAX it runs as
@@ -28,9 +29,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _window(cfg, ip_form, W, seed):
+def _window(cfg, ip_form, W, seed, coincident=True):
     """(R, xnew, xold, ip) on the CPU, float64: liquid-like worldlines,
-    one row with an exactly coincident partner."""
+    with coincident: one row with an exactly coincident partner."""
     import chip_smoke
     paths = chip_smoke._flagship_paths(cfg, W, torch.float64, "cpu", seed)
     g = torch.Generator().manual_seed(seed)
@@ -47,7 +48,8 @@ def _window(cfg, ip_form, W, seed):
         p1 = int(ip[1, 2])
     xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
                                      dtype=torch.float64)
-    xnew[1, 2] = paths[1, 2, (p1 + 1) % N]
+    if coincident:
+        xnew[1, 2] = paths[1, 2, (p1 + 1) % N]
     return paths, xnew, xold, ip
 
 
@@ -115,6 +117,58 @@ def test_pair_rows_refuses_what_it_cannot_read(cuda):
         kernels.pair_rows(system, R, x.float(), x, 0)
 
 
+def _dense_case(cuda, ip_form, seed):
+    """Kernels 3 and 4's inputs on the card, no coincident partner: the
+    dense forms have no r^2 > 0 guard (as the reference)."""
+    cfg = flagship_cfg(64)
+    R, xnew, xold, ip = _window(cfg, ip_form, 64, seed, coincident=False)
+    ip = ip if isinstance(ip, int) else ip.to(cuda)
+    return (make_system(cfg, cuda, torch.float64), R.to(cuda), xnew.to(cuda),
+            xold.to(cuda), ip)
+
+
+@pytest.mark.parametrize("with_force", [True, False])
+@pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
+def test_pair_delta_matches_plain(cuda, ip_form, with_force):
+    """Kernel 3, float64: rtol 1e-11, atol 1e-7 (the force terms)."""
+    system, R, xn, xo, ip = _dense_case(cuda, ip_form, 29)
+    n = kernels.pair_delta.launches
+    got = kernels.pair_delta(system, R, xn, xo, ip, with_force)
+    ref = kernels.pair_delta_ref(system, R, xn, xo, ip, with_force)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
+    assert with_force or not bool(got[1].any())
+    assert kernels.pair_delta.launches == n + 1
+
+
+@pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
+def test_pair_u_matches_plain(cuda, ip_form):
+    """Kernel 4, float64, on the whole chain and on the end gate's row
+    view of bead 0."""
+    system, R, xn, xo, ip = _dense_case(cuda, ip_form, 31)
+    n = kernels.pair_u.launches
+    for sl in (slice(None), slice(0, 1)):
+        ipx = ip if isinstance(ip, int) or ip.dim() == 1 \
+            else ip[:, sl].contiguous()
+        torch.testing.assert_close(
+            kernels.pair_u(system, R[:, sl], xn[:, sl], xo[:, sl], ipx),
+            kernels.pair_u_ref(system, R[:, sl], xn[:, sl], xo[:, sl], ipx),
+            rtol=1e-11, atol=1e-9)
+    assert kernels.pair_u.launches == n + 2
+
+
+def test_dense_kernels_refuse_what_they_cannot_read(cuda):
+    system, R, xn, xo, _ = _dense_case(cuda, "scalar", 37)
+    ip_t = torch.zeros(64, 65, dtype=torch.long, device=cuda)
+    for fn in (kernels.pair_delta, kernels.pair_u):
+        with pytest.raises(ValueError):
+            fn(system, R, xn, xo, ip_t.T.contiguous().T)
+        with pytest.raises(ValueError):
+            fn(system, R, xn, xo, ip_t.int())
+        with pytest.raises(ValueError):
+            fn(system, R, xn[:, :3], xo, 0)
+
+
 def test_flagship_step_on_card_matches_cpu(cuda):
     import chip_smoke
     chip_smoke.replay_check(flagship_cfg(16).replace(Nstag=1, Nobdm=2))
@@ -163,3 +217,15 @@ def test_fused_cascade_step_on_card_matches_cpu(cuda):
     import chip_smoke
     chip_smoke.replay_check(flagship_cfg(16).replace(
         Nstag=1, Nobdm=2, fused_sweep=True, cascade=True), "fused+cascade")
+
+
+@pytest.mark.parametrize("label,overrides", [
+    ("reference order", dict(bis_monoshot=False, bis_end_random_depth=True)),
+    ("staging + scan", dict(sampling="sta", regrow="scan", Lstag=16)),
+    ("fused per level", dict(fused_sweep=True, bis_monoshot=False)),
+])
+def test_per_level_and_staging_steps_on_card_match_cpu(cuda, label,
+                                                       overrides):
+    import chip_smoke
+    chip_smoke.replay_check(flagship_cfg(16).replace(
+        Nstag=1, Nobdm=2, **overrides), label)

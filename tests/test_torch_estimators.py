@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_bridge import lattice_paths, small_cfg
+from torch_bridge import lattice_paths, other_cfg, small_cfg
 
 from pathintegralgroundstate_torch.ops import estimators as est
 from pathintegralgroundstate_torch.ops import worm as wm
@@ -26,7 +26,7 @@ TOL = dict(rtol=1e-10, atol=1e-12)
 def _setup(**kw):
     cfg = small_cfg(**kw)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(cfg), \
+    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)), \
         lattice_paths(cfg, seed=5)
 
 

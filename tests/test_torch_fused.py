@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_bridge import JaxDraws, bisect_multi_draws, fused_ends_draws, \
-    half_draws, lattice_paths, small_cfg
+    half_draws, lattice_paths, other_cfg, small_cfg
 
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import moves as mv
@@ -47,7 +47,8 @@ NSTEP = 2
 def case():
     cfg = small_cfg(fused_sweep=True)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(cfg), lattice_paths(cfg)
+    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)),
+            lattice_paths(cfg))
 
 
 def _check(got_paths, want_paths, *accs):
@@ -81,7 +82,9 @@ def test_bisection_multi(case, ips, per_slot):
     if per_slot:
         act[0, 1] = act[4, 2] = False
     kk = jax.random.key(40 + K + per_slot)
-    jr, tr = bisect_multi_draws(kk, cfg.n_walkers, K, 2, cfg.dim, F64)
+    n_shift = (cfg.M - 1 - K * 4) // 2 + 1
+    jr, tr = bisect_multi_draws(kk, cfg.n_walkers, K, 2, n_shift, cfg.dim,
+                                F64)
     want, wacc = jbis.bisection_multi(jsys, tables, kk, jnp.asarray(paths),
                                       ips, jnp.asarray(act), 2, rand=jr)
     got, gacc = bis.bisection_multi(tsys, torch.from_numpy(paths.copy()), ips,
@@ -108,7 +111,7 @@ def test_fused_geometry_matches_reference(case):
     for kw in ({}, {"Nlev": 3}, {"Np": 2}):
         c = small_cfg(fused_sweep=True, **kw)
         ref = jsweep.Sweeper(j_make_system(c), make_tables(j_make_system(c)))
-        got = Sweeper(make_system(c))
+        got = Sweeper(make_system(other_cfg(c)))
         assert (got.fused_diag, got.K_int) == (ref.fused_diag, ref.K_int)
     assert Sweeper(tsys).K_int == 3
 
@@ -140,7 +143,7 @@ def runs(request, burned):
     st, ref_stats = burned, jsweep.zero_stats(jsys)
     for _ in range(NSTEP):
         st, ref_stats = step(st, ref_stats)
-    tsys = make_system(cfg)
+    tsys = make_system(other_cfg(cfg))
     state = state_from_numpy(tsys, {k: getattr(burned, k) for k in FIELDS})
     state, stats = run_block(Sweeper(tsys), state, NSTEP,
                              JaxDraws(burned.key, cfg.dim, jnp.float64))

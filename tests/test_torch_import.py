@@ -1,5 +1,7 @@
-"""The torch port imports without JAX, and its copies of the reference's
-flagship configuration and throughput metric equal the originals."""
+"""The torch port imports without JAX or the reference package, its copies
+of the reference's flagship configuration, throughput metric and batched-
+randoms threshold equal the originals, and it builds every ported option
+and refuses the others."""
 
 import os
 import subprocess
@@ -7,21 +9,24 @@ import sys
 
 import pytest
 import torch
-from torch_bridge import small_cfg
+from torch_bridge import other_cfg, small_cfg
 
+from pathintegralgroundstate_torch.config import SimConfig
 from pathintegralgroundstate_torch.flagship import flagship_cfg
 from pathintegralgroundstate_torch.state import init_state
-from pathintegralgroundstate_torch.sweep import Sweeper, bead_updates_per_step
+from pathintegralgroundstate_torch.sweep import BATCH_RAND_MAX_W, Sweeper, \
+    bead_updates_per_step
 from pathintegralgroundstate_torch.system import make_system
-from pathintegralgroundstate_tpu.sweep import \
-    bead_updates_per_step as ref_bead_updates_per_step
+from pathintegralgroundstate_tpu import sweep as jsweep
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
-    "pathintegralgroundstate_torch", "pathintegralgroundstate_torch.flagship",
-    "pathintegralgroundstate_torch.system", "pathintegralgroundstate_torch.state",
+    "pathintegralgroundstate_torch", "pathintegralgroundstate_torch.config",
+    "pathintegralgroundstate_torch.flagship",
+    "pathintegralgroundstate_torch.system",
+    "pathintegralgroundstate_torch.state",
     "pathintegralgroundstate_torch.sweep",
     "pathintegralgroundstate_torch.models.potentials",
     "pathintegralgroundstate_torch.models.jastrow",
@@ -44,7 +49,7 @@ def test_port_imports_without_jax():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib'))\n"
+        "('jax', 'jaxlib', 'pathintegralgroundstate_tpu'))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -55,7 +60,7 @@ def test_port_imports_without_jax():
 @pytest.mark.parametrize("n_walkers", [8, 64, 1024])
 def test_flagship_cfg_matches_graft_entry(n_walkers):
     from __graft_entry__ import _flagship_cfg
-    assert flagship_cfg(n_walkers) == _flagship_cfg(n_walkers)
+    assert other_cfg(flagship_cfg(n_walkers)) == _flagship_cfg(n_walkers)
 
 
 @pytest.mark.parametrize("overrides", [
@@ -65,31 +70,52 @@ def test_flagship_cfg_matches_graft_entry(n_walkers):
 ], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()) or "flagship")
 def test_bead_updates_per_step_matches_reference(overrides):
     cfg = flagship_cfg(1024).replace(**overrides)
-    assert bead_updates_per_step(cfg) == ref_bead_updates_per_step(cfg)
+    assert bead_updates_per_step(cfg) == jsweep.bead_updates_per_step(
+        other_cfg(cfg))
+
+
+def test_batch_rand_max_w_matches_reference():
+    assert BATCH_RAND_MAX_W == jsweep.BATCH_RAND_MAX_W
+
+
+def _ids(o):
+    return ",".join(f"{k}={v}" for k, v in o.items())
 
 
 @pytest.mark.parametrize("overrides", [
     {"fused_sweep": True, "exact_f2": True}, {"exact_f2": True},
-    {"cascade": True, "bis_monoshot": False},
-    {"fused_sweep": True, "bis_monoshot": False},
-    {"fused_sweep": True, "cascade": True, "regrow": "scan"},
-    {"paired_ends": True}, {"bis_end_random_depth": True},
-    {"smart_mc": 0.1}, {"sampling": "sta"}, {"regrow": "scan"},
-    {"bis_monoshot": False}, {"shared_windows": False}, {"trap": True},
+    {"smart_mc": 0.1}, {"shared_windows": False},
+    {"bis_monoshot": False, "shared_windows": False}, {"trap": True},
     {"v_table": True}, {"wf_table": True}, {"density_map": True},
     {"mesh_walkers": 2}, {"mesh_pairs": 2}, {"mesh_beads": 2},
     {"potential": "soft"}, {"potential": "dipolar"}, {"potential": "none"},
     {"jastrow": "none"}, {"jastrow": "dipolar2d"},
-], ids=lambda o: ",".join(f"{k}={v}" for k, v in o.items()))
+], ids=_ids)
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_system(small_cfg(**overrides))
+        make_system(other_cfg(small_cfg(**overrides)))
+
+
+@pytest.mark.parametrize("overrides", [
+    {"cascade": True, "bis_monoshot": False},
+    {"fused_sweep": True, "bis_monoshot": False},
+    {"fused_sweep": True, "cascade": True, "regrow": "scan"},
+    {"paired_ends": True}, {"bis_end_random_depth": True},
+    {"sampling": "sta"}, {"regrow": "scan"}, {"bis_monoshot": False},
+], ids=_ids)
+def test_ported_options_build(overrides):
+    Sweeper(make_system(other_cfg(small_cfg(**overrides))))
+
+
+def test_per_walker_windows_name_their_item():
+    with pytest.raises(NotImplementedError,
+                       match=r"slice 11 \(per-walker windows\)"):
+        make_system(other_cfg(small_cfg(shared_windows=False)))
 
 
 def test_simconfig_default_raises():
     """SimConfig's own default, the fused sweep, is ported and builds; the
     same default with the exact-F^2 cache still raises."""
-    from pathintegralgroundstate_tpu.config import SimConfig
     assert Sweeper(make_system(SimConfig(dtype="float64"))).fused_diag
     with pytest.raises(NotImplementedError, match="exact_f2.*slice 10"):
         make_system(SimConfig(dtype="float64", exact_f2=True))
@@ -97,7 +123,7 @@ def test_simconfig_default_raises():
 
 def test_init_state_layout():
     cfg = small_cfg()
-    system = make_system(cfg)
+    system = make_system(other_cfg(cfg))
     st = init_state(system)
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
     assert st.paths.shape == (W, M, N, D) and st.paths.dtype == torch.float64

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 from torch_bridge import bisect_draws, half_draws, lattice_paths, \
-    small_cfg, staging_half_draws, swap_draws, translate_draws, worm_draws
+    other_cfg, small_cfg, staging_half_draws, swap_draws, translate_draws, \
+    worm_draws
 
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import moves as mv
@@ -35,7 +36,7 @@ class Case:
         self.cfg = cfg = small_cfg(**kw)
         self.jsys = j_make_system(cfg)
         self.tables = make_tables(self.jsys)
-        self.tsys = make_system(cfg)
+        self.tsys = make_system(other_cfg(cfg))
         self.W, self.D, self.Nb = cfg.n_walkers, cfg.dim, cfg.Nb
         self.paths = lattice_paths(cfg, seed=seed)
         rng = np.random.default_rng(seed + 100)
@@ -79,8 +80,9 @@ def test_monoshot_bisection(move, level):
     c = Case(seed=level)
     ip = 3
     nlev = level if move == "interior" else max(level, 2)
+    n_opts = (c.cfg.M - 1 - 2 ** nlev) // 2 + 1
     jr, tr = bisect_draws(c.key, c.W, nlev, c.D, F64,
-                          start=move == "interior")
+                          n_opts if move == "interior" else None)
     jfn = {"interior": jbis.bisection, "head": jbis.move_head_bisection,
            "tail": jbis.move_tail_bisection}[move]
     tfn = {"interior": bis.bisection, "head": bis.move_head_bisection,

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from torch_bridge import lattice_paths, small_cfg
+from torch_bridge import lattice_paths, other_cfg, small_cfg
 
 from pathintegralgroundstate_torch.ops import kernels
 from pathintegralgroundstate_torch.ops.pairwise import delta_action_rows, \
@@ -60,6 +60,11 @@ def _ip_t(ip):
     return ip if isinstance(ip, int) else torch.from_numpy(ip)
 
 
+def _tsys(cfg):
+    """The port's System of a reference cfg."""
+    return make_system(other_cfg(cfg))
+
+
 @pytest.mark.parametrize("need_wf,need_f2", [(True, True), (True, False),
                                              (False, True), (False, False)])
 @pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
@@ -72,7 +77,7 @@ def test_delta_action_rows_matches_reference(ip_form, need_wf, need_f2):
                                  jnp.asarray(xnew), jnp.asarray(xold),
                                  jnp.asarray(ip), jnp.asarray(ib),
                                  need_wf=need_wf, need_f2=need_f2)
-    got = delta_action_rows(make_system(cfg), _t(R), _t(xnew), _t(xold),
+    got = delta_action_rows(_tsys(cfg), _t(R), _t(xnew), _t(xold),
                             _ip_t(ip), _t(ib), need_wf=need_wf,
                             need_f2=need_f2)
     assert np.isfinite(got.numpy()).all()
@@ -94,7 +99,7 @@ def test_reversed_window_matches_reference(ip_form):
                                  jnp.asarray(Rf[:, ::-1]), jnp.asarray(xn),
                                  jnp.asarray(xo), jnp.asarray(ip),
                                  jnp.asarray(ib))
-    got = delta_action_rows(make_system(cfg), _t(Rf), _t(xn), _t(xo),
+    got = delta_action_rows(_tsys(cfg), _t(Rf), _t(xn), _t(xo),
                             _ip_t(ip), _t(ib), rev=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -110,7 +115,7 @@ def test_delta_action_sum_row_weights_matches_reference():
                                 jnp.asarray(xnew), jnp.asarray(xold),
                                 jnp.asarray(ip), jnp.asarray(ib),
                                 row_weights=jnp.asarray(rw))
-    got = delta_action_sum(make_system(cfg), _t(R), _t(xnew), _t(xold),
+    got = delta_action_sum(_tsys(cfg), _t(R), _t(xnew), _t(xold),
                            _ip_t(ip), _t(ib), row_weights=_t(rw))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -122,7 +127,7 @@ def test_pair_pot_matches_reference(with_force, potential):
     R = lattice_paths(cfg, seed=7)
     jsys = j_make_system(cfg)
     want = jpw.pair_pot(jsys, make_tables(jsys), jnp.asarray(R), with_force)
-    got = pair_pot(make_system(cfg), _t(R), with_force)
+    got = pair_pot(_tsys(cfg), _t(R), with_force)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
@@ -140,7 +145,7 @@ def test_pair_pot_ref_matches_pallas_interpret(with_force):
     jsys = j_make_system(cfg)
     with pltpu.force_tpu_interpret_mode():
         want = pair_pot_pallas(jsys, jnp.asarray(R), with_force)
-    got = kernels.pair_pot_ref(make_system(cfg), _t(R), with_force)
+    got = kernels.pair_pot_ref(_tsys(cfg), _t(R), with_force)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=2e-4, atol=1e-3)
     if with_force:
@@ -165,7 +170,7 @@ def test_pair_rows_ref_matches_pallas_interpret(ip_form, need_wf):
         want = pair_rows_pallas(jsys, jnp.asarray(R), jnp.asarray(xnew),
                                 jnp.asarray(xold),
                                 jnp.asarray(ip, jnp.int32), need_wf)
-    got = kernels.pair_rows_ref(make_system(cfg), _t(R), _t(xnew), _t(xold),
+    got = kernels.pair_rows_ref(_tsys(cfg), _t(R), _t(xnew), _t(xold),
                                 _ip_t(ip), need_wf=need_wf)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
                                rtol=2e-4, atol=1e-4)
@@ -180,7 +185,7 @@ def test_pair_rows_ref_matches_pallas_interpret(ip_form, need_wf):
 
 def test_cpu_tensors_take_the_plain_form_and_count_no_launch():
     cfg = small_cfg(Np=8, n_walkers=4)
-    system = make_system(cfg)
+    system = _tsys(cfg)
     R, xnew, xold, ip = _window(cfg, "scalar")
     n_rows, n_pot = kernels.pair_rows.launches, kernels.pair_pot.launches
     got = kernels.pair_rows(system, _t(R), _t(xnew), _t(xold), ip)

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_bridge import JaxDraws, small_cfg
+from torch_bridge import other_cfg, JaxDraws, small_cfg
 
 from pathintegralgroundstate_torch.state import state_from_numpy, \
     state_to_numpy
@@ -43,7 +43,7 @@ def runs():
     for _ in range(NSTEP):
         st, ref_stats = step(st, ref_stats)
 
-    tsys = make_system(cfg)
+    tsys = make_system(other_cfg(cfg))
     state = state_from_numpy(tsys, {k: getattr(burned, k) for k in FIELDS})
     state, stats = run_block(Sweeper(tsys), state, NSTEP,
                              JaxDraws(burned.key, cfg.dim, jnp.float64))

@@ -5,18 +5,22 @@ reference move consumes it and returns the draws as torch tensors, in the
 argument layout of the torch move.  `JaxDraws` is a draw source for the torch
 `Sweeper.step` (same methods as utils/draws.DeviceDraws) that replays the
 reference step's key tree: split(state.key) -> k_step, then the fold_in tags
-of pathintegralgroundstate_tpu/sweep.py.  It replays the batched-randoms
-branch, which the reference takes for W <= BATCH_RAND_MAX_W.
+of pathintegralgroundstate_tpu/sweep.py, in the batched-randoms branch and
+without it (`*_keyed`, `end_bisect`), whichever the step takes.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from pathintegralgroundstate_torch import config as tconfig
 from pathintegralgroundstate_torch.ops.worm import SwapDraws, WormDraws
+from pathintegralgroundstate_tpu import config as jconfig
 
 split, fold_in = jax.random.split, jax.random.fold_in
 
@@ -29,6 +33,14 @@ def tt(x):
 def ti(x):
     """jax integer array -> torch long tensor."""
     return torch.from_numpy(np.asarray(x).astype(np.int64))
+
+
+def other_cfg(cfg):
+    """The other package's SimConfig with the same fields: the port's for a
+    reference cfg, the reference's for a port cfg."""
+    other = (jconfig.SimConfig if isinstance(cfg, tconfig.SimConfig)
+             else tconfig.SimConfig)
+    return other(**dataclasses.asdict(cfg))
 
 
 def translate_draws(key, W, D, dtype):
@@ -86,13 +98,80 @@ def swap_draws(key, W, N, Lmax, D, dtype):
                      tt(jax.random.uniform(k_acc, (W,), dtype)))
 
 
-def bisect_draws(kk, W, nlev, D, dtype, start=False):
+def _start(u, n_opts):
+    """The reference's even window start 2 floor(u n_opts), a host int
+    (bisection.py:256, 916)."""
+    return int(2 * jnp.floor(u * n_opts).astype(jnp.int32))
+
+
+def _level_rows(k_levels, k_acc, shape, nlev, D, dtype):
+    """The per-level key form's draws (bisection.py:468-497) laid out as the
+    port's rand blocks: g [*shape, L, D] with level ilev's
+    normal(k_levels[ilev-1], [*shape, m, D]) at window rows d2::delta (row 0
+    zero), u [*shape, nlev+1] with uniform(fold_in(k_acc, ilev), shape) in
+    column ilev (column 0 zero)."""
+    g = np.zeros(shape + (2 ** nlev, D), np.dtype(dtype))
+    u = np.zeros(shape + (nlev + 1,), np.dtype(dtype))
+    for ilev in range(1, nlev + 1):
+        delta, m = 2 ** (nlev - ilev + 1), 2 ** (ilev - 1)
+        g[..., delta // 2::delta, :] = jax.random.normal(
+            k_levels[ilev - 1], shape + (m, D), dtype)
+        u[..., ilev] = jax.random.uniform(fold_in(k_acc, ilev), shape, dtype)
+    return g, u
+
+
+def _gate_rows(k_g, k_acc0, k_lev, shape, nlev, D, dtype):
+    """An end move's per-level key form (split(key, nlev+3) = k_g, k_acc0,
+    k_lev): the gate's gaussian and uniform in row / column 0."""
+    g, u = _level_rows(k_lev, k_lev[-1], shape, nlev, D, dtype)
+    g[..., 0, :] = jax.random.normal(k_g, shape + (D,), dtype)
+    u[..., 0] = jax.random.uniform(k_acc0, shape, dtype)
+    return tt(g), tt(u)
+
+
+def bisect_draws(kk, W, nlev, D, dtype, n_opts=None):
     """The sweep's draw(tag, nlev, start) blocks (sweep.py:428-436), as jax
-    arrays (rand for the reference move) and torch tensors (the port's)."""
+    arrays (rand for the reference move) and torch tensors (the port's,
+    with the window start of n_opts choices as a host int)."""
     g = jax.random.normal(fold_in(kk, 0), (W, 2 ** nlev, D), dtype)
     u = jax.random.uniform(fold_in(kk, 1), (W, nlev + 1), dtype)
-    s = jax.random.uniform(fold_in(kk, 2), (), dtype) if start else None
-    return (s, g, u), (None if s is None else float(s), tt(g), tt(u))
+    s = jax.random.uniform(fold_in(kk, 2), (), dtype) if n_opts else None
+    return (s, g, u), (None if s is None else _start(s, n_opts), tt(g), tt(u))
+
+
+def bisect_keyed_draws(key, W, level, D, dtype, n_opts, per_level):
+    """bisection without rand: per level, split(key, level+2) (window start,
+    then level ilev from keys[ilev], accepts from fold_in(keys[-1], ilev));
+    monoshot, _draw_monoshot (bisection.py:231-241)."""
+    if per_level:
+        keys = split(key, level + 2)
+        ii = 2 * int(jax.random.randint(keys[0], (), 0, n_opts,
+                                        dtype=jnp.int32))
+        g, u = _level_rows(keys[1:], keys[-1], (W,), level, D, dtype)
+        return ii, tt(g), tt(u)
+    k_g, k_u, k_s = split(key, 3)
+    return (_start(jax.random.uniform(k_s, (), dtype), n_opts),
+            tt(jax.random.normal(k_g, (W, 2 ** level, D), dtype)),
+            tt(jax.random.uniform(k_u, (W, level + 1), dtype)))
+
+
+def end_bisect_draws(key, W, level, D, dtype, per_level, random_depth):
+    """move_head/tail_bisection without rand (bisection.py:628-653): the
+    depth (random with random_depth: split(key) -> k_n, k_body) and the
+    body's draws, per level (split(k_body, depth+3)) or monoshot."""
+    if random_depth and level > 2:
+        k_n, key = split(key)
+        depth = 2 + int(jax.random.randint(k_n, (), 0, level - 1))
+    else:
+        depth = max(level, 2)
+    if per_level:
+        k_g, k_acc0, *k_lev = split(key, depth + 3)
+        return depth, (None, *_gate_rows(k_g, k_acc0, k_lev, (W,), depth, D,
+                                         dtype))
+    k_g, k_u, _ = split(key, 3)
+    return depth, (None,
+                   tt(jax.random.normal(k_g, (W, 2 ** depth, D), dtype)),
+                   tt(jax.random.uniform(k_u, (W, depth + 1), dtype)))
 
 
 def fused_ends_draws(kk, W, nlev, D, dtype):
@@ -103,12 +182,40 @@ def fused_ends_draws(kk, W, nlev, D, dtype):
     return (None, g, u), (None, tt(g), tt(u))
 
 
-def bisect_multi_draws(kk, W, K, nlev, D, dtype):
+def fused_ends_keyed_draws(key, W, level, D, dtype, per_level):
+    """fused_end_bisections without rand: per level split(key, level+3)
+    (bisection.py:793), monoshot split(key, 2) (bisection.py:693)."""
+    if per_level:
+        k_g, k_acc0, *k_lev = split(key, level + 3)
+        return (None, *_gate_rows(k_g, k_acc0, k_lev, (W, 2), level, D,
+                                  dtype))
+    k_g, k_u = split(key, 2)
+    return (None, tt(jax.random.normal(k_g, (W, 2, 2 ** level, D), dtype)),
+            tt(jax.random.uniform(k_u, (W, 2, level + 1), dtype)))
+
+
+def bisect_multi_draws(kk, W, K, nlev, n_shift, D, dtype):
     """The K-slot interior blocks at tag 23 (sweep.py:589-599)."""
     g = jax.random.normal(fold_in(kk, 2), (W, K, 2 ** nlev, D), dtype)
     u = jax.random.uniform(fold_in(kk, 3), (W, K, nlev + 1), dtype)
     s = jax.random.uniform(fold_in(kk, 4), (), dtype)
-    return (s, g, u), (float(s), tt(g), tt(u))
+    return (s, g, u), (_start(s, n_shift), tt(g), tt(u))
+
+
+def bisect_multi_keyed_draws(key, W, K, level, n_shift, D, dtype,
+                             per_level):
+    """bisection_multi without rand: per level split(key, level+2)
+    (bisection.py:993-1008), monoshot split(key, 3) (bisection.py:910)."""
+    if per_level:
+        keys = split(key, level + 2)
+        s = 2 * int(jax.random.randint(keys[0], (), 0, n_shift,
+                                       dtype=jnp.int32))
+        g, u = _level_rows(keys[1:], keys[-1], (W, K), level, D, dtype)
+        return s, tt(g), tt(u)
+    k_s, k_g, k_u = split(key, 3)
+    return (_start(jax.random.uniform(k_s, (), dtype), n_shift),
+            tt(jax.random.normal(k_g, (W, K, 2 ** level, D), dtype)),
+            tt(jax.random.uniform(k_u, (W, K, level + 1), dtype)))
 
 
 def cascade_ends_draws(key, W, nlev, D, dtype):
@@ -152,9 +259,17 @@ class JaxDraws:
     def translate(self, tag, it, W):
         return translate_draws(self._site(tag, it), W, self.D, self.dtype)
 
-    def bisect(self, tag, it, W, nlev, start=False):
+    def bisect(self, tag, it, W, nlev, n_opts=None):
         return bisect_draws(self._site(tag, it), W, nlev, self.D, self.dtype,
-                            start)[1]
+                            n_opts)[1]
+
+    def bisect_keyed(self, tag, it, W, nlev, n_opts, per_level):
+        return bisect_keyed_draws(self._site(tag, it), W, nlev, self.D,
+                                  self.dtype, n_opts, per_level)
+
+    def end_bisect(self, tag, it, W, level, per_level, random_depth):
+        return end_bisect_draws(self._site(tag, it), W, level, self.D,
+                                self.dtype, per_level, random_depth)
 
     def regrow_half(self, tag, it, W, Lmax):
         return half_draws(self._site(tag, it), W, Lmax, self.D, self.dtype)
@@ -165,13 +280,22 @@ class JaxDraws:
         return fused_ends_draws(self._site(28, it), W, nlev, self.D,
                                 self.dtype)[1]
 
+    def fused_ends_keyed(self, it, W, nlev, per_level):
+        return fused_ends_keyed_draws(self._site(20, it), W, nlev, self.D,
+                                      self.dtype, per_level)
+
     def group_offset(self, it, Np):
         return int(jax.random.randint(fold_in(self._site(23, it), 0), (), 0,
                                       Np, dtype=jnp.int32))
 
-    def bisect_multi(self, it, W, K, nlev):
-        return bisect_multi_draws(self._site(23, it), W, K, nlev, self.D,
-                                  self.dtype)[1]
+    def bisect_multi(self, it, W, K, nlev, n_shift):
+        return bisect_multi_draws(self._site(23, it), W, K, nlev, n_shift,
+                                  self.D, self.dtype)[1]
+
+    def bisect_multi_keyed(self, it, W, K, nlev, n_shift, per_level):
+        return bisect_multi_keyed_draws(fold_in(self._site(23, it), 1), W, K,
+                                        nlev, n_shift, self.D, self.dtype,
+                                        per_level)
 
     def end_stagings(self, it, W, Lmax):
         return half_draws(self._site(20, it), 2 * W, Lmax, self.D,
@@ -199,8 +323,8 @@ class JaxDraws:
 
 def small_cfg(**kw):
     """The dry-run base (__graft_entry__.dryrun_multichip) on one device,
-    on the flagship's default branch, in float64."""
-    from pathintegralgroundstate_tpu.config import SimConfig
+    on the flagship's default branch, in float64: the reference's SimConfig
+    (other_cfg gives the port's)."""
     base = dict(
         dim=3, Np=8, density=0.365, trap=False,
         dt=5e-3, Nb=8, sampling="bis", Lstag=4, Nlev=2, Nstag=1,
@@ -209,16 +333,15 @@ def small_cfg(**kw):
         n_walkers=8, dtype="float64", potential="aziz2",
         fused_sweep=False, exact_f2=False, jastrow="mcmillan_c1")
     base.update(kw)
-    return SimConfig(**base)
+    return jconfig.SimConfig(**base)
 
 
 def lattice_paths(cfg, seed=0, noise=0.05):
     """Worldlines [W, M, N, D] near a cubic lattice (moderate action
     deltas, no ties), numpy float64."""
-    from pathintegralgroundstate_tpu.config import geometry
     rng = np.random.default_rng(seed)
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
-    L = geometry(cfg).Lbox[0]
+    L = jconfig.geometry(cfg).Lbox[0]
     n = int(round(N ** (1.0 / D)))
     grid = np.stack(np.meshgrid(*[np.arange(n)] * D, indexing="ij"),
                     -1).reshape(-1, D)[:N]
@@ -226,3 +349,74 @@ def lattice_paths(cfg, seed=0, noise=0.05):
     x = (base[None, None] + 0.3 * rng.normal(size=(W, 1, N, D))
          + noise * rng.normal(size=(W, M, N, D)))
     return (x + 0.5 * L) % L - 0.5 * L
+
+
+# ---------------------------------------------------------------------------
+# Whole steps: the port against the reference from one burned-in state
+# ---------------------------------------------------------------------------
+
+STATE_FIELDS = ("paths", "xend", "isopen", "iworm", "in_cycle", "iperm",
+                "step")
+
+
+def step_pair(cfg, nstep=2, nburn=150, max_w=None):
+    """Burn a reference state in with the reference's jitted step of cfg
+    (until some walkers are open and some closed), then run nstep more
+    steps of the reference and of the port (on the reference's draws) from
+    it.  max_w: the batched-randoms threshold of both packages during the
+    run (a W above it takes the draws without batched randoms).
+    Returns (reference state, reference stats, port state, port stats)."""
+    from pathintegralgroundstate_torch import sweep as tsweep
+    from pathintegralgroundstate_torch.state import state_from_numpy
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_tpu import sweep as jsweep
+    from pathintegralgroundstate_tpu.state import init_state
+    from pathintegralgroundstate_tpu.system import make_system as jmake
+    from pathintegralgroundstate_tpu.system import make_tables
+
+    saved = jsweep.BATCH_RAND_MAX_W, tsweep.BATCH_RAND_MAX_W
+    if max_w is not None:
+        jsweep.BATCH_RAND_MAX_W = tsweep.BATCH_RAND_MAX_W = max_w
+    try:
+        jsys = jmake(cfg)
+        step = jax.jit(jsweep.Sweeper(jsys, make_tables(jsys)).step)
+        st, stats = init_state(jsys), jsweep.zero_stats(jsys)
+        for _ in range(nburn):
+            st, stats = step(st, stats)
+        nopen = int(np.sum(np.asarray(st.isopen)))
+        assert 0 < nopen < cfg.n_walkers, nopen
+        burned, ref_stats = st, jsweep.zero_stats(jsys)
+        for _ in range(nstep):
+            st, ref_stats = step(st, ref_stats)
+        tsys = make_system(other_cfg(cfg))
+        state = state_from_numpy(tsys, {k: getattr(burned, k)
+                                        for k in STATE_FIELDS})
+        state, stats = tsweep.run_block(
+            tsweep.Sweeper(tsys), state, nstep,
+            JaxDraws(burned.key, cfg.dim, jnp.float64))
+    finally:
+        jsweep.BATCH_RAND_MAX_W, tsweep.BATCH_RAND_MAX_W = saved
+    return st, ref_stats, state, stats
+
+
+def assert_step_pair(ref, ref_stats, state, stats, tol):
+    """Positions within tol, integer state and counters exactly equal,
+    statistics within rtol 1e-9."""
+    from pathintegralgroundstate_torch.state import state_to_numpy
+    from pathintegralgroundstate_torch.sweep import stats_to_numpy
+    got = state_to_numpy(state)
+    for k in STATE_FIELDS:
+        want = np.asarray(getattr(ref, k))
+        if k in ("paths", "xend"):
+            np.testing.assert_allclose(got[k], want, **tol, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want, err_msg=k)
+    tstats = stats_to_numpy(stats)
+    for k, v in tstats.items():
+        want = np.asarray(getattr(ref_stats, k))
+        if k == "counters":
+            np.testing.assert_array_equal(v, want)
+        else:
+            np.testing.assert_allclose(v, want, rtol=1e-9, atol=1e-12,
+                                       err_msg=k)
+    return tstats["counters"]

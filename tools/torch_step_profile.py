@@ -1,10 +1,12 @@
 """Where the torch port's step spends its time, on one CUDA device.
 
     python3 tools/torch_step_profile.py [--walkers 1024]
-        [--scan 256,1024,4096] [--forms flagship,fused,cascade]
+        [--scan 256,1024,4096] [--forms flagship,fused,cascade,reforder,sta]
 
 --forms lists the steps: `flagship` (the unfused sweep), `fused`
-(fused_sweep=True) or `cascade` (fused_sweep=True, cascade=True).
+(fused_sweep=True), `cascade` (fused_sweep=True, cascade=True),
+`reforder` (the reference-order step: bis_monoshot=False,
+bis_end_random_depth=True) or `sta` (sampling='sta').
 Prints, for the first of them in float32 after one warm-up step:
   1. host time per move function in one step, first without and then with a
      device sync after each call (the second shows what the device adds);
@@ -43,9 +45,12 @@ PHASES = [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
           (SW.bis, "fused_end_bisections"), (SW.bis, "bisection_multi"),
           (SW.mv, "fused_end_stagings"), (SW.cas, "fused_ends_cascade"),
           (SW.cas, "interior_cascade"), (SW.cas, "rigid_cascade"),
-          (SW.Sweeper, "_measure")]
+          (SW.mv, "staging_move"), (SW.mv, "move_head"),
+          (SW.mv, "move_tail"), (SW.Sweeper, "_measure")]
 FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
-         "cascade": {"fused_sweep": True, "cascade": True}}
+         "cascade": {"fused_sweep": True, "cascade": True},
+         "reforder": {"bis_monoshot": False, "bis_end_random_depth": True},
+         "sta": {"sampling": "sta"}}
 
 
 def timed_step(sweeper, state):

@@ -8,12 +8,20 @@ run exits non-zero):
   2. build   : nvcc builds pathintegralgroundstate_torch/csrc into build/
                (one nvcc per source, all started together).
   3. kernels : kernels A and B against their plain PyTorch forms at the
-               flagship's shapes (kernel A also over the fused interior
-               span with a per-window-row ip [1, B]), float32 and float64,
-               then both timed with CUDA events.
+               flagship's shapes (kernel A's weighted rows and walker sums,
+               with and without row weights, ib [B] and [W, B], also over
+               the fused interior span with a per-window-row ip [1, B], and
+               at each lane-group width at B=1 and B=65, with W chosen so
+               that the wrapper's rule picks it), float32 and float64, then
+               both timed with CUDA events: kernel A at B in 1, 2, 4, 8,
+               16, 32, 65, L2-warm and L2-cold, at the lane-group width the
+               rule picks.
   4. cascade : kernel 5 against its plain form (cascade_ref) at the
                flagship's shapes, modes 'ends' (S=2) and 'interior' (S=3),
-               float64 and float32, then both timed.
+               float64 and float32, then both timed; then kernels A and 5
+               where a row of partners is no multiple of 16 bytes (N=30 in
+               float32, N=31 in float64), which they stage element by
+               element.
   5. dense   : kernels 3 and 4 (the dense delta_action's UpdatePot and
                UpdateWf) against their plain forms at the end gate's shape
                [1024, 1, 64, 3] with ip scalar and at [1024, 16, 64, 3]
@@ -208,12 +216,141 @@ def _flagship_paths(cfg, W, dtype, device, seed, dmin=0.95):
     return _wrap(x, L).to(device=device, dtype=dtype)
 
 
-def kernel_parity(cfg, card):
+def _rows_tol(sys64, dtype, R, xnew, xold, ip, ib, need_wf, need_f2, rev,
+              rw, reduce):
+    """Absolute tolerance of each value of kernel A's weighted output: each
+    raw term's own (_tol: atol + rtol |term|, the term from the float64
+    plain form) weighted as the term is, times |rw|, summed over the
+    walker's rows with reduce."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+
+    terms = K.pair_terms_ref(sys64, R.double(), xnew.double(), xold.double(),
+                             ip, need_wf, need_f2, rev)
+    w = chin_table(sys64)[:, ib]
+    tol = 0.0
+    for i, name in enumerate(("dpot", "df2", "du")):
+        if terms[i] is not None:
+            rtol, atol = _tol(dtype, name)
+            tol = tol + w[i] * (atol + rtol * terms[i].abs())
+    if rw is not None:
+        tol = tol * rw.double().abs()
+    return tol.sum(-1) if reduce else tol
+
+
+def rows_parity(system, sys64, R, xnew, xold, ip, ib, rev, flags, label,
+                rw=None, reduce=False):
+    """Kernel A (kernels.pair_rows) against its float64 plain form on the
+    same inputs, for each (need_wf, need_f2) of flags: float64 within the
+    raw terms' tolerances of _tol, weighted as the terms; float32 also
+    within twice the plain float32 form's own error (see _close).  Returns
+    (max abs err, values excused by the cutoff, cases)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+
+    f32 = system.dtype == torch.float32
+    near = None
+    if f32:
+        rows_near = _near_cut_rows(system, R, xnew, xold, ip, rev)
+        B = R.shape[1]
+
+        def near(idx):
+            if not reduce:
+                return rows_near(idx)
+            w = idx[:, 0].repeat_interleave(B)
+            b = torch.arange(B, device=w.device).repeat(len(idx))
+            return rows_near(torch.stack([w, b], 1)).view(-1, B).any(-1)
+    rw64 = rw.double() if rw is not None else None
+    err, excused = 0.0, 0
+    for need_wf, need_f2 in flags:
+        got = K.pair_rows(system, R, xnew, xold, ip, chin_table(system), ib,
+                          need_wf, need_f2, rev, rw, reduce)
+        ref = K.pair_rows_ref(sys64, R.double(), xnew.double(),
+                              xold.double(), ip, chin_table(sys64), ib,
+                              need_wf, need_f2, rev, rw64, reduce)
+        plain = (K.pair_rows_ref(system, R, xnew, xold, ip,
+                                 chin_table(system), ib, need_wf, need_f2,
+                                 rev, rw, reduce) if f32 else None)
+        tol = _rows_tol(sys64, system.dtype, R, xnew, xold, ip, ib, need_wf,
+                        need_f2, rev, rw, reduce)
+        e, n = _close(f"pair_rows {system.dtype} {label} rev={rev} "
+                      f"reduce={reduce} wf={need_wf} "
+                      f"f2={need_f2}", got, ref, 0.0, tol, plain, near)
+        err, excused = max(err, e), excused + n
+    return err, excused, len(flags)
+
+
+def _window_ip(R, ip, g, sigma=0.05):
+    """(xnew, xold) of the window R [W, B, N, D] for ip (int, [W], [W, B]
+    or [1, B]): xold the moved particle's positions, xnew a gaussian step
+    away, with one exactly coincident partner (the worm-pin case)."""
+    W, B, N, D = R.shape
+    if isinstance(ip, int):
+        xold = R[:, :, ip]
+    elif ip.dim() == 1:
+        xold = R[torch.arange(W, device=R.device), :, ip]
+    else:
+        xold = R.gather(2, ip.expand(W, B)[:, :, None, None].expand(
+            W, B, 1, D))[:, :, 0]
+    xnew = xold + sigma * torch.randn(xold.shape, generator=g,
+                                      device=R.device, dtype=R.dtype)
+    p3 = ip if isinstance(ip, int) else int(
+        ip[3] if ip.dim() == 1 else ip.expand(W, B)[3, B // 2])
+    xnew[3, B // 2] = R[3, B // 2, (p3 + 1) % N]
+    return xnew, xold
+
+
+def lanes_walkers(G, B, N=64):
+    """The fewest walkers at which kernel A's rule (kernels.rows_lanes)
+    runs G lanes per row for windows of B rows."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+
+    W = -(-K.ROWS_FILL // (G * B))
+    if K.rows_lanes(W, B, N) != G:
+        raise AssertionError(f"rows_lanes({W}, {B}, {N}) is not {G}")
+    return W
+
+
+def lanes_parity(cfg, dtype, seed=5, base=256):
+    """Each lane-group width of kernel A against the plain form at B=1 and
+    B=65 (the last B beads of liquid-like paths of `base` walkers, repeated
+    to lanes_walkers(G, B) walkers), with ip scalar and [1, B], rows and
+    walker sums.  Returns (max abs err, values excused by the cutoff,
+    cases)."""
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.system import make_system
 
     dev = torch.device("cuda")
-    W, N, D = 1024, cfg.Np, cfg.dim
+    system = make_system(cfg, dev, dtype)
+    sys64 = make_system(cfg, dev, torch.float64)
+    paths = _flagship_paths(cfg, base, dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N, M = cfg.Np, cfg.M
+    err, excused, n = 0.0, 0, 0
+    for B in (1, 65):
+        ib = torch.arange(M - B, M, device=dev)
+        for G in K.ROWS_LANES:
+            W = lanes_walkers(G, B, N)
+            R = paths[:, M - B:].repeat(-(-W // base), 1, 1, 1)[:W]
+            for ip in (7, torch.randint(0, N, (1, B), generator=g,
+                                        device=dev)):
+                xnew, xold = _window_ip(R, ip, g)
+                for reduce in (False, True):
+                    e, x, c = rows_parity(
+                        system, sys64, R, xnew, xold, ip, ib, False,
+                        [(True, True), (False, False)],
+                        f"B={B} W={W} G={G} ip={ip}", reduce=reduce)
+                    err, excused, n = max(err, e), excused + x, n + c
+    return err, excused, n
+
+
+def kernel_parity(cfg, card, W=1024):
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    N, D, M = cfg.Np, cfg.dim, cfg.M
     sys64 = make_system(cfg, dev, torch.float64)
     errs = {"pair_rows": 0.0, "pair_pot": 0.0}   # float64: kernel vs plain
     excused = {"pair_rows": 0, "pair_pot": 0}    # float32 rows at the cutoff
@@ -222,73 +359,57 @@ def kernel_parity(cfg, card):
         system = make_system(cfg, dev, dtype)
         paths = _flagship_paths(cfg, W, dtype, dev, seed=1)
         g = torch.Generator(device=dev).manual_seed(2)
-        rows = torch.arange(W, device=dev)
         f32 = dtype == torch.float32
+        half = torch.ones(65, dtype=dtype, device=dev)
+        half[0] = 0.5                                 # the worm centre's 1/2
 
-        def rows_check(R, xnew, xold, ip, rev, flags, label):
-            near = _near_cut_rows(system, R, xnew, xold, ip, rev)
-            for need_wf, need_f2 in flags:
-                args = (ip, need_wf, need_f2, rev)
-                got = K.pair_rows(system, R, xnew, xold, *args)
-                ref = K.pair_rows_ref(sys64, R.double(), xnew.double(),
-                                      xold.double(), *args)
-                plain = (K.pair_rows_ref(system, R, xnew, xold, *args)
-                         if f32 else (None, None, None))
-                for i, name in enumerate(("dpot", "df2", "du")):
-                    if got[i] is None:
-                        continue
-                    e, n = _close(f"pair_rows {dtype} {label} rev={rev} "
-                                  f"{name}", got[i], ref[i],
-                                  *_tol(dtype, name), plain[i],
-                                  near if f32 else None)
-                    excused["pair_rows"] += n
-                    if not f32:
-                        errs["pair_rows"] = max(errs["pair_rows"], e)
-            return len(flags)
+        def check(*args, **kw):
+            nonlocal ncase
+            e, x, c = rows_parity(system, sys64, *args, **kw)
+            excused["pair_rows"] += x
+            if not f32:
+                errs["pair_rows"] = max(errs["pair_rows"], e)
+            ncase += c
 
         every = [(wf, f2) for wf in (True, False) for f2 in (True, False)]
         for B in (15, 16, 30, 32, 33, 65):
-            lo = (cfg.M - B) // 2
+            lo = (M - B) // 2
             R = paths[:, lo:lo + B]                     # strided window view
+            ibs = (torch.arange(lo, lo + B, device=dev),
+                   torch.randint(0, M, (W, B), generator=g, device=dev))
             ipw = torch.randint(0, N, (W,), generator=g, device=dev)
             ipwb = torch.randint(0, N, (W, B), generator=g, device=dev)
-            for ip in (7, ipw, ipwb):
-                if isinstance(ip, int):
-                    xold = R[:, :, ip]
-                elif ip.dim() == 1:
-                    xold = R[rows, :, ip]
-                else:
-                    xold = R.gather(2, ip[:, :, None, None].expand(
-                        W, B, 1, D))[:, :, 0]
-                xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
-                                                 device=dev, dtype=dtype)
-                # an exactly coincident partner (the worm-pin case)
-                p3 = ip if isinstance(ip, int) else int(
-                    ip[3] if ip.dim() == 1 else ip[3, B // 2])
-                xnew[3, B // 2] = R[3, B // 2, (p3 + 1) % N]
+            for k, ip in enumerate((7, ipw, ipwb)):
+                xnew, xold = _window_ip(R, ip, g)
                 for rev in (False, True):
-                    ncase += rows_check(R, xnew, xold, ip, rev, every,
-                                        f"B={B}")
+                    reduce = bool((k + rev) % 2)
+                    check(R, xnew, xold, ip, ibs[k % 2], rev, every,
+                          f"B={B}", rw=half[:B] if reduce else None,
+                          reduce=reduce)
         # the fused interior span of bisection_multi: K=3 slots of L links
         # from an even shift s, rows s+1..s+KL-1 read in place, ip [1, B]
         # per window row; the slot-boundary rows are unmoved (dS exactly 0)
         L, s0 = 2 ** cfg.Nlev, 2
         B = 3 * L - 1
         R = paths[:, s0 + 1:s0 + 1 + B]
+        ib = torch.arange(s0 + 1, s0 + 1 + B, device=dev)
         ip = torch.cat([torch.full((L,), p, dtype=torch.long, device=dev)
                         for p in (7, 30, 61)])[None, 1:]
-        xold = R.gather(2, ip[:, :, None, None].expand(W, B, 1, D))[:, :, 0]
-        xnew = xold + 0.05 * torch.randn(xold.shape, generator=g, device=dev,
-                                         dtype=dtype)
+        xnew, xold = _window_ip(R, ip, g)
         xnew[:, L - 1::L] = xold[:, L - 1::L]
-        xnew[3, B // 2] = R[3, B // 2, (int(ip[0, B // 2]) + 1) % N]
-        ncase += rows_check(R, xnew, xold, ip, False, [(False, True)],
-                            f"B={B} span ip[1, B]")
-        got = K.pair_rows(system, R, xnew, xold, ip, False, True)
-        if bool(got[0][:, L - 1::L].any()) or bool(got[1][:, L - 1::L].any()):
+        check(R, xnew, xold, ip, ib, False, [(False, True)],
+              f"B={B} span ip[1, B]")
+        got = K.pair_rows(system, R, xnew, xold, ip,
+                          chin_table(system), ib, False, True)
+        if bool(got[:, L - 1::L].any()):
             raise AssertionError("pair_rows span: an unmoved slot-boundary "
                                  "row has a nonzero dS")
-        for sl in (slice(0, cfg.M - 1, 2), slice(1, cfg.M - 1, 2)):
+        e, x, c = lanes_parity(cfg, dtype)
+        excused["pair_rows"] += x
+        if not f32:
+            errs["pair_rows"] = max(errs["pair_rows"], e)
+        ncase += c
+        for sl in (slice(0, M - 1, 2), slice(1, M - 1, 2)):
             R = paths[:, sl]
             near = _near_cut_confs(system, R)
             for wf in (False, True):
@@ -305,38 +426,17 @@ def kernel_parity(cfg, card):
                 ncase += 1
     torch.cuda.synchronize()
     print(f"[kernels] {ncase} parity cases pass against the plain form in "
-          f"float64 on the same inputs: float64 max abs err pair_rows "
+          f"float64 on the same inputs (kernel A at each lane-group width "
+          f"{K.ROWS_LANES} too): float64 max abs err pair_rows "
           f"{errs['pair_rows']:.3e}, pair_pot {errs['pair_pot']:.3e} (rtol "
-          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond tolerance, "
-          f"each at a partner within 1e-5 of rcut^2: pair_rows "
-          f"{excused['pair_rows']},"
-          f" pair_pot {excused['pair_pot']}")
+          f"1e-11, atol 1e-9, forces 1e-7, weighted as the terms); float32 "
+          f"values beyond tolerance, each at a partner within 1e-5 of "
+          f"rcut^2: pair_rows {excused['pair_rows']}, pair_pot "
+          f"{excused['pair_pot']}")
 
-    # timing at the main path's shapes, float32, kernel vs plain form
+    shapes, bounds = rows_timing(cfg, card, W)
     system = make_system(cfg, dev, torch.float32)
     paths = _flagship_paths(cfg, W, torch.float32, dev, seed=3)
-    ipw = torch.randint(0, N, (W,), generator=g, device=dev)
-    shapes = {}
-
-    def rows_case(B, ip, need_wf, rev=False):
-        R = paths[:, :B]
-        xold = R[:, :, ip] if isinstance(ip, int) else R[rows, :, ip]
-        xnew = (xold + 0.05).contiguous()
-        k = _events_ms(lambda: K.pair_rows(system, R, xnew, xold, ip,
-                                           need_wf, True, rev))
-        p = _events_ms(lambda: K.pair_rows_ref(system, R, xnew, xold, ip,
-                                               need_wf, True, rev))
-        return k, p
-
-    shapes["pair_rows B=16 end move"] = rows_case(16, 5, True)
-    R16 = paths[:, :16]
-    bounds = {"pair_rows": _bound(
-        _nbytes(R16) + 2 * W * 16 * D * 4 + 3 * W * 16 * 4,
-        2 * W * 16 * N * _OPS["rows"])}
-    shapes["pair_rows B=15 interior bisection"] = rows_case(15, 5, False)
-    shapes["pair_rows B=65 CM move"] = rows_case(65, 5, True)
-    shapes["pair_rows B=32 worm half, ip[W], reversed"] = rows_case(
-        32, ipw, True, True)
     for wf in (False, True):
         R = paths[:, wf::2][:, :cfg.Nb]
         shapes[f"pair_pot [1024,32,64,3] force={wf}"] = (
@@ -355,6 +455,86 @@ def kernel_parity(cfg, card):
     return errs, shapes, bounds
 
 
+ROWS_TIMED_B = (1, 2, 4, 8, 16, 32, 65)
+
+
+def rows_case(cfg, W, B, seed=3):
+    """Kernel A's inputs of an end move's window of B rows at W walkers,
+    float32, ip scalar (5), both chain-end rows weighted: (system, window
+    pairs for L2-cold rotation, ib).  The window is paths[:, :B] of
+    liquid-like paths; for the L2-cold case, enough distinct windows [W,
+    B, N, D] (contiguous copies) that more than 64 MB are read between two
+    reads of one."""
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    system = make_system(cfg, dev, torch.float32)
+    paths = _flagship_paths(cfg, W, torch.float32, dev, seed)
+    R = paths[:, :B]
+    xold = R[:, :, 5]
+    xnew = (xold + 0.05).contiguous()
+    nbuf = 2 + (64 << 20) // _nbytes(R)
+    cold = [(R.contiguous() if i == 0 else
+             R.roll(i, 0).contiguous(), xnew.roll(i, 0), xold.roll(i, 0))
+            for i in range(nbuf)]
+    return system, (R, xnew, xold), cold, torch.arange(B, device=dev)
+
+
+def rows_bound(cfg, W, B):
+    """(bound_ms, by) of one kernel-A pass over W x B rows with f2 and u,
+    float32: bytes of the window, both positions, ib, the Chin table and
+    the rows out; operations of both sides of every pair."""
+    N, D, M = cfg.Np, cfg.dim, cfg.M
+    return _bound(W * B * N * D * 4 + 2 * W * B * D * 4 + B * 8 + 3 * M * 4
+                  + W * B * 4, 2 * W * B * N * _OPS["rows"])
+
+
+def time_rows(system, case, cold, ib):
+    """(L2-warm ms, L2-cold ms) of kernel A on one window, and on the
+    rotation of `cold` windows, by CUDA events over 20 (warm) or at least
+    as many launches as windows (cold)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+
+    tab = chin_table(system)
+
+    def fn(R, xn, xo):
+        return K.pair_rows(system, R, xn, xo, 5, tab, ib, True, True)
+    warm = _events_ms(lambda: fn(*case))
+    it = iter(range(1 << 30))
+    cold_ms = _events_ms(lambda: fn(*cold[next(it) % len(cold)]),
+                         reps=max(20, len(cold)))
+    return warm, cold_ms
+
+
+def rows_timing(cfg, card, W=1024):
+    """Kernel A at W=1024, float32, at B in ROWS_TIMED_B (the reference
+    order's levels, the flagship's end and interior windows, the worm half
+    and the CM move): L2-warm and L2-cold, each with the lanes per row the
+    rule picks and its bound; then the plain form at the B=16 end move (the
+    kernels JSON's timed case).  Returns (shapes, bounds) for the JSON."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+
+    N = cfg.Np
+    shapes, bounds = {}, {}
+    for B in ROWS_TIMED_B:
+        system, case, cold, ib = rows_case(cfg, W, B)
+        G = K.rows_lanes(W, B, N)
+        b, by = rows_bound(cfg, W, B)
+        warm, cold_ms = time_rows(system, case, cold, ib)
+        print(f"[time] pair_rows B={B} W={W} end move f2+u float32: chosen "
+              f"G={G}: L2-warm {warm:.4f} ms, L2-cold {cold_ms:.4f} ms "
+              f"({len(cold)} windows), bound {b:.5f} ms ({by}; {card})")
+        if B == 16:
+            plain = _events_ms(lambda: K.pair_rows_ref(
+                system, *case, 5, chin_table(system), ib, True, True))
+            shapes["pair_rows B=16 end move"] = (warm, plain)
+            bounds["pair_rows"] = (b, by)
+        del case, cold
+    return shapes, bounds
+
+
 def _cascade_inputs(cfg, W, dtype, mode, seed):
     """(system, paths, slots, rg, ru, act) of one flagship-shaped cascade
     move on the card; about one slot in ten inactive."""
@@ -368,7 +548,8 @@ def _cascade_inputs(cfg, W, dtype, mode, seed):
     if mode == "ends":
         slots = [(0, 1, 5), (M - 1, -1, 5)]
     else:
-        slots = [(2 + k * L, 1, p) for k, p in enumerate((7, 30, 61))]
+        slots = [(2 + k * L, 1, p * cfg.Np // 64)
+                 for k, p in enumerate((7, 30, 61))]
     S, G = len(slots), cfg.Nlev + (mode == "ends")
     rg = torch.randn((W, S, L + 1, cfg.dim), generator=g, device=dev,
                      dtype=dtype)
@@ -471,10 +652,52 @@ def cascade_parity(cfg, card):
             + W * len(slots) * (L + 1) * D * es + n_acc * L * D * es,
             2 * nrows * N * _OPS["delta_force"]))
         print(f"[time] cascade {mode} S={len(slots)} [1024, {len(slots)}, "
-              f"{L + 1}, {N}, 3] float32: kernel {k:.4f} ms, plain "
-              f"{p:.4f} ms, bound {times[mode][2][0]:.5f} ms "
+              f"{L + 1}, {N}, 3] float32: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, bound {times[mode][2][0]:.5f} ms "
               f"({times[mode][2][1]}; {card})")
     return err64, times
+
+
+def layout_parity(cfg, W=256):
+    """Kernels A and 5 where a row of partners is no multiple of 16 bytes,
+    so that both stage the partners element by element: N=30 in float32
+    (N*D*4 = 360 bytes) and N=31 in float64 (744 bytes), against the plain
+    forms with the tolerances above.  Kernel A: windows of B=16 and 65 read
+    in place, ip scalar, [W] and [W, B], forward and reversed, rows and
+    walker sums; kernel 5: both modes (cascade_check).  Returns the cases."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    n, shares = 0, []
+    for dtype, Np in ((torch.float32, 30), (torch.float64, 31)):
+        c = cfg.replace(Np=Np)
+        system = make_system(c, dev, dtype)
+        sys64 = make_system(c, dev, torch.float64)
+        paths = _flagship_paths(c, W, dtype, dev, seed=31)
+        if K.slabs16(paths):
+            raise AssertionError(f"N={Np} {dtype}: rows are 16-byte slabs")
+        g = torch.Generator(device=dev).manual_seed(31)
+        for B in (16, 65):
+            R = paths[:, c.M - B:]
+            ib = torch.arange(c.M - B, c.M, device=dev)
+            ips = (7, torch.randint(0, Np, (W,), generator=g, device=dev),
+                   torch.randint(0, Np, (W, B), generator=g, device=dev))
+            for k, ip in enumerate(ips):
+                xnew, xold = _window_ip(R, ip, g)
+                for rev in (False, True):
+                    n += rows_parity(system, sys64, R, xnew, xold, ip, ib,
+                                     rev, [(True, True), (False, False)],
+                                     f"N={Np} B={B}",
+                                     reduce=bool((k + rev) % 2))[2]
+        for mode in ("ends", "interior"):
+            shares.append(cascade_check(c, W, dtype, mode)[0])
+            n += 1
+    print(f"[layout] {n} parity cases of kernels A and 5 pass where the "
+          f"partners are staged element by element (N=30 float32, N=31 "
+          f"float64, W={W}); kernel 5 decisions agree on "
+          + ", ".join(f"{s:.6f}" for s in shares) + " of the slots")
+    return n
 
 
 def dense_parity(cfg, card):
@@ -818,6 +1041,27 @@ def main_path(cfg, card, label="main"):
     return launches, dt, bups
 
 
+def _ptxas_summary(log):
+    """One line per kernel of nvcc's -Xptxas -v log: its name with its
+    template arguments (type, then lanes), registers and spills."""
+    import re
+    name, spill, out = "?", "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
+                      r"pair_delta|pair_u|cascade)_kernel)I([fd])"
+                      r"(?:Li(\d+)E)?", line)
+        if m:
+            name = m.group(1) + "<" + ("float" if m.group(2) == "f"
+                                       else "double") + (
+                f", {m.group(3)}" if m.group(3) else "") + ">"
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -833,13 +1077,13 @@ def main():
     _, seconds, log = build.build()
     build.kernels()
     print(f"[build] nvcc {seconds:.1f} s -> {build.BUILD_ROOT}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+    for line in _ptxas_summary(log):
+        print(f"[build]   {line}")
 
     cfg = flagship_cfg(1024)
     errs, shapes, bounds = kernel_parity(cfg, card)
     cas_err, cas_times = cascade_parity(cfg, card)
+    layout_parity(cfg)
     dense_err, dense_times = dense_parity(cfg, card)
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)

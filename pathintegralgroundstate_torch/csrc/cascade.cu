@@ -21,23 +21,50 @@
 // The numbers are those of the plain form ops/cascade.cascade_ref (the
 // counterpart of cascade_jnp) on the same gaussians rg and uniforms ru.
 //
-// What bounds it on the H100: latency.  A slot's levels are a dependent
-// chain (each level's midpoints come from the previous levels' positions),
-// so the work is L row passes of N partners in sequence; the bytes are one
-// read of the slot's (L+1) x N x D partner window, 52 KB per slot at the
-// flagship in float32.
+// What bounded the first design (one warp per slot): the warp walked
+// the slot's displaced rows one after the other, 16 dependent row passes
+// per `ends` slot (the gate, then 1 + 2 + 4 + 8 midpoints), each with ten
+// five-step shuffle reductions and two warp barriers, and each waiting for
+// its partner row to arrive from memory when the chain reached it.
 //
-// Design: one warp per (walker, slot).  The moved particle's L+1 window
-// positions live in shared memory; every lane computes each proposal
-// redundantly from them (no broadcast needed), lanes stride over the N
-// partners for both sides of a row from one load, and xor shuffles leave
-// the row's sums in every lane.  The windows are read IN PLACE from paths
-// through a per-slot start bead and bead direction (the tail window is
+// This design: one block of kThreads = 64 threads per (walker, slot) (128
+// and 256 measured slower, PERF.md).  The midpoints of one level do not
+// depend on each other (a level's anchors p +- d2 are multiples of delta,
+// never its own midpoints), so each level is ONE parallel pass: its
+// 2^(ilev-1) rows are spread over the block in lane groups of
+// G = kThreads / rows threads (at most the partners' power of two, at
+// least 4), reduced over warp shuffles; a group of up to 32 lanes leaves
+// its row's dS in shared memory, a row spread over several warps its
+// partial sums.  Every thread then adds the level's rows in order and
+// takes the same gate decision, so the early exit stays a block-uniform
+// return.  The chain is nlev (+1) dependent passes, not L - 1 (+1).  The
+// slot's whole partner window, (L+1) bead rows of N*D values (13 KB at the
+// flagship in float32), is staged into shared memory at entry: where the
+// wrapper has seen that it is one contiguous slab of 16-byte multiples at
+// a 16-byte aligned address (`bulk`: paths contiguous, N*D*sizeof(T) a
+// multiple of 16) one thread starts a single bulk asynchronous copy (the
+// TMA's 1-D cp.async.bulk, completing on an mbarrier); otherwise (any N,
+// any layout of paths) the block copies it element by element through the
+// bead and particle strides.  The slot's gaussians and gate uniforms are
+// staged beside it and the end guess is computed while the bulk copy is in
+// flight, so no level waits on a global load.  The moved particle's old
+// positions and its proposals live in two separate arrays, so that a
+// level's proposals read only what earlier levels wrote.  The windows are
+// read and written IN PLACE by start bead and direction (the tail window is
 // head-oriented: start M-1, direction -1), so the TPU's stacked window copy
-// [W, S, L+1, N, D] is never made, and accepted windows are written back
-// into paths in place.  This is race-free: a warp writes only its own
-// particle at its own slot's displaced beads, which no other slot reads.
-// The walker-tiling of the TPU kernel (VMEM) has no counterpart here.
+// [W, S, L+1, N, D] is never made.  This is race-free: a block writes only
+// its own particle at its own slot's displaced beads, which no other slot
+// reads.
+//
+// What bounds it now: the chain of an accepted slot.  At W = 1024 most
+// blocks of a launch are resident at once (2 warps, 66 registers and 14 KB
+// in float32: 14 blocks per SM, 1,848 on the card for the 2,048 slots of an
+// `ends` launch), so the launch lasts about as long as its busiest SM takes
+// over its slots, and an accepted slot runs 16 row evaluations per
+// thread, each a long dependent chain of pair arithmetic, and five
+// block-wide gates.  Wider blocks shorten the chain but leave lanes idle at
+// the one-row levels and hold fewer slots per SM: slower.  Bytes do not
+// bound it (13 KB per slot).
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
@@ -45,7 +72,24 @@
 namespace {
 
 constexpr int kMaxSlots = 64;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 64;  // a block's threads (ops/kernels.CASCADE_BLOCK)
+
+// Row-sum entries of one gate: a level's rows (at most L/2), or the 8
+// partial sums of each warp chunk of the rows of a gate whose rows span
+// several warps (kThreads/32 chunks).  ops/kernels.cascade_smem mirrors
+// this.
+__host__ __device__ constexpr int cascade_buf(int L) {
+  return L / 2 > kThreads / 4 ? L / 2 : kThreads / 4;
+}
+
+// Shared-memory elements of one block: the window's L+1 partner rows, the
+// moved particle's old and proposed positions and the slot's gaussians
+// (3 each per position), its gate uniforms, two sets of row sums.
+__host__ __device__ constexpr long long cascade_smem_elems(int L, int N,
+                                                           int D, int ngate) {
+  return (long long)(L + 1) * N * D + 3LL * (L + 1) * 3 + ngate +
+         2LL * cascade_buf(L);
+}
 
 }  // namespace
 
@@ -65,140 +109,249 @@ namespace {
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
 
-// dS of one displaced row (position x_new vs x_old) against the partner
-// row Rrow [N, D]: wv dpot + wf df2 - wpsi du, as ops/pairwise
-// delta_action_rows combines them.  Every lane returns the same value.
-template <typename T>
-__device__ __forceinline__ T row_ds(const Consts<T>& c,
-                                    const T* __restrict__ Rrow, long long sN,
-                                    int N, int ip, const T* xn, const T* xo,
-                                    T wv, T wf, T wpsi, int lane) {
-  const bool need_f2 = wf != T(0);
-  const bool need_wf = wpsi != T(0);
-  T pot_n = T(0), pot_o = T(0), u_n = T(0), u_o = T(0);
-  T Fn[3] = {T(0), T(0), T(0)}, Fo[3] = {T(0), T(0), T(0)};
-  for (int j = lane; j < N; j += 32) {
-    T rj[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? Rrow[j * sN + k] : T(0);
-    const bool notself = j != ip;
-    pair_side(c, xn, rj, notself, need_f2, need_wf, pot_n, Fn, u_n);
-    pair_side(c, xo, rj, notself, need_f2, need_wf, pot_o, Fo, u_o);
-  }
-  T dS = wv * (warp_sum(pot_n) - warp_sum(pot_o));
-  if (need_f2) {
-    T f2n = T(0), f2o = T(0);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      T a = warp_sum(Fn[k]);
-      T o = warp_sum(Fo[k]);
-      f2n += a * a;
-      f2o += o * o;
-    }
-    dS = dS + wf * (f2n - f2o);
-  }
-  if (need_wf) dS = dS - wpsi * (warp_sum(u_n) - warp_sum(u_o));
-  return dS;
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// Arm the barrier for `bytes` and copy them from global src to shared dst
+// in one bulk asynchronous copy that completes on the barrier.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The summed dS of one gate's m rows at window positions p0 + q dp.  With
+// d2 > 0 the rows are a bisection level's midpoints: each row group builds
+// its proposal from the current window (segn) and the gaussians (rgs) and
+// stores it in segn, which no row of this level reads.  With d2 == 0 the
+// row is the end gate and its proposal is already in segn.  Row groups of
+// G of the kThreads threads; a group of up to 32 lanes leaves its row's dS
+// in buf[q], a row of more lanes (cpr warp chunks of 32) its 8 partial
+// sums per chunk.  Every thread returns the same sum, the rows added in
+// order.
 template <typename T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
-               long long sW, long long sM, long long sN,
-               const T* __restrict__ rg, const T* __restrict__ ru,
-               const bool* __restrict__ act, long long sAw, long long sAs,
-               bool* __restrict__ acc, int W, int S, int N, int L, int nlev,
-               int ends) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long task = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (task >= (long long)W * S) return;  // whole warps leave together
-  const long long w = task / S;
-  const int s = (int)(task - w * S);
-  if (!act[w * sAw + s * sAs]) {
-    if (lane == 0) acc[task] = false;
-    return;
-  }
+__device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
+                                     int N, int L, int dir, int ip,
+                                     const T* seg, T* segn, const T* rgs,
+                                     T* buf, int m, int p0, int dp, int d2,
+                                     T sigma, T wv, T wf, T wpsi,
+                                     bool need_f2, bool need_wf, int gmax) {
+  const int t = threadIdx.x;
   const int D = c.dim;
-  const int ip = a.ip[s];
-  const long long b0 = a.bead0[s];
-  const long long dstep = (long long)a.dir[s] * sM;
-  T* seg = reinterpret_cast<T*>(smem_raw) + warp * (L + 1) * 3;
-  T* walker = paths + w * sW;
-  T* mine = walker + (long long)ip * sN;  // the moved particle's column
-  const T* rgw = rg + task * (L + 1) * D;
-  const T* ruw = ru + task * (nlev + ends);
-
-  for (int p = lane; p <= L; p += 32) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      seg[p * 3 + k] = k < D ? mine[b0 * sM + p * dstep + k] : T(0);
-  }
-  __syncwarp();
-
-  bool alive = true;
-  int gate = 0;
-  if (ends) {
-    T x0[3], xn0[3];
-    const T sig = sqrt(T(double(L) * a.dt));
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      x0[k] = seg[k];
-      T xmid = x0[k] - wrap1(x0[k] - seg[L * 3 + k], c.L[k], c.half[k]);
-      xn0[k] = k < D ? wrap1(xmid + sig * rgw[k], c.L[k], c.half[k]) : T(0);
-    }
-    T dS0 = row_ds(c, walker + b0 * sM, sN, N, ip, xn0, x0, T(a.wv_end),
-                   T(0), T(1), lane);
-    alive = ruw[0] < exp_t(-dS0);
-    __syncwarp();
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) seg[k] = xn0[k];
-    }
-    __syncwarp();
-    gate = 1;
-  }
-
-  for (int ilev = 1; alive && ilev <= nlev; ++ilev) {
-    const int delta = 1 << (nlev - ilev + 1);
-    const int d2 = delta >> 1;
-    const T sigma = sqrt(T(0.25 * delta * a.dt));
-    const bool odd = d2 & 1;
-    const T wv = T(odd ? a.wv_odd : a.wv_even);
-    const T wf = odd ? T(a.wf_odd) : T(0);
-    T dS = T(0);
-    // a level's anchors p +- d2 are multiples of delta, never its own
-    // midpoints, so each midpoint is stored as soon as it is drawn
-    for (int p = d2; p < L; p += delta) {
+  const int G = max(4, min(kThreads / m, gmax));
+  const int width = min(G, 32);
+  const int cpr = max(1, G / 32);  // warp chunks per row
+  const int l = t & (G - 1);
+  const unsigned mask = group_mask(t & 31, width);
+  for (int q0 = 0; q0 < m; q0 += kThreads / G) {
+    const int q = q0 + t / G;
+    RowPart<T> r = {};
+    if (q < m) {
+      const int p = p0 + q * dp;
       T xo[3], xn[3];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         xo[k] = seg[p * 3 + k];
-        T xp = xo[k] + wrap1(seg[(p - d2) * 3 + k] - xo[k], c.L[k], c.half[k]);
-        T xq = xo[k] - wrap1(xo[k] - seg[(p + d2) * 3 + k], c.L[k], c.half[k]);
-        xn[k] = k < D ? wrap1(T(0.5) * (xp + xq) + sigma * rgw[p * D + k],
-                              c.L[k], c.half[k])
-                      : T(0);
+        xn[k] = d2 ? T(0) : segn[p * 3 + k];
       }
-      dS += row_ds(c, walker + b0 * sM + p * dstep, sN, N, ip, xn, xo, wv, wf,
-                   T(0), lane);
-      __syncwarp();
-      if (lane == 0) {
+      if (d2) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) seg[p * 3 + k] = xn[k];
+        for (int k = 0; k < 3; ++k) {
+          const T xp =
+              xo[k] + wrap1(segn[(p - d2) * 3 + k] - xo[k], c.L[k], c.half[k]);
+          const T xq =
+              xo[k] - wrap1(xo[k] - segn[(p + d2) * 3 + k], c.L[k], c.half[k]);
+          xn[k] = k < D ? wrap1(T(0.5) * (xp + xq) + sigma * rgs[p * 3 + k],
+                                c.L[k], c.half[k])
+                        : T(0);
+        }
+        if (l == 0) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) segn[p * 3 + k] = xn[k];
+        }
       }
-      __syncwarp();
+      const int row = dir > 0 ? p : L - p;
+      r = row_part(c, slab + row * N * D, N, ip, xn, xo, need_f2, need_wf, l,
+                   G);
     }
-    alive = ruw[gate + ilev - 1] < exp_t(-dS);
+    group_sum(r, width, mask, need_f2, need_wf);
+    if (q < m && (l & (width - 1)) == 0) {
+      if (cpr == 1) {
+        buf[q] = row_ds(r, wv, wf, wpsi, need_f2, need_wf);
+      } else {
+        T* e = buf + (q * cpr + l / 32) * 8;
+        e[0] = r.dpot;
+        e[1] = r.du;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          e[2 + k] = r.Fn[k];
+          e[5 + k] = r.Fo[k];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  T dS = T(0);
+  if (cpr == 1) {
+    for (int q = 0; q < m; ++q) dS += buf[q];
+    return dS;
+  }
+  for (int q = 0; q < m; ++q) {
+    RowPart<T> r = {};
+    for (int i = 0; i < cpr; ++i) {
+      const T* e = buf + (q * cpr + i) * 8;
+      r.dpot += e[0];
+      r.du += e[1];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        r.Fn[k] += e[2 + k];
+        r.Fo[k] += e[5 + k];
+      }
+    }
+    dS += row_ds(r, wv, wf, wpsi, need_f2, need_wf);
+  }
+  return dS;
+}
+
+// paths [W, M, N, D] with strides sW, sM, sN (elements; the coordinate
+// axis contiguous); bulk: the window is one aligned contiguous slab.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
+               long long sW, long long sM, long long sN,
+               const T* __restrict__ rg, const T* __restrict__ ru,
+               const bool* __restrict__ act, long long sAw, long long sAs,
+               bool* __restrict__ acc, int S, int N, int L, int nlev,
+               int ends, int bulk, int gmax) {
+  __shared__ __align__(8) unsigned long long bar;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int w = blockIdx.x, s = blockIdx.y;
+  const long long task = (long long)w * S + s;
+  const int t = threadIdx.x;
+  if (!act[w * sAw + s * sAs]) {
+    if (t == 0) acc[task] = false;
+    return;
+  }
+  const int D = c.dim;
+  const int ND = N * D;
+  const int ip = a.ip[s];
+  const int dir = a.dir[s];
+  const long long b0 = a.bead0[s];
+  const long long lo = dir > 0 ? b0 : b0 - L;  // the window's first bead
+  const int ngate = nlev + ends;
+  const int E = cascade_buf(L);
+  T* slab = reinterpret_cast<T*>(smem_raw);  // [L+1][N][D], forward beads
+  T* seg = slab + (L + 1) * ND;              // [L+1][3] old positions
+  T* segn = seg + (L + 1) * 3;               // [L+1][3] proposed positions
+  T* rgs = segn + (L + 1) * 3;               // [L+1][3] the slot's gaussians
+  T* rus = rgs + (L + 1) * 3;                // [ngate] its gate uniforms
+  T* buf = rus + ngate;                      // [2][E] row sums
+  T* walker = paths + w * sW;
+  const T* rgw = rg + task * (L + 1) * D;
+  const T* ruw = ru + task * ngate;
+
+  const unsigned bar_s = smem_u32(&bar);
+  if (bulk) {
+    if (t == 0) {
+      mbar_init(bar_s, 1);
+      bulk_load(smem_u32(slab), walker + lo * ND,
+                (unsigned)((L + 1) * ND * sizeof(T)), bar_s);
+    }
+  } else {
+    for (int i = t; i < (L + 1) * N; i += kThreads) {
+      const int j = i / N, n = i - j * N;
+      const T* src = walker + (lo + j) * sM + n * sN;
+      for (int k = 0; k < D; ++k) slab[i * D + k] = src[k];
+    }
+  }
+  // while the window is in flight: the slot's draws into shared memory,
+  // and the end guess
+  for (int i = t; i < (L + 1) * 3; i += kThreads) {
+    const int p = i / 3, k = i - 3 * p;
+    rgs[i] = k < D ? rgw[p * D + k] : T(0);
+  }
+  if (t < ngate) rus[t] = ruw[t];
+  T xn0[3] = {T(0), T(0), T(0)};
+  if (ends) {
+    const T* x0 = walker + b0 * sM + ip * sN;
+    const T* xL = walker + (b0 + dir * L) * sM + ip * sN;
+    const T sig = sqrt(T(double(L) * a.dt));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (k < D) {
+        const T xmid = x0[k] - wrap1(x0[k] - xL[k], c.L[k], c.half[k]);
+        xn0[k] = wrap1(xmid + sig * rgw[k], c.L[k], c.half[k]);
+      }
+    }
+  }
+  __syncthreads();  // the barrier's initialisation (or the copy) is visible
+  if (bulk) mbar_wait(bar_s, 0);
+  for (int i = t; i < (L + 1) * 3; i += kThreads) {
+    const int p = i / 3, k = i - 3 * p;
+    const T v = k < D ? slab[(dir > 0 ? p : L - p) * ND + ip * D + k] : T(0);
+    seg[i] = v;
+    segn[i] = ends && p == 0 ? xn0[k] : v;
+  }
+  __syncthreads();
+
+  int gate = 0;
+  if (ends) {
+    const T dS0 = gate_ds<T>(c, slab, N, L, dir, ip, seg, segn, rgs, buf, 1,
+                             0, 1, 0, T(0), T(a.wv_end), T(0), T(1), false,
+                             true, gmax);
+    if (!(rus[0] < exp_t(-dS0))) {
+      if (t == 0) acc[task] = false;
+      return;
+    }
+    gate = 1;
+  }
+  for (int ilev = 1; ilev <= nlev; ++ilev) {
+    const int delta = 1 << (nlev - ilev + 1);
+    const int d2 = delta >> 1;
+    const bool odd = d2 & 1;
+    const T dS = gate_ds<T>(
+        c, slab, N, L, dir, ip, seg, segn, rgs, buf + (ilev & 1) * E,
+        1 << (ilev - 1), d2, delta, d2, sqrt(T(0.25 * delta * a.dt)),
+        T(odd ? a.wv_odd : a.wv_even), odd ? T(a.wf_odd) : T(0), T(0), odd,
+        false, gmax);
+    if (!(rus[gate + ilev - 1] < exp_t(-dS))) {
+      if (t == 0) acc[task] = false;
+      return;
+    }
   }
 
-  if (lane == 0) acc[task] = alive;
-  if (alive) {
-    for (int p = ends ? lane : lane + 1; p < L; p += 32) {
-      for (int k = 0; k < D; ++k)
-        mine[b0 * sM + p * dstep + k] = seg[p * 3 + k];
-    }
+  if (t == 0) acc[task] = true;
+  T* mine = walker + ip * sN;  // the moved particle's column
+  const int p_lo = ends ? 0 : 1;
+  for (int i = t; i < (L - p_lo) * D; i += kThreads) {
+    const int p = p_lo + i / D, k = i - (i / D) * D;
+    mine[(b0 + p * dir) * sM + k] = segn[p * 3 + k];
   }
 }
 
@@ -207,30 +360,37 @@ int launch(const PairParams* p, const CascadeArgs* a, void* paths,
            long long sW, long long sM, long long sN, const void* rg,
            const void* ru, const void* act, long long sAw, long long sAs,
            void* acc, int W, int S, int N, int L, int nlev, int ends,
-           void* stream) {
-  const long long tasks = (long long)W * S;
-  if (tasks == 0) return 0;
-  if (S > kMaxSlots) return (int)cudaErrorInvalidValue;
-  const unsigned grid =
-      (unsigned)((tasks + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const size_t smem = (size_t)kWarpsPerBlock * (L + 1) * 3 * sizeof(T);
-  cascade_kernel<T><<<grid, 32 * kWarpsPerBlock, smem, (cudaStream_t)stream>>>(
+           int bulk, void* stream) {
+  if ((long long)W * S == 0) return 0;
+  if (S > kMaxSlots || S > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      cascade_smem_elems(L, N, p->dim, nlev + ends) * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cascade_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int gmax = 4;
+  while (gmax < N && gmax < kThreads) gmax <<= 1;
+  cascade_kernel<T><<<dim3(W, S), kThreads, smem, (cudaStream_t)stream>>>(
       make_consts<T>(*p), *a, (T*)paths, sW, sM, sN, (const T*)rg,
-      (const T*)ru, (const bool*)act, sAw, sAs, (bool*)acc, W, S, N, L, nlev,
-      ends);
+      (const T*)ru, (const bool*)act, sAw, sAs, (bool*)acc, S, N, L, nlev,
+      ends, bulk, gmax);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define PIGS_CASCADE_ENTRY(NAME, T)                                          \
-  extern "C" int NAME(const PairParams* p, const CascadeArgs* a,             \
-                      void* paths, long long sW, long long sM, long long sN, \
-                      const void* rg, const void* ru, const void* act,       \
-                      long long sAw, long long sAs, void* acc, int W, int S, \
-                      int N, int L, int nlev, int ends, void* stream) {      \
-    return launch<T>(p, a, paths, sW, sM, sN, rg, ru, act, sAw, sAs, acc, W, \
-                     S, N, L, nlev, ends, stream);                           \
+#define PIGS_CASCADE_ENTRY(NAME, T)                                           \
+  extern "C" int NAME(const PairParams* p, const CascadeArgs* a,              \
+                      void* paths, long long sW, long long sM, long long sN,  \
+                      const void* rg, const void* ru, const void* act,        \
+                      long long sAw, long long sAs, void* acc, int W, int S,  \
+                      int N, int L, int nlev, int ends, int bulk,             \
+                      void* stream) {                                         \
+    return launch<T>(p, a, paths, sW, sM, sN, rg, ru, act, sAw, sAs, acc, W,  \
+                     S, N, L, nlev, ends, bulk, stream);                      \
   }
 
 PIGS_CASCADE_ENTRY(pigs_cascade_f32, float)

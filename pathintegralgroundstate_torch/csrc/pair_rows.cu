@@ -1,130 +1,201 @@
-// Kernel A: the window pair pass of every Monte Carlo move.
+// Kernel A: the window pair pass of every Monte Carlo move, with the action
+// epilogue.
 //
 // Replaces pathintegralgroundstate_tpu/ops/pallas_kernels.py
-// pair_rows_pallas / _rows_kernel.  For each (walker w, window row b) and
-// for BOTH Metropolis sides x = xnew[w, b] and x = xold[w, b] against the N
-// partners R[w, b, :, :] it computes the single-image minimum image, r^2,
-// the self / rcut / coincidence masks (sum V over m = notself & r^2 <= rc^2;
-// force and u over mf = m & r^2 > 0), the fused Aziz (V, dV/dr), and
-// returns per row
-//     dpot = sum V(new) - sum V(old)
-//     df2  = |F(new)|^2 - |F(old)|^2      (0 unless need_f2)
-//     du   = sum u(new) - sum u(old)      (only when need_wf)
-// The caller folds in the Chin weights (ops/pairwise.delta_action_rows).
+// pair_rows_pallas / _rows_kernel, and the elementwise work the reference's
+// delta_action_rows / delta_action_sum do after it.  For each (walker w,
+// window row b) and for BOTH Metropolis sides x = xnew[w, b] and
+// x = xold[w, b] against the N partners R[w, b, :, :] it computes the
+// single-image minimum image, r^2, the self / rcut / coincidence masks (sum
+// V over m = notself & r^2 <= rc^2; force and u over mf = m & r^2 > 0) and
+// the fused Aziz (V, dV/dr), and writes the row's action delta
+//     dS_b = wv dpot + wf (|F(new)|^2 - |F(old)|^2) - wpsi du
+// with the Chin weights (wv, wf, wpsi) = tab[:, ib[b]] of the row's bead
+// (the force term only when need_f2, the u term only when need_wf), times
+// the row weight rw[b] when given; with `reduce`, the walker's sum over its
+// rows instead.  The plain form is ops/kernels.pair_rows_ref.
 //
-// What bounds it on the H100: device-memory bytes.  The window is
-// W*B*N*D elements (12.6 MB for an end move, 51 MB for a CM move at
-// W=1024, f32), each read once; on top comes launch latency, since about
-// 1,120 dependent moves run per Monte Carlo step.
+// What bounded the first design (one warp per row): at N = 64 a lane
+// evaluated two partners and then ran ten five-step shuffle reductions, so
+// the per-row reduction cost as much as the pair arithmetic; a level of 1-8
+// rows filled at most one wave of the card; every row paid an emulated
+// 64-bit division, scalar 4-byte partner loads, and after the kernel the
+// caller launched 4-7 elementwise kernels to weight and sum the rows.
 //
-// Design: one warp per (walker, row).  Lane l loads partners j = l, l+32,
-// ... ONCE and evaluates both sides from that one load (the TPU's XLA path
-// read the window twice); warp shuffles reduce the ten partial sums.  The
-// window is read IN PLACE from `paths` through the W/B/N strides the
-// wrapper passes, so no window copy is made.  The wrapper feeds a reversed
-// window (the half-1 worm centre buffer, swap, the tail half-chain move)
-// through a NEGATIVE bead stride from the window's last row, not through a
-// flipped copy.
+// This design: a group of G lanes per row (G = 4, 8, 16 or 32, chosen by
+// the wrapper from the row count W*B and N: few lanes per row when rows are
+// many, many when they are few), so each lane evaluates N/G partners and
+// the reductions take log2(G) shuffle steps over eight sums.  A block holds
+// `wpb` walkers (threadIdx.y) of `spw` row slots each (threadIdx.x / G), so
+// no thread divides and every index is 32-bit.  Each slot stages its row's
+// N*D partners into shared memory, padded so that the lanes of a warp read
+// distinct banks: with 16-byte cp.async copies where the wrapper has seen
+// that the row is one contiguous slab of 16-byte multiples at 16-byte
+// aligned addresses (`vec16`), else element by element through the
+// particle stride (any N, e.g. N*D*4 not a multiple of 16 in float32).  The
+// window is still read IN PLACE from `paths` through its strides, and a
+// reversed window (the half-1 worm centre buffer, swap, the tail half-chain
+// move) through a NEGATIVE bead stride from its last row.  r and Rm/r come
+// from one rsqrt (pigs_pair.cuh).  The epilogue weights the row and writes
+// dS, or sums the walker's rows in shared memory and writes one value per
+// walker.
+//
+// What bounds it now: the pair arithmetic, not the bytes.  Each partner
+// and row costs a long dependent chain per side (minimum image, rsqrt, two
+// exps, the force and u terms) at about 86 registers a thread in float32
+// (16 resident warps per SM in blocks of 256); neither smaller blocks (more
+// resident warps) nor a register cap measured faster.  Below B = 8 the
+// launch itself sets the time.
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
 
+// Host-side launch description, filled by ops/kernels.py (_RowsArgs).
+// Strides in elements; sRb < 0 reads the window backwards.
+struct RowsArgs {
+  long long sRw, sRb, sRn, sNw, sNb, sOw, sOb;
+  long long ip0;
+  int ip_mode;  // ip: 0 scalar ip0, 1 [W], 2 [W, B], 3 [1, B]
+  int ib_mode;  // ib: 0 [B], 1 [W, B]
+  int M;        // row length of the Chin table tab [3, M]
+  int W, B, N;
+  int need_wf, need_f2, reduce;
+  int G, spw, wpb;  // lanes per row, row slots per walker, walkers per block
+  int slab;         // shared-memory elements per row slot (>= N*D, padded)
+  int vec16;        // 1: rows staged by 16-byte copies, 0: element by element
+};
+
 namespace {
 
-constexpr int kRowsPerBlock = 8;  // 8 warps = 256 threads
+constexpr int kMaxThreads = 512;
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-pair_rows_kernel(Consts<T> c, const T* __restrict__ R, long long sRw,
-                 long long sRb, long long sRn, const T* __restrict__ xn,
-                 long long sNw, long long sNb, const T* __restrict__ xo,
-                 long long sOw, long long sOb,
-                 const long long* __restrict__ ip, int ip_mode,
-                 long long ip0, int W, int B, int N, int need_wf,
-                 int need_f2, T* __restrict__ dpot, T* __restrict__ df2,
-                 T* __restrict__ du) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= (long long)W * B) return;  // whole warps leave together
-  const long long w = row / B;
-  const long long b = row - w * B;
-  // ip modes: 0 scalar, 1 per walker [W], 2 per row [W, B], 3 per window
-  // row shared by every walker [1, B] (the K-slot interior composite)
-  const long long p = ip_mode == 0   ? ip0
-                      : ip_mode == 1 ? ip[w]
-                      : ip_mode == 2 ? ip[row]
-                                     : ip[b];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  T xnv[3], xov[3];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
+                 const T* __restrict__ xn, const T* __restrict__ xo,
+                 const long long* __restrict__ ip,
+                 const long long* __restrict__ ib,
+                 const T* __restrict__ tab, const T* __restrict__ rw,
+                 T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  const int l = threadIdx.x & (G - 1);
+  const int slot = threadIdx.x / G;
+  const int wl = threadIdx.y;
+  const int w = blockIdx.x * a.wpb + wl;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const unsigned mask = group_mask(tid & 31, G);
+  T* slab = reinterpret_cast<T*>(smem_raw) + (wl * a.spw + slot) * a.slab;
+  T* part = reinterpret_cast<T*>(smem_raw) + a.wpb * a.spw * a.slab;
+  const int D = c.dim;
+  const int nvec = a.N * D / kVec;
+  const bool need_f2 = a.need_f2, need_wf = a.need_wf;
+  T acc = T(0);
+  if (w < a.W) {
+    for (int b = slot; b < a.B; b += a.spw) {
+      const T* row = R + w * a.sRw + b * a.sRb;
+      if (a.vec16) {
+        for (int i = l; i < nvec; i += G)
+          cp_async16(slab + i * kVec, row + i * kVec);
+        cp_async_wait_all();
+      } else {
+        for (int j = l; j < a.N; j += G)
+          for (int k = 0; k < D; ++k) slab[j * D + k] = row[j * a.sRn + k];
+      }
+      __syncwarp(mask);
+      const long long p = a.ip_mode == 0   ? a.ip0
+                          : a.ip_mode == 1 ? ip[w]
+                          : a.ip_mode == 2 ? ip[w * a.B + b]
+                                           : ip[b];
+      T xnv[3], xov[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    xnv[k] = k < c.dim ? xn[w * sNw + b * sNb + k] : T(0);
-    xov[k] = k < c.dim ? xo[w * sOw + b * sOb + k] : T(0);
-  }
-  const T* Rrow = R + w * sRw + b * sRb;
-  T pot_n = T(0), pot_o = T(0), u_n = T(0), u_o = T(0);
-  T Fn[3] = {T(0), T(0), T(0)}, Fo[3] = {T(0), T(0), T(0)};
-  for (int j = lane; j < N; j += 32) {
-    T rj[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? Rrow[j * sRn + k] : T(0);
-    bool notself = j != p;
-    pair_side(c, xnv, rj, notself, need_f2, need_wf, pot_n, Fn, u_n);
-    pair_side(c, xov, rj, notself, need_f2, need_wf, pot_o, Fo, u_o);
-  }
-  pot_n = warp_sum(pot_n);
-  pot_o = warp_sum(pot_o);
-  T f2n = T(0), f2o = T(0);
-  if (need_f2) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      T a = warp_sum(Fn[k]);
-      T o = warp_sum(Fo[k]);
-      f2n += a * a;
-      f2o += o * o;
+      for (int k = 0; k < 3; ++k) {
+        xnv[k] = k < c.dim ? xn[w * a.sNw + b * a.sNb + k] : T(0);
+        xov[k] = k < c.dim ? xo[w * a.sOw + b * a.sOb + k] : T(0);
+      }
+      RowPart<T> r =
+          row_part(c, slab, a.N, p, xnv, xov, need_f2, need_wf, l, G);
+      group_sum(r, G, mask, need_f2, need_wf);
+      const long long jb = a.ib_mode ? ib[w * a.B + b] : ib[b];
+      T dS = row_ds(r, tab[jb], tab[a.M + jb], tab[2 * a.M + jb], need_f2,
+                    need_wf);
+      if (rw != nullptr) dS = dS * rw[b];
+      if (!a.reduce && l == 0) out[w * a.B + b] = dS;
+      acc += dS;
+      __syncwarp(mask);  // the slab is read before the next row overwrites it
     }
   }
-  if (need_wf) {
-    u_n = warp_sum(u_n);
-    u_o = warp_sum(u_o);
-  }
-  if (lane == 0) {
-    dpot[row] = pot_n - pot_o;
-    df2[row] = need_f2 ? f2n - f2o : T(0);
-    if (need_wf) du[row] = u_n - u_o;
+  if (a.reduce) {
+    if (l == 0) part[wl * a.spw + slot] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0 && w < a.W) {
+      T s = T(0);
+      const int n = min(a.spw, a.B);
+      for (int i = 0; i < n; ++i) s += part[wl * a.spw + i];
+      out[w] = s;
+    }
   }
 }
 
-template <typename T>
-int launch(const PairParams* p, const void* R, long long sRw, long long sRb,
-           long long sRn, const void* xn, long long sNw, long long sNb,
-           const void* xo, long long sOw, long long sOb, const void* ip,
-           int ip_mode, long long ip0, int W, int B, int N, int need_wf,
-           int need_f2, void* dpot, void* df2, void* du, void* stream) {
-  const long long rows = (long long)W * B;
-  if (rows == 0) return 0;
-  const unsigned grid = (unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  pair_rows_kernel<T><<<grid, 32 * kRowsPerBlock, 0, (cudaStream_t)stream>>>(
-      make_consts<T>(*p), (const T*)R, sRw, sRb, sRn, (const T*)xn, sNw, sNb,
-      (const T*)xo, sOw, sOb, (const long long*)ip, ip_mode, ip0, W, B, N,
-      need_wf, need_f2, (T*)dpot, (T*)df2, (T*)du);
+template <typename T, int G>
+int launch_g(const PairParams* p, const RowsArgs* a, const void* R,
+             const void* xn, const void* xo, const void* ip, const void* ib,
+             const void* tab, const void* rw, void* out, void* stream) {
+  const size_t smem = (size_t)a->wpb * a->spw * (a->slab + 1) * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pair_rows_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 block(G * a->spw, a->wpb);
+  const dim3 grid((a->W + a->wpb - 1) / a->wpb);
+  pair_rows_kernel<T, G><<<grid, block, smem, (cudaStream_t)stream>>>(
+      make_consts<T>(*p), *a, (const T*)R, (const T*)xn, (const T*)xo,
+      (const long long*)ip, (const long long*)ib, (const T*)tab,
+      (const T*)rw, (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const PairParams* p, const RowsArgs* a, const void* R,
+           const void* xn, const void* xo, const void* ip, const void* ib,
+           const void* tab, const void* rw, void* out, void* stream) {
+  if (a->W == 0 || a->B == 0) return 0;
+  if (a->G * a->spw * a->wpb > kMaxThreads) return (int)cudaErrorInvalidValue;
+  switch (a->G) {
+    case 4:
+      return launch_g<T, 4>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
+    case 8:
+      return launch_g<T, 8>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
+    case 16:
+      return launch_g<T, 16>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
+    case 32:
+      return launch_g<T, 32>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-#define PIGS_PAIR_ROWS_ENTRY(NAME, T)                                        \
-  extern "C" int NAME(const PairParams* p, const void* R, long long sRw,     \
-                      long long sRb, long long sRn, const void* xn,          \
-                      long long sNw, long long sNb, const void* xo,          \
-                      long long sOw, long long sOb, const void* ip,          \
-                      int ip_mode, long long ip0, int W, int B, int N,       \
-                      int need_wf, int need_f2, void* dpot, void* df2,       \
-                      void* du, void* stream) {                              \
-    return launch<T>(p, R, sRw, sRb, sRn, xn, sNw, sNb, xo, sOw, sOb, ip,    \
-                     ip_mode, ip0, W, B, N, need_wf, need_f2, dpot, df2, du, \
-                     stream);                                                \
+#define PIGS_PAIR_ROWS_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const PairParams* p, const RowsArgs* a, const void* R, \
+                      const void* xn, const void* xo, const void* ip,         \
+                      const void* ib, const void* tab, const void* rw,        \
+                      void* out, void* stream) {                              \
+    return launch<T>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);          \
   }
 
 PIGS_PAIR_ROWS_ENTRY(pigs_pair_rows_f32, float)

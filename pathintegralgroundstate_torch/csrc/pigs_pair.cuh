@@ -93,20 +93,28 @@ __device__ __forceinline__ void aziz_v_dv(const Consts<T>& c, T r, T rinv,
   dv = c.V0s * (drep - dG);
 }
 
-// McMillan log-Jastrow u(r) = -1/2 (Rm/r)^5, C1-shifted at rcut when c1.
+// McMillan log-Jastrow u(r) = -1/2 (Rm/r)^5, C1-shifted at rcut when c1,
+// from q = Rm/r.
 template <typename T>
-__device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
-  T q = c.Rm / r;
+__device__ __forceinline__ T jastrow_u_q(const Consts<T>& c, T r, T q) {
   T q2 = q * q;
   T u = T(-0.5) * (q2 * q2 * q);
   if (c.c1) u = u - c.u_rc - c.du_rc * (r - c.rc);
   return u;
 }
 
+template <typename T>
+__device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
+  return jastrow_u_q(c, r, c.Rm / r);
+}
+
 // One Metropolis side of one displaced row against one partner rj: adds the
 // partner's V to pot (m = notself & r^2 <= rc^2), and over mf = m & r^2 > 0
 // its force to F when need_f2 and its u to u when need_wf.  Components
-// k >= dim are zero on both sides and add nothing.
+// k >= dim are zero on both sides and add nothing.  r and Rm/r come from
+// the one reciprocal square root (r = r^2 rsqrt(r^2)) in place of a precise
+// sqrt and a precise division, which cost the pass more instructions; the
+// results stay within a few ulp of the plain form's.
 template <typename T>
 __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
                                           const T* rj, bool notself,
@@ -120,8 +128,8 @@ __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
     r2 += dx[k] * dx[k];
   }
   T r2s = notself ? r2 : T(1);
-  T r = sqrt(r2s);
   T rinv = rsqrt(r2s);
+  T r = r2s * rinv;
   bool m = notself && r2 <= c.rcut2;
   bool mf = m && r2 > T(0);
   T v, dv;
@@ -132,7 +140,7 @@ __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
 #pragma unroll
     for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
   }
-  if (need_wf && mf) u += jastrow_u(c, r);
+  if (need_wf && mf) u += jastrow_u_q(c, r, c.Rm * rinv);
 }
 
 template <typename T>
@@ -140,4 +148,99 @@ __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// Row passes by lane groups (pair_rows.cu, cascade.cu): a group of G lanes
+// evaluates one displaced row, lane l taking the partners j = l, l + G, ...
+// for both Metropolis sides from one read of each partner.
+// ---------------------------------------------------------------------------
+
+// One row's sums: the potential and u differences (new - old) and the
+// moved particle's force on both sides.
+template <typename T>
+struct RowPart {
+  T dpot, du;
+  T Fn[3], Fo[3];
+};
+
+// Lane l's partial sums over the partners j = l, l + G, ... < N of the row
+// P (partner j's coordinates at P[j * D], D = c.dim), for the positions
+// xn (new) and xo (old) of particle ip.
+template <typename T>
+__device__ __forceinline__ RowPart<T> row_part(const Consts<T>& c,
+                                               const T* P, int N,
+                                               long long ip, const T* xn,
+                                               const T* xo, bool need_f2,
+                                               bool need_wf, int l, int G) {
+  T pn = T(0), po = T(0), un = T(0), uo = T(0);
+  RowPart<T> r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.Fn[k] = r.Fo[k] = T(0);
+  for (int j = l; j < N; j += G) {
+    T rj[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? P[j * c.dim + k] : T(0);
+    const bool notself = j != ip;
+    pair_side(c, xn, rj, notself, need_f2, need_wf, pn, r.Fn, un);
+    pair_side(c, xo, rj, notself, need_f2, need_wf, po, r.Fo, uo);
+  }
+  r.dpot = pn - po;
+  r.du = un - uo;
+  return r;
+}
+
+// Sum over an aligned group of `width` lanes (a power of two <= 32) whose
+// lanes are the set bits of mask; every lane of the group gets the sum.
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int width, unsigned mask) {
+  for (int o = width >> 1; o > 0; o >>= 1)
+    v += __shfl_xor_sync(mask, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ void group_sum(RowPart<T>& r, int width,
+                                          unsigned mask, bool need_f2,
+                                          bool need_wf) {
+  r.dpot = group_sum(r.dpot, width, mask);
+  if (need_f2) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r.Fn[k] = group_sum(r.Fn[k], width, mask);
+      r.Fo[k] = group_sum(r.Fo[k], width, mask);
+    }
+  }
+  if (need_wf) r.du = group_sum(r.du, width, mask);
+}
+
+// Lanes of the aligned group of `width` lanes that holds lane `lane` of
+// its warp.
+__device__ __forceinline__ unsigned group_mask(int lane, int width) {
+  return width >= 32 ? 0xffffffffu
+                     : ((1u << width) - 1u) << (lane & ~(width - 1));
+}
+
+// The row's action delta from its summed terms, in the order of the plain
+// form (ops/kernels.pair_rows_ref): wv dpot + wf (|Fn|^2 - |Fo|^2), then
+// - wpsi du.
+template <typename T>
+__device__ __forceinline__ T row_ds(const RowPart<T>& r, T wv, T wf, T wpsi,
+                                    bool need_f2, bool need_wf) {
+  T dS = wv * r.dpot;
+  if (need_f2) {
+    T f2n = T(0), f2o = T(0);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      f2n += r.Fn[k] * r.Fn[k];
+      f2o += r.Fo[k] * r.Fo[k];
+    }
+    dS = dS + wf * (f2n - f2o);
+  }
+  if (need_wf) dS = dS - wpsi * r.du;
+  return dS;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }

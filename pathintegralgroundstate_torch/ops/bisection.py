@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .moves import _mi, _where, _wrap_pos, metropolis_u
-from .pairwise import delta_action, delta_action_rows
+from .pairwise import delta_action, delta_action_rows, delta_action_sum
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,9 +173,9 @@ def _bisection_per_level(system, paths, ip: int, active, level: int, rand):
     for ilev in range(1, level + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level,
                                                 g_rows)
-        dS = delta_action_rows(system, R_seg[:, d2::delta], xnew, xold, ip,
-                               system.arange(ii + d2, ii + L, delta),
-                               need_wf=False, need_f2=ilev == level).sum(-1)
+        dS = delta_action_sum(system, R_seg[:, d2::delta], xnew, xold, ip,
+                              system.arange(ii + d2, ii + L, delta),
+                              need_wf=False, need_f2=ilev == level)
         seg[:, d2::delta] = xnew
         alive = alive & metropolis_u(u_acc[:, ilev], dS)
     R_seg[:, :, ip] = _where(alive, seg, seg0)
@@ -256,7 +256,7 @@ def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
 
     The terminal guess has its own gate: through the dense delta_action
     (kernels 3 and 4) with dense_gate, the reference's form without batched
-    randoms, else through delta_action_rows without forces (kernel A).
+    randoms, else through delta_action_sum without forces (kernel A).
     Then one pass per level, need_f2 only on the last.  Returns (paths,
     alive)."""
     _, g_rows, u_acc = rand
@@ -266,19 +266,19 @@ def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
     ib0 = system.arange(b0, b0 + 1)
     if dense_gate:
         dS0 = delta_action(system, R0, xnew0[:, None], xold0[:, None], ip,
-                           ib0)
+                           ib0)[:, 0]
     else:
-        dS0 = delta_action_rows(system, R0, xnew0[:, None], xold0[:, None],
-                                ip, ib0, need_f2=False)
-    alive = active & metropolis_u(u_acc[:, 0], dS0.sum(-1))
+        dS0 = delta_action_sum(system, R0, xnew0[:, None], xold0[:, None],
+                               ip, ib0, need_f2=False)
+    alive = active & metropolis_u(u_acc[:, 0], dS0)
     seg = seg0.clone()
     seg[:, 0] = xnew0
     for ilev in range(1, nlev + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, nlev,
                                                 g_rows)
         R, ib, rev = _end_level_rows(system, paths, nlev, ilev, tail)
-        dS = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=False,
-                               need_f2=ilev == nlev, rev=rev).sum(-1)
+        dS = delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=False,
+                              need_f2=ilev == nlev, rev=rev)
         seg[:, d2::delta] = xnew
         alive = alive & metropolis_u(u_acc[:, ilev], dS)
     _end_write(system, paths, ip, nlev, tail, _where(alive, seg, seg0))
@@ -435,9 +435,9 @@ def _fused_ends_per_level(system, paths, ip: int, active, level: int, rand):
         dS = []
         for e, tail in enumerate((False, True)):
             R, ib, rev = _end_level_rows(system, paths, level, ilev, tail)
-            dS.append(delta_action_rows(
+            dS.append(delta_action_sum(
                 system, R, xnew[:, e], xold[:, e], ip, ib, need_wf=False,
-                need_f2=ilev == level, rev=rev).sum(-1))
+                need_f2=ilev == level, rev=rev))
         seg[:, :, d2::delta] = xnew
         alive = alive & metropolis_u(u2[:, :, ilev], torch.stack(dS, 1))
     fin = torch.where(alive[:, :, None, None], seg, seg0)

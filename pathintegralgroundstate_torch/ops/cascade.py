@@ -38,7 +38,7 @@ import torch
 
 from . import kernels
 from .moves import _mi, _where, _wrap_pos, metropolis_u
-from .pairwise import chin_weights
+from .pairwise import chin_table
 
 
 def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
@@ -47,36 +47,36 @@ def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
 
     slots: S host tuples (bead0, dir, ip); act [W, S] bool.  Writes the
     accepted windows into paths; returns acc [W, S] bool.  Its pair passes
-    run pair_rows: kernel A (kernels.pair_rows), or kernels.pair_rows_ref
-    for a reference on the card that launches no kernel."""
+    run pair_rows: kernel A (kernels.pair_rows, which also weights and sums
+    the rows), or kernels.pair_rows_ref for a reference on the card that
+    launches no kernel."""
     M, dt = system.M, system.cfg.dt
     dtype = paths.dtype
+    tab = chin_table(system, dtype)
     L = M - 1 if mode == "rigid" else 2 ** nlev
     accs, writes = [], []
     for s, (b0, step, ip) in enumerate(slots):
         rev = step < 0
         Rf = paths[:, b0 - L:b0 + 1] if rev else paths[:, b0:b0 + L + 1]
-        ib = system.arange(b0, b0 + step * (L + 1), step)   # head order
 
-        def rows(start, stop, stride, xnew, xold, need_wf):
-            """dS rows of head positions start:stop:stride."""
+        def dS_of(start, stop, stride, xnew, xold, need_wf):
+            """Summed dS of the rows at head positions start:stop:stride."""
             if rev:   # head position p is forward row L - p
                 last = start + (len(range(start, stop, stride)) - 1) * stride
                 R = Rf[:, L - last:L - start + 1:stride]
             else:
                 R = Rf[:, start:stop:stride]
-            wv, wf, wpsi = chin_weights(system, ib[start:stop:stride], dtype)
-            dpot, df2, du = pair_rows(system, R, xnew, xold, ip, need_wf,
-                                      True, rev)
-            dS = wv * dpot + wf * df2
-            return dS - wpsi * du if need_wf else dS
+            ib = system.arange(b0 + step * start, b0 + step * stop,
+                               step * stride)
+            return pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf,
+                             True, rev, reduce=True)
 
         seg0 = Rf[:, :, ip].flip(1) if rev else Rf[:, :, ip]
         seg = seg0.clone()
         alive = act[:, s]
         if mode == "rigid":
             seg = _wrap_pos(system, seg0 + rg[:, s, 0:1])
-            dS = rows(0, L + 1, 1, seg, seg0, True).sum(-1)
+            dS = dS_of(0, L + 1, 1, seg, seg0, True)
             alive = alive & metropolis_u(ru[:, s, 0], dS)
         else:
             gate = 0
@@ -85,7 +85,7 @@ def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
                 xmid = x0 - _mi(system, x0 - seg0[:, L])
                 sig = torch.tensor(L * dt, dtype=dtype).sqrt()
                 xn0 = _wrap_pos(system, xmid + sig * rg[:, s, 0])
-                dS0 = rows(0, 1, 1, xn0[:, None], x0[:, None], True)[:, 0]
+                dS0 = dS_of(0, 1, 1, xn0[:, None], x0[:, None], True)
                 alive = alive & metropolis_u(ru[:, s, 0], dS0)
                 seg[:, 0] = xn0
                 gate = 1
@@ -98,7 +98,7 @@ def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
                 xn = xold - _mi(system, xold - seg[:, delta::delta])
                 xnew = _wrap_pos(system, 0.5 * (xp + xn)
                                  + sigma * rg[:, s, d2::delta])
-                dS = rows(d2, L, delta, xnew, xold, False).sum(-1)
+                dS = dS_of(d2, L, delta, xnew, xold, False)
                 alive = alive & metropolis_u(ru[:, s, gate + ilev - 1], dS)
                 seg[:, d2::delta] = xnew
         accs.append(alive)

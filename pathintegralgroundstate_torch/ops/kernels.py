@@ -4,7 +4,8 @@ The counterpart of pathintegralgroundstate_tpu/ops/pallas_kernels.py and
 of the kernel half of ops/cascade_kernels.py.
 
   pair_rows  kernel A (csrc/pair_rows.cu), replaces pair_rows_pallas: the
-             window pass of every move, both Metropolis sides per row.
+             window pass of every move, both Metropolis sides per row,
+             with the Chin-weighted action delta per row or per walker.
   pair_pot   kernel B (csrc/pair_pot.cu), replaces pair_pot_pallas: the
              all-pairs potential and force squared of whole configurations.
   pair_delta kernel 3 (csrc/pair_delta.cu), replaces pair_delta_pallas:
@@ -46,10 +47,11 @@ def self_mask(N: int, ip, device):
     return iota != ip[..., None]                   # [W, B, N]
 
 
-def pair_rows_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
-                  rev=False):
-    """Plain form of kernel A: per row (dpot, df2, du) of xnew/xold[W, B, D]
-    against the partners R[W, B, N, D] (pairwise.py:443-478, 512).
+def pair_terms_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
+                   rev=False):
+    """The raw terms of kernel A's plain form: per row (dpot, df2, du) of
+    xnew/xold[W, B, D] against the partners R[W, B, N, D]
+    (pairwise.py:443-478, 512).
 
     rev=True pairs row b with R[:, B-1-b].  df2 is zero unless need_f2; du
     is None unless need_wf."""
@@ -80,6 +82,24 @@ def pair_rows_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
     df2 = f2_n - f2_o if need_f2 else torch.zeros_like(dpot)
     du = u_n - u_o if need_wf else None
     return dpot, df2, du
+
+
+def pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf=True,
+                  need_f2=True, rev=False, row_weights=None, reduce=False):
+    """Plain form of kernel A: the per-row action deltas
+    dS_b = wv dpot + wf df2 - wpsi du (pairwise.py:438-441, 514-516) of the
+    terms of pair_terms_ref, with (wv, wf, wpsi) = tab[:, ib] (the Chin
+    table [3, M], ib [B] or [W, B] bead indices), times row_weights [B]
+    when given.  Returns [W, B], or with reduce the walker sums [W]."""
+    dpot, df2, du = pair_terms_ref(system, R, xnew, xold, ip, need_wf,
+                                   need_f2, rev)
+    w = tab[:, ib]
+    dS = w[0] * dpot + w[1] * df2
+    if need_wf:
+        dS = dS - w[2] * du
+    if row_weights is not None:
+        dS = dS * row_weights
+    return dS.sum(-1) if reduce else dS
 
 
 def pair_pot_ref(system, R, with_force=False):
@@ -235,39 +255,126 @@ def _suffix(dtype):
 # Kernel A
 # ---------------------------------------------------------------------------
 
-def pair_rows(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
-              rev=False):
-    """Per row (dpot, df2, du) of the window pass (see pair_rows_ref).
+SMEM_MAX = 232_448          # shared memory one block may use on the H100
+ROWS_LANES = (4, 8, 16, 32)  # the lane-group widths kernel A is built for
+ROWS_FILL = 1 << 16          # threads of a launch that fill the card (PERF.md)
+ROWS_BLOCK = 256             # threads of a block, unless one walker needs more
+
+
+class _RowsArgs(ctypes.Structure):
+    """Mirror of struct RowsArgs in csrc/pair_rows.cu."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "sRw", "sRb", "sRn", "sNw", "sNb", "sOw", "sOb", "ip0")] + [
+        (n, ctypes.c_int) for n in (
+            "ip_mode", "ib_mode", "M", "W", "B", "N", "need_wf", "need_f2",
+            "reduce", "G", "spw", "wpb", "slab", "vec16")]
+
+
+def rows_lanes(W: int, B: int, N: int) -> int:
+    """Kernel A's lanes per row: the fewest of ROWS_LANES whose W*B*G
+    threads fill the card (ROWS_FILL, about 500 per SM: measured at W=1024
+    for B = 1..65, PERF.md), but no more than the partners' power of two;
+    32 when even that does not fill it."""
+    cap = max(4, 1 << (max(N, 1) - 1).bit_length())
+    for G in ROWS_LANES:
+        if G >= cap or W * B * G >= ROWS_FILL:
+            return G
+    return ROWS_LANES[-1]
+
+
+def rows_layout(W: int, B: int, N: int, D: int, esize: int, G: int):
+    """(spw, wpb, slab, smem bytes) of one kernel-A launch: row slots per
+    walker (all B rows at once up to 512 threads a walker, else balanced
+    passes), walkers per block (up to ROWS_BLOCK threads), the shared-memory
+    elements per slot and the block's shared memory.  A slot holds a row's
+    N*D partners, padded so that slot g's start falls D*G elements (G lanes
+    of one partner each) after slot g-1's modulo the 32 banks: the lanes of
+    a warp then read distinct banks.  Fewer slots when the block would
+    exceed SMEM_MAX; raises ValueError when one slot does."""
+    bank = 32 * 4 // esize
+    slab = N * D + (D * G - N * D) % bank
+    per = (slab + 1) * esize          # a slot's partners and its sum
+    most = SMEM_MAX // per
+    if most == 0:
+        raise ValueError(f"pair_rows: a row of {N} partners needs {per} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+    spw = -(-B // max(-(-B * G // 512), -(-B // most)))
+    wpb = max(1, min(W, ROWS_BLOCK // (G * spw), most // spw))
+    return spw, wpb, slab, wpb * spw * per
+
+
+def slabs16(t) -> bool:
+    """Whether every [N, D] slab of t (its last two axes) is one contiguous
+    run of 16-byte multiples at a 16-byte aligned address: t's start and
+    every stride but the last two 16-byte multiples.  Kernels A and 5 then
+    stage partners with 16-byte (kernel A) or bulk (kernel 5) copies, and
+    otherwise element by element through the strides."""
+    es = t.element_size()
+    N, D = t.shape[-2:]
+    return (t.stride(-2) == D and t.data_ptr() % 16 == 0
+            and (N * D * es) % 16 == 0
+            and all((s * es) % 16 == 0 for s in t.stride()[:-2]))
+
+
+def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
+              rev=False, row_weights=None, reduce=False):
+    """Per-row action deltas of the window pass, or with reduce their walker
+    sums (see pair_rows_ref).
 
     R [W, B, N, D] is read in place through its strides (a window view of
     paths); rev=True reads its bead rows backwards through a negative bead
     stride instead of a flipped copy.  ip: int, or a long tensor [W] (per
-    walker), [W, B] (per row) or [1, B] (per window row, every walker)."""
+    walker), [W, B] (per row) or [1, B] (per window row, every walker).
+    tab [3, M]: the Chin table (pairwise.chin_table); ib: contiguous long
+    [B] or [W, B]; row_weights: [B] or None.  Kernel A runs rows_lanes(W,
+    B, N) lanes per row."""
     if R.device.type == "cpu":
-        return pair_rows_ref(system, R, xnew, xold, ip, need_wf, need_f2, rev)
+        return pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf,
+                             need_f2, rev, row_weights, reduce)
     _check_rows("pair_rows", system, R, xnew, xold)
     W, B, N, D = R.shape
     ip_t, mode, ip0 = _ip_args("pair_rows", R, ip)
-    out = torch.empty((3 if need_wf else 2, W, B), dtype=R.dtype,
+    if (ib.device != R.device or ib.dtype != torch.long
+            or not ib.is_contiguous() or ib.shape not in ((B,), (W, B))):
+        raise ValueError(f"pair_rows: ib must be a contiguous long tensor "
+                         f"[B] or [W, B] on {R.device}")
+    if (tab.device != R.device or tab.dtype != R.dtype or tab.dim() != 2
+            or tab.shape[0] != 3 or not tab.is_contiguous()):
+        raise ValueError(f"pair_rows: tab must be a contiguous [3, M] tensor "
+                         f"on {R.device} in {R.dtype}")
+    if row_weights is not None and (
+            row_weights.shape != (B,) or row_weights.device != R.device
+            or row_weights.dtype != R.dtype
+            or not row_weights.is_contiguous()):
+        raise ValueError(f"pair_rows: row_weights must be a contiguous "
+                         f"[B] tensor on {R.device} in {R.dtype}")
+    G = rows_lanes(W, B, N)
+    spw, wpb, slab, _ = rows_layout(W, B, N, D, R.element_size(), G)
+    out = torch.empty((W,) if reduce else (W, B), dtype=R.dtype,
                       device=R.device)
     sW, sB, sN, _ = R.stride()
     base = R.data_ptr()
     if rev:
         base += (B - 1) * sB * R.element_size()
         sB = -sB
+    a = _RowsArgs(sRw=sW, sRb=sB, sRn=sN, sNw=xnew.stride(0),
+                  sNb=xnew.stride(1), sOw=xold.stride(0),
+                  sOb=xold.stride(1), ip0=ip0, ip_mode=mode,
+                  ib_mode=ib.dim() - 1, M=tab.shape[1], W=W, B=B, N=N,
+                  need_wf=int(need_wf), need_f2=int(need_f2),
+                  reduce=int(reduce), G=G, spw=spw, wpb=wpb, slab=slab,
+                  vec16=int(slabs16(R)))
     fn = getattr(kernels(), "pigs_pair_rows_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), base, sW, sB, sN,
-             xnew.data_ptr(), xnew.stride(0), xnew.stride(1),
-             xold.data_ptr(), xold.stride(0), xold.stride(1),
-             ip_t.data_ptr() if ip_t is not None else None, mode, ip0,
-             W, B, N, int(need_wf), int(need_f2),
-             out[0].data_ptr(), out[1].data_ptr(),
-             out[2].data_ptr() if need_wf else None,
-             torch.cuda.current_stream(R.device).cuda_stream)
+    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), base,
+             xnew.data_ptr(), xold.data_ptr(),
+             ip_t.data_ptr() if ip_t is not None else None, ib.data_ptr(),
+             tab.data_ptr(),
+             row_weights.data_ptr() if row_weights is not None else None,
+             out.data_ptr(), torch.cuda.current_stream(R.device).cuda_stream)
     if err:
         raise RuntimeError(f"pair_rows: kernel launch failed, cudaError {err}")
     pair_rows.launches += 1
-    return out[0], out[1], (out[2] if need_wf else None)
+    return out
 
 
 pair_rows.launches = 0
@@ -373,7 +480,17 @@ pair_u.launches = 0
 # Kernel 5
 # ---------------------------------------------------------------------------
 
-MAX_SLOTS = 64   # kMaxSlots in csrc/cascade.cu
+MAX_SLOTS = 64          # kMaxSlots in csrc/cascade.cu
+CASCADE_BLOCK = 64      # kThreads in csrc/cascade.cu: threads per slot
+
+
+def cascade_smem(L: int, N: int, D: int, esize: int, ngate: int = 5) -> int:
+    """Kernel 5's shared memory per block (cascade_smem_elems in
+    csrc/cascade.cu): the window's L+1 partner rows, the moved particle's
+    old and proposed positions and the slot's gaussians, its ngate gate
+    uniforms, and two sets of a gate's row sums."""
+    buf = max(L // 2, CASCADE_BLOCK // 4)
+    return ((L + 1) * N * D + 9 * (L + 1) + ngate + 2 * buf) * esize
 
 
 class _CascadeArgs(ctypes.Structure):
@@ -428,9 +545,11 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
             or act.device != paths.device:
         raise ValueError(f"cascade: act must be a bool tensor {(W, S)} on "
                          f"{paths.device}")
-    if 4 * (L + 1) * 3 * paths.element_size() > 48 * 1024:
-        raise ValueError(f"cascade: windows of {L} links exceed the "
-                         "kernel's shared memory")
+    smem = cascade_smem(L, N, D, paths.element_size(), G)
+    if smem > SMEM_MAX:
+        raise ValueError(f"cascade: a window of {L} links of {N} particles "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"{SMEM_MAX}")
     for b0, step, ip in slots:
         last = b0 + step * L
         if step not in (1, -1) or not (0 <= min(b0, last)
@@ -443,11 +562,13 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
         a.bead0[s], a.dir[s], a.ip[s] = b0, step, ip
     acc = torch.empty((W, S), dtype=torch.bool, device=paths.device)
     sW, sM, sN, _ = paths.stride()
+    # one bulk copy per window where a window is one aligned contiguous slab
+    bulk = slabs16(paths) and sM == N * D
     fn = getattr(kernels(), "pigs_cascade_" + _suffix(paths.dtype))
     err = fn(ctypes.byref(_params(system)), ctypes.byref(a),
              paths.data_ptr(), sW, sM, sN, rg.data_ptr(), ru.data_ptr(),
              act.data_ptr(), act.stride(0), act.stride(1), acc.data_ptr(),
-             W, S, N, L, nlev, int(mode == "ends"),
+             W, S, N, L, nlev, int(mode == "ends"), int(bulk),
              torch.cuda.current_stream(paths.device).cuda_stream)
     if err:
         raise RuntimeError(f"cascade: kernel launch failed, cudaError {err}")

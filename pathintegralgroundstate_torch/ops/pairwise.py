@@ -6,7 +6,8 @@ non-fold, non-exact-F^2 branch of delta_action_rows, delta_action_sum with
 row weights, the dense delta_pot / delta_wf / delta_action (the per-level
 end gate's form), and pair_pot.  The pair passes themselves run in
 ops/kernels.py (a hand-written kernel on the card, its plain form on the
-CPU).
+CPU); kernel A also applies the Chin weights and the row weights and sums
+the rows, so delta_action_rows and delta_action_sum are one launch each.
 
 Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 [W, B, D]; ip an int, [W] or [W, B]; ib [B] or [W, B] bead indices.
@@ -32,46 +33,47 @@ def _chin_table(M: int, dt: float):
     return np.stack([wv, wf, wpsi])
 
 
+def chin_table(system, dtype=None):
+    """The per-bead Chin table [3, M] (wv, wf, wpsi) on the system's
+    device, built once per dtype."""
+    dtype = dtype or system.dtype
+    return system.const(("chin", dtype),
+                        lambda: _chin_table(system.M, system.cfg.dt), dtype)
+
+
 def chin_weights(system, ib, dtype=None):
     """Per-bead Chin opt=0 weights (global_mod.f90:33-46): (wv, wf, wpsi).
 
     wv: ends dt/3, even interior 2dt/3, odd 4dt/3; wf: odd interior
     (4dt/3) dt^2/6, else 0; wpsi: 1 at beads 0 and 2Nb, else 0."""
-    dtype = dtype or system.dtype
-    tab = system.const(("chin", dtype),
-                       lambda: _chin_table(system.M, system.cfg.dt), dtype)
-    w = tab[:, ib]
+    w = chin_table(system, dtype)[:, ib]
     return w[0], w[1], w[2]
 
 
 def delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=True,
                       need_f2=True, rev=False):
     """Per-row action deltas dS_b = wv dPot + wf dF2 - wpsi dLogPsi, from ONE
-    pair pass over the window (kernels.pair_rows).
+    pair pass over the window that also weights the rows (kernels.pair_rows
+    with the Chin table).
 
     need_f2=False: every row's F^2 weight is zero, the force pass is
     skipped and df2 := 0 (the same dS).  need_wf=False: no row is a chain
     end.  rev=True: R is in forward bead order and row b of xnew/xold/ib
     pairs with R[:, B-1-b] (a reversed window read without a copy).
-    Returns [W, B]."""
-    wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
-    dpot, df2, du = kernels.pair_rows(system, R, xnew, xold, ip, need_wf,
-                                      need_f2, rev)
-    dS = wv * dpot + wf * df2
-    if need_wf:
-        dS = dS - wpsi * du
-    return dS
+    ib: a long tensor [B] or [W, B] on R's device.  Returns [W, B]."""
+    return kernels.pair_rows(system, R, xnew, xold, ip,
+                             chin_table(system, xnew.dtype), ib, need_wf,
+                             need_f2, rev)
 
 
 def delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=True,
-                     row_weights=None, rev=False):
-    """Summed window action delta [W]; row_weights [B] scales each row's
-    whole dS (the worm centre's 1/2, vpi_mod.f90:1573-1577)."""
-    rows = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=need_wf,
-                             rev=rev)
-    if row_weights is not None:
-        rows = rows * row_weights
-    return rows.sum(-1)
+                     row_weights=None, rev=False, need_f2=True):
+    """Summed window action delta [W] (see delta_action_rows), summed in
+    the same pass; row_weights [B] scales each row's whole dS (the worm
+    centre's 1/2, vpi_mod.f90:1573-1577)."""
+    return kernels.pair_rows(system, R, xnew, xold, ip,
+                             chin_table(system, xnew.dtype), ib, need_wf,
+                             need_f2, rev, row_weights, reduce=True)
 
 
 def delta_pot(system, R, xnew, xold, ip, with_force=True):

@@ -115,7 +115,16 @@ class System:
 
 
 def make_system(cfg: SimConfig, device=None, dtype=None) -> System:
-    """System on `device` (default CPU) in `dtype` (default cfg.dtype)."""
-    device = torch.device(device or "cpu")
+    """System on `device` in `dtype` (default cfg.dtype).
+
+    The default device is the card ("cuda"); without one it raises rather
+    than run on the CPU.  device="cpu" runs the plain forms."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_system: no CUDA device is present; pass "
+                               "device='cpu' to run the plain forms on the "
+                               "CPU")
+        device = "cuda"
+    device = torch.device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     return System(cfg=cfg, geo=geometry(cfg), device=device, dtype=dtype)

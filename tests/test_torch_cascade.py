@@ -36,7 +36,7 @@ ACTIVE = np.array([True, True, False, True, True, True, False, True])
 def case():
     cfg = small_cfg(fused_sweep=True, cascade=True)
     jsys = j_make_system(cfg)
-    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)),
+    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg), "cpu"),
             lattice_paths(cfg))
 
 
@@ -147,7 +147,7 @@ def test_cascade_he4_window_hygiene():
                     potential="aziz2", seed=4)
     jsys = j_make_system(cfg)
     tables = make_tables(jsys)
-    system = make_system(other_cfg(cfg))
+    system = make_system(other_cfg(cfg), "cpu")
     W_, N, M, D = cfg.n_walkers, cfg.Np, system.M, cfg.dim
     jpaths = jnp.asarray(jsys.geo.Lbox) * (
         jax.random.uniform(jax.random.key(9), (W_, M, N, 3), jnp.float64)

@@ -15,6 +15,7 @@ import torch
 
 from pathintegralgroundstate_torch.flagship import flagship_cfg
 from pathintegralgroundstate_torch.ops import kernels
+from pathintegralgroundstate_torch.ops.pairwise import chin_table
 from pathintegralgroundstate_torch.system import make_system
 
 pytestmark = pytest.mark.cuda
@@ -55,24 +56,92 @@ def _window(cfg, ip_form, W, seed, coincident=True):
 
 @pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
 def test_pair_rows_matches_plain(cuda, ip_form):
-    """float64: only the summation order differs (rtol 1e-11; atol 1e-7
-    for the force terms, whose pair forces cancel to a net |F|)."""
+    """The weighted rows and the walker sums (with the worm centre's row
+    weight 1/2), forward and reversed, ib [B] and [W, B].  float64: only
+    the summation order differs (rtol 1e-11; atol 1e-9, as the force
+    terms' 1e-7 weighted by 2 dt^3 / 9)."""
     cfg = flagship_cfg(64)
     system = make_system(cfg, cuda, torch.float64)
     R, xnew, xold, ip = _window(cfg, ip_form, 64, seed=13)
     R, xn, xo = R.to(cuda), xnew.to(cuda), xold.to(cuda)
     ip = ip if isinstance(ip, int) else ip.to(cuda)
+    tab, M = chin_table(system), cfg.M
+    rw = torch.ones(M, dtype=torch.float64, device=cuda)
+    rw[0] = 0.5
+    ibs = (torch.arange(M, device=cuda),
+           torch.randint(0, M, (64, M), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(13)))
     n = kernels.pair_rows.launches
     for rev in (False, True):
-        for need_wf, need_f2 in ((True, True), (False, False)):
-            got = kernels.pair_rows(system, R, xn, xo, ip, need_wf, need_f2,
-                                    rev)
-            ref = kernels.pair_rows_ref(system, R, xn, xo, ip, need_wf,
-                                        need_f2, rev)
-            for g, r in zip(got, ref):
-                if r is not None:
-                    torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
-    assert kernels.pair_rows.launches == n + 4
+        for ib in ibs:
+            for need_wf, need_f2 in ((True, True), (False, False)):
+                for kw in ({}, {"row_weights": rw, "reduce": True}):
+                    args = (system, R, xn, xo, ip, tab, ib, need_wf,
+                            need_f2, rev)
+                    torch.testing.assert_close(
+                        kernels.pair_rows(*args, **kw),
+                        kernels.pair_rows_ref(*args, **kw), rtol=1e-11,
+                        atol=1e-9)
+    assert kernels.pair_rows.launches == n + 16
+
+
+@pytest.mark.parametrize("B", [1, 65])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lanes", kernels.ROWS_LANES)
+def test_pair_rows_lanes_match_plain(cuda, lanes, dtype, B):
+    """Kernel A at one lane-group width, the B=1 end gate and the B=65
+    whole chain at the walker count where the wrapper's rule picks that
+    width (chip_smoke.lanes_walkers), ip scalar and [1, B], rows and walker
+    sums, against the float64 plain form (chip_smoke.rows_parity: float64
+    within the terms' tolerances, float32 within
+    tests/test_pallas_kernel.py's plus twice the plain float32 form's own
+    error)."""
+    import chip_smoke
+    cfg = flagship_cfg(128)
+    system = make_system(cfg, cuda, dtype)
+    sys64 = make_system(cfg, cuda, torch.float64)
+    W = chip_smoke.lanes_walkers(lanes, B)
+    paths = chip_smoke._flagship_paths(cfg, 128, dtype, cuda, seed=41)
+    g = torch.Generator(device=cuda).manual_seed(41)
+    R = paths[:, cfg.M - B:].repeat(-(-W // 128), 1, 1, 1)[:W]
+    ib = torch.arange(cfg.M - B, cfg.M, device=cuda)
+    for ip in (7, torch.randint(0, 64, (1, B), generator=g, device=cuda)):
+        xnew, xold = chip_smoke._window_ip(R, ip, g)
+        for reduce in (False, True):
+            chip_smoke.rows_parity(system, sys64, R, xnew, xold, ip, ib,
+                                   B > 1, [(True, True), (False, False)],
+                                   f"B={B}", reduce=reduce)
+
+
+def test_layouts_without_16_byte_rows_match_plain(cuda):
+    """Kernels A and 5 at N=30 in float32 and N=31 in float64, where a row
+    of partners is no multiple of 16 bytes and both kernels stage it
+    element by element (chip_smoke.layout_parity)."""
+    import chip_smoke
+    chip_smoke.layout_parity(flagship_cfg(256))
+
+
+def test_pair_rows_unaligned_and_strided_windows_match_plain(cuda):
+    """Kernel A on a window whose start is 8 bytes past 16-byte alignment
+    and on one whose particle axis is strided (partners staged element by
+    element), float64, rows and walker sums."""
+    cfg = flagship_cfg(64)
+    system = make_system(cfg, cuda, torch.float64)
+    R, xnew, xold, ip = _window(cfg, "row", 64, seed=43)
+    n = R.numel()
+    flat = torch.zeros(n + 1, dtype=torch.float64, device=cuda)
+    flat[1:] = R.flatten().to(cuda)
+    wide = torch.zeros(64, 65, 128, 3, dtype=torch.float64, device=cuda)
+    wide[:, :, ::2] = R.to(cuda)
+    args = (xnew.to(cuda), xold.to(cuda), ip.to(cuda), chin_table(system),
+            torch.arange(cfg.M, device=cuda))
+    for Rv in (flat[1:].view(R.shape), wide[:, :, ::2]):
+        assert not kernels.slabs16(Rv)
+        for kw in ({}, {"reduce": True}):
+            torch.testing.assert_close(
+                kernels.pair_rows(system, Rv, *args, **kw),
+                kernels.pair_rows_ref(system, Rv, *args, **kw), rtol=1e-11,
+                atol=1e-9)
 
 
 def test_pair_rows_span_matches_plain(cuda):
@@ -89,12 +158,12 @@ def test_pair_rows_span_matches_plain(cuda):
     xnew = xold + 0.05 * torch.randn(xold.shape, generator=g, device=cuda,
                                      dtype=torch.float64)
     xnew[:, 15::16] = xold[:, 15::16]
-    got = kernels.pair_rows(system, R, xnew, xold, ip, False, True)
-    ref = kernels.pair_rows_ref(system, R, xnew, xold, ip, False, True)
-    for g_, r in zip(got[:2], ref[:2]):
-        torch.testing.assert_close(g_, r, rtol=1e-11, atol=1e-7)
-        assert not bool(g_[:, 15::16].any())
-    assert got[2] is None
+    args = (system, R, xnew, xold, ip, chin_table(system),
+            torch.arange(4, 51, device=cuda), False, True)
+    got = kernels.pair_rows(*args)
+    torch.testing.assert_close(got, kernels.pair_rows_ref(*args),
+                               rtol=1e-11, atol=1e-9)
+    assert not bool(got[:, 15::16].any())
 
 
 @pytest.mark.parametrize("with_force", [False, True])
@@ -108,13 +177,24 @@ def test_pair_pot_matches_plain(cuda, with_force):
 
 
 def test_pair_rows_refuses_what_it_cannot_read(cuda):
+    """Wrong layouts, types, index and weight tables and rows beyond the
+    shared memory all raise; none launches."""
     system = make_system(flagship_cfg(4), cuda, torch.float64)
     R = torch.zeros(4, 5, 64, 3, dtype=torch.float64, device=cuda)
     x = torch.zeros(4, 5, 3, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.pair_rows(system, R.transpose(2, 3), x, x, 0)
-    with pytest.raises(ValueError):
-        kernels.pair_rows(system, R, x.float(), x, 0)
+    tab, ib = chin_table(system), torch.arange(5, device=cuda)
+    huge = torch.zeros(1, 1, 10_000, 3, dtype=torch.float64, device=cuda)
+    xh = torch.zeros(1, 1, 3, dtype=torch.float64, device=cuda)
+    n = kernels.pair_rows.launches
+    for bad in ((R.transpose(2, 3), x, x, 0, tab, ib),
+                (R, x.float(), x, 0, tab, ib),
+                (R, x, x, 0, tab, ib.int()),
+                (R, x, x, 0, tab[:2], ib),
+                (R, x, x, 0, tab, ib[:4]),
+                (huge, xh, xh, 0, tab, ib[:1])):
+        with pytest.raises(ValueError):
+            kernels.pair_rows(system, *bad)
+    assert kernels.pair_rows.launches == n
 
 
 def _dense_case(cuda, ip_form, seed):
@@ -184,8 +264,33 @@ def test_cascade_matches_plain(cuda, mode, dtype):
     import chip_smoke
     share, err, n_acc = chip_smoke.cascade_check(flagship_cfg(256), 256,
                                                  dtype, mode)
-    print(f"cascade {mode} {dtype}: decisions agree on {share:.6f}, "
-          f"max abs err {err:.3e}, {n_acc} accepted")
+    print(f"cascade {mode} {dtype}: decisions agree on {share:.6f}, max abs "
+          f"err {err:.3e}, {n_acc} accepted")
+
+
+@pytest.mark.parametrize("mode", ["ends", "interior"])
+def test_cascade_strided_paths_match_plain(cuda, mode):
+    """Kernel 5 on paths whose particle axis is strided (a view of every
+    other particle of a wider array), which it stages element by element:
+    float64 accepts and every bead equal to the plain form's within rtol
+    1e-11, the particles between untouched."""
+    import chip_smoke
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+    cfg = flagship_cfg(128)
+    system, paths, slots, rg, ru, act = chip_smoke._cascade_inputs(
+        cfg, 128, torch.float64, mode, seed=47)
+    wide = torch.zeros(128, cfg.M, 128, 3, dtype=torch.float64, device=cuda)
+    wide[:, :, ::2] = paths
+    ref = paths.clone()
+    n = kernels.cascade.launches
+    acc = kernels.cascade(system, mode, wide[:, :, ::2], slots, rg, ru, act,
+                          cfg.Nlev)
+    acc_ref = cascade_ref(system, mode, ref, slots, rg, ru, act, cfg.Nlev,
+                          kernels.pair_rows_ref)
+    assert kernels.cascade.launches == n + 1
+    assert torch.equal(acc, acc_ref) and bool(acc.any())
+    torch.testing.assert_close(wide[:, :, ::2], ref, rtol=1e-11, atol=1e-12)
+    assert not bool(wide[:, :, 1::2].any())
 
 
 def test_cascade_refuses_what_it_cannot_run(cuda):
@@ -205,6 +310,34 @@ def test_cascade_refuses_what_it_cannot_run(cuda):
     n = kernels.cascade.launches
     kernels.cascade(system, "ends", paths, slots, rg, ru, act, 4)
     assert kernels.cascade.launches == n + 1
+
+
+def test_cascade_beyond_48k_shared_memory_matches_plain(cuda):
+    """A window of 200 particles in float64 (82 KB) needs the kernel's
+    opt-in to more than 48 KB of dynamic shared memory; it runs and matches
+    the plain form."""
+    import chip_smoke
+    assert kernels.cascade_smem(16, 200, 3, 8) > 48 * 1024
+    chip_smoke.cascade_check(flagship_cfg(64).replace(Np=200), 64,
+                             torch.float64, "ends")
+
+
+def test_cascade_shared_memory_limit_raises(cuda):
+    """A window beyond the block's shared memory (17 rows of 600 particles
+    in float64: 245 KB) raises before any launch, and no plain form runs in
+    its place: paths stay as they were."""
+    system = make_system(flagship_cfg(4), cuda, torch.float64)
+    assert kernels.cascade_smem(16, 600, 3, 8) > kernels.SMEM_MAX
+    paths = torch.randn(2, 65, 600, 3, dtype=torch.float64, device=cuda)
+    before = paths.clone()
+    rg = torch.zeros(2, 2, 17, 3, dtype=torch.float64, device=cuda)
+    ru = torch.zeros(2, 2, 5, dtype=torch.float64, device=cuda)
+    act = torch.ones(2, 2, dtype=torch.bool, device=cuda)
+    n = kernels.cascade.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.cascade(system, "ends", paths, [(0, 1, 0), (64, -1, 0)], rg,
+                        ru, act, 4)
+    assert kernels.cascade.launches == n and torch.equal(paths, before)
 
 
 def test_fused_step_on_card_matches_cpu(cuda):

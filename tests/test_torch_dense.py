@@ -51,7 +51,7 @@ REF_ORDER = dict(bis_monoshot=False, bis_end_random_depth=True, Nlev=3)
 def _systems(**kw):
     cfg = small_cfg(**kw)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg))
+    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg), "cpu")
 
 
 def _window(cfg, ip_form, seed):

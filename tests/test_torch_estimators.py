@@ -26,7 +26,7 @@ TOL = dict(rtol=1e-10, atol=1e-12)
 def _setup(**kw):
     cfg = small_cfg(**kw)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)), \
+    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg), "cpu"), \
         lattice_paths(cfg, seed=5)
 
 

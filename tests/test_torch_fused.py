@@ -47,7 +47,7 @@ NSTEP = 2
 def case():
     cfg = small_cfg(fused_sweep=True)
     jsys = j_make_system(cfg)
-    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg)),
+    return (cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg), "cpu"),
             lattice_paths(cfg))
 
 
@@ -111,7 +111,7 @@ def test_fused_geometry_matches_reference(case):
     for kw in ({}, {"Nlev": 3}, {"Np": 2}):
         c = small_cfg(fused_sweep=True, **kw)
         ref = jsweep.Sweeper(j_make_system(c), make_tables(j_make_system(c)))
-        got = Sweeper(make_system(other_cfg(c)))
+        got = Sweeper(make_system(other_cfg(c), "cpu"))
         assert (got.fused_diag, got.K_int) == (ref.fused_diag, ref.K_int)
     assert Sweeper(tsys).K_int == 3
 
@@ -143,7 +143,7 @@ def runs(request, burned):
     st, ref_stats = burned, jsweep.zero_stats(jsys)
     for _ in range(NSTEP):
         st, ref_stats = step(st, ref_stats)
-    tsys = make_system(other_cfg(cfg))
+    tsys = make_system(other_cfg(cfg), "cpu")
     state = state_from_numpy(tsys, {k: getattr(burned, k) for k in FIELDS})
     state, stats = run_block(Sweeper(tsys), state, NSTEP,
                              JaxDraws(burned.key, cfg.dim, jnp.float64))

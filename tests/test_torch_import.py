@@ -93,7 +93,7 @@ def _ids(o):
 ], ids=_ids)
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_system(other_cfg(small_cfg(**overrides)))
+        make_system(other_cfg(small_cfg(**overrides)), "cpu")
 
 
 @pytest.mark.parametrize("overrides", [
@@ -104,26 +104,40 @@ def test_unported_options_raise(overrides):
     {"sampling": "sta"}, {"regrow": "scan"}, {"bis_monoshot": False},
 ], ids=_ids)
 def test_ported_options_build(overrides):
-    Sweeper(make_system(other_cfg(small_cfg(**overrides))))
+    Sweeper(make_system(other_cfg(small_cfg(**overrides)), "cpu"))
 
 
 def test_per_walker_windows_name_their_item():
     with pytest.raises(NotImplementedError,
                        match=r"slice 11 \(per-walker windows\)"):
-        make_system(other_cfg(small_cfg(shared_windows=False)))
+        make_system(other_cfg(small_cfg(shared_windows=False)), "cpu")
 
 
 def test_simconfig_default_raises():
     """SimConfig's own default, the fused sweep, is ported and builds; the
     same default with the exact-F^2 cache still raises."""
-    assert Sweeper(make_system(SimConfig(dtype="float64"))).fused_diag
+    assert Sweeper(make_system(SimConfig(dtype="float64"), "cpu")).fused_diag
     with pytest.raises(NotImplementedError, match="exact_f2.*slice 10"):
-        make_system(SimConfig(dtype="float64", exact_f2=True))
+        make_system(SimConfig(dtype="float64", exact_f2=True), "cpu")
+
+
+def test_make_system_defaults_to_the_card():
+    """With no device named, the System goes on the card, and without one
+    make_system raises rather than run on the CPU; device='cpu' builds."""
+    cfg = other_cfg(small_cfg())
+    if torch.cuda.is_available():
+        assert make_system(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_system(cfg)
+    system = make_system(cfg, "cpu")
+    assert system.device == torch.device("cpu") and system.L.device.type \
+        == "cpu"
 
 
 def test_init_state_layout():
     cfg = small_cfg()
-    system = make_system(other_cfg(cfg))
+    system = make_system(other_cfg(cfg), "cpu")
     st = init_state(system)
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
     assert st.paths.shape == (W, M, N, D) and st.paths.dtype == torch.float64

@@ -51,13 +51,13 @@ def test_fused_v_dv_matches_reference(name, with_rinv):
 def test_jastrow_matches_reference(jastrow, fn):
     cfg = small_cfg(jastrow=jastrow)
     r = R_GRID[R_GRID > 0.2]
-    got = getattr(make_system(other_cfg(cfg)), fn)(torch.from_numpy(r))
+    got = getattr(make_system(other_cfg(cfg), "cpu"), fn)(torch.from_numpy(r))
     want = getattr(j_make_system(cfg), fn)(jnp.asarray(r))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_c1_jastrow_vanishes_at_rcut():
-    system = make_system(other_cfg(small_cfg(jastrow="mcmillan_c1")))
+    system = make_system(other_cfg(small_cfg(jastrow="mcmillan_c1")), "cpu")
     rc = torch.tensor([system.geo.rcut], dtype=torch.float64)
     assert abs(float(system.u(rc))) < 1e-14
     assert abs(float(system.du(rc))) < 1e-14
@@ -65,7 +65,7 @@ def test_c1_jastrow_vanishes_at_rcut():
 
 def test_minimum_image_matches_reference():
     cfg = small_cfg()
-    system = make_system(other_cfg(cfg))
+    system = make_system(other_cfg(cfg), "cpu")
     L = system.geo.Lbox[0]
     x = np.random.default_rng(0).uniform(-1.5 * L, 1.5 * L, (50, 7, 3))
     got = wrap(torch.from_numpy(x), system.L, system.half)
@@ -85,7 +85,8 @@ def test_chin_weights_match_reference(shape):
         ib = np.arange(M)
     else:
         ib = np.random.default_rng(1).integers(0, M, (5, 9))
-    got = chin_weights(make_system(other_cfg(cfg)), torch.from_numpy(ib))
+    got = chin_weights(make_system(other_cfg(cfg), "cpu"),
+                       torch.from_numpy(ib))
     want = jpw.chin_weights(j_make_system(cfg), jnp.asarray(ib), jnp.float64)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)

@@ -36,7 +36,7 @@ class Case:
         self.cfg = cfg = small_cfg(**kw)
         self.jsys = j_make_system(cfg)
         self.tables = make_tables(self.jsys)
-        self.tsys = make_system(other_cfg(cfg))
+        self.tsys = make_system(other_cfg(cfg), "cpu")
         self.W, self.D, self.Nb = cfg.n_walkers, cfg.dim, cfg.Nb
         self.paths = lattice_paths(cfg, seed=seed)
         rng = np.random.default_rng(seed + 100)

@@ -43,7 +43,7 @@ ACTIVE = np.array([True, True, False, True, True, True, False, True])
 def _systems(**kw):
     cfg = small_cfg(**kw)
     jsys = j_make_system(cfg)
-    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg))
+    return cfg, jsys, make_tables(jsys), make_system(other_cfg(cfg), "cpu")
 
 
 def _t(x):

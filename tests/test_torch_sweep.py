@@ -43,7 +43,7 @@ def runs():
     for _ in range(NSTEP):
         st, ref_stats = step(st, ref_stats)
 
-    tsys = make_system(other_cfg(cfg))
+    tsys = make_system(other_cfg(cfg), "cpu")
     state = state_from_numpy(tsys, {k: getattr(burned, k) for k in FIELDS})
     state, stats = run_block(Sweeper(tsys), state, NSTEP,
                              JaxDraws(burned.key, cfg.dim, jnp.float64))

@@ -388,7 +388,7 @@ def step_pair(cfg, nstep=2, nburn=150, max_w=None):
         burned, ref_stats = st, jsweep.zero_stats(jsys)
         for _ in range(nstep):
             st, ref_stats = step(st, ref_stats)
-        tsys = make_system(other_cfg(cfg))
+        tsys = make_system(other_cfg(cfg), "cpu")
         state = state_from_numpy(tsys, {k: getattr(burned, k)
                                         for k in STATE_FIELDS})
         state, stats = tsweep.run_block(

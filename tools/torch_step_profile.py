@@ -7,12 +7,14 @@
 (fused_sweep=True), `cascade` (fused_sweep=True, cascade=True),
 `reforder` (the reference-order step: bis_monoshot=False,
 bis_end_random_depth=True) or `sta` (sampling='sta').
-Prints, for the first of them in float32 after one warm-up step:
-  1. host time per move function in one step, first without and then with a
-     device sync after each call (the second shows what the device adds);
-  2. one step under torch.profiler: the device's busy share of the step's
-     wall time (kernel time only), the number of kernel launches and the
-     kernels that take the most time;
+Prints, in float32 after one warm-up step:
+  1. for the first form, host time per move function in one step, first
+     without and then with a device sync after each call (the second shows
+     what the device adds);
+  2. for each form, one step under torch.profiler: the device's busy share
+     of the step's wall time (kernel time only), the number of kernel
+     launches, the device time and launches of kernels A (pair_rows) and 5
+     (cascade), and the kernels that take the most time;
   3. ms/step and bead-updates/s at each W of --scan for each form of
      --forms (2 steps after 1 warm-up); two or more forms are timed in the
      order given and then in reverse, so that drift in the host's speed
@@ -109,6 +111,12 @@ def device_profile(sweeper, state, card):
     print(f"[profile] step {wall * 1e3:.1f} ms under the profiler; kernels "
           f"{busy:.1f} ms busy ({100 * busy / (wall * 1e3):.1f} %), "
           f"{launches} launches ({card})")
+    for label, key in (("kernel A", "pair_rows_kernel"),
+                       ("kernel 5", "cascade_kernel")):
+        mine = [e for e in kern if key in e.key]
+        print(f"[profile]   {label} ({key}): "
+              f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} ms "
+              f"in {sum(e.count for e in mine)} launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x {e.key[:90]}")
@@ -120,8 +128,8 @@ def main():
     ap.add_argument("--walkers", type=int, default=1024)
     ap.add_argument("--scan", default="256,1024,4096")
     ap.add_argument("--forms", default="flagship",
-                    help=f"comma-separated forms of {sorted(FORMS)}; the "
-                         "first is profiled")
+                    help=f"comma-separated forms of {sorted(FORMS)}; each "
+                         "is profiled, the first also by move")
     args = ap.parse_args()
     forms = args.forms.split(",")
     for f in forms:
@@ -134,14 +142,16 @@ def main():
         capture_output=True, text=True).stdout.strip()
     print(f"[device] {card} | torch {torch.__version__}")
 
-    print(f"[form] {forms[0]}: {FORMS[forms[0]]}")
-    system = make_system(flagship_cfg(args.walkers).replace(
-        **FORMS[forms[0]]), "cuda")
-    sweeper = SW.Sweeper(system)
-    state, _ = SW.run_block(sweeper, init_state(system), 1)
-    for sync in (False, True):
-        state = phase_times(sweeper, state, sync)
-    device_profile(sweeper, state, card)
+    for k, form in enumerate(forms):
+        print(f"[form] {form}: {FORMS[form]}")
+        system = make_system(flagship_cfg(args.walkers).replace(
+            **FORMS[form]), "cuda")
+        sweeper = SW.Sweeper(system)
+        state, _ = SW.run_block(sweeper, init_state(system), 1)
+        if k == 0:
+            for sync in (False, True):
+                state = phase_times(sweeper, state, sync)
+        device_profile(sweeper, state, card)
 
     order = forms + forms[::-1] if len(forms) > 1 else forms
     runs = [(W, f) for W in map(int, filter(None, args.scan.split(",")))

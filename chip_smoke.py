@@ -15,25 +15,37 @@ run exits non-zero):
                that the wrapper's rule picks it), float32 and float64, then
                both timed with CUDA events: kernel A at B in 1, 2, 4, 8,
                16, 32, 65, L2-warm and L2-cold, at the lane-group width the
-               rule picks.
+               rule picks; kernel B's two ThermEnergy calls (without and
+               with force), each with its own bound.
   4. cascade : kernel 5 against its plain form (cascade_ref) at the
                flagship's shapes, modes 'ends' (S=2) and 'interior' (S=3),
                float64 and float32, then both timed; then kernels A and 5
                where a row of partners is no multiple of 16 bytes (N=30 in
                float32, N=31 in float64), which they stage element by
                element.
-  5. dense   : kernels 3 and 4 (the dense delta_action's UpdatePot and
+  5. pot     : kernel B at N=30 float32 and N=31 float64 (rows staged
+               element by element) on both ThermEnergy views, on a view
+               that starts off 16-byte alignment, on a row with two
+               coincident particles (non-finite f2 from kernel and plain
+               form alike), and two launches bitwise equal.
+  6. dense   : kernels 3 and 4 (the dense delta_action's UpdatePot and
                UpdateWf) against their plain forms at the end gate's shape
                [1024, 1, 64, 3] with ip scalar and at [1024, 16, 64, 3]
                with ip [W] and [W, B], kernel 3 with and without force,
-               float64 and float32, then both timed at the gate's shape.
-  6. replay  : one step at W=16 in float64 on the card and on the CPU
+               float64 and float32; kernel 3 with the dense action's
+               epilogue (kernel 4's du, the Chin table, ib [B] and [W, B])
+               at the gate's rows and over whole chains (end, odd and even
+               interior rows), with and without force, float64 and
+               float32, and NaN where the reference gives NaN; then kernel
+               4, kernel 3 raw and with the epilogue, and the whole dense
+               delta_action timed at the gate's shape.
+  7. replay  : one step at W=16 in float64 on the card and on the CPU
                (plain forms) from the same recorded draws, for the flagship,
                the fused sweep with cascade off and on, the reference-order
                step (per-level bisection, random end depth), the staging
                sampler with regrow='scan' and the fused sweep in per-level
                form: states, counters and statistics must agree.
-  7. main    : four paths at W=1024 in float32, each with its launch
+  8. main    : four paths at W=1024 in float32, each with its launch
                counts set to 0 just before it and read just after: the
                flagship (unfused sweep), the fused sweep, the fused sweep
                with cascade=True, and the reference-order step.  Each: one
@@ -42,7 +54,7 @@ run exits non-zero):
                end moves' drawn depths), the acceptance table,
                bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
-  8. imports : no JAX module and no module of the reference package
+  9. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
@@ -96,7 +108,8 @@ _OPS = {"rows": 12 + 2 + 45 + 1 + 7 + 8 + 1,        # kernel A, f2 and u
         "delta_force": 12 + 2 + 45 + 1 + 7,          # kernel 3
         "delta_pot": 12 + 1 + 25 + 1,                # kernel 3, no force
         "u": 12 + 1 + 8 + 1,                         # kernel 4
-        "pot_pair": 12 + 2 + 45 + 1 + 2 * 7}         # kernel B, per pair
+        "pot_pair": 12 + 2 + 45 + 1 + 2 * 7,         # kernel B, per pair
+        "pot_pair_plain": 12 + 1 + 25 + 1}           # kernel B, no force
 _PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12              # H100 SXM, float32
 
 
@@ -443,9 +456,10 @@ def kernel_parity(cfg, card, W=1024):
             _events_ms(lambda: K.pair_pot(system, R, wf)),
             _events_ms(lambda: K.pair_pot_ref(system, R, wf)))
     R = paths[:, 1::2][:, :cfg.Nb]
-    bounds["pair_pot"] = _bound(_nbytes(R) + 2 * W * cfg.Nb * 4,
-                                W * cfg.Nb * N * (N - 1) // 2
-                                * _OPS["pot_pair"])
+    for wf, key in ((False, "pot_pair_plain"), (True, "pot_pair")):
+        bounds[f"pair_pot force={wf}"] = _bound(
+            _nbytes(R) + 2 * W * cfg.Nb * 4,
+            W * cfg.Nb * N * (N - 1) // 2 * _OPS[key])
     for name, (k, p) in shapes.items():
         print(f"[time] {name}: kernel {k:.4f} ms, plain {p:.4f} ms "
               f"({card})")
@@ -700,6 +714,157 @@ def layout_parity(cfg, W=256):
     return n
 
 
+def pot_check(system, sys64, R, label):
+    """Kernel B (kernels.pair_pot) without and with force against its
+    float64 plain form on the same inputs (_close with _tol: float32 also
+    within twice the plain float32 form's own error).  Returns (max abs
+    err, values excused by the cutoff)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+
+    f32 = system.dtype == torch.float32
+    near = _near_cut_confs(system, R) if f32 else None
+    err, excused = 0.0, 0
+    for wf in (False, True):
+        got = K.pair_pot(system, R, wf)
+        ref = K.pair_pot_ref(sys64, R.double(), wf)
+        plain = K.pair_pot_ref(system, R, wf) if f32 else (None, None)
+        for i, name in enumerate(("pot", "f2")):
+            e, n = _close(f"pair_pot {system.dtype} {label} force={wf} "
+                          f"{name}", got[i], ref[i], *_tol(system.dtype, name),
+                          plain[i], near)
+            err, excused = max(err, e), excused + n
+    return err, excused
+
+
+def pot_parity(cfg, W=256):
+    """Kernel B beyond the flagship's aligned views: N=30 float32 and N=31
+    float64 (rows of partners that are no 16-byte multiple, staged element
+    by element) and N=64 in both types, each on both ThermEnergy views
+    paths[:, 0:M-1:2] and paths[:, 1:M-1:2]; the odd view of a copy that
+    starts one element past 16-byte alignment; a row with two exactly
+    coincident particles, whose f2 must be non-finite from the kernel and
+    the plain form alike while every other value agrees; and two launches
+    on the flagship's views at W=1024 bitwise equal.  Returns the float64
+    max abs err."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    n, err64, excused = 0, 0.0, 0
+    for dtype, Np in ((torch.float32, 30), (torch.float64, 31),
+                      (torch.float32, 64), (torch.float64, 64)):
+        c = cfg.replace(Np=Np)
+        system = make_system(c, dev, dtype)
+        sys64 = make_system(c, dev, torch.float64)
+        paths = _flagship_paths(c, W, dtype, dev, seed=33)
+        M = c.M
+        views = [(paths[:, 0:M - 1:2], "even view"),
+                 (paths[:, 1:M - 1:2], "odd view")]
+        flat = torch.empty(paths.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = paths.flatten()
+        views.append((flat[1:].view(paths.shape)[:, 1:M - 1:2],
+                      "odd view, unaligned start"))
+        for R, label in views:
+            if K.slabs16(R) != (Np == 64 and "unaligned" not in label):
+                raise AssertionError(f"pair_pot N={Np} {label}: slabs16 is "
+                                     f"{K.slabs16(R)}")
+            e, x = pot_check(system, sys64, R, f"N={Np} {label}")
+            excused += x
+            if dtype == torch.float64:
+                err64 = max(err64, e)
+            n += 2
+        R = paths[:, 1:M - 1:2].clone()
+        R[3, 5, 7] = R[3, 5, 8]
+        got = K.pair_pot(system, R, True)
+        plain = K.pair_pot_ref(system, R, True)
+        for name, f2 in (("kernel", got[1]), ("plain form", plain[1])):
+            if bool(torch.isfinite(f2[3, 5])) \
+                    or not bool(torch.isfinite(got[0][3, 5])):
+                raise AssertionError(f"pair_pot N={Np} {dtype}: coincident "
+                                     f"pair, {name} f2 {float(f2[3, 5])}, "
+                                     f"pot {float(got[0][3, 5])}")
+        ref = K.pair_pot_ref(sys64, R.double(), True)
+        f32 = dtype == torch.float32
+        for i, name in enumerate(("pot", "f2")):
+            g, r, p = got[i].clone(), ref[i].clone(), plain[i].clone()
+            if name == "f2":          # the coincident row, checked above
+                g[3, 5] = r[3, 5] = p[3, 5] = 0.0
+            _close(f"pair_pot N={Np} {dtype} coincident pair {name}", g, r,
+                   *_tol(dtype, name), p if f32 else None,
+                   _near_cut_confs(system, R) if f32 else None)
+        n += 1
+    system = make_system(cfg, dev, torch.float32)
+    paths = _flagship_paths(cfg, 1024, torch.float32, dev, seed=35)
+    for wf in (False, True):
+        R = paths[:, int(wf):cfg.M - 1:2]
+        a, b = K.pair_pot(system, R, wf), K.pair_pot(system, R, wf)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"pair_pot force={wf}: two launches on the "
+                                 "same input differ")
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[pot] {n} cases of kernel B pass: N=30 float32, N=31 float64 and "
+          f"N=64 on both ThermEnergy views and an unaligned view (float64 "
+          f"max abs err {err64:.3e}; float32 values beyond tolerance, each "
+          f"at a pair within 1e-5 of rcut^2: {excused}), a coincident pair "
+          f"(non-finite f2 from kernel and plain form), two launches "
+          f"bitwise equal at [1024, 32, 64, 3] without and with force")
+    return err64
+
+
+def dense_wf(system, with_force):
+    """The dense F^2 weight delta_action passes kernel 3."""
+    dt = system.cfg.dt
+    return (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0
+
+
+def action_check(system, sys64, R, xnew, xold, ip, ib, with_force, label):
+    """Kernel 3 with the dense action's epilogue (kernels.pair_delta given
+    kernel 4's du) against its float64 plain form on the same inputs: NaN
+    or inf exactly where the plain form does; elsewhere within the raw
+    terms' tolerances of _tol weighted as the terms, float32 also within
+    twice the plain float32 form's own error (see _close).  Returns (max
+    abs err, values excused by the cutoff, non-finite rows)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+
+    f32 = system.dtype == torch.float32
+    wf = dense_wf(system, with_force)
+    du = K.pair_u(system, R, xnew, xold, ip)
+    got = K.pair_delta(system, R, xnew, xold, ip, with_force, du,
+                       chin_table(system), ib, wf)
+    args64 = (R.double(), xnew.double(), xold.double(), ip)
+    du64 = K.pair_u_ref(sys64, *args64)
+    tab64 = chin_table(sys64)
+    ref = K.pair_delta_ref(sys64, *args64, with_force, du64, tab64, ib, wf)
+    nf = ~torch.isfinite(ref)        # NaN (or inf) where the reference is
+    torch.testing.assert_close(got[nf], ref[nf].to(got.dtype), rtol=0.0,
+                               atol=0.0, equal_nan=True,
+                               msg=f"pair_delta epilogue {label}: "
+                                   "non-finite rows differ")
+    dpot, df2 = K.pair_delta_ref(sys64, *args64, with_force)
+    w = tab64[:, ib]
+    tol = 0.0
+    for term, weight, name in ((dpot, w[0], "dpot"),
+                               (df2, (w[1] > 0) * wf, "df2"),
+                               (du64, (w[2] > 0).double(), "du")):
+        rtol, atol = _tol(system.dtype, name)
+        tol = tol + torch.where(weight != 0, weight * (atol + rtol
+                                                       * term.abs()), 0.0)
+    plain = None
+    if f32:
+        plain = K.pair_delta_ref(system, R, xnew, xold, ip, with_force,
+                                 K.pair_u_ref(system, R, xnew, xold, ip),
+                                 chin_table(system), ib, wf)
+        plain = torch.where(nf, 0.0, plain)
+    e, x = _close(f"pair_delta epilogue {system.dtype} {label} "
+                  f"force={with_force}", torch.where(nf, 0.0, got),
+                  torch.where(nf, 0.0, ref), 0.0, torch.where(nf, 1.0, tol),
+                  plain, _near_cut_rows(system, R, xnew, xold, ip, False)
+                  if f32 else None)
+    return e, x, int(nf.sum())
+
+
 def dense_parity(cfg, card):
     """Kernels 3 and 4 against pair_delta_ref / pair_u_ref on the same
     inputs: the end gate's row view [1024, 1, 64, 3] (bead 0 and bead M-1)
@@ -776,27 +941,80 @@ def dense_parity(cfg, card):
           f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond "
           f"tolerance, each at a partner within 1e-5 of rcut^2: {excused}")
 
+    # kernel 3 with the dense action's epilogue: the gate's rows (ends) and
+    # whole chains (ends, odd and even interior rows), ib [B] and [W, B],
+    # one coincident partner per case (_window_ip) for the NaN case
+    ep_err, ep_excused, ep_nf, ep_n = 0.0, 0, 0, 0
+    for dtype in (torch.float64, torch.float32):
+        system = make_system(cfg, dev, dtype)
+        paths = _flagship_paths(cfg, W, dtype, dev, seed=24)
+        g = torch.Generator(device=dev).manual_seed(25)
+        cases = [
+            (paths[:, :1], 5, system.arange(0, 1), "gate bead 0 ib[B]"),
+            (paths[:, M - 1:], 5,
+             torch.full((W, 1), M - 1, dtype=torch.long, device=dev),
+             "gate bead M-1 ib[W, B]"),
+            (paths, torch.randint(0, N, (W,), generator=g, device=dev),
+             system.arange(0, M), "whole chains ib[B] ip[W]"),
+            (paths, torch.randint(0, N, (W, M), generator=g, device=dev),
+             torch.randint(0, M, (W, M), generator=g, device=dev),
+             "whole chains ib[W, B] ip[W, B]")]
+        for R, ip, ib, label in cases:
+            xnew, xold = _window_ip(R, ip, g)
+            for wf in (True, False):
+                e, x, nf = action_check(system, sys64, R, xnew, xold, ip, ib,
+                                        wf, label)
+                ep_excused, ep_nf, ep_n = ep_excused + x, ep_nf + nf, ep_n + 1
+                if dtype == torch.float64:
+                    ep_err = max(ep_err, e)
+    torch.cuda.synchronize()
+    if ep_nf == 0:
+        raise AssertionError("pair_delta epilogue: no case gave a NaN row")
+    errs["pair_delta"] = max(errs["pair_delta"], ep_err)
+    print(f"[dense] {ep_n} cases of kernel 3 with the dense action's "
+          f"epilogue pass against the plain form: float64 max abs err "
+          f"{ep_err:.3e} (the terms' tolerances, weighted); {ep_nf} "
+          f"non-finite rows (coincident partners), non-finite alike in "
+          f"both; float32 values excused at the cutoff: {ep_excused}")
+
     # timing at the end gate's shape, float32: the row view of bead 0
+    from pathintegralgroundstate_torch.ops.pairwise import (chin_table,
+                                                            delta_action)
     system = make_system(cfg, dev, torch.float32)
     paths = _flagship_paths(cfg, W, torch.float32, dev, seed=23)
     R = paths[:, :1]
     xold = R[:, :, 5]
     xnew = (xold + 0.05).contiguous()
     xb = 2 * W * D * 4
+    tab, ib0, wf = chin_table(system), system.arange(0, 1), dense_wf(system,
+                                                                     True)
+    du = K.pair_u(system, R, xnew, xold, 5)
     times = {
         "pair_delta": (
-            _events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5)),
-            _events_ms(lambda: K.pair_delta_ref(system, R, xnew, xold, 5)),
-            _bound(_nbytes(R) + xb + 2 * W * 4,
+            _events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5, True,
+                                            du, tab, ib0, wf)),
+            _events_ms(lambda: K.pair_delta_ref(system, R, xnew, xold, 5,
+                                                True, du, tab, ib0, wf)),
+            _bound(_nbytes(R, du, ib0, tab) + xb + W * 4,
                    2 * W * (N - 1) * _OPS["delta_force"])),
         "pair_u": (
             _events_ms(lambda: K.pair_u(system, R, xnew, xold, 5)),
             _events_ms(lambda: K.pair_u_ref(system, R, xnew, xold, 5)),
             _bound(_nbytes(R) + xb + W * 4, 2 * W * (N - 1) * _OPS["u"]))}
+    raw = (_events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5)),
+           _bound(_nbytes(R) + xb + 2 * W * 4,
+                  2 * W * (N - 1) * _OPS["delta_force"]))
+    action = _events_ms(lambda: delta_action(system, R, xnew, xold, 5, ib0))
     for name, (k, p, (b, by)) in times.items():
-        print(f"[time] {name} [1024,1,64,3] ip scalar float32: kernel "
+        what = " with the epilogue" if name == "pair_delta" else ""
+        print(f"[time] {name}{what} [1024,1,64,3] ip scalar float32: kernel "
               f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.5f} ms ({by}; "
               f"{card})")
+    print(f"[time] pair_delta raw (dpot, df2) [1024,1,64,3] ip scalar "
+          f"float32: kernel {raw[0]:.4f} ms, bound {raw[1][0]:.5f} ms "
+          f"({raw[1][1]}; {card})")
+    print(f"[time] delta_action (kernel 4 then kernel 3, two launches) "
+          f"[1024,1,64,3] float32: {action:.4f} ms ({card})")
     return errs, times
 
 
@@ -1043,17 +1261,19 @@ def main_path(cfg, card, label="main"):
 
 def _ptxas_summary(log):
     """One line per kernel of nvcc's -Xptxas -v log: its name with its
-    template arguments (type, then lanes), registers and spills."""
+    template arguments (type, then its int and bool arguments: lanes,
+    block size, force), registers and spills."""
     import re
     name, spill, out = "?", "", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
                       r"pair_delta|pair_u|cascade)_kernel)I([fd])"
-                      r"(?:Li(\d+)E)?", line)
+                      r"((?:L[ib]\d+E)*)", line)
         if m:
-            name = m.group(1) + "<" + ("float" if m.group(2) == "f"
-                                       else "double") + (
-                f", {m.group(3)}" if m.group(3) else "") + ">"
+            args = ["float" if m.group(2) == "f" else "double"] + [
+                v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{', '.join(args)}>"
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -1084,6 +1304,7 @@ def main():
     errs, shapes, bounds = kernel_parity(cfg, card)
     cas_err, cas_times = cascade_parity(cfg, card)
     layout_parity(cfg)
+    errs["pair_pot"] = max(errs["pair_pot"], pot_parity(cfg))
     dense_err, dense_times = dense_parity(cfg, card)
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
@@ -1126,7 +1347,7 @@ def main():
               bounds["pair_rows"]),
         entry("pair_pot", "pair_pot.cu", "pallas_kernels.py:437",
               launches["pair_pot"], errs["pair_pot"], pot_ms, pot_plain,
-              bounds["pair_pot"]),
+              bounds["pair_pot force=True"]),
         entry("pair_delta", "pair_delta.cu", "pallas_kernels.py:392",
               ref_launches["pair_delta"], dense_err["pair_delta"],
               *dense_times["pair_delta"]),

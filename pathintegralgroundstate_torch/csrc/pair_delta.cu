@@ -11,8 +11,16 @@
 //             F = sum_m (dV/dr / r) dx;
 //   kernel 3, without force: dpot from the plain V(r), df2 = 0;
 //   kernel 4: du = sum_m u(new) - sum_m u(old).
-// The caller folds in the Chin weights (ops/pairwise.delta_action).  The two
-// stay separate kernels with separate launches, as the reference calls them.
+// Kernel 3 also closes the dense delta_action (ops/pairwise.delta_action,
+// the reference's pairwise.py:331-343) when given kernel 4's du, the Chin
+// table tab [3, M], the rows' beads ib ([B] or [W, B]) and the dense F^2
+// weight wf: it writes per row
+//   dS = wv dpot + wf_b df2 - [wpsi > 0] du,  (wv, _, wpsi) = tab[:, ib],
+// wf_b = wf on odd interior rows (tab[1, ib] > 0), else 0, in that order.
+// wf_b multiplies df2, so with force a coincident partner (non-finite df2)
+// makes dS NaN on any row, as in the reference; du enters by a select.  So the
+// dense delta_action is two launches, kernel 4 then kernel 3, and nothing
+// after them.  Without du, kernel 3 writes the raw (dpot, df2) of delta_pot.
 //
 // What bounds it on the H100: device-memory bytes in principle (the end
 // gate's [1024, 1, 64, 3] float32 partner block is 786 KB, about 0.25 us at
@@ -35,6 +43,9 @@ struct RowArgs {
   int ip_mode;  // 0 scalar, 1 per walker [W], 2 per row [W, B], 3 [1, B]
   long long ip0;
   int W, B, N;
+  int ib_mode;  // kernel 3's epilogue: ib 0 [B], 1 [W, B]
+  int M;        // kernel 3's epilogue: row length of tab [3, M]
+  double wf;    // kernel 3's epilogue: the F^2 weight of odd interior rows
 };
 
 namespace {
@@ -117,7 +128,9 @@ template <typename T, bool kForce>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
                   const T* __restrict__ xn, const T* __restrict__ xo,
-                  const long long* __restrict__ ip, T* __restrict__ dpot,
+                  const long long* __restrict__ ip,
+                  const T* __restrict__ du, const long long* __restrict__ ib,
+                  const T* __restrict__ tab, T* __restrict__ dpot,
                   T* __restrict__ df2) {
   const int lane = threadIdx.x & 31;
   long long w, b, p;
@@ -149,8 +162,18 @@ pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
   }
   if (lane == 0) {
     const long long row = w * a.B + b;
-    dpot[row] = pot_n - pot_o;
-    df2[row] = kForce ? f2n - f2o : T(0);
+    const T dp = pot_n - pot_o;
+    const T d2 = kForce ? f2n - f2o : T(0);
+    if (du == nullptr) {
+      dpot[row] = dp;
+      df2[row] = d2;
+    } else {  // dpot holds dS
+      const long long jb = a.ib_mode ? ib[row] : ib[b];
+      const T wfb = tab[a.M + jb] > T(0) ? T(a.wf) : T(0);
+      T dS = tab[jb] * dp + wfb * d2;
+      if (tab[2 * a.M + jb] > T(0)) dS = dS - du[row];
+      dpot[row] = dS;
+    }
   }
 }
 
@@ -187,18 +210,16 @@ inline unsigned grid_of(const RowArgs& a) {
 template <typename T>
 int launch_delta(const PairParams* p, const RowArgs* a, const void* R,
                  const void* xn, const void* xo, const void* ip,
-                 int with_force, void* dpot, void* df2, void* stream) {
+                 int with_force, const void* du, const void* ib,
+                 const void* tab, void* dpot, void* df2, void* stream) {
   if ((long long)a->W * a->B == 0) return 0;
   const Consts<T> c = make_consts<T>(*p);
   auto s = (cudaStream_t)stream;
-  if (with_force)
-    pair_delta_kernel<T, true><<<grid_of(*a), 32 * kRowsPerBlock, 0, s>>>(
-        c, *a, (const T*)R, (const T*)xn, (const T*)xo, (const long long*)ip,
-        (T*)dpot, (T*)df2);
-  else
-    pair_delta_kernel<T, false><<<grid_of(*a), 32 * kRowsPerBlock, 0, s>>>(
-        c, *a, (const T*)R, (const T*)xn, (const T*)xo, (const long long*)ip,
-        (T*)dpot, (T*)df2);
+  auto kern = with_force ? pair_delta_kernel<T, true>
+                         : pair_delta_kernel<T, false>;
+  kern<<<grid_of(*a), 32 * kRowsPerBlock, 0, s>>>(
+      c, *a, (const T*)R, (const T*)xn, (const T*)xo, (const long long*)ip,
+      (const T*)du, (const long long*)ib, (const T*)tab, (T*)dpot, (T*)df2);
   return (int)cudaGetLastError();
 }
 
@@ -216,23 +237,17 @@ int launch_u(const PairParams* p, const RowArgs* a, const void* R,
 
 }  // namespace
 
-extern "C" int pigs_pair_delta_f32(const PairParams* p, const RowArgs* a,
-                                   const void* R, const void* xn,
-                                   const void* xo, const void* ip,
-                                   int with_force, void* dpot, void* df2,
-                                   void* stream) {
-  return launch_delta<float>(p, a, R, xn, xo, ip, with_force, dpot, df2,
-                             stream);
-}
+#define PIGS_PAIR_DELTA_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const PairParams* p, const RowArgs* a, const void* R,  \
+                      const void* xn, const void* xo, const void* ip,          \
+                      int with_force, const void* du, const void* ib,          \
+                      const void* tab, void* dpot, void* df2, void* stream) {  \
+    return launch_delta<T>(p, a, R, xn, xo, ip, with_force, du, ib, tab,      \
+                           dpot, df2, stream);                                 \
+  }
 
-extern "C" int pigs_pair_delta_f64(const PairParams* p, const RowArgs* a,
-                                   const void* R, const void* xn,
-                                   const void* xo, const void* ip,
-                                   int with_force, void* dpot, void* df2,
-                                   void* stream) {
-  return launch_delta<double>(p, a, R, xn, xo, ip, with_force, dpot, df2,
-                              stream);
-}
+PIGS_PAIR_DELTA_ENTRY(pigs_pair_delta_f32, float)
+PIGS_PAIR_DELTA_ENTRY(pigs_pair_delta_f64, double)
 
 extern "C" int pigs_pair_u_f32(const PairParams* p, const RowArgs* a,
                                const void* R, const void* xn, const void* xo,

@@ -6,121 +6,258 @@
 // R[W, B, N, D] it returns
 //     pot = 1/2 sum_{i != j} V(r_ij)   over m = notself & r^2 <= rc^2
 //     f2  = sum_i |F_i|^2, F_i = sum_j (dV/dr / r) x_ij   (with_force)
-// with V from the plain Aziz form without force and from the fused (V, dV)
-// form with force, as ops/pairwise.pair_pot.  Like the TPU kernel it has
-// NO r^2 > 0 guard: exactly coincident particles give a non-finite f2.
+// with V from the plain Aziz form (r = sqrt(r^2)) without force and from
+// the fused (V, dV) form with force, as ops/kernels.pair_pot_ref.  Like the
+// TPU kernel it has NO r^2 > 0 guard: exactly coincident particles give a
+// non-finite f2.
 //
-// What bounds it on the H100: the arithmetic of the exp.  The main path
-// calls it twice per measured step on the strided bead slices
-// paths[:, 0:M-1:2] and paths[:, 1:M-1:2]: 1024*32*64^2 = 1.34e8 pair
-// evaluations per call at the flagship shape, against 25 MB of input.
+// What bounds it on the H100: instruction issue.  The main path calls it
+// twice per measured step on the strided bead slices paths[:, 0:M-1:2] (no
+// force) and paths[:, 1:M-1:2] (force): 1024*32 rows of 64*63/2 pairs per
+// call at the flagship shape, against 25 MB of input.  A pair costs over a
+// hundred instructions with force (the minimum image, two exps, the force
+// and its shuffled reaction; few of them FMAs) and more without (the plain
+// V's four precise divisions and precise sqrt), issued near the schedulers'
+// full rate; more resident warps or a deeper unroll moved it little
+// (PERF.md).
 //
-// Design: one block per (walker, bead) row.  The row's N positions are
-// staged once in shared memory; thread i sums over its partners j != i
-// from there, so device memory is read once per row.  A warp-shuffle and
-// shared-memory block reduction gives the row's two sums.  The strided
-// bead slices are read in place through the strides the wrapper passes.
+// What bounded the first design (one block of N threads per row, thread i
+// over its N-1 partners): every unordered pair was evaluated twice, with a
+// precise sqrt and two precise divisions, and two data-dependent branches.
+//
+// This design evaluates each unordered pair ONCE.  A row's particles are
+// cut into C = ceil(N/32) chunks of 32; a team of C warps takes the row,
+// warp I holding particle 32 I + lane and its force F_i in registers.  The
+// pairs of chunks are dealt out in rounds: round 0 is warp I's own tile
+// (I, I), 16 rotations (the 16th on lanes 0-15 only); round k = 1..C/2 is
+// the tile (I, I + k mod C), 32 rotations, split 16 and 16 between warps I
+// and I + C/2 in the last round when C is even.  At rotation s lane l pairs
+// with partner 32 J + (l + s) % 32, read from the row staged in shared
+// memory; the partner's reaction -f reaches the lane that owns it by one
+// warp shuffle of f from lane (l - s) % 32.  A round's reactions on the
+// other chunk go through shared memory to its warp after the round (one
+// writer per chunk and round, read in a fixed order), and the row's sums
+// are added in warp order: no atomics, so two launches on the same input
+// give bitwise the same result.  Masks are selects, never branches.  With
+// force, r and 1/r come from one rsqrt (pigs_pair.cuh).  Several rows share
+// a block of about 256 threads.  Each row is staged with 16-byte cp.async
+// copies where the wrapper has seen that every row is one aligned slab of
+// 16-byte multiples (kernels.slabs16), else element by element through the
+// strides; the strided bead slices are read in place.
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
 
+// Host-side launch description, filled by ops/kernels.py (_PotArgs).
+// Strides in elements.
+struct PotArgs {
+  long long sRw, sRb, sRn;
+  int W, B, N;
+  int C;      // warps per row: ceil(N / 32)
+  int rpb;    // rows per block
+  int vec16;  // 1: rows staged by 16-byte copies, 0: element by element
+};
+
 namespace {
 
-template <typename T>
-__global__ void pair_pot_kernel(Consts<T> c, const T* __restrict__ R,
-                                long long sRw, long long sRb, long long sRn,
-                                int B, int N, int with_force,
-                                T* __restrict__ pot, T* __restrict__ f2) {
-  extern __shared__ unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);  // [3][N]
-  T* red = xs + 3 * N;                     // [2][32]
-  const long long row = blockIdx.x;
-  const long long w = row / B;
-  const long long b = row - w * B;
-  const T* Rrow = R + w * sRw + b * sRb;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      xs[k * N + t] = k < c.dim ? Rrow[t * sRn + k] : T(0);
-  }
-  __syncthreads();
+constexpr int kBlock = 256;  // threads per block, unless one row needs more
 
-  T pot_acc = T(0), f2_acc = T(0);
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    T xi[3], F[3] = {T(0), T(0), T(0)};
-#pragma unroll
-    for (int k = 0; k < 3; ++k) xi[k] = xs[k * N + i];
-    T p = T(0);
-    for (int j = 0; j < N; ++j) {
-      if (j == i) continue;
-      T dx[3];
-      T r2 = T(0);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        dx[k] = wrap1(xi[k] - xs[k * N + j], c.L[k], c.half[k]);
-        r2 += dx[k] * dx[k];
-      }
-      if (!(r2 <= c.rcut2)) continue;
-      T r = sqrt(r2);
-      if (with_force) {
-        T v, dv;
-        aziz_v_dv(c, r, T(1) / r, v, dv);
-        p += v;
-        T fr = dv / r;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
-      } else {
-        p += aziz_v(c, r);
-      }
-    }
-    pot_acc += p;
-    if (with_force) f2_acc += F[0] * F[0] + F[1] * F[1] + F[2] * F[2];
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
 
-  pot_acc = warp_sum(pot_acc);
-  f2_acc = warp_sum(f2_acc);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    red[warp] = pot_acc;
-    red[32 + warp] = f2_acc;
+// One unordered pair (i, j): adds V(r_ij) to pot and, with force, sets f to
+// the pair's force on i (-f on j), both only where valid & r^2 <= rc^2.
+template <typename T, bool kForce>
+__device__ __forceinline__ void pot_pair(const Consts<T>& c, const T* xi,
+                                         const T* xj, bool valid, T& pot,
+                                         T* f) {
+  T dx[3];
+  T r2 = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    dx[k] = wrap1(xi[k] - xj[k], c.L[k], c.half[k]);
+    r2 += dx[k] * dx[k];
   }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = (blockDim.x + 31) >> 5;
-    T a = lane < nw ? red[lane] : T(0);
-    T f = lane < nw ? red[32 + lane] : T(0);
-    a = warp_sum(a);
-    f = warp_sum(f);
-    if (lane == 0) {
-      pot[row] = T(0.5) * a;
-      f2[row] = f;
-    }
+  const bool m = valid && r2 <= c.rcut2;
+  if (kForce) {
+    const T rinv = rsqrt(r2);
+    T v, dv;
+    aziz_v_dv(c, r2 * rinv, rinv, v, dv);
+    pot += m ? v : T(0);
+    const T fr = dv * rinv;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f[k] = m ? fr * dx[k] : T(0);
+  } else {
+    const T v = aziz_v(c, sqrt(r2));
+    pot += m ? v : T(0);
   }
 }
 
+template <typename T, int kMaxThreads, bool kForce>
+__global__ void __launch_bounds__(kMaxThreads)
+pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
+                T* __restrict__ pot, T* __restrict__ f2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kVec = 16 / sizeof(T);
+  const int C = a.C, D = c.dim, npad = 32 * C;
+  const int lane = threadIdx.x & 31, I = threadIdx.x >> 5;
+  const int team = threadIdx.y;
+  const int nteam = blockDim.y;
+  const long long row = (long long)blockIdx.x * a.rpb + team;
+  const bool live = row < (long long)a.W * a.B;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* xs = base + team * npad * D;                          // [npad][D]
+  T* buf = base + nteam * npad * D + team * npad * 3;      // [npad][3]
+  T* red = base + nteam * npad * (D + (kForce ? 3 : 0)) + team * 2 * C;
+
+  if (live) {
+    const long long w = row / a.B;
+    const T* Rrow = R + w * a.sRw + (row - w * a.B) * a.sRb;
+    if (a.vec16) {
+      const int nvec = a.N * D / kVec;
+      for (int i = threadIdx.x; i < nvec; i += blockDim.x)
+        cp_async16(xs + i * kVec, Rrow + i * kVec);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+    } else {
+      for (int j = threadIdx.x; j < a.N; j += blockDim.x)
+        for (int k = 0; k < D; ++k) xs[j * D + k] = Rrow[j * a.sRn + k];
+    }
+  }
+  __syncthreads();
+
+  const int i = 32 * I + lane;
+  const bool vi = live && i < a.N;
+  T xi[3], xj[3], f[3], F[3], G[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    xi[k] = vi && k < D ? xs[i * D + k] : T(0);
+    f[k] = F[k] = T(0);
+  }
+  T p = T(0);
+
+  // round 0: the tile (I, I), each pair once
+#pragma unroll 4
+  for (int s = 1; s <= 16; ++s) {
+    const int j = 32 * I + ((lane + s) & 31);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xj[k] = k < D ? xs[j * D + k] : T(0);
+    pot_pair<T, kForce>(c, xi, xj, vi && j < a.N && (s < 16 || lane < 16),
+                        p, f);
+    if (kForce) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        F[k] += f[k] - __shfl_sync(0xffffffffu, f[k], (lane - s) & 31);
+    }
+  }
+
+  // rounds 1..C/2: the tile (I, J = I + k mod C)
+  for (int k = 1; 2 * k <= C; ++k) {
+    const int J = (I + k) % C;
+    const bool half = 2 * k == C;
+    const int s0 = half && I >= k ? 1 : 0;
+    const int s1 = half ? s0 + 16 : 32;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) G[q] = T(0);
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) {
+      const int j = 32 * J + ((lane + s) & 31);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) xj[q] = q < D ? xs[j * D + q] : T(0);
+      pot_pair<T, kForce>(c, xi, xj, vi && j < a.N, p, f);
+      if (kForce) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          F[q] += f[q];
+          G[q] -= __shfl_sync(0xffffffffu, f[q], (lane - s) & 31);
+        }
+      }
+    }
+    if (kForce) {  // the reactions on chunk J to warp J
+#pragma unroll
+      for (int q = 0; q < 3; ++q) buf[(32 * J + lane) * 3 + q] = G[q];
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 3; ++q) F[q] += buf[i * 3 + q];
+      __syncthreads();
+    }
+  }
+
+  T f2i = T(0);
+  if (kForce) f2i = F[0] * F[0] + F[1] * F[1] + F[2] * F[2];
+  p = warp_sum(p);
+  f2i = warp_sum(f2i);
+  if (lane == 0) {
+    red[I] = p;
+    red[C + I] = f2i;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && live) {
+    T sp = T(0), sf = T(0);
+    for (int q = 0; q < C; ++q) {
+      sp += red[q];
+      sf += red[C + q];
+    }
+    pot[row] = sp;
+    f2[row] = sf;
+  }
+}
+
+// Dynamic shared memory of one block: the rows' partners, with force the
+// reaction buffers, and the per-warp sums.
 template <typename T>
-int launch(const PairParams* p, const void* R, long long sRw, long long sRb,
-           long long sRn, int W, int B, int N, int with_force, void* pot,
-           void* f2, void* stream) {
-  const long long rows = (long long)W * B;
-  if (rows == 0) return 0;
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = (3 * (size_t)N + 64) * sizeof(T);
-  pair_pot_kernel<T><<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
-      make_consts<T>(*p), (const T*)R, sRw, sRb, sRn, B, N, with_force,
-      (T*)pot, (T*)f2);
+size_t pot_smem(const PotArgs& a, int D, bool force) {
+  const size_t npad = 32 * (size_t)a.C;
+  return (size_t)a.rpb * (npad * (D + (force ? 3 : 0)) + 2 * a.C) *
+         sizeof(T);
+}
+
+template <typename T, int kMaxThreads, bool kForce>
+int launch_k(const Consts<T>& c, const PotArgs& a, const T* R, T* pot, T* f2,
+             cudaStream_t stream) {
+  const size_t smem = pot_smem<T>(a, c.dim, kForce);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pair_pot_kernel<T, kMaxThreads, kForce>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long rows = (long long)a.W * a.B;
+  const dim3 block(32 * a.C, a.rpb);
+  const unsigned grid = (unsigned)((rows + a.rpb - 1) / a.rpb);
+  pair_pot_kernel<T, kMaxThreads, kForce><<<grid, block, smem, stream>>>(
+      c, a, R, pot, f2);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const PairParams* p, const PotArgs* args, const void* R,
+           int with_force, void* pot, void* f2, void* stream) {
+  PotArgs a = *args;
+  if ((long long)a.W * a.B == 0) return 0;
+  if (a.N > 1024) return (int)cudaErrorInvalidValue;
+  a.C = a.N > 32 ? (a.N + 31) / 32 : 1;
+  a.rpb = 32 * a.C >= kBlock ? 1 : kBlock / (32 * a.C);
+  const Consts<T> c = make_consts<T>(*p);
+  auto s = (cudaStream_t)stream;
+  auto Rp = (const T*)R;
+  auto po = (T*)pot, fo = (T*)f2;
+  if (32 * a.C * a.rpb <= kBlock)
+    return with_force ? launch_k<T, kBlock, true>(c, a, Rp, po, fo, s)
+                      : launch_k<T, kBlock, false>(c, a, Rp, po, fo, s);
+  return with_force ? launch_k<T, 1024, true>(c, a, Rp, po, fo, s)
+                    : launch_k<T, 1024, false>(c, a, Rp, po, fo, s);
 }
 
 }  // namespace
 
-#define PIGS_PAIR_POT_ENTRY(NAME, T)                                        \
-  extern "C" int NAME(const PairParams* p, const void* R, long long sRw,    \
-                      long long sRb, long long sRn, int W, int B, int N,    \
+#define PIGS_PAIR_POT_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const PairParams* p, const PotArgs* a, const void* R, \
                       int with_force, void* pot, void* f2, void* stream) {  \
-    return launch<T>(p, R, sRw, sRb, sRn, W, B, N, with_force, pot, f2,     \
-                     stream);                                               \
+    return launch<T>(p, a, R, with_force, pot, f2, stream);                \
   }
 
 PIGS_PAIR_POT_ENTRY(pigs_pair_pot_f32, float)

@@ -9,7 +9,8 @@ of the kernel half of ops/cascade_kernels.py.
   pair_pot   kernel B (csrc/pair_pot.cu), replaces pair_pot_pallas: the
              all-pairs potential and force squared of whole configurations.
   pair_delta kernel 3 (csrc/pair_delta.cu), replaces pair_delta_pallas:
-             UpdatePot of the dense delta_action, (dpot, df2) per row.
+             UpdatePot of the dense delta_action, (dpot, df2) per row, or
+             with kernel 4's du the whole dense action delta per row.
   pair_u     kernel 4 (csrc/pair_delta.cu), replaces pair_u_pallas:
              UpdateWf of the dense delta_action, du per row.
   cascade    kernel 5 (csrc/cascade.cu), replaces cascade_pallas: one whole
@@ -137,14 +138,21 @@ def _dense_side_terms(system, x, R, notself):
     return xij, rij2, r2s, ns & (rij2 <= system.geo.rcut2)
 
 
-def pair_delta_ref(system, R, xnew, xold, ip, with_force=True):
+def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, du=None,
+                   tab=None, ib=None, wf=0.0):
     """Plain form of kernel 3: per row (dpot, df2) of xnew/xold[W, B, D]
     against the partners R[W, B, N, D], as the jnp branch of the
     reference's delta_pot (pairwise.py:247-276, PBC, closed form).
 
     Unlike kernel A's rows there is no r^2 > 0 guard on the force; without
     force the potential is V(r), not V of v_dv, and df2 is zero.
-    ip: int, [W], [W, B] or [1, B]."""
+    ip: int, [W], [W, B] or [1, B].
+
+    With du [W, B] (pair_u_ref's), tab [3, M] (pairwise.chin_table) and ib
+    [B] or [W, B]: the dense action delta [W, B] of the reference's
+    delta_action (pairwise.py:331-343), dS = wv dpot + wf_b df2 -
+    where(wpsi > 0, du, 0) with (wv, _, wpsi) = tab[:, ib] and wf_b = wf on
+    odd interior rows (tab[1, ib] > 0), else 0."""
     notself = self_mask(R.shape[-2], ip, R.device)
 
     def side(x):
@@ -161,7 +169,12 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True):
     pot_n, f2_n = side(xnew)
     pot_o, f2_o = side(xold)
     dpot = pot_n - pot_o
-    return dpot, (f2_n - f2_o if with_force else torch.zeros_like(dpot))
+    df2 = f2_n - f2_o if with_force else torch.zeros_like(dpot)
+    if du is None:
+        return dpot, df2
+    w = tab[:, ib]
+    dS = w[0] * dpot + (w[1] > 0).to(dpot.dtype) * wf * df2
+    return dS - torch.where(w[2] > 0, du, 0.0)
 
 
 def pair_u_ref(system, R, xnew, xold, ip):
@@ -384,9 +397,18 @@ pair_rows.launches = 0
 # Kernel B
 # ---------------------------------------------------------------------------
 
+class _PotArgs(ctypes.Structure):
+    """Mirror of struct PotArgs in csrc/pair_pot.cu (C and rpb are set by
+    the kernel's launcher)."""
+    _fields_ = [(n, ctypes.c_longlong) for n in ("sRw", "sRb", "sRn")] + [
+        (n, ctypes.c_int) for n in ("W", "B", "N", "C", "rpb", "vec16")]
+
+
 def pair_pot(system, R, with_force=False):
     """(pot, f2) [W, B] of the configurations R[W, B, N, D] (see
-    pair_pot_ref); R is read in place through its strides."""
+    pair_pot_ref); R is read in place through its strides.  Each unordered
+    pair is evaluated once, and two launches on the same input give bitwise
+    the same sums."""
     if R.device.type == "cpu":
         return pair_pot_ref(system, R, with_force)
     _check("pair_pot", system, R)
@@ -395,9 +417,11 @@ def pair_pot(system, R, with_force=False):
         raise ValueError(f"pair_pot: at most 1024 particles, got {N}")
     out = torch.empty((2, W, B), dtype=R.dtype, device=R.device)
     sW, sB, sN, _ = R.stride()
+    a = _PotArgs(sRw=sW, sRb=sB, sRn=sN, W=W, B=B, N=N,
+                 vec16=int(slabs16(R)))
     fn = getattr(kernels(), "pigs_pair_pot_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), R.data_ptr(), sW, sB, sN,
-             W, B, N, int(with_force), out[0].data_ptr(), out[1].data_ptr(),
+    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
+             int(with_force), out[0].data_ptr(), out[1].data_ptr(),
              torch.cuda.current_stream(R.device).cuda_stream)
     if err:
         raise RuntimeError(f"pair_pot: kernel launch failed, cudaError {err}")
@@ -416,8 +440,9 @@ class _RowArgs(ctypes.Structure):
     """Mirror of struct RowArgs in csrc/pair_delta.cu."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
         "sRw", "sRb", "sRn", "sNw", "sNb", "sOw", "sOb")] + [
-        ("ip_mode", ctypes.c_int), ("ip0", ctypes.c_longlong),
-        ("W", ctypes.c_int), ("B", ctypes.c_int), ("N", ctypes.c_int)]
+        ("ip_mode", ctypes.c_int), ("ip0", ctypes.c_longlong)] + [
+        (n, ctypes.c_int) for n in ("W", "B", "N", "ib_mode", "M")] + [
+        ("wf", ctypes.c_double)]
 
 
 def _row_args(name, system, R, xnew, xold, ip):
@@ -432,24 +457,48 @@ def _row_args(name, system, R, xnew, xold, ip):
     return a, ip_t
 
 
-def pair_delta(system, R, xnew, xold, ip, with_force=True):
-    """Per row (dpot, df2) of UpdatePot (see pair_delta_ref); R [W, B, N,
-    D] is read in place through its strides."""
+def pair_delta(system, R, xnew, xold, ip, with_force=True, du=None,
+               tab=None, ib=None, wf=0.0):
+    """Per row (dpot, df2) of UpdatePot, or with du, tab and ib the dense
+    action delta dS [W, B] (see pair_delta_ref); R [W, B, N, D] is read in
+    place through its strides.  du: contiguous [W, B] (pair_u's); tab: the
+    contiguous Chin table [3, M]; ib: contiguous long [B] or [W, B]."""
     if R.device.type == "cpu":
-        return pair_delta_ref(system, R, xnew, xold, ip, with_force)
+        return pair_delta_ref(system, R, xnew, xold, ip, with_force, du, tab,
+                              ib, wf)
     a, ip_t = _row_args("pair_delta", system, R, xnew, xold, ip)
-    out = torch.empty((2, a.W, a.B), dtype=R.dtype, device=R.device)
+    W, B = a.W, a.B
+    if du is None:
+        out = torch.empty((2, W, B), dtype=R.dtype, device=R.device)
+        epi = (None, None, None)
+        ptrs = (out[0].data_ptr(), out[1].data_ptr())
+    else:
+        if (du.shape != (W, B) or du.device != R.device
+                or du.dtype != R.dtype or not du.is_contiguous()):
+            raise ValueError(f"pair_delta: du must be a contiguous {(W, B)} "
+                             f"tensor on {R.device} in {R.dtype}")
+        if (ib.device != R.device or ib.dtype != torch.long
+                or not ib.is_contiguous() or ib.shape not in ((B,), (W, B))):
+            raise ValueError(f"pair_delta: ib must be a contiguous long "
+                             f"tensor [B] or [W, B] on {R.device}")
+        if (tab.device != R.device or tab.dtype != R.dtype or tab.dim() != 2
+                or tab.shape[0] != 3 or not tab.is_contiguous()):
+            raise ValueError(f"pair_delta: tab must be a contiguous [3, M] "
+                             f"tensor on {R.device} in {R.dtype}")
+        a.ib_mode, a.M, a.wf = ib.dim() - 1, tab.shape[1], wf
+        out = torch.empty((W, B), dtype=R.dtype, device=R.device)
+        epi = (du.data_ptr(), ib.data_ptr(), tab.data_ptr())
+        ptrs = (out.data_ptr(), None)
     fn = getattr(kernels(), "pigs_pair_delta_" + _suffix(R.dtype))
     err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
              xnew.data_ptr(), xold.data_ptr(),
              ip_t.data_ptr() if ip_t is not None else None, int(with_force),
-             out[0].data_ptr(), out[1].data_ptr(),
-             torch.cuda.current_stream(R.device).cuda_stream)
+             *epi, *ptrs, torch.cuda.current_stream(R.device).cuda_stream)
     if err:
         raise RuntimeError(f"pair_delta: kernel launch failed, cudaError "
                            f"{err}")
     pair_delta.launches += 1
-    return out[0], out[1]
+    return (out[0], out[1]) if du is None else out
 
 
 pair_delta.launches = 0

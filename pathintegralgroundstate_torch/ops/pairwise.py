@@ -16,7 +16,6 @@ Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from . import kernels
 
@@ -95,19 +94,16 @@ def delta_wf(system, R, xnew, xold, ip):
 
 def delta_action(system, R, xnew, xold, ip, ib, with_force=True):
     """The dense per-row action delta (UpdateAction, pairwise.py:306-343):
-    wv dPot + wf dF2 - [ib at a chain end] dLogPsi, from two passes (kernels
-    3 and 4).  The F^2 weight is written as the reference writes it here,
-    (4 dt/3) dt^2/6, which can differ from the table's 2 dt^3/9 in the last
-    bit; it is zero without force.  ib [B] or [W, B]."""
+    wv dPot + wf dF2 - [ib at a chain end] dLogPsi, from two launches and
+    nothing after them: kernel 4's du, then kernel 3, which closes the sum
+    with the Chin table.  The F^2 weight is written as the reference writes
+    it here, (4 dt/3) dt^2/6, which can differ from the table's 2 dt^3/9 in
+    the last bit; it is zero without force.  ib [B] or [W, B]."""
     dt = system.cfg.dt
-    wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
-    dpot, df2 = delta_pot(system, R, xnew, xold, ip, with_force)
-    dS = wv * dpot
-    if with_force:
-        dS = dS + (wf > 0).to(dS.dtype) * ((4.0 * dt / 3.0) * dt * dt / 6.0) \
-            * df2
     du = delta_wf(system, R, xnew, xold, ip)
-    return dS - torch.where(wpsi > 0, du, 0.0)
+    wf = (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0
+    return kernels.pair_delta(system, R, xnew, xold, ip, with_force, du,
+                              chin_table(system, xnew.dtype), ib, wf)
 
 
 def pair_pot(system, R, with_force=False):

@@ -87,8 +87,8 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ROWS_ARGS = [_P] * 11
-_POT_ARGS = [_P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P, _P, _P]
-_DELTA_ARGS = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P]
+_POT_ARGS = [_P, _P, _P, _I, _P, _P, _P]
+_DELTA_ARGS = [_P] * 6 + [_I] + [_P] * 6
 _U_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P]
 _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _I, _P]

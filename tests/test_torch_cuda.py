@@ -176,6 +176,86 @@ def test_pair_pot_matches_plain(cuda, with_force):
         torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
 
 
+def _pot_paths(Np, W, dtype, cuda, seed, dmin=0.7):
+    """(system, float64 system, paths) of N=Np liquid-like worldlines with
+    pairs down to dmin (closer than the flagship's 0.95, so that even N=2
+    has pairs inside the cutoff)."""
+    import chip_smoke
+    cfg = flagship_cfg(W).replace(Np=Np)
+    return (make_system(cfg, cuda, dtype), make_system(cfg, cuda,
+                                                       torch.float64),
+            chip_smoke._flagship_paths(cfg, W, dtype, cuda, seed, dmin))
+
+
+@pytest.mark.parametrize("Np,dtype,W", [
+    (2, torch.float64, 64), (30, torch.float32, 64), (31, torch.float64, 64),
+    (64, torch.float32, 64), (65, torch.float64, 64),
+    (1024, torch.float64, 1)])
+def test_pair_pot_particle_counts_match_plain(cuda, Np, dtype, W):
+    """Kernel B without and with force on both ThermEnergy views, from one
+    chunk of 32 particles (N=2, 30, 31) to 32 (N=1024: rows of 1024
+    threads, 49.7 KB of shared memory in float64, past the 48 KB default),
+    rows that are 16-byte slabs or not: float64 within rtol 1e-11, atol
+    1e-9 (1e-7 on f2); float32 within chip_smoke._close's rule."""
+    import chip_smoke
+    system, sys64, paths = _pot_paths(Np, W, dtype, cuda, seed=Np)
+    M = system.M
+    for sl in (slice(0, M - 1, 2), slice(1, M - 1, 2)):
+        chip_smoke.pot_check(system, sys64, paths[:, sl], f"N={Np}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_pot_views_match_plain(cuda, dtype):
+    """Both ThermEnergy views read in place (16-byte slabs at N=64), and
+    the odd view of a copy that starts one element past 16-byte alignment
+    (staged element by element)."""
+    import chip_smoke
+    system, sys64, paths = _pot_paths(64, 64, dtype, cuda, seed=67)
+    M = system.M
+    flat = torch.empty(paths.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = paths.flatten()
+    views = (paths[:, 0:M - 1:2], paths[:, 1:M - 1:2],
+             flat[1:].view(paths.shape)[:, 1:M - 1:2])
+    assert [kernels.slabs16(R) for R in views] == [True, True, False]
+    n = kernels.pair_pot.launches
+    for R in views:
+        chip_smoke.pot_check(system, sys64, R, "view")
+    assert kernels.pair_pot.launches == n + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pair_pot_coincident_pair_gives_nonfinite_f2(cuda, dtype):
+    """Two exactly coincident particles: no r^2 > 0 guard, so f2 of that
+    row is non-finite from the kernel and the plain form alike, its pot
+    finite; every other row agrees."""
+    system, _, paths = _pot_paths(64, 16, dtype, cuda, seed=71)
+    R = paths[:, 1:system.M - 1:2].clone()
+    R[3, 5, 7] = R[3, 5, 40]
+    got = kernels.pair_pot(system, R, True)
+    ref = kernels.pair_pot_ref(system, R, True)
+    for f2 in (got[1], ref[1]):
+        assert not bool(torch.isfinite(f2[3, 5]))
+        assert int(torch.isfinite(f2).sum()) == f2.numel() - 1
+    assert bool(torch.isfinite(got[0]).all())
+    if dtype == torch.float64:
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-11, atol=1e-9)
+        keep = torch.isfinite(ref[1])
+        torch.testing.assert_close(got[1][keep], ref[1][keep], rtol=1e-11,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("with_force", [False, True])
+def test_pair_pot_two_launches_bitwise_equal(cuda, with_force):
+    """Each unordered pair once, the reactions and the row sums added in a
+    fixed order: two launches on the same input give the same bits."""
+    system, _, paths = _pot_paths(64, 256, torch.float32, cuda, seed=73)
+    R = paths[:, int(with_force):system.M - 1:2]
+    a = kernels.pair_pot(system, R, with_force)
+    b = kernels.pair_pot(system, R, with_force)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert with_force or not bool(a[1].any())
+
+
 def test_pair_rows_refuses_what_it_cannot_read(cuda):
     """Wrong layouts, types, index and weight tables and rows beyond the
     shared memory all raise; none launches."""
@@ -237,6 +317,98 @@ def test_pair_u_matches_plain(cuda, ip_form):
     assert kernels.pair_u.launches == n + 2
 
 
+def _action_cases(cfg, system, paths, ib_form, g):
+    """(R, ip, ib, label) of the dense action's epilogue: the end gate's row
+    views of beads 0 and M-1, and whole chains (end, odd and even interior
+    rows), with ib [B] or [W, B]."""
+    W, M, N = paths.shape[0], cfg.M, cfg.Np
+    dev = paths.device
+    if ib_form == "B":
+        return [(paths[:, :1], 5, system.arange(0, 1), "bead 0"),
+                (paths, torch.randint(0, N, (W,), generator=g, device=dev),
+                 system.arange(0, M), "chains")]
+    return [(paths[:, M - 1:], 5,
+             torch.full((W, 1), M - 1, dtype=torch.long, device=dev),
+             "bead M-1"),
+            (paths, torch.randint(0, N, (W, M), generator=g, device=dev),
+             torch.randint(0, M, (W, M), generator=g, device=dev), "chains")]
+
+
+@pytest.mark.parametrize("with_force", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ib_form", ["B", "WB"])
+def test_dense_action_epilogue_matches_plain(cuda, ib_form, dtype,
+                                             with_force):
+    """Kernel 3 closing the dense action delta with kernel 4's du
+    (chip_smoke.action_check): float64 within the raw terms' tolerances
+    (rtol 1e-11) weighted as the terms, float32 within _close's rule; one
+    coincident partner per case, non-finite exactly where the plain form
+    is (NaN with force)."""
+    import chip_smoke
+    cfg = flagship_cfg(64)
+    system = make_system(cfg, cuda, dtype)
+    sys64 = make_system(cfg, cuda, torch.float64)
+    paths = chip_smoke._flagship_paths(cfg, 64, dtype, cuda, seed=59)
+    g = torch.Generator(device=cuda).manual_seed(59)
+    n = kernels.pair_delta.launches, kernels.pair_u.launches
+    nonfinite = 0
+    for R, ip, ib, label in _action_cases(cfg, system, paths, ib_form, g):
+        xnew, xold = chip_smoke._window_ip(R, ip, g)
+        nonfinite += chip_smoke.action_check(system, sys64, R, xnew, xold,
+                                             ip, ib, with_force, label)[2]
+    assert nonfinite >= 1
+    assert (kernels.pair_delta.launches, kernels.pair_u.launches) == (
+        n[0] + 2, n[1] + 2)
+
+
+@pytest.mark.parametrize("with_force", [True, False])
+def test_dense_action_epilogue_at_a_coincident_end_row(cuda, with_force):
+    """The end gate's row with an exactly coincident partner, float64: the
+    reference gives NaN with force (0 * NaN df2) and +inf without (-du of
+    u = -inf); the kernel gives the same, every other row within rtol
+    1e-11."""
+    from pathintegralgroundstate_torch.ops.pairwise import delta_action
+    system, R, xn, xo, _ = _dense_case(cuda, "scalar", 79)
+    R1, xo1 = R[:, :1], xo[:, :1]
+    xn1 = xn[:, :1].clone()
+    xn1[3, 0] = R1[3, 0, 9]
+    ib = system.arange(0, 1)
+    got = delta_action(system, R1, xn1, xo1, 3, ib, with_force)
+    cpu = make_system(system.cfg, "cpu", torch.float64)
+    want = delta_action(cpu, R1.cpu(), xn1.cpu(), xo1.cpu(), 3, ib.cpu(),
+                        with_force)
+    assert bool(want[3, 0].isnan()) if with_force else \
+        float(want[3, 0]) == float("inf")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-11, atol=1e-9,
+                               equal_nan=True)
+
+
+def test_dense_delta_action_is_two_launches(cuda):
+    """On the card delta_action issues exactly two kernels, kernel 4 then
+    kernel 3 with the epilogue, and nothing after them (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathintegralgroundstate_torch.ops.pairwise import delta_action
+    system, R, xn, xo, _ = _dense_case(cuda, "scalar", 61)
+    args = (system, R[:, :1], xn[:, :1], xo[:, :1], 3, system.arange(0, 1))
+    want = delta_action(*args)       # builds the kernels, caches the table
+    torch.cuda.synchronize()
+    n = kernels.pair_delta.launches, kernels.pair_u.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = delta_action(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in kern) == 2, [e.key for e in kern]
+    assert any("pair_u_kernel" in e.key for e in kern)
+    assert any("pair_delta_kernel" in e.key for e in kern)
+    assert (kernels.pair_delta.launches, kernels.pair_u.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert torch.equal(got, want)
+
+
 def test_dense_kernels_refuse_what_they_cannot_read(cuda):
     system, R, xn, xo, _ = _dense_case(cuda, "scalar", 37)
     ip_t = torch.zeros(64, 65, dtype=torch.long, device=cuda)
@@ -247,6 +419,14 @@ def test_dense_kernels_refuse_what_they_cannot_read(cuda):
             fn(system, R, xn, xo, ip_t.int())
         with pytest.raises(ValueError):
             fn(system, R, xn[:, :3], xo, 0)
+    du = torch.zeros(64, 65, dtype=torch.float64, device=cuda)
+    tab, ib = chin_table(system), torch.arange(65, device=cuda)
+    n = kernels.pair_delta.launches
+    for bad in ((du[:, :3], tab, ib), (du.float(), tab, ib),
+                (du, tab[:2], ib), (du, tab, ib.int()), (du, tab, ib[:3])):
+        with pytest.raises(ValueError):
+            kernels.pair_delta(system, R, xn, xo, 0, True, *bad)
+    assert kernels.pair_delta.launches == n
 
 
 def test_flagship_step_on_card_matches_cpu(cuda):

@@ -10,8 +10,10 @@ random-depth end move; paired ends against the sequential order (bitwise);
 then whole steps of the reference-order configuration (per-level bisection,
 random end depth) and of paired ends against the reference's step on its
 own draws.  Float64 on the CPU: positions rtol 1e-12, accept masks, counters
-and integer state exactly equal.  The kernels themselves:
-tests/test_torch_cuda.py.
+and integer state exactly equal.  Kernel 3's plain form also closes the
+dense action delta (given kernel 4's du, the Chin table and ib): it is held
+against the reference's delta_action on every kind of row, NaN included.
+The kernels themselves: tests/test_torch_cuda.py.
 """
 
 import functools
@@ -27,7 +29,8 @@ from torch_bridge import assert_step_pair, bisect_draws, end_bisect_draws, \
 
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import kernels
-from pathintegralgroundstate_torch.ops.pairwise import delta_action
+from pathintegralgroundstate_torch.ops.pairwise import chin_table, \
+    delta_action, delta_pot
 from pathintegralgroundstate_torch.system import make_system
 from pathintegralgroundstate_tpu.ops import bisection as jbis
 from pathintegralgroundstate_tpu.ops import pairwise as jpw
@@ -95,6 +98,63 @@ def test_pair_delta_ref_matches_delta_pot(ip_form, with_force):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
     assert with_force or not got[1].any()
+
+
+@pytest.mark.parametrize("with_force", [True, False])
+@pytest.mark.parametrize("ip_form", IP_FORMS)
+def test_delta_pot_matches_reference(ip_form, with_force):
+    """pairwise.delta_pot, the public raw (dPot, dF2) form, unchanged by the
+    epilogue: kernel 3's raw mode."""
+    cfg, jsys, tables, tsys = _systems(n_walkers=4)
+    R, xnew, xold, ip = _window(cfg, ip_form, seed=7)
+    want = jpw.delta_pot(jsys, tables, jnp.asarray(R), jnp.asarray(xnew),
+                         jnp.asarray(xold), jnp.asarray(ip), with_force)
+    got = delta_pot(tsys, _t(R), _t(xnew), _t(xold), _ip_t(ip), with_force)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+# rows (walker, bead) given an exactly coincident partner: bead 0 (an end),
+# bead 3 (odd interior) and bead 4 (even interior) of the whole chain
+COINCIDENT = ((1, 0), (2, 3), (3, 4))
+
+
+@pytest.mark.parametrize("coincident", [False, True])
+@pytest.mark.parametrize("with_force", [True, False])
+@pytest.mark.parametrize("ib_form", ["B", "WB"])
+def test_pair_delta_ref_epilogue_matches_delta_action(ib_form, with_force,
+                                                      coincident):
+    """Kernel 3's plain form with the dense action's epilogue (kernel 4's
+    du, the Chin table, ib [B] or [W, B], the F^2 weight (4 dt/3) dt^2/6)
+    against the reference's delta_action on the whole chain: both ends, odd
+    and even interior rows.  With a coincident partner the reference gives
+    NaN on that row with force (0 * NaN dF2) and +inf at an end without
+    (-dLogPsi of u = -inf); the plain form gives the same."""
+    cfg, jsys, tables, tsys = _systems(n_walkers=4)
+    R, xnew, xold, ip = _window(cfg, "row", seed=8)
+    W, M, N = R.shape[:3]
+    if coincident:
+        for w, b in COINCIDENT:
+            xnew[w, b] = R[w, b, (ip[w, b] + 1) % N]
+    ib = np.arange(M) if ib_form == "B" else \
+        np.random.default_rng(9).integers(0, M, (W, M))
+    want = np.asarray(jpw.delta_action(
+        jsys, tables, jnp.asarray(R), jnp.asarray(xnew), jnp.asarray(xold),
+        jnp.asarray(ip), jnp.asarray(ib), with_force))
+    args = (tsys, _t(R), _t(xnew), _t(xold), _ip_t(ip))
+    dt = cfg.dt
+    got = kernels.pair_delta_ref(
+        *args, with_force, kernels.pair_u_ref(*args), chin_table(tsys),
+        _t(ib), (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0)
+    np.testing.assert_allclose(got.numpy(), want, equal_nan=True, **TOL)
+    nonfinite = set(zip(*np.nonzero(~np.isfinite(want))))
+    if not coincident:
+        assert not nonfinite
+    elif with_force:
+        assert nonfinite == set(COINCIDENT)
+        assert np.isnan(got.numpy()[tuple(zip(*COINCIDENT))]).all()
+    elif ib_form == "B":
+        assert nonfinite == {(1, 0)} and float(got[1, 0]) == float("inf")
 
 
 @pytest.mark.parametrize("ip_form", IP_FORMS)

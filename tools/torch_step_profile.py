@@ -2,6 +2,7 @@
 
     python3 tools/torch_step_profile.py [--walkers 1024]
         [--scan 256,1024,4096] [--forms flagship,fused,cascade,reforder,sta]
+        [--kernels] [--root DIR]
 
 --forms lists the steps: `flagship` (the unfused sweep), `fused`
 (fused_sweep=True), `cascade` (fused_sweep=True, cascade=True),
@@ -13,13 +14,20 @@ Prints, in float32 after one warm-up step:
      what the device adds);
   2. for each form, one step under torch.profiler: the device's busy share
      of the step's wall time (kernel time only), the number of kernel
-     launches, the device time and launches of kernels A (pair_rows) and 5
-     (cascade), and the kernels that take the most time;
-  3. ms/step and bead-updates/s at each W of --scan for each form of
+     launches, the device time and launches of each of the five kernels
+     (A pair_rows, B pair_pot, 3 pair_delta, 4 pair_u, 5 cascade), and the
+     kernels that take the most time;
+  3. with --kernels, on the first form's paths after its warm-up step:
+     kernel B's two ThermEnergy calls (without and with force) and the
+     dense delta_action at the end gate's rows [W, 1, N, D], by CUDA
+     events over 20 calls each, in turns;
+  4. ms/step and bead-updates/s at each W of --scan for each form of
      --forms (2 steps after 1 warm-up); two or more forms are timed in the
      order given and then in reverse, so that drift in the host's speed
      shows.
-Every time is printed beside the card's name and power limit.
+Every time is printed beside the card's name and power limit.  --root DIR
+runs the package of another checkout at DIR (an earlier commit unpacked
+with `git archive`), so that two commits compare in one call.
 """
 
 import argparse
@@ -31,24 +39,9 @@ import time
 
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-
-from pathintegralgroundstate_torch import sweep as SW  # noqa: E402
-from pathintegralgroundstate_torch.flagship import flagship_cfg  # noqa: E402
-from pathintegralgroundstate_torch.state import init_state  # noqa: E402
-from pathintegralgroundstate_torch.system import make_system  # noqa: E402
-
-PHASES = [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
-          (SW.mv, "translate_chain"), (SW.bis, "move_head_bisection"),
-          (SW.bis, "move_tail_bisection"), (SW.bis, "bisection"),
-          (SW.mv, "translate_half_chain"), (SW.mv, "move_head_half_chain"),
-          (SW.mv, "move_tail_half_chain"), (SW.mv, "staging_half_chain"),
-          (SW.wm, "swap_move"), (SW.wm, "obdm_terms"),
-          (SW.bis, "fused_end_bisections"), (SW.bis, "bisection_multi"),
-          (SW.mv, "fused_end_stagings"), (SW.cas, "fused_ends_cascade"),
-          (SW.cas, "interior_cascade"), (SW.cas, "rigid_cascade"),
-          (SW.mv, "staging_move"), (SW.mv, "move_head"),
-          (SW.mv, "move_tail"), (SW.Sweeper, "_measure")]
+KERNELS = (("A", "pair_rows_kernel"), ("B", "pair_pot_kernel"),
+           ("3", "pair_delta_kernel"), ("4", "pair_u_kernel"),
+           ("5", "cascade_kernel"))
 FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
          "cascade": {"fused_sweep": True, "cascade": True},
          "reforder": {"bis_monoshot": False, "bis_end_random_depth": True},
@@ -56,6 +49,7 @@ FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
 
 
 def timed_step(sweeper, state):
+    from pathintegralgroundstate_torch import sweep as SW
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, _ = SW.run_block(sweeper, state, 1)
@@ -64,6 +58,19 @@ def timed_step(sweeper, state):
 
 
 def phase_times(sweeper, state, sync: bool):
+    from pathintegralgroundstate_torch import sweep as SW
+    PHASES = [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
+              (SW.mv, "translate_chain"), (SW.bis, "move_head_bisection"),
+              (SW.bis, "move_tail_bisection"), (SW.bis, "bisection"),
+              (SW.mv, "translate_half_chain"),
+              (SW.mv, "move_head_half_chain"),
+              (SW.mv, "move_tail_half_chain"), (SW.mv, "staging_half_chain"),
+              (SW.wm, "swap_move"), (SW.wm, "obdm_terms"),
+              (SW.bis, "fused_end_bisections"), (SW.bis, "bisection_multi"),
+              (SW.mv, "fused_end_stagings"), (SW.cas, "fused_ends_cascade"),
+              (SW.cas, "interior_cascade"), (SW.cas, "rigid_cascade"),
+              (SW.mv, "staging_move"), (SW.mv, "move_head"),
+              (SW.mv, "move_tail"), (SW.Sweeper, "_measure")]
     total, calls = collections.Counter(), collections.Counter()
     orig = {name: getattr(mod, name) for mod, name in PHASES}
 
@@ -111,16 +118,56 @@ def device_profile(sweeper, state, card):
     print(f"[profile] step {wall * 1e3:.1f} ms under the profiler; kernels "
           f"{busy:.1f} ms busy ({100 * busy / (wall * 1e3):.1f} %), "
           f"{launches} launches ({card})")
-    for label, key in (("kernel A", "pair_rows_kernel"),
-                       ("kernel 5", "cascade_kernel")):
+    for label, key in KERNELS:
         mine = [e for e in kern if key in e.key]
-        print(f"[profile]   {label} ({key}): "
+        print(f"[profile]   kernel {label} ({key}): "
               f"{sum(e.self_device_time_total for e in mine) / 1e3:.2f} ms "
               f"in {sum(e.count for e in mine)} launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x {e.key[:90]}")
     return state
+
+
+def events_ms(fn, reps=20):
+    """Device ms per call of fn(): reps calls queued behind a device sleep,
+    so the events time the device's work and not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_times(system, paths, card):
+    """Kernel B's two ThermEnergy calls and the dense delta_action at the
+    end gate's rows of bead 0 (particle 5 moved by 0.05), in turns."""
+    from pathintegralgroundstate_torch.ops.pairwise import (delta_action,
+                                                            pair_pot)
+    M = system.M
+    R0 = paths[:, :1]
+    xold = R0[:, :, 5]
+    xnew = (xold + 0.05).contiguous()
+    ib = system.arange(0, 1)
+    cases = {"pair_pot force=False": lambda: pair_pot(
+                 system, paths[:, 0:M - 1:2], False),
+             "pair_pot force=True": lambda: pair_pot(
+                 system, paths[:, 1:M - 1:2], True),
+             "delta_action": lambda: delta_action(system, R0, xnew, xold, 5,
+                                                  ib)}
+    times = collections.defaultdict(list)
+    for name in list(cases) + list(cases)[::-1]:
+        times[name].append(events_ms(cases[name]))
+    shape = tuple(paths.shape)
+    for name, ts in times.items():
+        print(f"[kernels] {name} (paths {shape}, float32): "
+              + ", ".join(f"{t:.4f}" for t in ts) + f" ms ({card})")
 
 
 def main():
@@ -130,7 +177,19 @@ def main():
     ap.add_argument("--forms", default="flagship",
                     help=f"comma-separated forms of {sorted(FORMS)}; each "
                          "is profiled, the first also by move")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time kernel B's two calls and the dense "
+                         "delta_action on the first form's paths")
+    ap.add_argument("--root", default=str(
+        pathlib.Path(__file__).resolve().parents[1]),
+        help="checkout whose package runs (default: this one)")
     args = ap.parse_args()
+    sys.path.insert(0, str(pathlib.Path(args.root).resolve()))
+    from pathintegralgroundstate_torch import sweep as SW
+    from pathintegralgroundstate_torch.flagship import flagship_cfg
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.system import make_system
+
     forms = args.forms.split(",")
     for f in forms:
         if f not in FORMS:
@@ -140,7 +199,8 @@ def main():
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
-    print(f"[device] {card} | torch {torch.__version__}")
+    print(f"[device] {card} | torch {torch.__version__} | package "
+          f"{pathlib.Path(SW.__file__).resolve().parents[1]}")
 
     for k, form in enumerate(forms):
         print(f"[form] {form}: {FORMS[form]}")
@@ -151,6 +211,8 @@ def main():
         if k == 0:
             for sync in (False, True):
                 state = phase_times(sweeper, state, sync)
+            if args.kernels:
+                kernel_times(system, state.paths, card)
         device_profile(sweeper, state, card)
 
     order = forms + forms[::-1] if len(forms) > 1 else forms

@@ -28,17 +28,20 @@ run exits non-zero):
                that starts off 16-byte alignment, on a row with two
                coincident particles (non-finite f2 from kernel and plain
                form alike), and two launches bitwise equal.
-  6. dense   : kernels 3 and 4 (the dense delta_action's UpdatePot and
-               UpdateWf) against their plain forms at the end gate's shape
-               [1024, 1, 64, 3] with ip scalar and at [1024, 16, 64, 3]
-               with ip [W] and [W, B], kernel 3 with and without force,
-               float64 and float32; kernel 3 with the dense action's
-               epilogue (kernel 4's du, the Chin table, ib [B] and [W, B])
-               at the gate's rows and over whole chains (end, odd and even
-               interior rows), with and without force, float64 and
-               float32, and NaN where the reference gives NaN; then kernel
-               4, kernel 3 raw and with the epilogue, and the whole dense
-               delta_action timed at the gate's shape.
+  6. dense   : the dense kernel (kernels 3 and 4 in one source,
+               csrc/pair_delta.cu, one warp per row) against its plain
+               forms: kernel 3's raw mode and kernel
+               4's u mode at the end gate's shape [1024, 1, 64, 3] with ip
+               scalar and at [1024, 16, 64, 3] with ip [W] and [W, B],
+               float64 and float32; the action mode (the whole dense
+               delta_action in one launch, u on the chain-end rows) at the
+               gate's rows and over whole chains (end, odd and even
+               interior rows), ib [B] and [W, B], with and without force,
+               NaN where the reference gives NaN; then, in float32 at the
+               gate's shape, the action mode on an end row and on an
+               interior row (kernel 3 alone) in alternating turns, u's
+               marginal time between them, the raw and u modes and the
+               whole delta_action timed.
   7. replay  : one step at W=16 in float64 on the card and on the CPU
                (plain forms) from the same recorded draws, for the flagship,
                the fused sweep with cascade off and on, the reference-order
@@ -54,7 +57,16 @@ run exits non-zero):
                end moves' drawn depths), the acceptance table,
                bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
-  9. imports : no JAX module and no module of the reference package
+  9. cli     : `cli.main` on a namelist of the flagship at W=1024 float32,
+               the launch counts set to 0 before each run and read after:
+               the flagship order (Nstep=3, --blocks 2), the reference
+               order (Nstep=2, --blocks 1: the dense kernel 2 Nstag Np
+               times per step, kernel 4 never on its own), then the resume
+               probe `python3 -m pathintegralgroundstate_torch ... --set
+               resume=T --blocks 1` as a process of its own (BLOCK NUMBER :
+               3, three finite rows of e_vpi.out); each block's
+               bead-updates/s.
+ 10. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
@@ -108,6 +120,7 @@ _OPS = {"rows": 12 + 2 + 45 + 1 + 7 + 8 + 1,        # kernel A, f2 and u
         "delta_force": 12 + 2 + 45 + 1 + 7,          # kernel 3
         "delta_pot": 12 + 1 + 25 + 1,                # kernel 3, no force
         "u": 12 + 1 + 8 + 1,                         # kernel 4
+        "u_fused": 8 + 1,             # u from kernel 3's r and 1/r
         "pot_pair": 12 + 2 + 45 + 1 + 2 * 7,         # kernel B, per pair
         "pot_pair_plain": 12 + 1 + 25 + 1}           # kernel B, no force
 _PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12              # H100 SXM, float32
@@ -819,28 +832,28 @@ def dense_wf(system, with_force):
 
 
 def action_check(system, sys64, R, xnew, xold, ip, ib, with_force, label):
-    """Kernel 3 with the dense action's epilogue (kernels.pair_delta given
-    kernel 4's du) against its float64 plain form on the same inputs: NaN
-    or inf exactly where the plain form does; elsewhere within the raw
-    terms' tolerances of _tol weighted as the terms, float32 also within
-    twice the plain float32 form's own error (see _close).  Returns (max
-    abs err, values excused by the cutoff, non-finite rows)."""
+    """The dense action delta in one launch (kernels.pair_delta given the
+    Chin table: kernel 3 with kernel 4's pass on the chain-end rows) against
+    its float64 plain form on the same inputs: NaN or inf exactly where the
+    plain form does; elsewhere within the raw terms' tolerances of _tol
+    weighted as the terms, float32 also within twice the plain float32
+    form's own error (see _close).  Returns (max abs err, values excused by
+    the cutoff, non-finite rows)."""
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.ops.pairwise import chin_table
 
     f32 = system.dtype == torch.float32
     wf = dense_wf(system, with_force)
-    du = K.pair_u(system, R, xnew, xold, ip)
-    got = K.pair_delta(system, R, xnew, xold, ip, with_force, du,
+    got = K.pair_delta(system, R, xnew, xold, ip, with_force,
                        chin_table(system), ib, wf)
     args64 = (R.double(), xnew.double(), xold.double(), ip)
     du64 = K.pair_u_ref(sys64, *args64)
     tab64 = chin_table(sys64)
-    ref = K.pair_delta_ref(sys64, *args64, with_force, du64, tab64, ib, wf)
+    ref = K.pair_delta_ref(sys64, *args64, with_force, tab64, ib, wf)
     nf = ~torch.isfinite(ref)        # NaN (or inf) where the reference is
     torch.testing.assert_close(got[nf], ref[nf].to(got.dtype), rtol=0.0,
                                atol=0.0, equal_nan=True,
-                               msg=f"pair_delta epilogue {label}: "
+                               msg=f"pair_delta action {label}: "
                                    "non-finite rows differ")
     dpot, df2 = K.pair_delta_ref(sys64, *args64, with_force)
     w = tab64[:, ib]
@@ -854,26 +867,34 @@ def action_check(system, sys64, R, xnew, xold, ip, ib, with_force, label):
     plain = None
     if f32:
         plain = K.pair_delta_ref(system, R, xnew, xold, ip, with_force,
-                                 K.pair_u_ref(system, R, xnew, xold, ip),
                                  chin_table(system), ib, wf)
         plain = torch.where(nf, 0.0, plain)
-    e, x = _close(f"pair_delta epilogue {system.dtype} {label} "
-                  f"force={with_force}", torch.where(nf, 0.0, got),
-                  torch.where(nf, 0.0, ref), 0.0, torch.where(nf, 1.0, tol),
-                  plain, _near_cut_rows(system, R, xnew, xold, ip, False)
+    e, x = _close(f"pair_delta action {system.dtype} {label} "
+                  f"force={with_force}",
+                  torch.where(nf, 0.0, got), torch.where(nf, 0.0, ref), 0.0,
+                  torch.where(nf, 1.0, tol), plain,
+                  _near_cut_rows(system, R, xnew, xold, ip, False)
                   if f32 else None)
     return e, x, int(nf.sum())
 
 
 def dense_parity(cfg, card):
-    """Kernels 3 and 4 against pair_delta_ref / pair_u_ref on the same
-    inputs: the end gate's row view [1024, 1, 64, 3] (bead 0 and bead M-1)
-    with ip scalar, and a strided window [1024, 16, 64, 3] with ip [W] and
-    [W, B]; kernel 3 with and without force.  float64 within rtol 1e-11,
-    float32 within tests/test_pallas_kernel.py's tolerances plus twice the
-    plain float32 form's own 99.99th-percentile error (see _close).  The
-    partners keep a minimum distance: the dense forms have no r^2 > 0
-    guard.  Then both kernels timed at the gate's shape, float32."""
+    """The dense kernel (kernels 3 and 4 in one source) against
+    pair_delta_ref / pair_u_ref on the same inputs: the raw mode of kernel 3
+    (delta_pot) and kernel 4's
+    u mode (delta_wf) at the end gate's row view [1024, 1, 64, 3] (bead 0
+    and bead M-1) with ip scalar, and at a strided window [1024, 16, 64, 3]
+    with ip [W] and [W, B], kernel 3 with and without force; then the
+    action mode (the whole dense delta_action in one launch) at the gate's
+    rows and over whole chains (ends, odd and even interior rows), ib [B]
+    and [W, B], with one coincident partner per case (NaN where the
+    reference gives NaN).  float64 within rtol 1e-11, float32 within
+    tests/test_pallas_kernel.py's tolerances plus twice the plain float32
+    form's own 99.99th-percentile error (see _close).  Then, at the gate's
+    shape in float32, in one call: the action mode on an end row, the
+    action mode on an interior row (kernel 3 alone: u skipped), u's marginal
+    time between the two, the raw mode, the u mode and the whole
+    delta_action, each beside its bound."""
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.system import make_system
 
@@ -910,10 +931,10 @@ def dense_parity(cfg, card):
                 if f32 else None
             args64 = (R.double(), xnew.double(), xold.double(), ip)
             for wf in (True, False):
-                got = K.pair_delta(system, R, xnew, xold, ip, wf)
                 ref = K.pair_delta_ref(sys64, *args64, wf)
                 plain = (K.pair_delta_ref(system, R, xnew, xold, ip, wf)
                          if f32 else (None, None))
+                got = K.pair_delta(system, R, xnew, xold, ip, wf)
                 for i, name in enumerate(("dpot", "df2")):
                     e, n = _close(f"pair_delta {dtype} {label} force={wf} "
                                   f"{name}", got[i], ref[i],
@@ -922,9 +943,9 @@ def dense_parity(cfg, card):
                     if not f32:
                         errs["pair_delta"] = max(errs["pair_delta"], e)
                 ncase += 1
-            got = K.pair_u(system, R, xnew, xold, ip)
             ref = K.pair_u_ref(sys64, *args64)
             plain = K.pair_u_ref(system, R, xnew, xold, ip) if f32 else None
+            got = K.pair_u(system, R, xnew, xold, ip)
             e, n = _close(f"pair_u {dtype} {label} du", got, ref,
                           *_tol(dtype, "du"), plain, near)
             excused += n
@@ -935,16 +956,18 @@ def dense_parity(cfg, card):
     if (K.pair_delta.launches - n0[0], K.pair_u.launches - n0[1]) != (16, 8):
         raise AssertionError("pair_delta / pair_u did not count their "
                              "launches")
-    print(f"[dense] {ncase} parity cases of kernels 3 and 4 pass against the "
-          f"plain forms: float64 max abs err pair_delta "
-          f"{errs['pair_delta']:.3e}, pair_u {errs['pair_u']:.3e} (rtol "
-          f"1e-11, atol 1e-9, forces 1e-7); float32 values beyond "
-          f"tolerance, each at a partner within 1e-5 of rcut^2: {excused}")
+    print(f"[dense] {ncase} parity cases of kernel 3's raw mode and kernel "
+          f"4's u mode pass against the plain forms: "
+          f"float64 max abs err pair_delta {errs['pair_delta']:.3e}, pair_u "
+          f"{errs['pair_u']:.3e} (rtol 1e-11, atol 1e-9, forces 1e-7); "
+          f"float32 values beyond tolerance, each at a partner within 1e-5 "
+          f"of rcut^2: {excused}")
 
-    # kernel 3 with the dense action's epilogue: the gate's rows (ends) and
-    # whole chains (ends, odd and even interior rows), ib [B] and [W, B],
-    # one coincident partner per case (_window_ip) for the NaN case
+    # the action mode: the gate's rows (ends) and whole chains (ends, odd
+    # and even interior rows), ib [B] and [W, B], one coincident partner
+    # per case (_window_ip) for the NaN case
     ep_err, ep_excused, ep_nf, ep_n = 0.0, 0, 0, 0
+    n1 = K.pair_delta.launches
     for dtype in (torch.float64, torch.float32):
         system = make_system(cfg, dev, dtype)
         paths = _flagship_paths(cfg, W, dtype, dev, seed=24)
@@ -964,58 +987,101 @@ def dense_parity(cfg, card):
             for wf in (True, False):
                 e, x, nf = action_check(system, sys64, R, xnew, xold, ip, ib,
                                         wf, label)
-                ep_excused, ep_nf, ep_n = ep_excused + x, ep_nf + nf, ep_n + 1
+                ep_excused, ep_nf = ep_excused + x, ep_nf + nf
+                ep_n += 1
                 if dtype == torch.float64:
                     ep_err = max(ep_err, e)
     torch.cuda.synchronize()
     if ep_nf == 0:
-        raise AssertionError("pair_delta epilogue: no case gave a NaN row")
+        raise AssertionError("pair_delta action: no case gave a NaN row")
+    if K.pair_delta.launches - n1 != ep_n or K.pair_u.launches != n0[1] + 8:
+        raise AssertionError("pair_delta action: not one launch per case, "
+                             "or a separate pair_u launch")
     errs["pair_delta"] = max(errs["pair_delta"], ep_err)
-    print(f"[dense] {ep_n} cases of kernel 3 with the dense action's "
-          f"epilogue pass against the plain form: float64 max abs err "
-          f"{ep_err:.3e} (the terms' tolerances, weighted); {ep_nf} "
-          f"non-finite rows (coincident partners), non-finite alike in "
-          f"both; float32 values excused at the cutoff: {ep_excused}")
+    print(f"[dense] {ep_n} cases of the action mode (kernels 3 and 4 in one "
+          f"launch each) pass against the plain form: "
+          f"float64 max abs err {ep_err:.3e} (the terms' tolerances, "
+          f"weighted); {ep_nf} non-finite rows (coincident partners), "
+          f"non-finite alike in both; float32 values excused at the "
+          f"cutoff: {ep_excused}")
+    return errs, dense_timing(cfg, card)
 
-    # timing at the end gate's shape, float32: the row view of bead 0
+
+def dense_timing(cfg, card, W=1024, rounds=10, reps=200):
+    """The dense kernel at the end gate's shape [1024, 1, 64, 3], float32,
+    ip scalar, in one call: the action mode (kernels 3 and 4 in one launch)
+    on the gate's end row (u evaluated) and on an interior row (u skipped:
+    kernel 3 alone), in `rounds` alternating turns of `reps` launches each;
+    u's marginal time is their difference, given as the median over the
+    turns with its range.  Then the raw mode, the u mode, the whole
+    delta_action and the plain forms.  Returns {name: (ms, plain ms,
+    (bound ms, by))} for the kernels JSON, pair_u's being u's marginal time
+    in the fused launch (the only form of kernel 4 on a path) with u's
+    added operations as its bound, and 'pair_u_extra', the range of the
+    marginal and the u mode's own time."""
+    from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.ops.pairwise import (chin_table,
                                                             delta_action)
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    N, D = cfg.Np, cfg.dim
     system = make_system(cfg, dev, torch.float32)
     paths = _flagship_paths(cfg, W, torch.float32, dev, seed=23)
     R = paths[:, :1]
     xold = R[:, :, 5]
     xnew = (xold + 0.05).contiguous()
     xb = 2 * W * D * 4
-    tab, ib0, wf = chin_table(system), system.arange(0, 1), dense_wf(system,
-                                                                     True)
-    du = K.pair_u(system, R, xnew, xold, 5)
+    tab, wf = chin_table(system), dense_wf(system, True)
+    ib_end, ib_int = system.arange(0, 1), system.arange(1, 2)
+    pairs = 2 * W * (N - 1)
+    b_fused = _bound(_nbytes(R, ib_end, tab) + xb + W * 4,
+                     pairs * (_OPS["delta_force"] + _OPS["u_fused"]))
+    b_k3 = _bound(_nbytes(R, ib_int, tab) + xb + W * 4,
+                  pairs * _OPS["delta_force"])
+    b_raw = _bound(_nbytes(R) + xb + 2 * W * 4, pairs * _OPS["delta_force"])
+    b_u = _bound(_nbytes(R) + xb + W * 4, pairs * _OPS["u"])
+    b_marg = _bound(0, pairs * _OPS["u_fused"])
+
+    def fused(ib):
+        return lambda: K.pair_delta(system, R, xnew, xold, 5, True, tab, ib,
+                                    wf)
+    ends, ints = [], []
+    for _ in range(rounds):
+        ends.append(_events_ms(fused(ib_end), reps))
+        ints.append(_events_ms(fused(ib_int), reps))
+    marg = sorted(e - i for e, i in zip(ends, ints))
+    ms, k3 = float(np.median(ends)), float(np.median(ints))
+    u_marg = float(np.median(marg))
+    raw = _events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5))
+    u_ms = _events_ms(lambda: K.pair_u(system, R, xnew, xold, 5))
+    action = _events_ms(lambda: delta_action(system, R, xnew, xold, 5,
+                                             ib_end))
     times = {
-        "pair_delta": (
-            _events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5, True,
-                                            du, tab, ib0, wf)),
-            _events_ms(lambda: K.pair_delta_ref(system, R, xnew, xold, 5,
-                                                True, du, tab, ib0, wf)),
-            _bound(_nbytes(R, du, ib0, tab) + xb + W * 4,
-                   2 * W * (N - 1) * _OPS["delta_force"])),
-        "pair_u": (
-            _events_ms(lambda: K.pair_u(system, R, xnew, xold, 5)),
-            _events_ms(lambda: K.pair_u_ref(system, R, xnew, xold, 5)),
-            _bound(_nbytes(R) + xb + W * 4, 2 * W * (N - 1) * _OPS["u"]))}
-    raw = (_events_ms(lambda: K.pair_delta(system, R, xnew, xold, 5)),
-           _bound(_nbytes(R) + xb + 2 * W * 4,
-                  2 * W * (N - 1) * _OPS["delta_force"]))
-    action = _events_ms(lambda: delta_action(system, R, xnew, xold, 5, ib0))
-    for name, (k, p, (b, by)) in times.items():
-        what = " with the epilogue" if name == "pair_delta" else ""
-        print(f"[time] {name}{what} [1024,1,64,3] ip scalar float32: kernel "
-              f"{k:.4f} ms, plain {p:.4f} ms, bound {b:.5f} ms ({by}; "
-              f"{card})")
-    print(f"[time] pair_delta raw (dpot, df2) [1024,1,64,3] ip scalar "
-          f"float32: kernel {raw[0]:.4f} ms, bound {raw[1][0]:.5f} ms "
-          f"({raw[1][1]}; {card})")
-    print(f"[time] delta_action (kernel 4 then kernel 3, two launches) "
-          f"[1024,1,64,3] float32: {action:.4f} ms ({card})")
-    return errs, times
+        "pair_delta": (ms, _events_ms(lambda: K.pair_delta_ref(
+            system, R, xnew, xold, 5, True, tab, ib_end, wf)), b_fused),
+        "pair_u": (u_marg, _events_ms(lambda: K.pair_u_ref(
+            system, R, xnew, xold, 5)), b_marg),
+        "pair_u_extra": {"marginal_range_ms": [marg[0], marg[-1]],
+                         "u_mode_ms": u_ms}}
+    print(f"[time] pair_delta action (kernels 3+4, one launch) [1024,1,64,3] "
+          f"end row float32: {ms:.5f} ms (median of {rounds} turns of {reps} "
+          f"launches, range {min(ends):.5f}-{max(ends):.5f}), bound "
+          f"{b_fused[0]:.5f} ms ({b_fused[1]}; {card})")
+    print(f"[time] pair_delta action on an interior row (u skipped: kernel 3 "
+          f"alone) [1024,1,64,3] float32: {k3:.5f} ms (range "
+          f"{min(ints):.5f}-{max(ints):.5f}), bound {b_k3[0]:.5f} ms "
+          f"({b_k3[1]}); u's marginal time in the fused launch {u_marg:.6f} "
+          f"ms (median of {rounds} paired turns, range {marg[0]:.6f} to "
+          f"{marg[-1]:.6f}), bound {b_marg[0]:.6f} ms ({b_marg[1]}; {card})")
+    print(f"[time] pair_delta raw (dpot, df2) [1024,1,64,3] float32: kernel "
+          f"{raw:.5f} ms, bound {b_raw[0]:.5f} ms ({b_raw[1]}; {card})")
+    print(f"[time] pair_u (u mode alone, on no path) [1024,1,64,3] float32: "
+          f"kernel {u_ms:.5f} ms, plain {times['pair_u'][1]:.4f} ms, bound "
+          f"{b_u[0]:.5f} ms ({b_u[1]}; {card})")
+    print(f"[time] delta_action (one launch) [1024,1,64,3] float32: "
+          f"{action:.5f} ms; plain {times['pair_delta'][1]:.4f} ms ({card})")
+    return times
 
 
 class _Recorder:
@@ -1121,7 +1187,8 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
     worm sites at one pass each); its diagonal sweep part is exact, in the
     per-level form from the end moves' drawn depths: one pass per level,
     plus the gate's own pass with batched randoms (without them the gate
-    is the dense delta_action, one launch each of kernels 3 and 4)."""
+    is the dense delta_action, one launch of kernel 3 that also runs kernel
+    4's pass, and no separate kernel-4 launch)."""
     Np, Ns = cfg.Np, cfg.Nstag
     rows = (Np * (cfg.CMFreq > 0)
             + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
@@ -1152,7 +1219,7 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
             dense = 2 * visits
     return {"pair_rows": (rows, False), "pair_pot": (2 * nstep, True),
             "cascade": (casc, True), "pair_delta": (dense, True),
-            "pair_u": (dense, True)}
+            "pair_u": (0, True)}
 
 
 def main_path(cfg, card, label="main"):
@@ -1259,10 +1326,153 @@ def main_path(cfg, card, label="main"):
     return launches, dt, bups
 
 
+def _block_rates(out_dir, card, label, first=1):
+    """Print the bead-updates/s of each block from `first` on, from
+    metrics.jsonl; return them."""
+    import os
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f][first - 1:]
+    for r in recs:
+        print(f"[cli] {label} block {r['block']}: {r['time_s']:.3f} s, "
+              f"{r['bead_updates_per_s']:.4e} bead-updates/s ({card})")
+    return [r["bead_updates_per_s"] for r in recs]
+
+
+def cli_phase(cfg, card):
+    """The port as its users run it: `cli.main` on a namelist of the
+    flagship (config.namelist_text) at W=1024 float32, in this process, with
+    the launch counts set to 0 just before each run and read just after:
+      1. the flagship order, Nstep=3, --blocks 2;
+      2. the reference order (bis_monoshot=F, bis_end_random_depth=T),
+         Nstep=2, --blocks 1: the dense delta_action (kernels 3 and 4 in
+         one launch) at every end gate, 2 Nstag Np per step, and no
+         separate kernel-4 launch;
+    then the resume probe as its own process, `python3 -m
+    pathintegralgroundstate_torch ... --set resume=T --blocks 1` on run 1's
+    directory: it must print BLOCK NUMBER : 3 and leave 3 finite rows in
+    e_vpi.out.  Each block's bead-updates/s is printed beside the card.
+    Outputs under build/chip_smoke_cli/; each run's console in its
+    directory's console.log."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch import cli
+    from pathintegralgroundstate_torch.config import namelist_text
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.sweep import Sweeper
+    from pathintegralgroundstate_torch.system import make_system
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    nml = os.path.join(root, "flagship.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(cfg))
+    kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
+            "cascade": K.cascade, "pair_delta": K.pair_delta,
+            "pair_u": K.pair_u}
+    env = {k: v for k, v in os.environ.items() if k != "PIGS_PLATFORM"}
+
+    def run(label, out_dir, *args):
+        for fn in kern.values():
+            fn.launches = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        saved = os.environ.pop("PIGS_PLATFORM", None)
+        try:
+            with contextlib.redirect_stdout(log):
+                rc = cli.main([nml, "-o", out_dir, *args])
+        finally:
+            if saved is not None:
+                os.environ["PIGS_PLATFORM"] = saved
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "console.log"), "w") as f:
+            f.write(log.getvalue())
+        if rc != 0:
+            raise AssertionError(f"cli {label}: exit {rc}")
+        launches = {k: fn.launches for k, fn in kern.items()}
+        print(f"[cli] {label}: cli.main {' '.join(args)} in {seconds:.1f} s; "
+              f"launches {launches}")
+        return launches, log.getvalue()
+
+    # 1. the flagship order
+    d1 = os.path.join(root, "flagship")
+    nstep, nblk = 3, 2
+    launches, log = run("flagship", d1, "--set", f"Nstep={nstep}",
+                        "--blocks", str(nblk))
+    steps = nstep * nblk
+    sweeper = Sweeper(make_system(cfg, torch.device("cuda")))
+    want = expected_launches(cfg, sweeper, steps, True, [])
+    for k, (n, exact) in want.items():
+        if (launches[k] != n) if exact else (launches[k] < n):
+            raise AssertionError(f"cli flagship: {k} launched {launches[k]} "
+                                 f"times over {steps} steps, expected "
+                                 f"{'' if exact else 'at least '}{n}")
+    if log.count("BLOCK NUMBER") != nblk:
+        raise AssertionError("cli flagship: not one report per block")
+    rates = _block_rates(d1, card, "flagship")
+
+    # 2. the reference order: the fused dense gate
+    d2 = os.path.join(root, "reference_order")
+    nstep = 2
+    launches, _ = run("reference order", d2, "--set", "bis_monoshot=F",
+                      "--set", "bis_end_random_depth=T", "--set",
+                      f"Nstep={nstep}", "--blocks", "1")
+    gates = 2 * cfg.Nstag * cfg.Np * nstep
+    visits = cfg.Nstag * cfg.Np * nstep
+    if launches["pair_delta"] != gates or launches["pair_u"] != 0:
+        raise AssertionError(f"cli reference order: pair_delta launched "
+                             f"{launches['pair_delta']} times (expected "
+                             f"{gates}: 2 Nstag Np per step), pair_u "
+                             f"{launches['pair_u']} (expected 0)")
+    if launches["pair_pot"] != 2 * nstep or launches["cascade"] != 0 \
+            or launches["pair_rows"] < visits * (cfg.Nlev + 4):
+        raise AssertionError(f"cli reference order: launches {launches}")
+    rates += _block_rates(d2, card, "reference order")
+
+    # 3. the resume probe, as a process of its own; -X importtime lists
+    # every module it imports on stderr
+    cmd = [sys.executable, "-X", "importtime", "-m",
+           "pathintegralgroundstate_torch", nml, "-o", d1, "--set", "Nstep=3",
+           "--set", "resume=T", "--blocks", "1"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=repo, env=env, capture_output=True,
+                         text=True, timeout=600)
+    with open(os.path.join(d1, "resume.log"), "w") as f:
+        f.write(out.stdout + out.stderr)
+    if out.returncode != 0:
+        raise AssertionError(f"cli resume: exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in out.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    bad = sorted({m for m in imported if m.split(".")[0] in (
+        "jax", "jaxlib", "pathintegralgroundstate_tpu")})
+    if bad or "pathintegralgroundstate_torch.driver" not in imported:
+        raise AssertionError(f"cli resume: imported {bad[:5]} (or no "
+                             f"import list)")
+    e = np.loadtxt(os.path.join(d1, "e_vpi.out"), ndmin=2)
+    if "BLOCK NUMBER : 3" not in out.stdout or e.shape != (3, 4) \
+            or not np.isfinite(e).all() \
+            or not np.array_equal(e[:, 0], [1, 2, 3]):
+        raise AssertionError(f"cli resume: e_vpi.out {e.shape}, BLOCK "
+                             f"NUMBER : 3 printed: "
+                             f"{'BLOCK NUMBER : 3' in out.stdout}")
+    print(f"[cli] resume probe (python3 -m pathintegralgroundstate_torch ... "
+          f"--set resume=T --blocks 1): BLOCK NUMBER : 3, e_vpi.out 3 finite "
+          f"rows, {len(imported)} modules imported, none of jax, jaxlib or "
+          f"pathintegralgroundstate_tpu, {time.perf_counter() - t0:.1f} s")
+    rates += _block_rates(d1, card, "flagship, resumed", first=3)
+    return rates
+
+
 def _ptxas_summary(log):
     """One line per kernel of nvcc's -Xptxas -v log: its name with its
     template arguments (type, then its int and bool arguments: lanes,
-    block size, force), registers and spills."""
+    block size, mode, force), registers and spills."""
     import re
     name, spill, out = "?", "", []
     for line in log.splitlines():
@@ -1320,6 +1530,7 @@ def main():
     cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
                                    "fused+cascade")
     ref_launches, _, _ = main_path(ref_order, card, "reference order")
+    cli_phase(cfg, card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "pathintegralgroundstate_tpu"))
@@ -1351,9 +1562,13 @@ def main():
         entry("pair_delta", "pair_delta.cu", "pallas_kernels.py:392",
               ref_launches["pair_delta"], dense_err["pair_delta"],
               *dense_times["pair_delta"]),
-        entry("pair_u", "pair_delta.cu", "pallas_kernels.py:413",
-              ref_launches["pair_u"], dense_err["pair_u"],
-              *dense_times["pair_u"]),
+        dict(entry("pair_u", "pair_delta.cu", "pallas_kernels.py:413",
+                   ref_launches["pair_delta"], dense_err["pair_u"],
+                   *dense_times["pair_u"]),
+             shares_launch_with="pair_delta",
+             ms_is="u's marginal time in pair_delta's launch",
+             separate_launches=ref_launches["pair_u"],
+             **dense_times["pair_u_extra"]),
         entry("cascade", "cascade.cu", "cascade_kernels.py:322",
               cas_launches["cascade"], cas_err, *ends)]}))
     print(json.dumps({"ok": True, "device": {

@@ -409,3 +409,15 @@ def echo_namelists(cfg: SimConfig, write=print) -> None:
             v = getattr(cfg, k)
             write(f" {k.upper()}={_nml_repr(v)},")
         write(" /")
+
+
+def namelist_text(cfg: SimConfig) -> str:
+    """cfg's groups of _NML_GROUPS as namelist input (vpi.in's format), which
+    load_namelist_config reads back to cfg where cfg differs from the
+    defaults only in those keys.  Empty a_ho is left out."""
+    out = []
+    for group, keys in _NML_GROUPS:
+        items = [f"{k} = {_nml_repr(getattr(cfg, k))}" for k in keys
+                 if getattr(cfg, k) != ()]
+        out.append(f"&{group}\n " + ", ".join(items) + " /\n")
+    return "".join(out)

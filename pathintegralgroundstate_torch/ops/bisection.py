@@ -255,8 +255,9 @@ def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
     """MoveHead/TailBisection level by level (bisection.py:529-625).
 
     The terminal guess has its own gate: through the dense delta_action
-    (kernels 3 and 4) with dense_gate, the reference's form without batched
-    randoms, else through delta_action_sum without forces (kernel A).
+    (kernels 3 and 4, one launch) with dense_gate, the reference's form
+    without batched randoms, else through delta_action_sum without forces
+    (kernel A).
     Then one pass per level, need_f2 only on the last.  Returns (paths,
     alive)."""
     _, g_rows, u_acc = rand

@@ -10,8 +10,9 @@ of the kernel half of ops/cascade_kernels.py.
              all-pairs potential and force squared of whole configurations.
   pair_delta kernel 3 (csrc/pair_delta.cu), replaces pair_delta_pallas:
              UpdatePot of the dense delta_action, (dpot, df2) per row, or
-             with kernel 4's du the whole dense action delta per row.
-  pair_u     kernel 4 (csrc/pair_delta.cu), replaces pair_u_pallas:
+             with the Chin table the whole dense action delta per row, in
+             one launch that also runs kernel 4's pass on the chain ends.
+  pair_u     kernel 4's own mode of the same source, replaces pair_u_pallas:
              UpdateWf of the dense delta_action, du per row.
   cascade    kernel 5 (csrc/cascade.cu), replaces cascade_pallas: one whole
              composite bisection move (modes 'ends' and 'interior').
@@ -138,8 +139,8 @@ def _dense_side_terms(system, x, R, notself):
     return xij, rij2, r2s, ns & (rij2 <= system.geo.rcut2)
 
 
-def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, du=None,
-                   tab=None, ib=None, wf=0.0):
+def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
+                   ib=None, wf=0.0):
     """Plain form of kernel 3: per row (dpot, df2) of xnew/xold[W, B, D]
     against the partners R[W, B, N, D], as the jnp branch of the
     reference's delta_pot (pairwise.py:247-276, PBC, closed form).
@@ -148,11 +149,12 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, du=None,
     force the potential is V(r), not V of v_dv, and df2 is zero.
     ip: int, [W], [W, B] or [1, B].
 
-    With du [W, B] (pair_u_ref's), tab [3, M] (pairwise.chin_table) and ib
-    [B] or [W, B]: the dense action delta [W, B] of the reference's
-    delta_action (pairwise.py:331-343), dS = wv dpot + wf_b df2 -
-    where(wpsi > 0, du, 0) with (wv, _, wpsi) = tab[:, ib] and wf_b = wf on
-    odd interior rows (tab[1, ib] > 0), else 0."""
+    With tab [3, M] (pairwise.chin_table) and ib [B] or [W, B], the form of
+    kernels 3 and 4 in one launch: the dense action delta [W, B] of the
+    reference's delta_action (pairwise.py:331-343), dS = wv dpot + wf_b
+    df2 - where(wpsi > 0, du, 0) with du of pair_u_ref, (wv, _, wpsi) =
+    tab[:, ib] and wf_b = wf on odd interior rows (tab[1, ib] > 0), else
+    0."""
     notself = self_mask(R.shape[-2], ip, R.device)
 
     def side(x):
@@ -170,8 +172,9 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, du=None,
     pot_o, f2_o = side(xold)
     dpot = pot_n - pot_o
     df2 = f2_n - f2_o if with_force else torch.zeros_like(dpot)
-    if du is None:
+    if tab is None:
         return dpot, df2
+    du = pair_u_ref(system, R, xnew, xold, ip)
     w = tab[:, ib]
     dS = w[0] * dpot + (w[1] > 0).to(dpot.dtype) * wf * df2
     return dS - torch.where(w[2] > 0, du, 0.0)
@@ -436,6 +439,9 @@ pair_pot.launches = 0
 # Kernels 3 and 4
 # ---------------------------------------------------------------------------
 
+_RAW, _U, _ACTION = 0, 1, 2  # enum Mode in csrc/pair_delta.cu
+
+
 class _RowArgs(ctypes.Structure):
     """Mirror of struct RowArgs in csrc/pair_delta.cu."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
@@ -445,81 +451,70 @@ class _RowArgs(ctypes.Structure):
         ("wf", ctypes.c_double)]
 
 
-def _row_args(name, system, R, xnew, xold, ip):
-    """Checked (_RowArgs, ip tensor or None) of one dense pass."""
+def _dense(name, system, R, xnew, xold, ip, mode, with_force, tab=None,
+           ib=None, wf=0.0):
+    """One launch of the dense kernel in `mode`: [W, B] rows out (two for
+    the raw mode)."""
     _check_rows(name, system, R, xnew, xold)
-    ip_t, mode, ip0 = _ip_args(name, R, ip)
+    ip_t, ip_mode, ip0 = _ip_args(name, R, ip)
     W, B, N, _ = R.shape
     sW, sB, sN, _ = R.stride()
     a = _RowArgs(sRw=sW, sRb=sB, sRn=sN, sNw=xnew.stride(0),
                  sNb=xnew.stride(1), sOw=xold.stride(0), sOb=xold.stride(1),
-                 ip_mode=mode, ip0=ip0, W=W, B=B, N=N)
-    return a, ip_t
-
-
-def pair_delta(system, R, xnew, xold, ip, with_force=True, du=None,
-               tab=None, ib=None, wf=0.0):
-    """Per row (dpot, df2) of UpdatePot, or with du, tab and ib the dense
-    action delta dS [W, B] (see pair_delta_ref); R [W, B, N, D] is read in
-    place through its strides.  du: contiguous [W, B] (pair_u's); tab: the
-    contiguous Chin table [3, M]; ib: contiguous long [B] or [W, B]."""
-    if R.device.type == "cpu":
-        return pair_delta_ref(system, R, xnew, xold, ip, with_force, du, tab,
-                              ib, wf)
-    a, ip_t = _row_args("pair_delta", system, R, xnew, xold, ip)
-    W, B = a.W, a.B
-    if du is None:
-        out = torch.empty((2, W, B), dtype=R.dtype, device=R.device)
-        epi = (None, None, None)
-        ptrs = (out[0].data_ptr(), out[1].data_ptr())
-    else:
-        if (du.shape != (W, B) or du.device != R.device
-                or du.dtype != R.dtype or not du.is_contiguous()):
-            raise ValueError(f"pair_delta: du must be a contiguous {(W, B)} "
-                             f"tensor on {R.device} in {R.dtype}")
+                 ip_mode=ip_mode, ip0=ip0, W=W, B=B, N=N)
+    if mode == _ACTION:
         if (ib.device != R.device or ib.dtype != torch.long
                 or not ib.is_contiguous() or ib.shape not in ((B,), (W, B))):
-            raise ValueError(f"pair_delta: ib must be a contiguous long "
-                             f"tensor [B] or [W, B] on {R.device}")
+            raise ValueError(f"{name}: ib must be a contiguous long tensor "
+                             f"[B] or [W, B] on {R.device}")
         if (tab.device != R.device or tab.dtype != R.dtype or tab.dim() != 2
                 or tab.shape[0] != 3 or not tab.is_contiguous()):
-            raise ValueError(f"pair_delta: tab must be a contiguous [3, M] "
+            raise ValueError(f"{name}: tab must be a contiguous [3, M] "
                              f"tensor on {R.device} in {R.dtype}")
         a.ib_mode, a.M, a.wf = ib.dim() - 1, tab.shape[1], wf
-        out = torch.empty((W, B), dtype=R.dtype, device=R.device)
-        epi = (du.data_ptr(), ib.data_ptr(), tab.data_ptr())
-        ptrs = (out.data_ptr(), None)
+    out = torch.empty((2 if mode == _RAW else 1, W, B), dtype=R.dtype,
+                      device=R.device)
     fn = getattr(kernels(), "pigs_pair_delta_" + _suffix(R.dtype))
     err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
              xnew.data_ptr(), xold.data_ptr(),
-             ip_t.data_ptr() if ip_t is not None else None, int(with_force),
-             *epi, *ptrs, torch.cuda.current_stream(R.device).cuda_stream)
+             ip_t.data_ptr() if ip_t is not None else None, mode,
+             int(with_force),
+             ib.data_ptr() if mode == _ACTION else None,
+             tab.data_ptr() if mode == _ACTION else None,
+             out[0].data_ptr(), out[-1].data_ptr(),
+             torch.cuda.current_stream(R.device).cuda_stream)
     if err:
-        raise RuntimeError(f"pair_delta: kernel launch failed, cudaError "
-                           f"{err}")
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    return out
+
+
+def pair_delta(system, R, xnew, xold, ip, with_force=True, tab=None, ib=None,
+               wf=0.0):
+    """Per row (dpot, df2) of UpdatePot, or with tab and ib the dense action
+    delta dS [W, B] in one launch that also evaluates UpdateWf's u on the
+    chain-end rows (see pair_delta_ref); R [W, B, N, D] is read in place
+    through its strides.  tab: the contiguous Chin table [3, M]; ib:
+    contiguous long [B] or [W, B]."""
+    if R.device.type == "cpu":
+        return pair_delta_ref(system, R, xnew, xold, ip, with_force, tab, ib,
+                              wf)
+    out = _dense("pair_delta", system, R, xnew, xold, ip,
+                 _RAW if tab is None else _ACTION, with_force, tab, ib, wf)
     pair_delta.launches += 1
-    return (out[0], out[1]) if du is None else out
+    return (out[0], out[1]) if tab is None else out[0]
 
 
 pair_delta.launches = 0
 
 
 def pair_u(system, R, xnew, xold, ip):
-    """Per row du of UpdateWf (see pair_u_ref); R [W, B, N, D] is read in
-    place through its strides."""
+    """Per row du of UpdateWf (see pair_u_ref), by the dense kernel's u
+    mode; R [W, B, N, D] is read in place through its strides."""
     if R.device.type == "cpu":
         return pair_u_ref(system, R, xnew, xold, ip)
-    a, ip_t = _row_args("pair_u", system, R, xnew, xold, ip)
-    out = torch.empty((a.W, a.B), dtype=R.dtype, device=R.device)
-    fn = getattr(kernels(), "pigs_pair_u_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
-             xnew.data_ptr(), xold.data_ptr(),
-             ip_t.data_ptr() if ip_t is not None else None, out.data_ptr(),
-             torch.cuda.current_stream(R.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"pair_u: kernel launch failed, cudaError {err}")
+    out = _dense("pair_u", system, R, xnew, xold, ip, _U, False)
     pair_u.launches += 1
-    return out
+    return out[0]
 
 
 pair_u.launches = 0

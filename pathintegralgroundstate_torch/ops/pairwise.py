@@ -88,21 +88,21 @@ def delta_pot(system, R, xnew, xold, ip, with_force=True):
 
 def delta_wf(system, R, xnew, xold, ip):
     """UpdateWf (pairwise.py:279-303): per row sum u(new) - sum u(old) over
-    the partners, by kernel 4."""
+    the partners, by kernel 4's mode of the dense kernel."""
     return kernels.pair_u(system, R, xnew, xold, ip)
 
 
 def delta_action(system, R, xnew, xold, ip, ib, with_force=True):
     """The dense per-row action delta (UpdateAction, pairwise.py:306-343):
-    wv dPot + wf dF2 - [ib at a chain end] dLogPsi, from two launches and
-    nothing after them: kernel 4's du, then kernel 3, which closes the sum
-    with the Chin table.  The F^2 weight is written as the reference writes
-    it here, (4 dt/3) dt^2/6, which can differ from the table's 2 dt^3/9 in
-    the last bit; it is zero without force.  ib [B] or [W, B]."""
+    wv dPot + wf dF2 - [ib at a chain end] dLogPsi, from one launch and
+    nothing after it: kernel 3 with kernel 4's pass on the chain-end rows,
+    closing the sum with the Chin table.  The F^2 weight is written as the
+    reference writes it here, (4 dt/3) dt^2/6, which can differ from the
+    table's 2 dt^3/9 in the last bit; it is zero without force.  ib [B] or
+    [W, B]."""
     dt = system.cfg.dt
-    du = delta_wf(system, R, xnew, xold, ip)
     wf = (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0
-    return kernels.pair_delta(system, R, xnew, xold, ip, with_force, du,
+    return kernels.pair_delta(system, R, xnew, xold, ip, with_force,
                               chin_table(system, xnew.dtype), ib, wf)
 
 

@@ -5,7 +5,8 @@ fields, with the threefry key replaced by a device `torch.Generator` (the
 moves' tensors) and a host one (the shared window starts), and the step
 counter kept on the host.  `state_from_numpy` / `state_to_numpy` carry the
 reference MCState's fields across (np.asarray of each), as weight
-conversion does for a model port.
+conversion does for a model port; `generator_states` /
+`set_generator_states` carry the generators across a checkpoint.
 
 Layout: paths[W, M, N, D] with M = 2 Nb + 1 beads.
 """
@@ -80,6 +81,23 @@ def state_from_numpy(system, d: dict, seed=None) -> MCState:
                                  **kw),
         iperm=torch.as_tensor(np.array(d["iperm"]), dtype=torch.long, **kw),
         step=int(np.asarray(d["step"])), gen=gen, host_gen=host)
+
+
+def generator_states(state: MCState):
+    """(device generator state, host generator state) as uint8 numpy
+    arrays, their get_state() bytes: a checkpoint's `gen_state` and
+    `host_gen_state`.  A CUDA generator's state is its seed and offset, kept
+    on the host, so reading it does not synchronise with the device."""
+    return (state.gen.get_state().numpy().copy(),
+            state.host_gen.get_state().numpy().copy())
+
+
+def set_generator_states(state: MCState, gen_state, host_gen_state) -> None:
+    """Set both generators of `state` to the states of generator_states."""
+    state.gen.set_state(torch.as_tensor(np.asarray(gen_state,
+                                                   dtype=np.uint8)))
+    state.host_gen.set_state(torch.as_tensor(np.asarray(host_gen_state,
+                                                        dtype=np.uint8)))
 
 
 def state_to_numpy(state: MCState) -> dict:

@@ -37,6 +37,9 @@ def check_supported(cfg: SimConfig) -> None:
         (cfg.density_map, "density_map=True", "slice 6 (estimators)"),
         (max(cfg.mesh_walkers, cfg.mesh_pairs, cfg.mesh_beads) > 1,
          "mesh_*>1", "slice 14 (multi-device)"),
+        (cfg.distributed, "distributed=True", "slice 14 (multi-device)"),
+        (cfg.crystal, "crystal=True",
+         "slice 12 (item 10: the crystal start and config_ini.in)"),
         (cfg.jastrow not in _JASTROWS, f"jastrow={cfg.jastrow!r}",
          "slice 12 (geometry and model variants)"),
         (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
@@ -52,13 +55,14 @@ def check_supported(cfg: SimConfig) -> None:
 
 @dataclasses.dataclass(eq=False)
 class System:
+    """The constants of one configuration on one device; built through
+    make_system, which refuses what the port does not support."""
     cfg: SimConfig
     geo: Geometry
     device: torch.device
     dtype: torch.dtype
 
     def __post_init__(self):
-        check_supported(self.cfg)
         self.potential: Potential = get_potential(self.cfg.potential)
         kw = dict(dtype=self.dtype, device=self.device)
         self.L = torch.tensor(self.geo.Lbox, **kw)
@@ -125,6 +129,7 @@ def make_system(cfg: SimConfig, device=None, dtype=None) -> System:
                                "device='cpu' to run the plain forms on the "
                                "CPU")
         device = "cuda"
+    check_supported(cfg)   # before geometry(), which needs crystal_Lbox
     device = torch.device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
     return System(cfg=cfg, geo=geometry(cfg), device=device, dtype=dtype)

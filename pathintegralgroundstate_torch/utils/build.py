@@ -88,8 +88,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ROWS_ARGS = [_P] * 11
 _POT_ARGS = [_P, _P, _P, _I, _P, _P, _P]
-_DELTA_ARGS = [_P] * 6 + [_I] + [_P] * 6
-_U_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P]
+_DELTA_ARGS = [_P] * 6 + [_I] * 2 + [_P] * 5
 _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _I, _P]
 
@@ -105,8 +104,6 @@ def kernels() -> ctypes.CDLL:
                        ("pigs_pair_pot_f64", _POT_ARGS),
                        ("pigs_pair_delta_f32", _DELTA_ARGS),
                        ("pigs_pair_delta_f64", _DELTA_ARGS),
-                       ("pigs_pair_u_f32", _U_ARGS),
-                       ("pigs_pair_u_f64", _U_ARGS),
                        ("pigs_cascade_f32", _CASCADE_ARGS),
                        ("pigs_cascade_f64", _CASCADE_ARGS)):
         fn = getattr(lib, name)

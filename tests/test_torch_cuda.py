@@ -290,11 +290,12 @@ def _dense_case(cuda, ip_form, seed):
 @pytest.mark.parametrize("with_force", [True, False])
 @pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
 def test_pair_delta_matches_plain(cuda, ip_form, with_force):
-    """Kernel 3, float64: rtol 1e-11, atol 1e-7 (the force terms)."""
+    """Kernel 3's raw mode, float64: rtol 1e-11, atol 1e-7 (the force
+    terms)."""
     system, R, xn, xo, ip = _dense_case(cuda, ip_form, 29)
     n = kernels.pair_delta.launches
-    got = kernels.pair_delta(system, R, xn, xo, ip, with_force)
     ref = kernels.pair_delta_ref(system, R, xn, xo, ip, with_force)
+    got = kernels.pair_delta(system, R, xn, xo, ip, with_force)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=1e-11, atol=1e-7)
     assert with_force or not bool(got[1].any())
@@ -303,17 +304,17 @@ def test_pair_delta_matches_plain(cuda, ip_form, with_force):
 
 @pytest.mark.parametrize("ip_form", ["scalar", "walker", "row"])
 def test_pair_u_matches_plain(cuda, ip_form):
-    """Kernel 4, float64, on the whole chain and on the end gate's row
-    view of bead 0."""
+    """Kernel 4's u mode of the dense kernel, float64, on the whole chain
+    and on the end gate's row view of bead 0."""
     system, R, xn, xo, ip = _dense_case(cuda, ip_form, 31)
     n = kernels.pair_u.launches
     for sl in (slice(None), slice(0, 1)):
         ipx = ip if isinstance(ip, int) or ip.dim() == 1 \
             else ip[:, sl].contiguous()
-        torch.testing.assert_close(
-            kernels.pair_u(system, R[:, sl], xn[:, sl], xo[:, sl], ipx),
-            kernels.pair_u_ref(system, R[:, sl], xn[:, sl], xo[:, sl], ipx),
-            rtol=1e-11, atol=1e-9)
+        args = (system, R[:, sl], xn[:, sl], xo[:, sl], ipx)
+        torch.testing.assert_close(kernels.pair_u(*args),
+                                   kernels.pair_u_ref(*args),
+                                   rtol=1e-11, atol=1e-9)
     assert kernels.pair_u.launches == n + 2
 
 
@@ -339,7 +340,7 @@ def _action_cases(cfg, system, paths, ib_form, g):
 @pytest.mark.parametrize("ib_form", ["B", "WB"])
 def test_dense_action_epilogue_matches_plain(cuda, ib_form, dtype,
                                              with_force):
-    """Kernel 3 closing the dense action delta with kernel 4's du
+    """Kernels 3 and 4 in one launch closing the dense action delta
     (chip_smoke.action_check): float64 within the raw terms' tolerances
     (rtol 1e-11) weighted as the terms, float32 within _close's rule; one
     coincident partner per case, non-finite exactly where the plain form
@@ -358,7 +359,30 @@ def test_dense_action_epilogue_matches_plain(cuda, ib_form, dtype,
                                              ip, ib, with_force, label)[2]
     assert nonfinite >= 1
     assert (kernels.pair_delta.launches, kernels.pair_u.launches) == (
-        n[0] + 2, n[1] + 2)
+        n[0] + 2, n[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_action_at_full_width_matches_plain(cuda, dtype):
+    """The one-launch dense action at the end gate's rows (beads 0 and
+    M-1, 1024 walkers: a whole wave) and over whole chains (end, odd and
+    even interior rows), with and without force, one coincident partner per
+    case (chip_smoke.action_check)."""
+    import chip_smoke
+    cfg = flagship_cfg(1024)
+    system = make_system(cfg, cuda, dtype)
+    sys64 = make_system(cfg, cuda, torch.float64)
+    paths = chip_smoke._flagship_paths(cfg, 1024, dtype, cuda, seed=83)
+    g = torch.Generator(device=cuda).manual_seed(83)
+    nonfinite = 0
+    for ib_form in ("B", "WB"):
+        for R, ip, ib, label in _action_cases(cfg, system, paths, ib_form, g):
+            xnew, xold = chip_smoke._window_ip(R, ip, g)
+            for with_force in (True, False):
+                nonfinite += chip_smoke.action_check(
+                    system, sys64, R, xnew, xold, ip, ib, with_force,
+                    label)[2]
+    assert nonfinite >= 4
 
 
 @pytest.mark.parametrize("with_force", [True, False])
@@ -383,9 +407,10 @@ def test_dense_action_epilogue_at_a_coincident_end_row(cuda, with_force):
                                equal_nan=True)
 
 
-def test_dense_delta_action_is_two_launches(cuda):
-    """On the card delta_action issues exactly two kernels, kernel 4 then
-    kernel 3 with the epilogue, and nothing after them (torch.profiler)."""
+def test_dense_delta_action_is_one_launch(cuda):
+    """On the card delta_action issues exactly one kernel, kernel 3 with
+    kernel 4's pass and the epilogue, and nothing after it
+    (torch.profiler); pair_u does not launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -401,11 +426,10 @@ def test_dense_delta_action_is_two_launches(cuda):
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    assert sum(e.count for e in kern) == 2, [e.key for e in kern]
-    assert any("pair_u_kernel" in e.key for e in kern)
+    assert sum(e.count for e in kern) == 1, [e.key for e in kern]
     assert any("pair_delta_kernel" in e.key for e in kern)
     assert (kernels.pair_delta.launches, kernels.pair_u.launches) == (
-        n[0] + 1, n[1] + 1)
+        n[0] + 1, n[1])
     assert torch.equal(got, want)
 
 
@@ -419,11 +443,10 @@ def test_dense_kernels_refuse_what_they_cannot_read(cuda):
             fn(system, R, xn, xo, ip_t.int())
         with pytest.raises(ValueError):
             fn(system, R, xn[:, :3], xo, 0)
-    du = torch.zeros(64, 65, dtype=torch.float64, device=cuda)
     tab, ib = chin_table(system), torch.arange(65, device=cuda)
     n = kernels.pair_delta.launches
-    for bad in ((du[:, :3], tab, ib), (du.float(), tab, ib),
-                (du, tab[:2], ib), (du, tab, ib.int()), (du, tab, ib[:3])):
+    for bad in ((tab[:2], ib), (tab.float(), ib), (tab.T.contiguous().T, ib),
+                (tab, ib.int()), (tab, ib[:3])):
         with pytest.raises(ValueError):
             kernels.pair_delta(system, R, xn, xo, 0, True, *bad)
     assert kernels.pair_delta.launches == n

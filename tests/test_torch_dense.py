@@ -1,5 +1,5 @@
-"""The dense delta_action (kernels 3 and 4) and the reference-order step that
-runs it, against the reference.
+"""The dense delta_action (kernels 3 and 4, one launch on the card) and the
+reference-order step that runs it, against the reference.
 
 The plain forms of kernels 3 and 4 (pair_delta_ref, pair_u_ref) against the
 reference's jnp delta_pot / delta_wf in float64 (rtol 1e-12: reassociation
@@ -11,9 +11,10 @@ then whole steps of the reference-order configuration (per-level bisection,
 random end depth) and of paired ends against the reference's step on its
 own draws.  Float64 on the CPU: positions rtol 1e-12, accept masks, counters
 and integer state exactly equal.  Kernel 3's plain form also closes the
-dense action delta (given kernel 4's du, the Chin table and ib): it is held
-against the reference's delta_action on every kind of row, NaN included.
-The kernels themselves: tests/test_torch_cuda.py.
+dense action delta (given the Chin table and ib, with kernel 4's du on the
+chain ends, as the one launch on the card does): it is held against the
+reference's delta_action on every kind of row, NaN included.  The kernels
+themselves: tests/test_torch_cuda.py.
 """
 
 import functools
@@ -30,7 +31,7 @@ from torch_bridge import assert_step_pair, bisect_draws, end_bisect_draws, \
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import kernels
 from pathintegralgroundstate_torch.ops.pairwise import chin_table, \
-    delta_action, delta_pot
+    delta_action, delta_pot, delta_wf
 from pathintegralgroundstate_torch.system import make_system
 from pathintegralgroundstate_tpu.ops import bisection as jbis
 from pathintegralgroundstate_tpu.ops import pairwise as jpw
@@ -124,8 +125,8 @@ COINCIDENT = ((1, 0), (2, 3), (3, 4))
 @pytest.mark.parametrize("ib_form", ["B", "WB"])
 def test_pair_delta_ref_epilogue_matches_delta_action(ib_form, with_force,
                                                       coincident):
-    """Kernel 3's plain form with the dense action's epilogue (kernel 4's
-    du, the Chin table, ib [B] or [W, B], the F^2 weight (4 dt/3) dt^2/6)
+    """The plain form of kernels 3 and 4 in one launch (the Chin table, ib
+    [B] or [W, B], the F^2 weight (4 dt/3) dt^2/6; du on the chain ends)
     against the reference's delta_action on the whole chain: both ends, odd
     and even interior rows.  With a coincident partner the reference gives
     NaN on that row with force (0 * NaN dF2) and +inf at an end without
@@ -144,8 +145,8 @@ def test_pair_delta_ref_epilogue_matches_delta_action(ib_form, with_force,
     args = (tsys, _t(R), _t(xnew), _t(xold), _ip_t(ip))
     dt = cfg.dt
     got = kernels.pair_delta_ref(
-        *args, with_force, kernels.pair_u_ref(*args), chin_table(tsys),
-        _t(ib), (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0)
+        *args, with_force, chin_table(tsys), _t(ib),
+        (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0)
     np.testing.assert_allclose(got.numpy(), want, equal_nan=True, **TOL)
     nonfinite = set(zip(*np.nonzero(~np.isfinite(want))))
     if not coincident:
@@ -165,6 +166,20 @@ def test_pair_u_ref_matches_delta_wf(ip_form):
                         jnp.asarray(xold), jnp.asarray(ip))
     got = kernels.pair_u_ref(tsys, _t(R), _t(xnew), _t(xold), _ip_t(ip))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ip_form", IP_FORMS)
+def test_delta_wf_matches_reference(ip_form):
+    """pairwise.delta_wf, the public du form: the dense kernel's u mode
+    (pair_u), its plain form here."""
+    cfg, jsys, tables, tsys = _systems(n_walkers=4)
+    R, xnew, xold, ip = _window(cfg, ip_form, seed=5)
+    want = jpw.delta_wf(jsys, tables, jnp.asarray(R), jnp.asarray(xnew),
+                        jnp.asarray(xold), jnp.asarray(ip))
+    n = kernels.pair_delta.launches, kernels.pair_u.launches
+    got = delta_wf(tsys, _t(R), _t(xnew), _t(xold), _ip_t(ip))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert n == (kernels.pair_delta.launches, kernels.pair_u.launches)
 
 
 @pytest.mark.parametrize("with_force", [True, False])

@@ -28,6 +28,9 @@ MODULES = [
     "pathintegralgroundstate_torch.system",
     "pathintegralgroundstate_torch.state",
     "pathintegralgroundstate_torch.sweep",
+    "pathintegralgroundstate_torch.driver",
+    "pathintegralgroundstate_torch.cli",
+    "pathintegralgroundstate_torch.__main__",
     "pathintegralgroundstate_torch.models.potentials",
     "pathintegralgroundstate_torch.models.jastrow",
     "pathintegralgroundstate_torch.ops.kernels",

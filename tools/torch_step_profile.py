@@ -15,8 +15,9 @@ Prints, in float32 after one warm-up step:
   2. for each form, one step under torch.profiler: the device's busy share
      of the step's wall time (kernel time only), the number of kernel
      launches, the device time and launches of each of the five kernels
-     (A pair_rows, B pair_pot, 3 pair_delta, 4 pair_u, 5 cascade), and the
-     kernels that take the most time;
+     (A pair_rows, B pair_pot, 3 pair_delta, 4 pair_u, 5 cascade; where
+     kernel 4's pass runs inside kernel 3's launch, kernel 4 shows no
+     launches of its own), and the kernels that take the most time;
   3. with --kernels, on the first form's paths after its warm-up step:
      kernel B's two ThermEnergy calls (without and with force) and the
      dense delta_action at the end gate's rows [W, 1, N, D], by CUDA

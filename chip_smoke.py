@@ -42,13 +42,25 @@ run exits non-zero):
                interior row (kernel 3 alone) in alternating turns, u's
                marginal time between them, the raw and u modes and the
                whole delta_action timed.
-  7. replay  : one step at W=16 in float64 on the card and on the CPU
+  7. dims    : every kernel at D = 1 and D = 2 under PBC (a 1-D chain,
+               a 2-D He-4 film), float32 and float64, N = 30, 31 and 64,
+               against its plain form: kernel A (windows, ip forms, rev,
+               walker sums, every lane-group width), kernel B (both views),
+               the dense kernel's raw, u and action modes, kernel 5 ends and
+               interior; each case prints whether kernels A and B staged
+               with 16-byte copies and kernel 5 with its bulk copy.
+  8. replay  : one step at W=16 in float64 on the card and on the CPU
                (plain forms) from the same recorded draws, for the flagship,
                the fused sweep with cascade off and on, the reference-order
                step (per-level bisection, random end depth), the staging
-               sampler with regrow='scan' and the fused sweep in per-level
-               form: states, counters and statistics must agree.
-  8. main    : four paths at W=1024 in float32, each with its launch
+               sampler with regrow='scan', the fused sweep in per-level
+               form and the flagship's moves on a 2-D He-4 film: states,
+               counters and statistics must agree.  Then the trap's
+               replays (the trapped worm flagship, dim 2, and the 1-D
+               oscillator with bisection), with every kernel's launch count
+               0 across both: the trap runs the plain forms, as the
+               reference routes it.
+  9. main    : four paths at W=1024 in float32, each with its launch
                counts set to 0 just before it and read just after: the
                flagship (unfused sweep), the fused sweep, the fused sweep
                with cascade=True, and the reference-order step.  Each: one
@@ -57,7 +69,7 @@ run exits non-zero):
                end moves' drawn depths), the acceptance table,
                bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
-  9. cli     : `cli.main` on a namelist of the flagship at W=1024 float32,
+ 10. cli     : `cli.main` on a namelist of the flagship at W=1024 float32,
                the launch counts set to 0 before each run and read after:
                the flagship order (Nstep=3, --blocks 2), the reference
                order (Nstep=2, --blocks 1: the dense kernel 2 Nstag Np
@@ -66,7 +78,14 @@ run exits non-zero):
                resume=T --blocks 1` as a process of its own (BLOCK NUMBER :
                3, three finite rows of e_vpi.out); each block's
                bead-updates/s.
- 10. imports : no JAX module and no module of the reference package
+ 11. trap    : `cli.main` on the card, each run with the launch counts
+               set to 0 before and read after (all must stay 0): the 1-D
+               oscillator with its exact trial WF (<E> = 0.5 +/- 0 in each
+               block, E within 1e-12) and the trapped worm flagship at
+               W=256 float64, 3 blocks of 20 steps (E/N = 1 within 1e-12,
+               finite non-empty nr_vpi.out and density_vpi.out); each
+               block's ms/step and bead-updates/s and one step's host syncs.
+ 12. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
@@ -878,6 +897,44 @@ def action_check(system, sys64, R, xnew, xold, ip, ib, with_force, label):
     return e, x, int(nf.sum())
 
 
+def dense_raw_check(system, sys64, R, ip, g, label):
+    """Kernel 3's raw mode (with and without force) and kernel 4's u mode
+    against their float64 plain forms on the rows R [W, B, N, D] of the
+    moved particle ip (int, [W] or [W, B]), moved by 0.05 gaussians from g
+    (no coincident partner: the dense forms have no r^2 > 0 guard), with
+    _close and _tol.  Returns (max abs err of pair_delta, of pair_u, values
+    excused by the cutoff, cases)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+
+    W, B, _, D = R.shape
+    dtype, f32 = system.dtype, system.dtype == torch.float32
+    if isinstance(ip, int):
+        xold = R[:, :, ip]
+    else:
+        ipb = ip[:, None].expand(W, B) if ip.dim() == 1 else ip
+        xold = R.gather(2, ipb[:, :, None, None].expand(W, B, 1, D))[:, :, 0]
+    xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
+                                     device=R.device, dtype=dtype)
+    near = _near_cut_rows(system, R, xnew, xold, ip, False) if f32 else None
+    args64 = (R.double(), xnew.double(), xold.double(), ip)
+    e_delta, excused = 0.0, 0
+    for wf in (True, False):
+        ref = K.pair_delta_ref(sys64, *args64, wf)
+        plain = (K.pair_delta_ref(system, R, xnew, xold, ip, wf)
+                 if f32 else (None, None))
+        got = K.pair_delta(system, R, xnew, xold, ip, wf)
+        for i, name in enumerate(("dpot", "df2")):
+            e, n = _close(f"pair_delta {dtype} {label} force={wf} {name}",
+                          got[i], ref[i], *_tol(dtype, name), plain[i], near)
+            e_delta, excused = max(e_delta, e), excused + n
+    ref = K.pair_u_ref(sys64, *args64)
+    plain = K.pair_u_ref(system, R, xnew, xold, ip) if f32 else None
+    got = K.pair_u(system, R, xnew, xold, ip)
+    e_u, n = _close(f"pair_u {dtype} {label} du", got, ref,
+                    *_tol(dtype, "du"), plain, near)
+    return e_delta, e_u, excused + n, 3
+
+
 def dense_parity(cfg, card):
     """The dense kernel (kernels 3 and 4 in one source) against
     pair_delta_ref / pair_u_ref on the same inputs: the raw mode of kernel 3
@@ -899,7 +956,7 @@ def dense_parity(cfg, card):
     from pathintegralgroundstate_torch.system import make_system
 
     dev = torch.device("cuda")
-    W, N, D, M = 1024, cfg.Np, cfg.dim, cfg.M
+    W, N, M = 1024, cfg.Np, cfg.M
     sys64 = make_system(cfg, dev, torch.float64)
     errs = {"pair_delta": 0.0, "pair_u": 0.0}     # float64: kernel vs plain
     excused, ncase = 0, 0
@@ -918,40 +975,11 @@ def dense_parity(cfg, card):
                  (Rw, torch.randint(0, N, (W, 16), generator=g, device=dev),
                   "B=16 ip[W, B]")]
         for R, ip, label in cases:
-            B = R.shape[1]
-            if isinstance(ip, int):
-                xold = R[:, :, ip]
-            else:
-                ipb = ip[:, None].expand(W, B) if ip.dim() == 1 else ip
-                xold = R.gather(2, ipb[:, :, None, None].expand(
-                    W, B, 1, D))[:, :, 0]
-            xnew = xold + 0.05 * torch.randn(xold.shape, generator=g,
-                                             device=dev, dtype=dtype)
-            near = _near_cut_rows(system, R, xnew, xold, ip, False) \
-                if f32 else None
-            args64 = (R.double(), xnew.double(), xold.double(), ip)
-            for wf in (True, False):
-                ref = K.pair_delta_ref(sys64, *args64, wf)
-                plain = (K.pair_delta_ref(system, R, xnew, xold, ip, wf)
-                         if f32 else (None, None))
-                got = K.pair_delta(system, R, xnew, xold, ip, wf)
-                for i, name in enumerate(("dpot", "df2")):
-                    e, n = _close(f"pair_delta {dtype} {label} force={wf} "
-                                  f"{name}", got[i], ref[i],
-                                  *_tol(dtype, name), plain[i], near)
-                    excused += n
-                    if not f32:
-                        errs["pair_delta"] = max(errs["pair_delta"], e)
-                ncase += 1
-            ref = K.pair_u_ref(sys64, *args64)
-            plain = K.pair_u_ref(system, R, xnew, xold, ip) if f32 else None
-            got = K.pair_u(system, R, xnew, xold, ip)
-            e, n = _close(f"pair_u {dtype} {label} du", got, ref,
-                          *_tol(dtype, "du"), plain, near)
-            excused += n
+            ed, eu, x, c = dense_raw_check(system, sys64, R, ip, g, label)
+            excused, ncase = excused + x, ncase + c
             if not f32:
-                errs["pair_u"] = max(errs["pair_u"], e)
-            ncase += 1
+                errs["pair_delta"] = max(errs["pair_delta"], ed)
+                errs["pair_u"] = max(errs["pair_u"], eu)
     torch.cuda.synchronize()
     if (K.pair_delta.launches - n0[0], K.pair_u.launches - n0[1]) != (16, 8):
         raise AssertionError("pair_delta / pair_u did not count their "
@@ -1082,6 +1110,15 @@ def dense_timing(cfg, card, W=1024, rounds=10, reps=200):
     print(f"[time] delta_action (one launch) [1024,1,64,3] float32: "
           f"{action:.5f} ms; plain {times['pair_delta'][1]:.4f} ms ({card})")
     return times
+
+
+def _kernel_fns():
+    """{name: wrapper} of the five kernels; each wrapper's .launches counts
+    its kernel's launches."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    return {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
+            "cascade": K.cascade, "pair_delta": K.pair_delta,
+            "pair_u": K.pair_u}
 
 
 class _Recorder:
@@ -1223,7 +1260,6 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
 
 
 def main_path(cfg, card, label="main"):
-    from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.state import init_state
     from pathintegralgroundstate_torch.sweep import (BATCH_RAND_MAX_W,
                                                      COUNTER_NAMES, Sweeper,
@@ -1240,9 +1276,7 @@ def main_path(cfg, card, label="main"):
     print(f"[{label}] warm-up step: {time.perf_counter() - t0:.3f} s")
 
     nstep = 3
-    kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
-            "cascade": K.cascade, "pair_delta": K.pair_delta,
-            "pair_u": K.pair_u}
+    kern = _kernel_fns()
     src = _Depths(sweeper.draws(state))
     for fn in kern.values():
         fn.launches = 0
@@ -1307,12 +1341,24 @@ def main_path(cfg, card, label="main"):
           f"<Et>/N={float(stats.sumEt) / nd / cfg.Np:.4f} (n_diag {nd:.0f})")
     print(f"[{label}] acceptance: " + ", ".join(table))
 
+    syncs = step_syncs(sweeper, state, src, label)
+    if syncs:
+        raise AssertionError(f"{label}: {syncs} host syncs in one step")
+    return launches, dt, bups
+
+
+def step_syncs(sweeper, state, src, label):
+    """The host syncs of one step (run_block) under
+    torch.cuda.set_sync_debug_mode('warn'): printed with the first three
+    messages, and returned."""
+    from pathintegralgroundstate_torch.sweep import run_block
+
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            state, _ = run_block(sweeper, state, 1, src)
+            run_block(sweeper, state, 1, src)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1321,21 +1367,57 @@ def main_path(cfg, card, label="main"):
           f"{len(syncs)}")
     for w in syncs[:3]:
         print(f"[{label}]   {str(w.message)[:160]}")
-    if syncs:
-        raise AssertionError(f"{label}: {len(syncs)} host syncs in one step")
-    return launches, dt, bups
+    return len(syncs)
 
 
-def _block_rates(out_dir, card, label, first=1):
+def _block_rates(out_dir, card, label, first=1, nstep=None, tag="cli"):
     """Print the bead-updates/s of each block from `first` on, from
-    metrics.jsonl; return them."""
+    metrics.jsonl, and its ms/step given the block's nstep; return them."""
     import os
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f][first - 1:]
     for r in recs:
-        print(f"[cli] {label} block {r['block']}: {r['time_s']:.3f} s, "
-              f"{r['bead_updates_per_s']:.4e} bead-updates/s ({card})")
+        per = (f", {r['time_s'] * 1e3 / nstep:.1f} ms/step" if nstep
+               else "")
+        print(f"[{tag}] {label} block {r['block']}: {r['time_s']:.3f} s"
+              f"{per}, {r['bead_updates_per_s']:.4e} bead-updates/s "
+              f"({card})")
     return [r["bead_updates_per_s"] for r in recs]
+
+
+def cli_run(nml, label, out_dir, *args, tag="cli"):
+    """cli.main on the namelist nml into out_dir, on the card (without
+    PIGS_PLATFORM), in this process, with every kernel's launch count set
+    to 0 just before and read just after; its console goes to out_dir's
+    console.log.  Returns (launches, console)."""
+    import contextlib
+    import io
+    import os
+
+    from pathintegralgroundstate_torch import cli
+
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    saved = os.environ.pop("PIGS_PLATFORM", None)
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = cli.main([nml, "-o", out_dir, *args])
+    finally:
+        if saved is not None:
+            os.environ["PIGS_PLATFORM"] = saved
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "console.log"), "w") as f:
+        f.write(log.getvalue())
+    if rc != 0:
+        raise AssertionError(f"{tag} {label}: exit {rc}")
+    launches = {k: fn.launches for k, fn in kern.items()}
+    print(f"[{tag}] {label}: cli.main {' '.join(args)} in {seconds:.1f} s; "
+          f"launches {launches}")
+    return launches, log.getvalue()
 
 
 def cli_phase(cfg, card):
@@ -1353,14 +1435,10 @@ def cli_phase(cfg, card):
     e_vpi.out.  Each block's bead-updates/s is printed beside the card.
     Outputs under build/chip_smoke_cli/; each run's console in its
     directory's console.log."""
-    import contextlib
-    import io
     import os
     import shutil
 
-    from pathintegralgroundstate_torch import cli
     from pathintegralgroundstate_torch.config import namelist_text
-    from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.sweep import Sweeper
     from pathintegralgroundstate_torch.system import make_system
 
@@ -1371,33 +1449,10 @@ def cli_phase(cfg, card):
     nml = os.path.join(root, "flagship.in")
     with open(nml, "w") as f:
         f.write(namelist_text(cfg))
-    kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
-            "cascade": K.cascade, "pair_delta": K.pair_delta,
-            "pair_u": K.pair_u}
     env = {k: v for k, v in os.environ.items() if k != "PIGS_PLATFORM"}
 
     def run(label, out_dir, *args):
-        for fn in kern.values():
-            fn.launches = 0
-        log = io.StringIO()
-        t0 = time.perf_counter()
-        saved = os.environ.pop("PIGS_PLATFORM", None)
-        try:
-            with contextlib.redirect_stdout(log):
-                rc = cli.main([nml, "-o", out_dir, *args])
-        finally:
-            if saved is not None:
-                os.environ["PIGS_PLATFORM"] = saved
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        with open(os.path.join(out_dir, "console.log"), "w") as f:
-            f.write(log.getvalue())
-        if rc != 0:
-            raise AssertionError(f"cli {label}: exit {rc}")
-        launches = {k: fn.launches for k, fn in kern.items()}
-        print(f"[cli] {label}: cli.main {' '.join(args)} in {seconds:.1f} s; "
-              f"launches {launches}")
-        return launches, log.getvalue()
+        return cli_run(nml, label, out_dir, *args)
 
     # 1. the flagship order
     d1 = os.path.join(root, "flagship")
@@ -1469,6 +1524,224 @@ def cli_phase(cfg, card):
     return rates
 
 
+# The [dims] phase's geometries: a 1-D chain at 0.5 sigma^-1 and a 2-D He-4
+# film at 0.26 sigma^-2 (about 0.04 A^-2), both under PBC with aziz2
+DIMS = ((1, 0.5), (2, 0.26))
+
+
+def dims_case(cfg, D, density, dtype, N, W=256):
+    """One case of the [dims] phase: every kernel at dimension D (PBC,
+    aziz2, mcmillan_c1) with N particles at `density`, in dtype, against
+    its plain form with the tolerances above: kernel A over windows of
+    B=16 and 65 read in place, ip int, [W], [W, B] and [1, B], forward and
+    reversed, rows and walker sums, then at each lane-group width
+    (lanes_parity); kernel B on both ThermEnergy views; the dense kernel's
+    raw and u modes (the gate's row, B=16 with ip [W] and [W, B]) and its
+    action mode (the gate's row and whole chains); kernel 5 'ends' and
+    'interior' (cascade_check).  Returns (cases, whether kernels A and B
+    stage with 16-byte copies, whether kernel 5 takes its bulk copy,
+    kernel 5's decision agreement per mode)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    c = cfg.replace(dim=D, Np=N, density=density)
+    system = make_system(c, dev, dtype)
+    sys64 = make_system(c, dev, torch.float64)
+    paths = _flagship_paths(c, W, dtype, dev, seed=40 + N + D)
+    g = torch.Generator(device=dev).manual_seed(41)
+    M, n = c.M, 0
+    for B in (16, 65):
+        lo = (M - B) // 2
+        R = paths[:, lo:lo + B]
+        ib = torch.arange(lo, lo + B, device=dev)
+        ips = (7 % N, torch.randint(0, N, (W,), generator=g, device=dev),
+               torch.randint(0, N, (W, B), generator=g, device=dev),
+               torch.randint(0, N, (1, B), generator=g, device=dev))
+        for k, ip in enumerate(ips):
+            xnew, xold = _window_ip(R, ip, g)
+            for rev in (False, True):
+                n += rows_parity(system, sys64, R, xnew, xold, ip, ib, rev,
+                                 [(True, True), (False, False)],
+                                 f"D={D} N={N} B={B}",
+                                 reduce=bool((k + rev) % 2))[2]
+    n += lanes_parity(c, dtype, seed=43)[2]
+    for sl, view in ((slice(0, M - 1, 2), "even view"),
+                     (slice(1, M - 1, 2), "odd view")):
+        pot_check(system, sys64, paths[:, sl], f"D={D} N={N} {view}")
+        n += 2
+    lo = (M - 16) // 2
+    Rw = paths[:, lo:lo + 16]
+    for R, ip, label in (
+            (paths[:, :1], 5, "gate bead 0"),
+            (Rw, torch.randint(0, N, (W,), generator=g, device=dev),
+             "B=16 ip[W]"),
+            (Rw, torch.randint(0, N, (W, 16), generator=g, device=dev),
+             "B=16 ip[W, B]")):
+        n += dense_raw_check(system, sys64, R, ip, g,
+                             f"D={D} N={N} {label}")[3]
+    for R, ip, ib, label in (
+            (paths[:, :1], 5, system.arange(0, 1), "gate"),
+            (paths, torch.randint(0, N, (W,), generator=g, device=dev),
+             system.arange(0, M), "whole chains")):
+        xnew, xold = _window_ip(R, ip, g)
+        for wf in (True, False):
+            action_check(system, sys64, R, xnew, xold, ip, ib, wf,
+                         f"D={D} N={N} {label}")
+            n += 1
+    shares = [cascade_check(c, W, dtype, mode, seed=45)[0]
+              for mode in ("ends", "interior")]
+    torch.cuda.synchronize()
+    vec = K.slabs16(paths)
+    return n + 2, vec, vec and paths.stride(1) == N * D, shares
+
+
+def dims_parity(cfg):
+    """The [dims] phase: dims_case at D = 1 (a chain) and D = 2 (a He-4
+    film), float32 and float64, N = 30, 31 and 64.  At these N the 16-byte
+    rule of kernels A and B (slabs16) and kernel 5's bulk copy flip with D
+    and the dtype: each case prints the path it took.  Returns the number
+    of cases."""
+    total = 0
+    for D, density in DIMS:
+        for dtype in (torch.float32, torch.float64):
+            for N in (30, 31, 64):
+                n, vec, bulk, shares = dims_case(cfg, D, density, dtype, N)
+                es = torch.tensor([], dtype=dtype).element_size()
+                print(f"[dims] D={D} N={N} {str(dtype)[6:]}: {n} cases pass "
+                      f"(a row of partners {N * D * es} bytes: kernels A "
+                      f"and B "
+                      f"{'16-byte copies' if vec else 'element by element'}"
+                      f", kernel 5 "
+                      f"{'bulk copy' if bulk else 'element by element'}; "
+                      f"kernel 5 decisions agree on "
+                      + ", ".join(f"{x:.6f}" for x in shares) + ")")
+                total += n
+    print(f"[dims] {total} parity cases of kernels A, B, 3/4 and 5 pass at "
+          f"D = 1 and 2, float32 and float64, N = 30, 31, 64")
+    return total
+
+
+# The 1-D harmonic oscillator with its exact trial wavefunction (the verify
+# recipe's input): E = 0.5 with variance 0 in every block
+HO_IN = """&system
+ dim = 1, Np = 1, trap = T /
+&samp
+ resume = F, dt = 0.05d0, Nb = 8, seed = 1982, delta_cm = 0.5d0, CMFreq = 1,
+ sampling = 'sta', Lstag = 8, Nlev = 2, Nstag = 2, Nblock = 2, Nstep = 10,
+ Nbin = 50, Nk = 10 /
+&obdm
+ swapping = F, CWorm = 0.d0, Nobdm = 0, Npw = 0 /
+&wavefun
+ Nmax = 1000, wf_table = F, v_table = F /
+&jastrow
+ Rm = 1.20d0 /
+&extpot
+ a_ho = 1.0d0 /
+&tpu
+ n_walkers = 16, dtype = 'float64', potential = 'none' /
+"""
+
+
+def trap_replays():
+    """The trap's card-vs-CPU replays at W=16 float64 (replay_check): the
+    trapped worm flagship (dim 2: staging, worm, swaps, the density map)
+    and the 1-D oscillator with the bisection sampler (Nlev=2).  The
+    reference routes the trap away from its kernels, and so does the port:
+    every kernel's launch count must stay 0 across both."""
+    from pathintegralgroundstate_torch.config import load_namelist_config
+    from pathintegralgroundstate_torch.flagship import trap_worm_cfg
+
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    replay_check(trap_worm_cfg(), "trap worm (dim 2)")
+    replay_check(load_namelist_config(HO_IN, is_text=True).replace(
+        sampling="bis", Nlev=2), "1-D oscillator, bisection")
+    launches = {k: fn.launches for k, fn in kern.items()}
+    if any(launches.values()):
+        raise AssertionError(f"trap replays launched kernels: {launches}")
+    print(f"[trap] the trap replays launched no kernel: {launches}")
+
+
+def _finite_total(path, cols):
+    """(rows, total of the columns cols) of a text output, which must be
+    finite and non-empty."""
+    x = np.loadtxt(path, ndmin=2)
+    if x.size == 0 or not np.isfinite(x).all():
+        raise AssertionError(f"{path}: empty or not finite")
+    return x.shape[0], float(x[:, cols].sum())
+
+
+def trap_cli_phase(card):
+    """The trap as its users run it, cli.main on the card, every kernel's
+    launch count set to 0 before each run and read after (each must stay
+    0: the plain forms run the trap):
+      1. the 1-D oscillator (HO_IN), 2 blocks of 10 steps: each block
+         prints <E> = 0.5 +/- 0, and e_vpi.out's E within 1e-12 of 0.5;
+      2. the trapped worm flagship (flagship.trap_worm_cfg) at W=256
+         float64, 3 blocks of Nstep=20 (the OBDM flushes its first
+         super-block once a block's worth of diagonal walker-steps has
+         gathered: after the third block at a diagonal share of about
+         0.4): the mixed E/N of each block within 1e-12 of 1.0; nr_vpi.out
+         and density_vpi.out finite, non-empty and with a nonzero total.
+    For each, each block's ms/step and bead-updates/s, and the host syncs
+    of one step under sync_debug_mode('warn'), printed as they are (the
+    plain forms' syncs are recorded, not failed).  Outputs under
+    build/chip_smoke_trap/."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.config import (load_namelist_config,
+                                                      namelist_text)
+    from pathintegralgroundstate_torch.flagship import trap_worm_cfg
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_trap")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    for name, text, E, nstep, nblk in (
+            ("oscillator", HO_IN, 0.5, 10, 2),
+            ("trap worm", namelist_text(trap_worm_cfg(3)), 1.0, 20, 3)):
+        d = os.path.join(root, name.replace(" ", "_"))
+        nml = d + ".in"
+        with open(nml, "w") as f:
+            f.write(text)
+        launches, log = cli_run(nml, name, d, tag="trap")
+        if any(launches.values()):
+            raise AssertionError(f"trap {name}: kernels launched {launches}")
+        e = np.loadtxt(os.path.join(d, "e_vpi.out"), ndmin=2)
+        err = float(np.abs(e[:, 1] - E).max())
+        if e.shape[0] != nblk or not err <= 1e-12:
+            raise AssertionError(f"trap {name}: E/N per block {e[:, 1]}, "
+                                 f"expected {E}")
+        if name == "oscillator" and log.count("<E>  =  0.5 +/- 0\n") != 2:
+            raise AssertionError("trap oscillator: a block did not print "
+                                 "<E> = 0.5 +/- 0")
+        print(f"[trap] {name}: E/N = {E} in each block (max deviation "
+              f"{err:.1e})")
+        if name == "trap worm":
+            for f, cols in (("nr_vpi.out", slice(1, None, 2)),
+                            ("density_vpi.out", 2)):
+                rows, tot = _finite_total(os.path.join(d, f), cols)
+                if tot <= 0.0:
+                    raise AssertionError(f"trap worm: {f} totals {tot}")
+                print(f"[trap] trap worm {f}: {rows} finite rows, total "
+                      f"{tot:.6g}")
+        rates = _block_rates(d, card, name, nstep=nstep, tag="trap")
+        cfg = load_namelist_config(nml)
+        sweeper = Sweeper(make_system(cfg, torch.device("cuda")))
+        state, _ = run_block(sweeper, init_state(sweeper.system), 1)
+        syncs = step_syncs(sweeper, state, sweeper.draws(state),
+                           f"trap {name}")
+        out[name] = (rates, syncs)
+    return out
+
+
 def _ptxas_summary(log):
     """One line per kernel of nvcc's -Xptxas -v log: its name with its
     template arguments (type, then its int and bool arguments: lanes,
@@ -1516,6 +1789,7 @@ def main():
     layout_parity(cfg)
     errs["pair_pot"] = max(errs["pair_pot"], pot_parity(cfg))
     dense_err, dense_times = dense_parity(cfg, card)
+    dims_parity(cfg)
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
     replay_check(cfg)
@@ -1525,12 +1799,15 @@ def main():
     replay_check(cfg.replace(sampling="sta", regrow="scan"),
                  "staging + scan")
     replay_check(fused.replace(bis_monoshot=False), "fused per level")
+    replay_check(cfg.replace(dim=2, density=0.26), "2-D film")
+    trap_replays()
     launches, _, _ = main_path(cfg, card)
     main_path(fused, card, "fused")
     cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
                                    "fused+cascade")
     ref_launches, _, _ = main_path(ref_order, card, "reference order")
     cli_phase(cfg, card)
+    trap_cli_phase(card)
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "pathintegralgroundstate_tpu"))

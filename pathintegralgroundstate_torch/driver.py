@@ -4,8 +4,9 @@ The torch counterpart of pathintegralgroundstate_tpu/driver.py, which
 mirrors the reference driver (vpi.f90:244-653): per-block accumulators and
 their normalization (vpi.f90:477-545), the console block report with
 acceptance telemetry (vpi.f90:552-586), the output files `e_vpi.out`,
-`et_vpi.out`, `gr_vpi.out`, `sk_vpi.out`, `nr_vpi.out` with identical
-columns (sample_mod.f90:794-870), the permutation histogram
+`et_vpi.out`, `gr_vpi.out`, `sk_vpi.out` (PBC only), `nr_vpi.out` (both
+geometries), `density_vpi.out` (density_map) with identical columns
+(sample_mod.f90:633-652, 794-870), the permutation histogram
 `perm_histogram.out`, a structured `metrics.jsonl`, and per-block
 checkpoint/resume.
 
@@ -224,6 +225,12 @@ class Driver:
                 sk = stats["sk"] / (cfg.Np * max(ngr, 1.0))
                 acc["AvSk"] += sk
                 acc["AvSk2"] += sk * sk
+            if cfg.density_map:
+                # per-configuration mean counts; PrintDensity's /rbin^2 is
+                # applied at output time (sample_mod.f90:645)
+                dens = stats["dens"] / max(float(stats["ngr"]), 1.0)
+                acc["AvDens"] += dens
+                acc["AvDens2"] += dens * dens
 
             fe.write("%20.10e%20.10e%20.10e%20.10e\n" % (
                 ib, blk["AvE"] / cfg.Np, blk["AvK"] / cfg.Np,
@@ -377,6 +384,8 @@ class Driver:
                            np.column_stack([r] + [x for m in
                                                   range(cfg.Npw + 1)
                                                   for x in (avn[m], vn[m])]))
+            if cfg.density_map:
+                self._write_density(acc["AvDens"] / nb)
         if cfg.swapping:
             np.savetxt(os.path.join(self.out_dir, "perm_histogram.out"),
                        np.column_stack([np.arange(1, cfg.Np + 1),
@@ -388,6 +397,20 @@ class Driver:
                 print(f"  > <{nm}> = {out[nm]: .8g} +/- {out['Var'+nm]:.3g}")
         self.final = out
         return out
+
+    def _write_density(self, avd):
+        """density_vpi.out in PrintDensity's layout (sample_mod.f90:633-652):
+        rows "x y dens/rbin^2" with x running inside y, a blank line after
+        each y; x and y are the bins' upper edges."""
+        geo, nbin = self.system.geo, self.cfg.Nbin
+        avd = avd / geo.rbin ** 2
+        with open(os.path.join(self.out_dir, "density_vpi.out"), "w") as fh:
+            for j in range(nbin):
+                yv = -0.5 * geo.rcut + (j + 1) * geo.rbin
+                for i in range(nbin):
+                    xv = -0.5 * geo.rcut + (i + 1) * geo.rbin
+                    fh.write(f" {xv:.10g} {yv:.10g} {avd[i, j]:.10g}\n")
+                fh.write("\n")
 
     # ------------------------------------------------------------------
 

@@ -1,4 +1,6 @@
-"""The flagship workload: He-4, N=64, Chin action (the reference's vpi.in)."""
+"""The port's named configurations: the flagship workload (He-4, N=64,
+Chin action; the reference's vpi.in) and the trapped worm flagship
+(tools/trap_worm.py's ideal bosons in a 2-D trap)."""
 
 from .config import SimConfig
 
@@ -17,3 +19,19 @@ def flagship_cfg(n_walkers: int = 64) -> SimConfig:
         jastrow="mcmillan_c1",
         fused_sweep=False,
     )
+
+
+def trap_worm_cfg(nblocks: int = 30, n_walkers: int = 256) -> SimConfig:
+    """The trapped worm flagship: N=8 ideal bosons (potential and Jastrow
+    'none') in an isotropic 2-D trap, a = 1, the staging sampler, worm with
+    swaps, the density map, float64.  A copy of tools/trap_worm.py's
+    configuration (trap_worm.py:51-57), whose exact answers are the
+    end-to-end sigma^2 = 4 a^2, the density sigma^2 = a^2 and E/N = 1."""
+    a = 1.0
+    return SimConfig(
+        dim=2, Np=8, trap=True, a_ho=(a, a), dt=0.05, Nb=10,
+        sampling="sta", Lstag=8, Nstag=2, CMFreq=1, delta_cm=0.4,
+        swapping=True, CWorm=0.5, Nobdm=5, Npw=2, Nbin=150,
+        potential="none", jastrow="none", Rm=1.2,
+        n_walkers=n_walkers, dtype="float64", seed=17,
+        Nstep=20, Nblock=nblocks, density_map=True)

@@ -1,10 +1,12 @@
-"""Aziz He-He pair potentials (system_mod.f90:87-182), elementwise on tensors.
+"""Pair potentials: the Aziz He-He forms (system_mod.f90:87-182) and the
+ideal gas, elementwise on tensors.
 
 The same closed forms as pathintegralgroundstate_tpu/models/potentials.py,
 operation for operation: the D_MIN = 1e-3 hard-core floor and the fused
 reciprocal-based (V, dV/dr).  aziz2 (HFD-B(HE)) and aziz1 (HFDHE2) share the
 form; only the constants differ.  The CUDA kernels (csrc/pigs_pair.cuh)
-evaluate the same formulas from `Potential.consts`.
+evaluate the same formulas from `Potential.consts`.  'none' is the ideal
+gas, which only the trap runs here.
 """
 
 from __future__ import annotations
@@ -94,10 +96,22 @@ def _aziz(name, p) -> Potential:
     return Potential(name, v, dvdr, v_dv, consts)
 
 
+def _none() -> Potential:
+    """The ideal gas, V = dV/dr = 0 (potentials.py:124-126).  It carries no
+    kernel constants: no kernel reads it, since the System refuses it under
+    PBC and the trap runs the plain forms."""
+    def z(r):
+        return torch.zeros_like(r)
+
+    return Potential("none", z, z, lambda r, rinv=None: (z(r), z(r)), {})
+
+
 def get_potential(name: str) -> Potential:
-    """aziz2 or aziz1; the port has no other potential yet."""
+    """aziz2, aziz1 or none; the port has no other potential yet."""
+    if name == "none":
+        return _none()
     if name not in _PARAMS:
         raise NotImplementedError(
-            f"potential {name!r}: the torch port has aziz2 and aziz1 only "
-            "(ROADMAP queue 1, slice 12: geometry and model variants)")
+            f"potential {name!r}: the torch port has aziz2, aziz1 and none "
+            "only (ROADMAP queue 1, slice 12: geometry and model variants)")
     return _aziz(name, _PARAMS[name])

@@ -25,7 +25,8 @@ ops/bisection.py):
             L = M-1, one gate)
 
 Routing (`_dispatch`, as cascade_kernels._dispatch does): 'ends' and
-'interior' go to kernel 5 (kernels.cascade, csrc/cascade.cu); 'rigid'
+'interior' go to kernels.cascade, which runs kernel 5 (csrc/cascade.cu)
+under PBC and cascade_ref under the trap (kernels.kernel_route); 'rigid'
 NEVER reaches the kernel.  In the reference the rigid body exceeds the
 TPU's scoped memory, and its jnp twin already runs its pair work on the
 rows kernel; the port routes it the same way, the plain form whose pair
@@ -113,8 +114,9 @@ def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
 
 
 def _dispatch(system, mode, paths, slots, rg, ru, act, nlev):
-    """cascade_kernels._dispatch: 'rigid' runs the plain form (its pair
-    pass is kernel A), the dyadic cascades kernel 5."""
+    """cascade_kernels._dispatch: the dyadic cascades through
+    kernels.cascade (kernel 5 under PBC, cascade_ref under the trap),
+    'rigid' the plain form (whose pair pass is kernel A under PBC)."""
     if mode != "rigid":
         return kernels.cascade(system, mode, paths, slots, rg, ru, act, nlev)
     return cascade_ref(system, mode, paths, slots, rg, ru, act, nlev)

@@ -1,8 +1,10 @@
-"""Estimators: mixed and thermodynamic energy, g(r), S(k) (sample_mod.f90).
+"""Estimators: mixed and thermodynamic energy, g(r), S(k) and the density
+map (sample_mod.f90).
 
-The torch counterpart of pathintegralgroundstate_tpu/ops/estimators.py on
-the flagship path.  Every function takes the whole ensemble (a leading
-walker axis) where the reference vmaps a single walker.
+The torch counterpart of pathintegralgroundstate_tpu/ops/estimators.py, in
+both geometries.  Every function takes the whole ensemble (a leading
+walker axis) where the reference vmaps a single walker; the histograms
+are index_add_ sums where the reference contracts one-hot tables.
 """
 
 from __future__ import annotations
@@ -10,32 +12,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.pbc import minimum_image
+from ..models import jastrow as jas
+from ..utils.pbc import pair_mask, separation
 from .pairwise import pair_pot
 
 
 def _pair_geometry(system, R):
-    """All-pairs (mask, r, xij) of configurations R[..., N, D]."""
-    xij, rij2 = minimum_image(R[..., :, None, :] - R[..., None, :, :],
-                              system.L, system.half)
+    """All-pairs (mask, r, xij) of configurations R[..., N, D]: the minimum
+    image and the cutoff under PBC, neither under the trap."""
+    xij, rij2 = separation(system, R[..., :, None, :] - R[..., None, :, :])
     N = R.shape[-2]
     notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
-    m = notself & (rij2 <= system.geo.rcut2)
     r = torch.sqrt(torch.where(notself, rij2, 1.0))
-    return m, r, xij
+    return pair_mask(system, notself, rij2), r, xij
 
 
 def local_energy(system, R):
     """Mixed estimator at a terminal slice (LocalEnergy,
-    sample_mod.f90:154-319): E_L = -1/2 [2 LapLogPsi + |F|^2] + V.
+    sample_mod.f90:154-319): E_L = -1/2 [2 LapLogPsi + |F|^2] + V, with the
+    trap's one-body terms under the trap, where only the trap part of the
+    Laplacian is halved, as the reference has it (estimators.py:70-75).
     R [W, N, D]; returns (E, Kin, Pot), each [W]."""
     d = system.cfg.dim
+    a = system.a_ho
     m, r, xij = _pair_geometry(system, R)
     dudr = torch.where(m, system.du(r), 0.0)
     d2u = torch.where(m, system.d2u(r), 0.0)
     lap = 0.5 * ((d - 1.0) * dudr / r + d2u).sum((-1, -2))
     pot = 0.5 * torch.where(m, system.potential.v(r), 0.0).sum((-1, -2))
     F = ((dudr / r)[..., None] * xij).sum(-2)
+    if a is not None:
+        F = F + jas.trap_psi_grad(a, R)
+        pot = pot + jas.trap_pot(a, R).sum(-1)
+        lap = lap + 0.5 * jas.trap_psi_lap(a, R).sum(-1)
     kin = -0.5 * (2.0 * lap + (F * F).sum((-1, -2)))
     return kin + pot, kin, pot
 
@@ -55,9 +64,11 @@ def therm_energy(system, paths):
     E = (w_even * pot_even).sum(-1)
     E = E + (4.0 / 3.0 * (pot_odd + 0.5 * dt * dt * f2_odd)).sum(-1)
     Ep = pot_even[:, Nb // 2] if Nb % 2 == 0 else pot_odd[:, Nb // 2]
-    _, rij2 = minimum_image(paths[:, :-1] - paths[:, 1:], system.L,
-                            system.half)
-    spring = torch.where(rij2 <= system.geo.rcut2, rij2, 0.0)
+    # the spring per link: rcut-gated under PBC (sample_mod.f90:377), the
+    # whole r^2 under the trap
+    _, rij2 = separation(system, paths[:, :-1] - paths[:, 1:])
+    spring = (torch.where(rij2 <= system.geo.rcut2, rij2, 0.0) if system.pbc
+              else rij2)
     E = E - 0.5 * spring.sum((-1, -2)) / (dt * dt)
     E = 0.5 * (E / Nb + cfg.dim * cfg.Np / dt)
     return E, E - Ep, Ep
@@ -85,3 +96,23 @@ def structure_factor(system, Nk: int, R):
     sc = torch.cos(qr).sum(-1)
     ss = torch.sin(qr).sum(-1)
     return sc * sc + ss * ss
+
+
+def density_map(system, R, weight):
+    """2-D density map (DensityProfile, sample_mod.f90:598-629;
+    estimators.py:172-195): each walker's particles histogrammed in (x, y)
+    on an Nbin x Nbin grid over [-rcut/2, rcut/2)^2 with the reference's
+    bin rule ibin = floor((x + rcut/2)/rbin), a particle outside the grid
+    dropped; walker w's particles weighted weight[w].  A 1-D system
+    histograms x against the single row of y = 0.  R [W, N, D]; returns
+    dens [Nbin, Nbin], dens[i, j] the weight in x-bin i, y-bin j."""
+    geo, nb = system.geo, system.cfg.Nbin
+    x = R[..., 0]
+    y = R[..., 1] if system.cfg.dim >= 2 else torch.zeros_like(x)
+    ix = torch.floor((x + 0.5 * geo.rcut) / geo.rbin).long()
+    iy = torch.floor((y + 0.5 * geo.rcut) / geo.rbin).long()
+    ok = (ix >= 0) & (ix < nb) & (iy >= 0) & (iy < nb)
+    idx = torch.where(ok, ix * nb + iy, 0)
+    w = torch.where(ok, weight[:, None], 0.0)
+    return torch.zeros(nb * nb, dtype=R.dtype, device=R.device).index_add_(
+        0, idx.flatten(), w.flatten()).view(nb, nb)

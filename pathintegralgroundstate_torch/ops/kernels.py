@@ -18,10 +18,11 @@ of the kernel half of ops/cascade_kernels.py.
              composite bisection move (modes 'ends' and 'interior').
 
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
-pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) only for tensors on
-the CPU.  On a CUDA tensor it launches the kernel or raises; there is no
-fallback.  Each wrapper's `.launches` counts its kernel's launches, and
-nothing else.
+pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
+CPU, and for a System that `kernel_route` sends away from the kernels (the
+trap, as the reference routes it).  Otherwise, on a CUDA tensor, it
+launches the kernel or raises; there is no fallback.  Each wrapper's
+`.launches` counts its kernel's launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -30,8 +31,9 @@ import ctypes
 
 import torch
 
+from ..models import jastrow as jas
 from ..utils.build import kernels
-from ..utils.pbc import minimum_image
+from ..utils.pbc import pair_mask, separation
 
 
 # ---------------------------------------------------------------------------
@@ -53,29 +55,37 @@ def pair_terms_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
                    rev=False):
     """The raw terms of kernel A's plain form: per row (dpot, df2, du) of
     xnew/xold[W, B, D] against the partners R[W, B, N, D]
-    (pairwise.py:443-478, 512).
+    (pairwise.py:443-478, 512), with the trap's one-body terms under the
+    trap.
 
     rev=True pairs row b with R[:, B-1-b].  df2 is zero unless need_f2; du
     is None unless need_wf."""
     if rev:
         R = R.flip(1)
     notself = self_mask(R.shape[-2], ip, R.device)
+    a = system.a_ho
 
     def side(x):
-        xij, rij2 = minimum_image(x[..., None, :] - R, system.L, system.half)
+        xij, rij2 = separation(system, x[..., None, :] - R)
         ns = notself.expand(rij2.shape)
         r2s = torch.where(ns, rij2, 1.0)
         r, rinv = torch.sqrt(r2s), torch.rsqrt(r2s)
-        m = ns & (rij2 <= system.geo.rcut2)
+        m = pair_mask(system, ns, rij2)
         mf = m & (rij2 > 0.0)
         vv, dv = system.potential.v_dv(r, rinv)
         pot = torch.where(m, vv, 0.0).sum(-1)
         f2 = usum = None
         if need_f2:
             F = (torch.where(mf, dv * rinv, 0.0)[..., None] * xij).sum(-2)
+            if a is not None:
+                F = F + jas.trap_pot_grad(a, x)
             f2 = (F * F).sum(-1)
+        if a is not None:
+            pot = pot + jas.trap_pot(a, x)
         if need_wf:
             usum = torch.where(mf, system.u(r), 0.0).sum(-1)
+            if a is not None:
+                usum = usum + jas.trap_psi(a, x)
         return pot, f2, usum
 
     pot_n, f2_n, u_n = side(xnew)
@@ -106,14 +116,14 @@ def pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf=True,
 
 def pair_pot_ref(system, R, with_force=False):
     """Plain form of kernel B: (pot, f2) of configurations R[..., N, D]
-    (pairwise.py:591-617).  pot = 1/2 sum_{i != j} V within rcut; f2 =
-    sum_i |F_i|^2 (zeros without force).  No r^2 > 0 guard."""
-    geo = system.geo
+    (pairwise.py:591-617).  pot = 1/2 sum_{i != j} V within rcut (every
+    pair under the trap, plus the trap potential); f2 = sum_i |F_i|^2
+    (zeros without force).  No r^2 > 0 guard."""
     N = R.shape[-2]
-    xij, rij2 = minimum_image(R[..., :, None, :] - R[..., None, :, :],
-                              system.L, system.half)
+    a = system.a_ho
+    xij, rij2 = separation(system, R[..., :, None, :] - R[..., None, :, :])
     notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
-    m = notself & (rij2 <= geo.rcut2)
+    m = pair_mask(system, notself, rij2)
     r = torch.sqrt(torch.where(notself, rij2, 1.0))
     if with_force:
         vv, dv = system.potential.v_dv(r)
@@ -125,25 +135,30 @@ def pair_pot_ref(system, R, with_force=False):
     if with_force:
         fr = torch.where(m, dv / r, 0.0)
         F = (fr[..., None] * xij).sum(-2)
+        if a is not None:
+            F = F + jas.trap_pot_grad(a, R)
         f2 = (F * F).sum((-1, -2))
+    if a is not None:
+        pot = pot + jas.trap_pot(a, R).sum(-1)
     return pot, f2
 
 
 def _dense_side_terms(system, x, R, notself):
     """(xij, rij2, r2s, m) of x[..., B, D] against R[..., B, N, D] with the
     dense forms' masks (pairwise.py:84-99, 247-303): m = notself & r^2 <=
-    rc^2, with no r^2 > 0 guard."""
-    xij, rij2 = minimum_image(x[..., None, :] - R, system.L, system.half)
+    rc^2 (notself under the trap), with no r^2 > 0 guard."""
+    xij, rij2 = separation(system, x[..., None, :] - R)
     ns = notself.expand(rij2.shape)
     r2s = torch.where(ns, rij2, 1.0)
-    return xij, rij2, r2s, ns & (rij2 <= system.geo.rcut2)
+    return xij, rij2, r2s, pair_mask(system, ns, rij2)
 
 
 def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
                    ib=None, wf=0.0):
     """Plain form of kernel 3: per row (dpot, df2) of xnew/xold[W, B, D]
     against the partners R[W, B, N, D], as the jnp branch of the
-    reference's delta_pot (pairwise.py:247-276, PBC, closed form).
+    reference's delta_pot (pairwise.py:247-276, closed form), with the
+    trap potential and its gradient under the trap.
 
     Unlike kernel A's rows there is no r^2 > 0 guard on the force; without
     force the potential is V(r), not V of v_dv, and df2 is zero.
@@ -156,17 +171,24 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
     tab[:, ib] and wf_b = wf on odd interior rows (tab[1, ib] > 0), else
     0."""
     notself = self_mask(R.shape[-2], ip, R.device)
+    a = system.a_ho
 
     def side(x):
         xij, _, r2s, m = _dense_side_terms(system, x, R, notself)
         r = torch.sqrt(r2s)
-        if not with_force:
-            return torch.where(m, system.potential.v(r), 0.0).sum(-1), None
-        rinv = torch.rsqrt(r2s)
-        vv, dv = system.potential.v_dv(r, rinv)
-        pot = torch.where(m, vv, 0.0).sum(-1)
-        F = (torch.where(m, dv * rinv, 0.0)[..., None] * xij).sum(-2)
-        return pot, (F * F).sum(-1)
+        F = None
+        if with_force:
+            rinv = torch.rsqrt(r2s)
+            vv, dv = system.potential.v_dv(r, rinv)
+            pot = torch.where(m, vv, 0.0).sum(-1)
+            F = (torch.where(m, dv * rinv, 0.0)[..., None] * xij).sum(-2)
+        else:
+            pot = torch.where(m, system.potential.v(r), 0.0).sum(-1)
+        if a is not None:
+            pot = pot + jas.trap_pot(a, x)
+            if with_force:
+                F = F + jas.trap_pot_grad(a, x)
+        return pot, None if F is None else (F * F).sum(-1)
 
     pot_n, f2_n = side(xnew)
     pot_o, f2_o = side(xold)
@@ -183,19 +205,31 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
 def pair_u_ref(system, R, xnew, xold, ip):
     """Plain form of kernel 4: per row du = sum u(new) - sum u(old) over the
     partners, as the jnp branch of the reference's delta_wf
-    (pairwise.py:291-303): m = notself & r^2 <= rc^2, no r^2 > 0 guard."""
+    (pairwise.py:291-303): m = notself & r^2 <= rc^2, no r^2 > 0 guard;
+    under the trap every partner and the trap's one-body log WF."""
     notself = self_mask(R.shape[-2], ip, R.device)
+    a = system.a_ho
 
     def side(x):
         _, _, r2s, m = _dense_side_terms(system, x, R, notself)
-        return torch.where(m, system.u(torch.sqrt(r2s)), 0.0).sum(-1)
+        u = torch.where(m, system.u(torch.sqrt(r2s)), 0.0).sum(-1)
+        return u + jas.trap_psi(a, x) if a is not None else u
 
     return side(xnew) - side(xold)
 
 
 # ---------------------------------------------------------------------------
-# Kernel parameters
+# Routing and kernel parameters
 # ---------------------------------------------------------------------------
+
+def kernel_route(system) -> bool:
+    """Whether the kernels run this System's pair passes: under PBC only,
+    the `system.pbc` term of the reference's pallas_rows_ok, pallas_ok,
+    pallas_ok_wf and use_cascade_kernel (pallas_kernels.py:256, 328, 336;
+    cascade_kernels.py:432).  The trap runs the plain forms on every
+    device: a route by configuration, not a fallback."""
+    return system.pbc
+
 
 class _PairParams(ctypes.Structure):
     """Mirror of struct PairParams in csrc/pigs_pair.cuh."""
@@ -216,7 +250,7 @@ def _params(system) -> _PairParams:
             L=(ctypes.c_double * 3)(*L),
             half=(ctypes.c_double * 3)(*[0.5 * x for x in L]),
             rcut2=geo.rcut2, Rm=cfg.Rm, rc=geo.rcut, u_rc=system.u_rc,
-            du_rc=system.du_rc, c1=int(cfg.jastrow == "mcmillan_c1"),
+            du_rc=system.du_rc, c1=int(system.c1),
             dim=cfg.dim, **system.potential.consts)
         system._consts["kernel_params"] = p
     return p
@@ -344,7 +378,7 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
     tab [3, M]: the Chin table (pairwise.chin_table); ib: contiguous long
     [B] or [W, B]; row_weights: [B] or None.  Kernel A runs rows_lanes(W,
     B, N) lanes per row."""
-    if R.device.type == "cpu":
+    if R.device.type == "cpu" or not kernel_route(system):
         return pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf,
                              need_f2, rev, row_weights, reduce)
     _check_rows("pair_rows", system, R, xnew, xold)
@@ -412,7 +446,7 @@ def pair_pot(system, R, with_force=False):
     pair_pot_ref); R is read in place through its strides.  Each unordered
     pair is evaluated once, and two launches on the same input give bitwise
     the same sums."""
-    if R.device.type == "cpu":
+    if R.device.type == "cpu" or not kernel_route(system):
         return pair_pot_ref(system, R, with_force)
     _check("pair_pot", system, R)
     W, B, N, D = R.shape
@@ -495,7 +529,7 @@ def pair_delta(system, R, xnew, xold, ip, with_force=True, tab=None, ib=None,
     chain-end rows (see pair_delta_ref); R [W, B, N, D] is read in place
     through its strides.  tab: the contiguous Chin table [3, M]; ib:
     contiguous long [B] or [W, B]."""
-    if R.device.type == "cpu":
+    if R.device.type == "cpu" or not kernel_route(system):
         return pair_delta_ref(system, R, xnew, xold, ip, with_force, tab, ib,
                               wf)
     out = _dense("pair_delta", system, R, xnew, xold, ip,
@@ -510,7 +544,7 @@ pair_delta.launches = 0
 def pair_u(system, R, xnew, xold, ip):
     """Per row du of UpdateWf (see pair_u_ref), by the dense kernel's u
     mode; R [W, B, N, D] is read in place through its strides."""
-    if R.device.type == "cpu":
+    if R.device.type == "cpu" or not kernel_route(system):
         return pair_u_ref(system, R, xnew, xold, ip)
     out = _dense("pair_u", system, R, xnew, xold, ip, _U, False)
     pair_u.launches += 1
@@ -568,7 +602,7 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
     particle ip; rg [W, S, L+1, D] gaussians by window position; ru
     [W, S, G] gate uniforms; act [W, S] bool (any strides).  Accepted slots'
     displaced rows are written into paths.  Returns acc [W, S] bool."""
-    if paths.device.type == "cpu":
+    if paths.device.type == "cpu" or not kernel_route(system):
         from .cascade import cascade_ref
         return cascade_ref(system, mode, paths, slots, rg, ru, act, nlev)
     if mode not in ("ends", "interior"):

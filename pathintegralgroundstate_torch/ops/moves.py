@@ -35,13 +35,14 @@ def metropolis_u(u, dS):
 
 
 def _mi(system, x):
-    """Single-image wrap of a displacement."""
-    return wrap(x, system.L, system.half)
+    """Single-image wrap of a displacement (identity under the trap)."""
+    return wrap(x, system.L, system.half) if system.pbc else x
 
 
 def _wrap_pos(system, x):
-    """BoundaryConditions for absolute positions."""
-    return wrap(x, system.L, system.half)
+    """BoundaryConditions for absolute positions (identity under the
+    trap)."""
+    return wrap(x, system.L, system.half) if system.pbc else x
 
 
 def _rand_ls(gen, W: int, Lmax: int, device):

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.pbc import minimum_image
+from ..utils.pbc import separation
 from .moves import _where, get_chain, metropolis_u, segment_regrow, set_chain
 
 
@@ -44,7 +44,8 @@ def _rand_even_ls(gen, W: int, Lmax: int, device):
 
 
 def _gap_rij2(system, xa, xb):
-    return minimum_image(xa - xb, system.L, system.half)[1]
+    """r^2 of xa - xb: minimum image under PBC, none under the trap."""
+    return separation(system, xa - xb)[1]
 
 
 def _broken_link_k(system, rij2, Ls):
@@ -203,10 +204,11 @@ def swap_move(system, paths, xend, iw, active, Lmax: int, d: SwapDraws):
 
 
 def obdm_terms(system, xend):
-    """OBDM accumulation terms (sample_mod.f90:480-526): (ibin[W] long,
-    cos(2 m theta) weights [W, Npw+1], valid[W])."""
+    """OBDM accumulation terms (sample_mod.f90:480-526), in both geometries
+    (no minimum image under the trap): (ibin[W] long, cos(2 m theta)
+    weights [W, Npw+1], valid[W])."""
     cfg, geo = system.cfg, system.geo
-    xij, rij2 = minimum_image(xend[:, 0] - xend[:, 1], system.L, system.half)
+    xij, rij2 = separation(system, xend[:, 0] - xend[:, 1])
     valid = rij2 <= geo.rcut2
     rij = torch.sqrt(torch.clamp(rij2, min=1e-30))
     ibin = torch.clamp((rij / geo.rbin).long(), 0, cfg.Nbin - 1)

@@ -48,13 +48,15 @@ def _generators(system, seed: int):
 
 def init_state(system, seed=None) -> MCState:
     """Fresh ensemble (vpi_mod.f90:149-259): particles uniform in the box,
+    or under the trap uniform in [-a_ho, a_ho] per axis (state.py:60-62),
     the one time slice replicated to every bead, xend at the last
     particle's central bead."""
-    cfg, geo = system.cfg, system.geo
+    cfg = system.cfg
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
     gen, host = _generators(system, cfg.seed if seed is None else seed)
-    R = system.L * (torch.rand((W, N, D), generator=gen, device=system.device,
-                               dtype=system.dtype) - 0.5)
+    u = torch.rand((W, N, D), generator=gen, device=system.device,
+                   dtype=system.dtype) - 0.5
+    R = 2.0 * system.a_ho * u if cfg.trap else system.L * u
     paths = R[:, None].expand(W, M, N, D).contiguous()
     xend = paths[:, cfg.Nb, N - 1][:, None].expand(W, 2, D).contiguous()
     kw = dict(device=system.device)

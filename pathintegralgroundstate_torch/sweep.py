@@ -16,7 +16,8 @@ The torch counterpart of pathintegralgroundstate_tpu/sweep.py
          each (bisection, or the interior cascade),
   4. Nobdm worm rounds: half translations, half head/tail/staging, swap,
      permutation bookkeeping and the OBDM histogram,
-  5. the estimators of the diagonal walkers.
+  5. the estimators of the diagonal walkers (g(r) and S(k) under PBC
+     only, the density map with cfg.density_map).
 
 Every random number comes from a draw source (utils/draws.py) at the
 address of the reference's key tree, so tests can replay the reference's
@@ -64,7 +65,7 @@ class StepStats(NamedTuple):
     gr: torch.Tensor           # [Nbin]
     sk: torch.Tensor           # [dim, Nk]
     nrho: torch.Tensor         # [Npw+1, Nbin] OBDM accumulator
-    dens: torch.Tensor         # [0, 0] (density_map is not ported)
+    dens: torch.Tensor         # [Nbin, Nbin] with density_map, else [0, 0]
     perm_hist: torch.Tensor    # [Np]
     counters: torch.Tensor     # [len(COUNTER_NAMES)] int32
 
@@ -91,7 +92,9 @@ def zero_stats(system) -> StepStats:
         n_diag=z(), n_diag_all=z(), sumE=z(), sumK=z(), sumV=z(), sumE2=z(),
         sumK2=z(), sumV2=z(), sumEt=z(), sumKt=z(), sumVt=z(), sumEt2=z(),
         sumKt2=z(), sumVt2=z(), ngr=z(), gr=z(cfg.Nbin), sk=z(cfg.dim, cfg.Nk),
-        nrho=z(cfg.Npw + 1, cfg.Nbin), dens=z(0, 0), perm_hist=z(cfg.Np),
+        nrho=z(cfg.Npw + 1, cfg.Nbin),
+        dens=z(cfg.Nbin, cfg.Nbin) if cfg.density_map else z(0, 0),
+        perm_hist=z(cfg.Np),
         counters=torch.zeros(len(COUNTER_NAMES), dtype=torch.int32,
                              device=system.device))
 
@@ -434,7 +437,7 @@ class Sweeper:
             return (x * fdiag).sum()
 
         centre = paths[:, cfg.Nb]
-        return st._replace(
+        st = st._replace(
             n_diag=st.n_diag + nd,
             sumE=st.sumE + msum(E), sumK=st.sumK + msum(Kin),
             sumV=st.sumV + msum(Ep),
@@ -447,10 +450,16 @@ class Sweeper:
             sumKt2=st.sumKt2 + msum(Kt * Kt),
             sumVt2=st.sumVt2 + msum(Ep * Ep),
             ngr=st.ngr + nd,
-            gr=st.gr + est.pair_correlation(system, centre, fdiag),
-            sk=st.sk + (est.structure_factor(system, cfg.Nk, centre)
-                        * fdiag[:, None, None]).sum(0),
         )
+        if system.pbc:     # no g(r) or S(k) under the trap (sweep.py:748)
+            st = st._replace(
+                gr=st.gr + est.pair_correlation(system, centre, fdiag),
+                sk=st.sk + (est.structure_factor(system, cfg.Nk, centre)
+                            * fdiag[:, None, None]).sum(0))
+        if cfg.density_map:
+            st = st._replace(dens=st.dens + est.density_map(system, centre,
+                                                             fdiag))
+        return st
 
 
 def run_block(sweeper: Sweeper, state: MCState, nstep: int, draws=None):

@@ -21,7 +21,7 @@ from .config import Geometry, SimConfig, geometry
 from .models import jastrow as jas
 from .models.potentials import Potential, get_potential
 
-_JASTROWS = ("mcmillan", "mcmillan_c1")
+_JASTROWS = ("mcmillan", "mcmillan_c1", "none")
 
 
 def check_supported(cfg: SimConfig) -> None:
@@ -31,10 +31,8 @@ def check_supported(cfg: SimConfig) -> None:
         (cfg.smart_mc > 0.0, "smart_mc>0", "slice 13 (autodiff)"),
         (not cfg.shared_windows, "shared_windows=False",
          "slice 11 (per-walker windows)"),
-        (cfg.trap, "trap=True", "slice 12 (geometry and model variants)"),
         (cfg.v_table or cfg.wf_table, "v_table/wf_table",
          "slice 2 (table mode)"),
-        (cfg.density_map, "density_map=True", "slice 6 (estimators)"),
         (max(cfg.mesh_walkers, cfg.mesh_pairs, cfg.mesh_beads) > 1,
          "mesh_*>1", "slice 14 (multi-device)"),
         (cfg.distributed, "distributed=True", "slice 14 (multi-device)"),
@@ -42,6 +40,11 @@ def check_supported(cfg: SimConfig) -> None:
          "slice 12 (item 10: the crystal start and config_ini.in)"),
         (cfg.jastrow not in _JASTROWS, f"jastrow={cfg.jastrow!r}",
          "slice 12 (geometry and model variants)"),
+        # the kernels' pair chain is Aziz and McMillan (csrc/pigs_pair.cuh):
+        # the ideal-gas forms run only where the trap routes the plain forms
+        (not cfg.trap and "none" in (cfg.potential, cfg.jastrow),
+         f"potential={cfg.potential!r}, jastrow={cfg.jastrow!r} under PBC",
+         "slice 12 (item 10: the kernels' pair-chain selector)"),
         (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
          "no slice (float32 and float64 only)"),
         (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),
@@ -50,7 +53,7 @@ def check_supported(cfg: SimConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to torch yet: ROADMAP queue 1, {item}")
-    get_potential(cfg.potential)  # raises for anything but aziz2/aziz1
+    get_potential(cfg.potential)  # raises for all but aziz2, aziz1, none
 
 
 @dataclasses.dataclass(eq=False)
@@ -69,10 +72,14 @@ class System:
         self.half = 0.5 * self.L
         rc = self.geo.rcut
         Rm = self.cfg.Rm
-        c1 = self.cfg.jastrow == "mcmillan_c1"
-        # C1 shift constants, in Python floats as the reference folds them
-        self.u_rc = jas.mcmillan_u(Rm, rc) if c1 else 0.0
-        self.du_rc = jas.mcmillan_du(Rm, rc) if c1 else 0.0
+        # the C1 shift applies under PBC only (system.py:93, 108); its
+        # constants in Python floats, as the reference folds them
+        self.c1 = self.cfg.jastrow == "mcmillan_c1" and self.pbc
+        self.u_rc = jas.mcmillan_u(Rm, rc) if self.c1 else 0.0
+        self.du_rc = jas.mcmillan_du(Rm, rc) if self.c1 else 0.0
+        # the trap lengths [D], read by the one-body terms
+        self.a_ho = (torch.tensor(self.cfg.a_ho, **kw) if self.cfg.trap
+                     else None)
         self._consts: dict = {}
 
     @property
@@ -84,19 +91,26 @@ class System:
         return not self.cfg.trap
 
     def u(self, r):
-        """Two-body log-Jastrow; 'mcmillan_c1' is C1-matched at rcut."""
+        """Two-body log-Jastrow; 'mcmillan_c1' is C1-matched at rcut under
+        PBC, 'none' is u = 0 (the ideal gas)."""
+        if self.cfg.jastrow == "none":
+            return torch.zeros_like(r)
         u = jas.mcmillan_u(self.cfg.Rm, r)
-        if self.cfg.jastrow == "mcmillan_c1":
+        if self.c1:
             u = u - self.u_rc - self.du_rc * (r - self.geo.rcut)
         return u
 
     def du(self, r):
+        if self.cfg.jastrow == "none":
+            return torch.zeros_like(r)
         du = jas.mcmillan_du(self.cfg.Rm, r)
-        if self.cfg.jastrow == "mcmillan_c1":
+        if self.c1:
             du = du - self.du_rc
         return du
 
     def d2u(self, r):
+        if self.cfg.jastrow == "none":
+            return torch.zeros_like(r)
         return jas.mcmillan_d2u(self.cfg.Rm, r)
 
     # -- device constants ----------------------------------------------------

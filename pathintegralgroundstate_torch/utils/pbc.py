@@ -1,7 +1,11 @@
-"""Single-image periodic boundary conditions (pbc_mod.f90:11-52).
+"""Single-image periodic boundary conditions (pbc_mod.f90:11-52) and the
+pair geometry of both of the reference's geometries.
 
 Like the reference, one image shift only: rcut <= L/2 and displacements
 bounded by 1.5 L.  L and half are [D] tensors (System.L, System.half).
+Under the harmonic trap (System.pbc false) there is no image and no pair
+cutoff: `separation` and `pair_mask` branch on system.pbc as the reference
+does (pairwise.py:92-95, 250-253), rather than lean on Lbox = 0.
 """
 
 from __future__ import annotations
@@ -19,3 +23,19 @@ def minimum_image(xij, L, half):
     """(xij wrapped [..., D], rij2 [...])."""
     xij = wrap(xij, L, half)
     return xij, (xij * xij).sum(-1)
+
+
+def separation(system, xij):
+    """(xij, rij2) of displacements xij[..., D]: the minimum image under
+    PBC, the plain displacement under the trap."""
+    if system.pbc:
+        return minimum_image(xij, system.L, system.half)
+    return xij, (xij * xij).sum(-1)
+
+
+def pair_mask(system, notself, rij2):
+    """The pairs that interact: notself & r^2 <= rcut^2 under PBC, notself
+    (broadcast against rij2) under the trap."""
+    if system.pbc:
+        return notself & (rij2 <= system.geo.rcut2)
+    return notself.expand(rij2.shape)

@@ -1,8 +1,9 @@
 """The hand-written kernels on a CUDA device: each against its plain
-PyTorch form, and whole steps on the card (the flagship, the fused sweep
-with cascade off and on, the reference-order step, the staging sampler
-with the scan, the fused sweep in per-level form) against the same steps
-on the CPU from the same draws.
+PyTorch form (in 3-D, and at D = 1 and 2), and whole steps on the card
+(the flagship, the fused sweep with cascade off and on, the reference-order
+step, the staging sampler with the scan, the fused sweep in per-level
+form, a 2-D film, the trap) against the same steps on the CPU from the
+same draws; the trap launches no kernel.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so on a machine with a card but without JAX it runs as
@@ -565,3 +566,31 @@ def test_per_level_and_staging_steps_on_card_match_cpu(cuda, label,
     import chip_smoke
     chip_smoke.replay_check(flagship_cfg(16).replace(
         Nstag=1, Nobdm=2, **overrides), label)
+
+
+@pytest.mark.parametrize("N", [31, 64])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_kernels_at_dims_1_and_2_match_plain(cuda, dim, dtype, N):
+    """Kernels A, B, 3/4 and 5 at D = 1 (a chain) and D = 2 (a He-4 film)
+    under PBC against their plain forms (chip_smoke.dims_case)."""
+    import chip_smoke
+    density = dict(chip_smoke.DIMS)[dim]
+    n, vec, bulk, shares = chip_smoke.dims_case(flagship_cfg(64), dim,
+                                                density, dtype, N, W=64)
+    print(f"D={dim} N={N} {dtype}: {n} cases, 16-byte copies {vec}, bulk "
+          f"{bulk}, kernel 5 agreement {shares}")
+
+
+def test_2d_film_step_on_card_matches_cpu(cuda):
+    import chip_smoke
+    chip_smoke.replay_check(flagship_cfg(16).replace(
+        Nstag=1, Nobdm=2, dim=2, density=0.26), "2-D film")
+
+
+def test_trap_steps_launch_no_kernel(cuda):
+    """The trapped worm flagship and the 1-D oscillator with bisection on
+    the card equal the CPU, and launch no kernel (chip_smoke.trap_replays):
+    the trap runs the plain forms, as the reference routes it."""
+    import chip_smoke
+    chip_smoke.trap_replays()

@@ -1,4 +1,5 @@
-"""The torch window pass and all-pairs sums against the reference.
+"""The torch window pass and all-pairs sums against the reference (in 3-D,
+and in 2-D on a He-4 film under PBC).
 
 Float64 on the CPU against the reference's jnp path (rtol 1e-10, atol 1e-12:
 reassociation only); float32 against the Pallas kernels in interpret mode,
@@ -178,6 +179,58 @@ def test_delta_action_sum_without_forces_matches_reference(ip_form):
 def test_pair_pot_matches_reference(with_force, potential):
     cfg = small_cfg(potential=potential)
     R = lattice_paths(cfg, seed=7)
+    jsys = j_make_system(cfg)
+    want = jpw.pair_pot(jsys, make_tables(jsys), jnp.asarray(R), with_force)
+    got = pair_pot(_tsys(cfg), _t(R), with_force)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+# --- a 2-D He-4 film under PBC (density 0.26 sigma^-2) ----------------------
+
+def _film_cfg(**kw):
+    return small_cfg(dim=2, density=0.26, Np=8, n_walkers=4, **kw)
+
+
+@pytest.mark.parametrize("need_wf,need_f2", [(True, True), (False, False)])
+@pytest.mark.parametrize("ip_form", IP_FORMS)
+def test_2d_delta_action_rows_matches_reference(ip_form, need_wf, need_f2):
+    cfg = _film_cfg()
+    R, xnew, xold, ip = _window(cfg, ip_form, seed=13)
+    ib = _beads(cfg, "beads", cfg.M, seed=13)
+    jsys = j_make_system(cfg)
+    want = jpw.delta_action_rows(jsys, make_tables(jsys), jnp.asarray(R),
+                                 jnp.asarray(xnew), jnp.asarray(xold),
+                                 jnp.asarray(ip), jnp.asarray(ib),
+                                 need_wf=need_wf, need_f2=need_f2)
+    got = delta_action_rows(_tsys(cfg), _t(R), _t(xnew), _t(xold),
+                            _ip_t(ip), _t(ib), need_wf=need_wf,
+                            need_f2=need_f2)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_2d_delta_action_sum_matches_reference(rev):
+    cfg = _film_cfg()
+    R, xnew, xold, ip = _window(cfg, "walker", seed=14)
+    ib = np.arange(cfg.M)
+    rw = np.r_[0.5, np.ones(cfg.M - 1)]
+    jsys = j_make_system(cfg)
+    want = jpw.delta_action_sum(jsys, make_tables(jsys),
+                                jnp.asarray(R[:, ::-1] if rev else R),
+                                jnp.asarray(xnew), jnp.asarray(xold),
+                                jnp.asarray(ip), jnp.asarray(ib),
+                                row_weights=jnp.asarray(rw))
+    got = delta_action_sum(_tsys(cfg), _t(R), _t(xnew), _t(xold),
+                           _ip_t(ip), _t(ib), row_weights=_t(rw), rev=rev)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("with_force", [False, True])
+def test_2d_pair_pot_matches_reference(with_force):
+    cfg = _film_cfg()
+    R = lattice_paths(cfg, seed=15)
     jsys = j_make_system(cfg)
     want = jpw.pair_pot(jsys, make_tables(jsys), jnp.asarray(R), with_force)
     got = pair_pot(_tsys(cfg), _t(R), with_force)

@@ -4,6 +4,7 @@ The reference state is burned in with its own jitted step until some
 walkers are open (worm sector) and some closed, carried into the port with
 state_from_numpy, and both run 2 steps on the reference's own draws
 (tests/torch_bridge.JaxDraws): states and counters equal, stats at rtol 1e-9.
+The same for a 2-D He-4 film under PBC (density 0.26 sigma^-2).
 """
 
 import jax
@@ -11,7 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_bridge import other_cfg, JaxDraws, small_cfg
+from torch_bridge import assert_step_pair, other_cfg, JaxDraws, small_cfg, \
+    step_pair
 
 from pathintegralgroundstate_torch.state import state_from_numpy, \
     state_to_numpy
@@ -87,3 +89,13 @@ def test_step_stats_match_reference(runs):
             np.testing.assert_allclose(got[k], np.asarray(getattr(ref_stats,
                                                                   k)),
                                        rtol=1e-9, atol=1e-12, err_msg=k)
+
+
+def test_2d_film_step_matches_reference():
+    """The flagship's moves on a 2-D He-4 film (aziz2, mcmillan_c1, PBC) at
+    density 0.26 sigma^-2: states and counters equal, stats at rtol 1e-9."""
+    cfg = small_cfg(dim=2, density=0.26)
+    ctr = assert_step_pair(*step_pair(cfg, nstep=NSTEP),
+                           dict(rtol=1e-10, atol=1e-12))
+    c = dict(zip(COUNTER_NAMES, ctr))
+    assert c["try_cm"] > 0 and c["try_cm_half"] > 0 and c["try_swap"] > 0

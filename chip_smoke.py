@@ -60,15 +60,33 @@ run exits non-zero):
                oscillator with bisection), with every kernel's launch count
                0 across both: the trap runs the plain forms, as the
                reference routes it.
-  9. main    : four paths at W=1024 in float32, each with its launch
+ 8b. exact_f2: exact F^2 (exact_f2=T): kernel B on the brute path's end
+               windows [1024, 16, 64, 3] (R and R with the moved particle
+               at its proposal) and kernels 3 raw / 4 u on the same rows
+               against their plain forms, float32 and float64; the dense
+               exact delta_action and the brute window rows card == CPU
+               in float64 with their launch counts; W=16 float64 replays
+               (the depth cut to Nstag=1 and at most 2 worm rounds) of
+               the cached flagship, reference order, fused sweep, worm with
+               staging, the brute flagship and a MALA step (smart_mc > 0),
+               kernels A and 5 launching 0 times across them; the cached
+               and the brute flagship over 3 steps on the card equal.
+  9. main    : six paths at W=1024 in float32, each with its launch
                counts set to 0 just before it and read just after: the
                flagship (unfused sweep), the fused sweep, the fused sweep
-               with cascade=True, and the reference-order step.  Each: one
+               with cascade=True, the reference-order step, and the exact-F^2
+               flagship cached and brute (exact counts: A and 5 never, B
+               twice per step, and without the cache twice per window
+               call), each with its peak memory.  Each: one
                warm-up step, timed steps with the kernels' launch counts
                (exact where the move sites fix them; kernel A's from the
                end moves' drawn depths), the acceptance table,
                bead-updates/s, then one step under
                torch.cuda.set_sync_debug_mode("warn").
+ 9b. mala    : the cached exact flagship with MALA at W=256 float32: an eps
+               scan, the eps whose acceptance lies in 30-80 %, its MALA
+               phase timed (ms, acceptance, peak memory), one step's host
+               syncs (0).
  10. cli     : `cli.main` on a namelist of the flagship at W=1024 float32,
                the launch counts set to 0 before each run and read after:
                the flagship order (Nstep=3, --blocks 2), the reference
@@ -77,11 +95,14 @@ run exits non-zero):
                probe `python3 -m pathintegralgroundstate_torch ... --set
                resume=T --blocks 1` as a process of its own (BLOCK NUMBER :
                3, three finite rows of e_vpi.out); each block's
-               bead-updates/s.
+               bead-updates/s; then the flagship with exact_f2 = T and the
+               MALA eps at W=256 (Nstep=2, --blocks 2): a MALA line per
+               block, kernel B twice per step and no other kernel.
  11. trap    : `cli.main` on the card, each run with the launch counts
                set to 0 before and read after (all must stay 0): the 1-D
                oscillator with its exact trial WF (<E> = 0.5 +/- 0 in each
-               block, E within 1e-12) and the trapped worm flagship at
+               block, E within 1e-12), the same with exact_f2 = T and
+               smart_mc = 0.05, and the trapped worm flagship at
                W=256 float64, 3 blocks of 20 steps (E/N = 1 within 1e-12,
                finite non-empty nr_vpi.out and density_vpi.out); each
                block's ms/step and bead-updates/s and one step's host syncs.
@@ -92,7 +113,8 @@ bound_ms is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (float32
 outside the tensor cores), the H100 SXM's published peaks, counted from
 the inputs of its timed case; library_ms is null, as no single PyTorch
-call computes these Aziz pair sums.
+call computes these Aziz pair sums.  Each entry also carries its launches
+over the 3 timed steps of the exact-F^2 flagship, cached and brute.
 """
 
 import json
@@ -1162,7 +1184,7 @@ class _Replayer:
         return call
 
 
-def replay_check(cfg, label="flagship"):
+def replay_check(cfg, label="flagship", cut=False):
     from pathintegralgroundstate_torch.state import (init_state,
                                                      state_from_numpy,
                                                      state_to_numpy)
@@ -1171,6 +1193,11 @@ def replay_check(cfg, label="flagship"):
     from pathintegralgroundstate_torch.system import make_system
 
     cfg = cfg.replace(n_walkers=16, dtype="float64")
+    if cut:
+        # the exact-F^2 steps run the plain window pass on the card: their
+        # depth is cut to one particle sweep and at most two worm rounds,
+        # and every move site of the step still runs
+        cfg = cfg.replace(Nstag=min(cfg.Nstag, 1), Nobdm=min(cfg.Nobdm, 2))
     out = []
     rec = start = None
     for dev in ("cpu", "cuda"):
@@ -1197,9 +1224,9 @@ def replay_check(cfg, label="flagship"):
         if k != "counters":
             np.testing.assert_allclose(t_gpu[k], t_cpu[k], rtol=1e-9,
                                        atol=1e-9, err_msg=k)
-    print(f"[replay] {label} step at W=16 float64: card (kernels) == CPU "
-          f"(plain forms) on {len(rec.log)} recorded draw sites; "
-          f"sumE {t_gpu['sumE']:.10g}")
+    print(f"[replay] {label} step at W=16 float64 (Nstag={cfg.Nstag}, "
+          f"Nobdm={cfg.Nobdm}): card (kernels) == CPU (plain forms) on "
+          f"{len(rec.log)} recorded draw sites; sumE {t_gpu['sumE']:.10g}")
 
 
 class _Depths:
@@ -1231,6 +1258,8 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
             + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
     rows, casc, dense = nstep * rows, 0, 0
     visits = nstep * Ns * Np
+    if cfg.exact_f2:
+        return exact_launches(cfg, sweeper, nstep, use_rand, rows, visits)
     if sweeper.fused_diag:
         ends, ints = visits, nstep * Ns * -(-Np // sweeper.K_int)
         if cfg.cascade and cfg.end_regrow != "sta":
@@ -1259,6 +1288,23 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
             "pair_u": (0, True)}
 
 
+def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
+    """Exact launches of the unfused monoshot sweep with exact F^2 over
+    nstep steps (calls: its CM and worm window calls): kernels A and 5
+    never (the reference's routing), kernel B twice per step for
+    ThermEnergy and, without the cache, twice per F^2-carrying window call
+    (every call of the monoshot sweep; the field difference of R' and R),
+    kernels 3 and 4 never (batched randoms: no dense gate)."""
+    if sweeper.fused_diag or cfg.sampling != "bis" or not cfg.bis_monoshot \
+            or not use_rand:
+        raise ValueError("exact_launches models the unfused monoshot sweep "
+                         "with batched randoms only")
+    brute = 0 if cfg.f2_cache else 2 * (calls + 3 * visits)
+    return {"pair_rows": (0, True), "pair_pot": (2 * nstep + brute, True),
+            "cascade": (0, True), "pair_delta": (0, True),
+            "pair_u": (0, True)}
+
+
 def main_path(cfg, card, label="main"):
     from pathintegralgroundstate_torch.state import init_state
     from pathintegralgroundstate_torch.sweep import (BATCH_RAND_MAX_W,
@@ -1270,6 +1316,8 @@ def main_path(cfg, card, label="main"):
     system = make_system(cfg, torch.device("cuda"))
     sweeper = Sweeper(system)
     state = init_state(system)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state, warm = run_block(sweeper, state, 1)
     torch.cuda.synchronize()
@@ -1330,9 +1378,12 @@ def main_path(cfg, card, label="main"):
     what = ("fused sweep" + (" + cascade" if cfg.cascade else "")
             if sweeper.fused_diag else "flagship" if cfg.bis_monoshot
             else "reference order")
+    if cfg.exact_f2:
+        what += " exact F^2 " + ("cached" if cfg.f2_cache else "brute")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[{label}] {what} W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} "
-          f"float32: {dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s "
-          f"({card})")
+          f"float32: {dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s, "
+          f"peak memory {peak:.3f} GiB ({card})")
     if src.depths:
         hist = {d: src.depths.count(d) for d in sorted(set(src.depths))}
         print(f"[{label}] end-move depths drawn over {nstep} steps: {hist}")
@@ -1679,6 +1730,8 @@ def trap_cli_phase(card):
     0: the plain forms run the trap):
       1. the 1-D oscillator (HO_IN), 2 blocks of 10 steps: each block
          prints <E> = 0.5 +/- 0, and e_vpi.out's E within 1e-12 of 0.5;
+         then the same with exact F^2 and MALA (smart_mc=0.05), which
+         must print the same and a MALA line per block;
       2. the trapped worm flagship (flagship.trap_worm_cfg) at W=256
          float64, 3 blocks of Nstep=20 (the OBDM flushes its first
          super-block once a block's worth of diagonal walker-steps has
@@ -1704,14 +1757,16 @@ def trap_cli_phase(card):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     out = {}
-    for name, text, E, nstep, nblk in (
-            ("oscillator", HO_IN, 0.5, 10, 2),
-            ("trap worm", namelist_text(trap_worm_cfg(3)), 1.0, 20, 3)):
+    exact = ("--set", "exact_f2=T", "--set", "smart_mc=0.05")
+    for name, text, E, nstep, nblk, args in (
+            ("oscillator", HO_IN, 0.5, 10, 2, ()),
+            ("oscillator exact F2 MALA", HO_IN, 0.5, 10, 2, exact),
+            ("trap worm", namelist_text(trap_worm_cfg(3)), 1.0, 20, 3, ())):
         d = os.path.join(root, name.replace(" ", "_"))
         nml = d + ".in"
         with open(nml, "w") as f:
             f.write(text)
-        launches, log = cli_run(nml, name, d, tag="trap")
+        launches, log = cli_run(nml, name, d, *args, tag="trap")
         if any(launches.values()):
             raise AssertionError(f"trap {name}: kernels launched {launches}")
         e = np.loadtxt(os.path.join(d, "e_vpi.out"), ndmin=2)
@@ -1719,9 +1774,12 @@ def trap_cli_phase(card):
         if e.shape[0] != nblk or not err <= 1e-12:
             raise AssertionError(f"trap {name}: E/N per block {e[:, 1]}, "
                                  f"expected {E}")
-        if name == "oscillator" and log.count("<E>  =  0.5 +/- 0\n") != 2:
-            raise AssertionError("trap oscillator: a block did not print "
+        if name.startswith("oscillator") \
+                and log.count("<E>  =  0.5 +/- 0\n") != 2:
+            raise AssertionError(f"trap {name}: a block did not print "
                                  "<E> = 0.5 +/- 0")
+        if args and log.count("> MALA movements") != nblk:
+            raise AssertionError(f"trap {name}: no MALA line per block")
         print(f"[trap] {name}: E/N = {E} in each block (max deviation "
               f"{err:.1e})")
         if name == "trap worm":
@@ -1734,12 +1792,214 @@ def trap_cli_phase(card):
                       f"{tot:.6g}")
         rates = _block_rates(d, card, name, nstep=nstep, tag="trap")
         cfg = load_namelist_config(nml)
+        if args:
+            cfg = cfg.replace(exact_f2=True, smart_mc=0.05)
         sweeper = Sweeper(make_system(cfg, torch.device("cuda")))
         state, _ = run_block(sweeper, init_state(sweeper.system), 1)
         syncs = step_syncs(sweeper, state, sweeper.draws(state),
                            f"trap {name}")
         out[name] = (rates, syncs)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Exact F^2 (the odd-bead cache and the brute form) and MALA
+# ---------------------------------------------------------------------------
+
+def exact_parity(cfg, W=1024):
+    """The kernels of the brute exact-F^2 path at its shapes: kernel B on
+    end windows of 16 rows [W, 16, 64, 3] as they are and with the moved
+    particle at its proposal (F^2(R) and F^2(R')), kernel 3's raw mode and
+    kernel 4's u mode on the same rows (pot_check, dense_raw_check), in
+    float32 and float64; then, in float64 at W=64, the composed exact forms
+    on the card against the same forms on the CPU (plain forms): the dense
+    delta_action (kernel 3 raw, kernel B twice, kernel 4) and the brute
+    window rows forward and reversed, with their launch counts.  Returns
+    {kernel: float64 max abs err}."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops import pairwise as P
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    ex = cfg.replace(exact_f2=True, f2_cache=False)
+    errs = {"pair_pot": 0.0, "pair_delta": 0.0, "pair_u": 0.0}
+    g = torch.Generator(device=dev).manual_seed(41)
+    n = excused = 0
+    for dtype in (torch.float32, torch.float64):
+        system = make_system(ex, dev, dtype)
+        sys64 = make_system(ex, dev, torch.float64)
+        paths = _flagship_paths(ex, W, dtype, dev, seed=43)
+        f64 = dtype == torch.float64
+        for lo, label in ((0, "head rows"), (ex.M - 16, "tail rows")):
+            R = paths[:, lo:lo + 16]
+            xnew = R[:, :, 5] + 0.05 * torch.randn(
+                R[:, :, 5].shape, generator=g, device=dev, dtype=dtype)
+            for RR, what in ((R, "R"), (P._moved(R, xnew, 5), "R'")):
+                e, x = pot_check(system, sys64, RR, f"[{W},16,64,3] {label} "
+                                 f"{what}")
+                excused += x
+                errs["pair_pot"] = max(errs["pair_pot"], e) if f64 \
+                    else errs["pair_pot"]
+                n += 1
+            e3, e4, x, c = dense_raw_check(system, sys64, R, 5, g,
+                                           f"[{W},16,64,3] {label}")
+            if f64:
+                errs["pair_delta"] = max(errs["pair_delta"], e3)
+                errs["pair_u"] = max(errs["pair_u"], e4)
+            excused, n = excused + x, n + c
+    kern = _kernel_fns()
+    card = make_system(ex.replace(n_walkers=64), dev, torch.float64)
+    cpu = make_system(ex.replace(n_walkers=64), "cpu", torch.float64)
+    paths = _flagship_paths(ex, 64, torch.float64, dev, seed=47)
+    ip = torch.randint(0, ex.Np, (64,), generator=g, device=dev)
+    xold = paths[torch.arange(64, device=dev), :, ip]
+    xnew = xold + 0.05 * torch.randn(xold.shape, generator=g, device=dev,
+                                     dtype=torch.float64)
+    ib = card.arange(ex.M)
+    cases = (("dense delta_action", P.delta_action, {},
+              dict(pair_delta=1, pair_pot=2, pair_u=1)),
+             ("brute rows", P.delta_action_rows, {},
+              dict(pair_pot=2)),
+             ("brute rows reversed", P.delta_action_rows, dict(rev=True),
+              dict(pair_pot=2)))
+    for name, fn, kw, want in cases:
+        for f in kern.values():
+            f.launches = 0
+        got = fn(card, paths, xnew, xold, ip, ib, **kw)
+        counts = {k: f.launches for k, f in kern.items()}
+        if counts != {k: want.get(k, 0) for k in kern}:
+            raise AssertionError(f"exact {name}: launches {counts}")
+        ref = fn(cpu, paths.cpu(), xnew.cpu(), xold.cpu(), ip.cpu(),
+                 ib.cpu(), **kw)
+        _close(f"exact {name} card vs CPU float64", got.cpu(), ref, 1e-9,
+               1e-9)
+        n += 1
+    torch.cuda.synchronize()
+    print(f"[exact_f2] {n} cases pass: kernel B on the brute path's windows "
+          f"[{W},16,64,3] (R and R', head and tail rows), kernel 3 raw and "
+          f"kernel 4 u on the same rows, float32 and float64 (float64 max "
+          f"abs err pair_pot {errs['pair_pot']:.3e}, pair_delta "
+          f"{errs['pair_delta']:.3e}, pair_u {errs['pair_u']:.3e}; float32 "
+          f"values excused within 1e-5 of rcut^2: {excused}); the dense "
+          f"exact delta_action (one launch of kernel 3 raw, two of B, one of "
+          f"4) and the brute rows forward and reversed (two of B, none of A) "
+          f"card == CPU at [64, 65, 64, 3] float64")
+    return errs
+
+
+def exact_cache_vs_brute(cfg, W=16, nstep=3):
+    """The cached and the brute exact-F^2 flagship (its depth cut to
+    Nstag=1, Nobdm=2) over nstep steps on the card from one start and one
+    generator state, float64: paths within
+    rtol 1e-8, atol 1e-10, counters equal (tests/test_exact_f2.py:100-165
+    on the card)."""
+    from pathintegralgroundstate_torch.state import init_state, \
+        state_to_numpy
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    out = []
+    for cache in (True, False):
+        c = cfg.replace(exact_f2=True, f2_cache=cache, n_walkers=W,
+                        dtype="float64", Nstag=1, Nobdm=2)
+        system = make_system(c, torch.device("cuda"))
+        state, stats = run_block(Sweeper(system), init_state(system), nstep)
+        out.append((state_to_numpy(state), stats.counters.cpu().numpy()))
+    (s_c, c_c), (s_b, c_b) = out
+    for k in ("paths", "xend"):
+        np.testing.assert_allclose(s_c[k], s_b[k], rtol=1e-8, atol=1e-10,
+                                   err_msg=k)
+    np.testing.assert_array_equal(c_c, c_b)
+    print(f"[exact_f2] cached == brute over {nstep} steps on the card (W={W} "
+          f"float64): paths within rtol 1e-8, counters equal {c_c.tolist()}")
+
+
+def mala_phase(cfg, card, W=256, reps=5):
+    """MALA on the card: the step size eps picked from a short scan as the
+    one whose acceptance over two calls lies in [0.3, 0.8] nearest 0.55
+    (after 2 warm-up steps of the cached exact flagship with MALA at W
+    float32), then `reps` MALA phases (ops/smartmc.mala_move with the cache)
+    timed, their acceptance, the peak memory, and one whole step's host
+    syncs.  Returns eps."""
+    from pathintegralgroundstate_torch.ops.pairwise import force_field
+    from pathintegralgroundstate_torch.ops.smartmc import mala_move
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    c = cfg.replace(n_walkers=W, exact_f2=True, smart_mc=1e-6)
+    system = make_system(c, torch.device("cuda"))
+    sweeper = Sweeper(system)
+    state, _ = run_block(sweeper, init_state(system), 2)
+    src = sweeper.draws(state)
+    active = torch.ones(W, dtype=torch.bool, device=system.device)
+
+    def phase(eps, n):
+        p = state.paths.clone()
+        f = force_field(system, p[:, 1::2])
+        accs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            accs.append(mala_move(system, p, active, eps,
+                                  *src.mala(p.shape), f)[1])
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / n,
+                float(torch.stack(accs).double().mean()))
+
+    scan = {}
+    for eps in (1e-7, 3e-7, 1e-6, 3e-6, 1e-5, 3e-5, 1e-4):
+        scan[eps] = phase(eps, 2)[1]
+    print("[mala] acceptance by eps (2 calls each, W=%d float32): %s" % (
+        W, ", ".join(f"{e:g}: {a:.3f}" for e, a in scan.items())))
+    ok = {e: a for e, a in scan.items() if 0.3 <= a <= 0.8}
+    if not ok:
+        raise AssertionError(f"mala: no eps of {list(scan)} accepts 30-80 %")
+    eps = min(ok, key=lambda e: abs(ok[e] - 0.55))
+    torch.cuda.reset_peak_memory_stats()
+    dt, rate = phase(eps, reps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[mala] eps {eps:g}: {dt * 1e3:.1f} ms per MALA phase (W={W} "
+          f"float32, whole-path move with the cache, {reps} calls), "
+          f"acceptance {rate:.4f}, peak memory {peak:.3f} GiB ({card})")
+    # a new System builds its device constants at its first step: warm up
+    sweeper = Sweeper(make_system(c.replace(smart_mc=eps),
+                                  torch.device("cuda")))
+    state, _ = run_block(sweeper, state, 1)
+    syncs = step_syncs(sweeper, state, sweeper.draws(state), "mala")
+    if syncs:
+        raise AssertionError(f"mala: {syncs} host syncs in one step")
+    return eps
+
+
+def exact_cli_phase(cfg, card, eps, W=256):
+    """cli.main on a namelist of the flagship with exact_f2 = T and
+    smart_mc = eps at W float32, 2 blocks of Nstep=2, the launch counts set
+    to 0 before and read after: each block prints the MALA line; kernels
+    A, 3, 4 and 5 never launch and kernel B twice per step (ThermEnergy).
+    Outputs under build/chip_smoke_cli/exact_mala/."""
+    import os
+
+    from pathintegralgroundstate_torch.config import namelist_text
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(repo, "build", "chip_smoke_cli", "exact_mala")
+    os.makedirs(d, exist_ok=True)
+    nml = d + ".in"
+    with open(nml, "w") as f:
+        f.write(namelist_text(cfg.replace(n_walkers=W, exact_f2=True,
+                                          smart_mc=eps)))
+    nstep, nblk = 2, 2
+    launches, log = cli_run(nml, "exact F^2 + MALA", d, "--set",
+                            f"Nstep={nstep}", "--blocks", str(nblk))
+    want = dict(pair_rows=0, pair_pot=2 * nstep * nblk, cascade=0,
+                pair_delta=0, pair_u=0)
+    if launches != want or log.count("> MALA movements") != nblk:
+        raise AssertionError(f"cli exact F^2 + MALA: launches {launches}, "
+                             f"MALA lines {log.count('> MALA movements')}")
+    mala = [ln.strip() for ln in log.splitlines() if "MALA movements" in ln]
+    print(f"[cli] exact F^2 + MALA (eps {eps:g}, W={W}): {'; '.join(mala)}")
+    _block_rates(d, card, "exact F^2 + MALA", nstep=nstep)
 
 
 def _ptxas_summary(log):
@@ -1772,6 +2032,12 @@ def main():
     from pathintegralgroundstate_torch.flagship import flagship_cfg
     from pathintegralgroundstate_torch.utils import build
 
+    t_start = time.perf_counter()
+
+    def clock(phase):
+        print(f"[clock] {phase} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = _card()
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name} | {card} | torch {torch.__version__} "
@@ -1784,12 +2050,18 @@ def main():
         print(f"[build]   {line}")
 
     cfg = flagship_cfg(1024)
+    clock("kernels")
     errs, shapes, bounds = kernel_parity(cfg, card)
+    clock("cascade")
     cas_err, cas_times = cascade_parity(cfg, card)
     layout_parity(cfg)
+    clock("pot")
     errs["pair_pot"] = max(errs["pair_pot"], pot_parity(cfg))
+    clock("dense")
     dense_err, dense_times = dense_parity(cfg, card)
+    clock("dims")
     dims_parity(cfg)
+    clock("replay")
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
     replay_check(cfg)
@@ -1801,13 +2073,50 @@ def main():
     replay_check(fused.replace(bis_monoshot=False), "fused per level")
     replay_check(cfg.replace(dim=2, density=0.26), "2-D film")
     trap_replays()
+    clock("exact_f2")
+
+    # exact F^2: the kernels at the brute path's shapes, the replays of its
+    # forms (kernels A and 5 never launch on them), cached == brute
+    exact = cfg.replace(exact_f2=True)
+    exact_errs = exact_parity(cfg)
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    replay_check(exact, "exact F^2 flagship, cached", cut=True)
+    replay_check(exact.replace(bis_monoshot=False, bis_end_random_depth=True),
+                 "exact F^2 reference order, cached", cut=True)
+    replay_check(exact.replace(fused_sweep=True), "exact F^2 fused, cached",
+                 cut=True)
+    replay_check(exact.replace(sampling="sta"),
+                 "exact F^2 worm + staging, cached", cut=True)
+    replay_check(exact.replace(f2_cache=False), "exact F^2 flagship, brute",
+                 cut=True)
+    replay_check(exact.replace(smart_mc=1e-6), "exact F^2 + MALA, cached",
+                 cut=True)
+    counts = {k: fn.launches for k, fn in kern.items()}
+    if counts["pair_rows"] or counts["cascade"]:
+        raise AssertionError(f"exact F^2 replays launched kernel A or 5: "
+                             f"{counts}")
+    print(f"[exact_f2] launches over the exact replays: {counts}")
+    exact_cache_vs_brute(cfg)
+    clock("main")
+
     launches, _, _ = main_path(cfg, card)
     main_path(fused, card, "fused")
     cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
                                    "fused+cascade")
     ref_launches, _, _ = main_path(ref_order, card, "reference order")
+    ex_launches, _, _ = main_path(exact, card, "exact_f2")
+    br_launches, _, _ = main_path(exact.replace(f2_cache=False), card,
+                                  "exact_f2 brute")
+    clock("mala")
+    eps = mala_phase(cfg, card)
+    clock("cli")
     cli_phase(cfg, card)
+    exact_cli_phase(cfg, card, eps)
+    clock("trap")
     trap_cli_phase(card)
+    clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "pathintegralgroundstate_tpu"))
@@ -1821,9 +2130,12 @@ def main():
         return {"name": name, "route": "cuda",
                 "source": f"pathintegralgroundstate_torch/csrc/{source}",
                 "replaces": f"pathintegralgroundstate_tpu/ops/{replaces}",
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "launches": launches,
+                "max_abs_err": max(err, exact_errs.get(name, 0.0)),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None,
+                "exact_f2_launches": ex_launches[name],
+                "exact_f2_brute_launches": br_launches[name]}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]

@@ -338,6 +338,8 @@ class Driver:
         print(f"> Staging movements = {pct(c['acc_bd'], n_int):7.2f} %")
         print(f"> Head movements    = {pct(c['acc_head'], c['try_stag']):7.2f} %")
         print(f"> Tail movements    = {pct(c['acc_tail'], c['try_stag']):7.2f} %")
+        if cfg.smart_mc > 0:
+            print(f"> MALA movements    = {pct(c['acc_mala'], c['try_mala']):7.2f} %")
         if cfg.CWorm > 0:
             print("# Acceptance of off-diagonal movements:")
             print(f"> CM movements      = {pct(c['acc_cm_half'], c['try_cm_half']):7.2f} %")

@@ -23,6 +23,13 @@ the draw source (utils/draws.py).  `paths` is updated in place.
 The end moves' depth is the caller's: the reference's random depth Nlev ~
 U{2..level} (vpi_mod.f90:1023; bisection.py:628-653) is a host int drawn
 with the move's randoms, so each depth runs its own static body.
+
+Exact F^2 with the cache (`fodd`, ops/moves.py): a level ilev displaces
+beads 2^(nlev-ilev) (2j+1) from the window's even start, so only the LAST
+level's midpoints are odd beads.  The monoshot forms pass the window's odd
+rows to the one pair pass, the per-level forms only to the last level's;
+every form adds the increments to the cache under the FINAL accept mask, so
+a walker rejected at any level leaves it untouched (bisection.py:21-30).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import math
 import numpy as np
 import torch
 
-from .moves import _mi, _where, _wrap_pos, metropolis_u
+from .moves import (_cache_win_write, _codd_window, _codd_window_rev, _mi,
+                    _where, _wrap_pos, metropolis_u)
 from .pairwise import delta_action, delta_action_rows, delta_action_sum
 
 
@@ -145,7 +153,18 @@ def _monoshot_accept(system, active, rows, u_acc, level: int, gate: bool,
     return active & metropolis_u(u_acc, rows @ A).all(-1)
 
 
-def _bisection_monoshot(system, paths, ip: int, active, level: int, rand):
+def _fold_kw(fodd, f_seg, sub):
+    """delta_action_rows' cache arguments, none without the cache."""
+    return {} if fodd is None else dict(fold=f_seg, fold_sub=sub)
+
+
+def _split(out, fodd):
+    """(rows or dS, dfield or None) of a delta_action call."""
+    return out if fodd is not None else (out, None)
+
+
+def _bisection_monoshot(system, paths, ip: int, active, level: int, rand,
+                        fodd=None):
     """Interior bisection over an even-aligned window of 2**level links,
     one pair pass for all levels.  Returns (paths, alive)."""
     L = 2 ** level
@@ -153,32 +172,46 @@ def _bisection_monoshot(system, paths, ip: int, active, level: int, rand):
     R_seg = paths[:, ii:ii + L + 1]
     seg0 = R_seg[:, :, ip]
     seg = _construct_levels(system, seg0, level, L, g_rows)
-    rows = delta_action_rows(system, R_seg[:, 1:L], seg[:, 1:L],
-                             seg0[:, 1:L], ip, system.arange(ii + 1, ii + L),
-                             need_wf=False)
+    f_seg, _, k0 = _codd_window(fodd, ii, L) if fodd is not None \
+        else (None, None, None)
+    rows, df = _split(delta_action_rows(
+        system, R_seg[:, 1:L], seg[:, 1:L], seg0[:, 1:L], ip,
+        system.arange(ii + 1, ii + L), need_wf=False,
+        **_fold_kw(fodd, f_seg, (0, 2))), fodd)
     alive = _monoshot_accept(system, active, rows, u_acc[:, 1:], level, False)
     R_seg[:, :, ip] = _where(alive, seg, seg0)
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df, alive, k0)
     return paths, alive
 
 
-def _bisection_per_level(system, paths, ip: int, active, level: int, rand):
+def _bisection_per_level(system, paths, ip: int, active, level: int, rand,
+                         fodd=None):
     """Interior bisection level by level (bisection.py:442-510): one pair
     pass per level on its midpoints, need_f2 only on the last (the only
-    level on odd beads).  Returns (paths, alive)."""
+    level on odd beads, the one that reads the cache).
+    Returns (paths, alive)."""
     L = 2 ** level
     ii, g_rows, u_acc = rand
     R_seg = paths[:, ii:ii + L + 1]
     seg0 = R_seg[:, :, ip]
     seg, alive = seg0.clone(), active
+    f_seg, _, k0 = _codd_window(fodd, ii, L) if fodd is not None \
+        else (None, None, None)
     for ilev in range(1, level + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level,
                                                 g_rows)
-        dS = delta_action_sum(system, R_seg[:, d2::delta], xnew, xold, ip,
-                              system.arange(ii + d2, ii + L, delta),
-                              need_wf=False, need_f2=ilev == level)
+        last = ilev == level
+        dS, df = _split(delta_action_sum(
+            system, R_seg[:, d2::delta], xnew, xold, ip,
+            system.arange(ii + d2, ii + L, delta), need_wf=False,
+            need_f2=last, **_fold_kw(fodd if last else None, f_seg, (0, 1))),
+            fodd if last else None)
         seg[:, d2::delta] = xnew
         alive = alive & metropolis_u(u_acc[:, ilev], dS)
     R_seg[:, :, ip] = _where(alive, seg, seg0)
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df, alive, k0)
     return paths, alive
 
 
@@ -219,13 +252,27 @@ def _end_write(system, paths, ip: int, nlev: int, tail: bool, seg_fin):
         paths[:, :2 ** nlev + 1, ip] = seg_fin
 
 
+def _end_cache(system, fodd, nlev: int, tail: bool):
+    """(cache rows, row of the write-back) under an end window's odd beads,
+    in head orientation: beads 1, 3, .. or M-2, M-4, .. (_codd_window)."""
+    L = 2 ** nlev
+    if tail:
+        f, _, k = _codd_window_rev(fodd, system.M - 1, L)
+    else:
+        f, _, k = _codd_window(fodd, 0, L)
+    return f, k
+
+
 def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
-                            tail: bool, rand, defer_write: bool = False):
+                            tail: bool, rand, defer_write: bool = False,
+                            fodd=None):
     """End-segment bisection: the free-gaussian terminal guess (g row 0,
     accept group 0) and all levels in one pair pass.  The tail's partner
     block is read in FORWARD bead order; only the moved particle's small
     segment is reversed.  Returns (paths, alive), or (the window as it
-    would be written, alive) with defer_write."""
+    would be written, alive) with defer_write.  With the cache the tail's
+    rows are taken in head orientation (a reversed read), as the reference
+    takes them on its cache path (bisection.py:363-372)."""
     M = system.M
     L = 2 ** nlev
     _, g_rows, u_acc = rand
@@ -233,6 +280,16 @@ def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
     xnew0 = _end_guess(system, seg0, nlev, g_rows[:, 0])
     seg = _construct_levels(system, torch.cat([xnew0[:, None], seg0[:, 1:]],
                                               1), nlev, L, g_rows)
+    if fodd is not None:
+        f_seg, k = _end_cache(system, fodd, nlev, tail)
+        rows, df = delta_action_rows(
+            system, paths[:, M - L:] if tail else paths[:, :L], seg[:, :L],
+            seg0[:, :L], ip, system.arange(M - 1, M - 1 - L, -1) if tail
+            else system.arange(L), rev=tail, fold=f_seg, fold_sub=(1, 2))
+        alive = _monoshot_accept(system, active, rows, u_acc, nlev, True)
+        _end_write(system, paths, ip, nlev, tail, _where(alive, seg, seg0))
+        _cache_win_write(fodd, f_seg, df, alive, k, reverse=tail)
+        return paths, alive
     if tail:
         # forward row r (beads M-L..M-1) <-> reversed-segment row L-r
         rows = delta_action_rows(system, paths[:, M - L:], seg[:, :L].flip(1),
@@ -251,21 +308,23 @@ def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
 
 
 def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
-                             tail: bool, rand, dense_gate: bool):
+                             tail: bool, rand, dense_gate: bool, fodd=None):
     """MoveHead/TailBisection level by level (bisection.py:529-625).
 
     The terminal guess has its own gate: through the dense delta_action
-    (kernels 3 and 4, one launch) with dense_gate, the reference's form
-    without batched randoms, else through delta_action_sum without forces
-    (kernel A).
-    Then one pass per level, need_f2 only on the last.  Returns (paths,
-    alive)."""
+    (kernels 3 and 4, one launch; under exact F^2 the brute dense form)
+    with dense_gate and no cache, the reference's form without batched
+    randoms, else through delta_action_sum without forces (kernel A).
+    Then one pass per level, need_f2 only on the last, which alone reads
+    the cache.  Returns (paths, alive)."""
     _, g_rows, u_acc = rand
     seg0, R0, b0 = _end_window(system, paths, ip, nlev, tail)
     xold0 = seg0[:, 0]
     xnew0 = _end_guess(system, seg0, nlev, g_rows[:, 0])
     ib0 = system.arange(b0, b0 + 1)
-    if dense_gate:
+    f_seg, k = _end_cache(system, fodd, nlev, tail) if fodd is not None \
+        else (None, None)
+    if dense_gate and fodd is None:
         dS0 = delta_action(system, R0, xnew0[:, None], xold0[:, None], ip,
                            ib0)[:, 0]
     else:
@@ -278,46 +337,53 @@ def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, nlev,
                                                 g_rows)
         R, ib, rev = _end_level_rows(system, paths, nlev, ilev, tail)
-        dS = delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=False,
-                              need_f2=ilev == nlev, rev=rev)
+        last = ilev == nlev
+        dS, df = _split(delta_action_sum(
+            system, R, xnew, xold, ip, ib, need_wf=False, need_f2=last,
+            rev=rev, **_fold_kw(fodd if last else None, f_seg, (0, 1))),
+            fodd if last else None)
         seg[:, d2::delta] = xnew
         alive = alive & metropolis_u(u_acc[:, ilev], dS)
     _end_write(system, paths, ip, nlev, tail, _where(alive, seg, seg0))
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df, alive, k, reverse=tail)
     return paths, alive
 
 
-def bisection(system, paths, ip: int, active, level: int, rand):
-    """Interior multilevel bisection, in the form cfg.bis_monoshot names."""
+def bisection(system, paths, ip: int, active, level: int, rand, fodd=None):
+    """Interior multilevel bisection, in the form cfg.bis_monoshot names;
+    fodd: the odd-bead force-field cache (exact F^2), updated in place."""
     fn = (_bisection_monoshot if system.cfg.bis_monoshot
           else _bisection_per_level)
-    return fn(system, paths, ip, active, level, rand)
+    return fn(system, paths, ip, active, level, rand, fodd)
 
 
 def _end_bisection(system, paths, ip: int, active, level: int, tail: bool,
-                   rand, dense_gate: bool):
+                   rand, dense_gate: bool, fodd=None):
     nlev = max(level, 2)
     if system.cfg.bis_monoshot:
         return _end_bisection_monoshot(system, paths, ip, active, nlev, tail,
-                                       rand)
+                                       rand, fodd=fodd)
     return _end_bisection_per_level(system, paths, ip, active, nlev, tail,
-                                    rand, dense_gate)
+                                    rand, dense_gate, fodd)
 
 
 def move_head_bisection(system, paths, ip: int, active, level: int, rand,
-                        dense_gate: bool = False):
+                        dense_gate: bool = False, fodd=None):
     """Head-end bisection at the depth max(level, 2); dense_gate: the
     per-level form's gate through the dense delta_action (the reference's
-    form without batched randoms)."""
+    form without batched randoms and without the cache); fodd: the
+    odd-bead cache."""
     return _end_bisection(system, paths, ip, active, level, False, rand,
-                          dense_gate)
+                          dense_gate, fodd)
 
 
 def move_tail_bisection(system, paths, ip: int, active, level: int, rand,
-                        dense_gate: bool = False):
+                        dense_gate: bool = False, fodd=None):
     """Tail-end bisection at the depth max(level, 2) (see
     move_head_bisection)."""
     return _end_bisection(system, paths, ip, active, level, True, rand,
-                          dense_gate)
+                          dense_gate, fodd)
 
 
 def paired_end_bisections(system, paths, ip: int, active, level: int,
@@ -348,7 +414,8 @@ def paired_end_bisections(system, paths, ip: int, active, level: int,
 # 2**level links within M - 1 links).
 # ---------------------------------------------------------------------------
 
-def _fused_ends_monoshot(system, paths, ip: int, active, level: int, rand):
+def _fused_ends_monoshot(system, paths, ip: int, active, level: int, rand,
+                         fodd=None):
     """The head+tail composite in monoshot form (bisection.py:680-759): one
     batched construction of both segments, one pair pass per window (the
     tail read backwards in place), per-level accepts."""
@@ -362,23 +429,45 @@ def _fused_ends_monoshot(system, paths, ip: int, active, level: int, rand):
     seg = _construct_levels(system, torch.cat([xnew0[:, :, None],
                                                seg0[:, :, 1:]], 2),
                             level, L, g2)
-    rows_h = delta_action_rows(system, R_head[:, :L], seg[:, 0, :L],
-                               seg0[:, 0, :L], ip, system.arange(L))
+    caches = [_end_cache(system, fodd, level, t) if fodd is not None
+              else (None, None) for t in (False, True)]
+    rows_h, df_h = _split(delta_action_rows(
+        system, R_head[:, :L], seg[:, 0, :L], seg0[:, 0, :L], ip,
+        system.arange(L), **_fold_kw(fodd, caches[0][0], (1, 2))), fodd)
     # tail row b (head orientation, bead M-1-b) pairs with forward row L-1-b
-    rows_t = delta_action_rows(system, R_tail[:, 1:], seg[:, 1, :L],
-                               seg0[:, 1, :L], ip,
-                               system.arange(M - 1, M - 1 - L, -1), rev=True)
+    rows_t, df_t = _split(delta_action_rows(
+        system, R_tail[:, 1:], seg[:, 1, :L], seg0[:, 1, :L], ip,
+        system.arange(M - 1, M - 1 - L, -1), rev=True,
+        **_fold_kw(fodd, caches[1][0], (1, 2))), fodd)
     acc_h = _monoshot_accept(system, active, rows_h, u2[:, 0], level, True)
     acc_t = _monoshot_accept(system, active, rows_t, u2[:, 1], level, True)
     fin = torch.where(torch.stack([acc_h, acc_t], 1)[:, :, None, None], seg,
                       seg0)
     R_head[:, :, ip] = fin[:, 0]
     R_tail[:, :, ip] = fin[:, 1].flip(1)
+    if fodd is not None:
+        _cache_win_write(fodd, caches[0][0], df_h, acc_h, caches[0][1])
+        _cache_win_write(fodd, caches[1][0], df_t, acc_t, caches[1][1],
+                         reverse=True)
     return paths, acc_h, acc_t
 
 
+def _multi_cache(fodd, s: int, span: int):
+    """The cache rows under a composite span's odd beads s+1, s+3, ..,
+    s+span-1 (s even): one contiguous block, slot-major."""
+    return fodd[:, s // 2:(s + span) // 2]
+
+
+def _multi_write(fodd, f_big, dfield, alive, s: int, L: int):
+    """Slot k's L/2 increments gated by its own final accept
+    (bisection.py:954-960)."""
+    gate = alive.repeat_interleave(L // 2, dim=1)[:, :, None, None]
+    fodd[:, s // 2:s // 2 + f_big.shape[1]] = f_big + torch.where(
+        gate, dfield, 0.0)
+
+
 def _bisection_multi_monoshot(system, paths, ips, active, level: int,
-                              rand):
+                              rand, fodd=None):
     """The K-slot interior composite in monoshot form (bisection.py:891-960).
 
     ONE pair pass covers every slot: kernel A reads the contiguous span
@@ -396,14 +485,20 @@ def _bisection_multi_monoshot(system, paths, ips, active, level: int,
     # span rows 1..KL-1; a slot's row 0 is its (unmoved) boundary bead
     xnew = seg[:, :, :L].reshape(W, span, D)[:, 1:]
     xold = seg0[:, :, :L].reshape(W, span, D)[:, 1:]
-    rows = delta_action_rows(system, R_big[:, 1:span], xnew, xold,
-                             _ip_rows(ips, L, paths.device)[:, 1:],
-                             system.arange(s + 1, s + span), need_wf=False)
+    f_big = _multi_cache(fodd, s, span) if fodd is not None else None
+    # the span rows' odd beads are its rows 0::2
+    rows, df = _split(delta_action_rows(
+        system, R_big[:, 1:span], xnew, xold,
+        _ip_rows(ips, L, paths.device)[:, 1:],
+        system.arange(s + 1, s + span), need_wf=False,
+        **_fold_kw(fodd, f_big, (0, 2))), fodd)
     rows = torch.nn.functional.pad(rows, (1, 0)).view(W, K, L)[:, :, 1:]
     alive = _monoshot_accept(system, active, rows, uK[:, :, 1:], level, False)
     fin = torch.where(alive[:, :, None, None], seg, seg0)
     for k, p in enumerate(ips):
         R_big[:, k * L + 1:(k + 1) * L, p] = fin[:, k, 1:L]
+    if fodd is not None:
+        _multi_write(fodd, f_big, df, alive, s, L)
     return paths, alive
 
 
@@ -413,7 +508,8 @@ def _ip_rows(ips, m: int, device):
                       for p in ips])[None]
 
 
-def _fused_ends_per_level(system, paths, ip: int, active, level: int, rand):
+def _fused_ends_per_level(system, paths, ip: int, active, level: int, rand,
+                          fodd=None):
     """The head+tail composite level by level (bisection.py:778-888): one
     gate pass over beads 0 and M-1 together, then per level one pass per
     window (the tail's forward strided midpoints read backwards), 1 + 2
@@ -431,24 +527,35 @@ def _fused_ends_per_level(system, paths, ip: int, active, level: int, rand):
     alive = active[:, None] & metropolis_u(u2[:, :, 0], dS0)
     seg = seg0.clone()
     seg[:, :, 0] = xnew0
+    caches = [_end_cache(system, fodd, level, t) if fodd is not None
+              else (None, None) for t in (False, True)]
+    dfs = [None, None]
     for ilev in range(1, level + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level, g2)
+        last = ilev == level
         dS = []
         for e, tail in enumerate((False, True)):
             R, ib, rev = _end_level_rows(system, paths, level, ilev, tail)
-            dS.append(delta_action_sum(
+            f = fodd if last else None
+            d, dfs[e] = _split(delta_action_sum(
                 system, R, xnew[:, e], xold[:, e], ip, ib, need_wf=False,
-                need_f2=ilev == level, rev=rev))
+                need_f2=last, rev=rev, **_fold_kw(f, caches[e][0], (0, 1))),
+                f)
+            dS.append(d)
         seg[:, :, d2::delta] = xnew
         alive = alive & metropolis_u(u2[:, :, ilev], torch.stack(dS, 1))
     fin = torch.where(alive[:, :, None, None], seg, seg0)
     _end_write(system, paths, ip, level, False, fin[:, 0])
     _end_write(system, paths, ip, level, True, fin[:, 1])
+    if fodd is not None:
+        for e in (0, 1):
+            _cache_win_write(fodd, caches[e][0], dfs[e], alive[:, e],
+                             caches[e][1], reverse=e == 1)
     return paths, alive[:, 0], alive[:, 1]
 
 
 def _bisection_multi_per_level(system, paths, ips, active, level: int,
-                               rand):
+                               rand, fodd=None):
     """The K-slot interior composite level by level (bisection.py:985-1077).
     Level ilev's K m midpoints sit at beads s + d2 + j delta over the whole
     span, one arithmetic sequence: one kernel-A pass per level over that
@@ -461,39 +568,48 @@ def _bisection_multi_per_level(system, paths, ips, active, level: int,
     seg0 = torch.stack([R_big[:, k * L:(k + 1) * L + 1, p]
                         for k, p in enumerate(ips)], 1)   # [W, K, L+1, D]
     seg, alive = seg0.clone(), active
+    f_big = _multi_cache(fodd, s, span) if fodd is not None else None
     for ilev in range(1, level + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level, gK)
         m = L // delta
-        rows = delta_action_rows(
+        last = ilev == level
+        f = fodd if last else None
+        rows, d = _split(delta_action_rows(
             system, R_big[:, d2:span:delta], xnew.reshape(W, K * m, D),
             xold.reshape(W, K * m, D), _ip_rows(ips, m, paths.device),
             system.arange(s + d2, s + span, delta), need_wf=False,
-            need_f2=ilev == level)
+            need_f2=last, **_fold_kw(f, f_big, (0, 1))), f)
+        df = d if last else None
         seg[:, :, d2::delta] = xnew
         alive = alive & metropolis_u(uK[:, :, ilev],
                                      rows.view(W, K, m).sum(-1))
     fin = torch.where(alive[:, :, None, None], seg, seg0)
     for k, p in enumerate(ips):
         R_big[:, k * L + 1:(k + 1) * L, p] = fin[:, k, 1:L]
+    if fodd is not None:
+        _multi_write(fodd, f_big, df, alive, s, L)
     return paths, alive
 
 
-def fused_end_bisections(system, paths, ip: int, active, level: int, rand):
+def fused_end_bisections(system, paths, ip: int, active, level: int, rand,
+                         fodd=None):
     """MoveHeadBisection + MoveTailBisection of particle ip as one
     composite, in the form cfg.bis_monoshot names.  rand = (None, g2
-    [W, 2, L, D], u2 [W, 2, level+1]).  Returns (paths, acc_head[W],
-    acc_tail[W])."""
+    [W, 2, L, D], u2 [W, 2, level+1]); fodd: the odd-bead cache.
+    Returns (paths, acc_head[W], acc_tail[W])."""
     fn = (_fused_ends_monoshot if system.cfg.bis_monoshot
           else _fused_ends_per_level)
-    return fn(system, paths, ip, active, level, rand)
+    return fn(system, paths, ip, active, level, rand, fodd)
 
 
-def bisection_multi(system, paths, ips, active, level: int, rand):
+def bisection_multi(system, paths, ips, active, level: int, rand,
+                    fodd=None):
     """Interior bisections of the K distinct particles ips as one composite
     (bisection.py:963-1077), in the form cfg.bis_monoshot names.  Slot k
     regrows the window of L = 2**level links from bead s + k L, one even
     shift s for every slot.  rand = (s host int, gK [W, K, L, D], uK [W, K,
-    level+1]); active [W] or [W, K].  Returns (paths, acc[W, K])."""
+    level+1]); active [W] or [W, K]; fodd: the odd-bead cache.
+    Returns (paths, acc[W, K])."""
     W, K, L = paths.shape[0], len(ips), 2 ** level
     if K * L > system.M - 1:
         raise ValueError(f"K={K} slots of {L} links exceed {system.M - 1} "
@@ -502,4 +618,4 @@ def bisection_multi(system, paths, ips, active, level: int, rand):
         active = active[:, None].expand(W, K)
     fn = (_bisection_multi_monoshot if system.cfg.bis_monoshot
           else _bisection_multi_per_level)
-    return fn(system, paths, ips, active, level, rand)
+    return fn(system, paths, ips, active, level, rand, fodd)

@@ -26,11 +26,14 @@ ops/bisection.py):
 
 Routing (`_dispatch`, as cascade_kernels._dispatch does): 'ends' and
 'interior' go to kernels.cascade, which runs kernel 5 (csrc/cascade.cu)
-under PBC and cascade_ref under the trap (kernels.kernel_route); 'rigid'
-NEVER reaches the kernel.  In the reference the rigid body exceeds the
-TPU's scoped memory, and its jnp twin already runs its pair work on the
-rows kernel; the port routes it the same way, the plain form whose pair
-pass is kernel A.  That is the reference's routing, not a fallback.
+under PBC and cascade_ref under the trap and under exact F^2
+(kernels.cascade_route, as use_cascade_kernel excludes exact_f2); 'rigid'
+NEVER reaches the kernel.  Under exact F^2 every pass of cascade_ref takes
+the brute whole-configuration F^2 (pairwise.delta_action_sum), as
+cascade_jnp's delta_action_rows calls do.  In the reference the rigid body
+exceeds the TPU's scoped memory, and its jnp twin already runs its pair
+work on the rows kernel; the port routes it the same way, the plain form
+whose pair pass is kernel A.  That is the reference's routing, not a fallback.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from . import kernels
 from .moves import _mi, _where, _wrap_pos, metropolis_u
-from .pairwise import chin_table
+from .pairwise import chin_table, delta_action_sum
 
 
 def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
@@ -69,6 +72,9 @@ def cascade_ref(system, mode: str, paths, slots, rg, ru, act, nlev: int,
                 R = Rf[:, start:stop:stride]
             ib = system.arange(b0 + step * start, b0 + step * stop,
                                step * stride)
+            if system.cfg.exact_f2:
+                return delta_action_sum(system, R, xnew, xold, ip, ib,
+                                        need_wf, rev=rev)
             return pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf,
                              True, rev, reduce=True)
 

@@ -13,18 +13,8 @@ import numpy as np
 import torch
 
 from ..models import jastrow as jas
-from ..utils.pbc import pair_mask, separation
+from ..utils.pbc import all_pairs, separation
 from .pairwise import pair_pot
-
-
-def _pair_geometry(system, R):
-    """All-pairs (mask, r, xij) of configurations R[..., N, D]: the minimum
-    image and the cutoff under PBC, neither under the trap."""
-    xij, rij2 = separation(system, R[..., :, None, :] - R[..., None, :, :])
-    N = R.shape[-2]
-    notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
-    r = torch.sqrt(torch.where(notself, rij2, 1.0))
-    return pair_mask(system, notself, rij2), r, xij
 
 
 def local_energy(system, R):
@@ -35,7 +25,7 @@ def local_energy(system, R):
     R [W, N, D]; returns (E, Kin, Pot), each [W]."""
     d = system.cfg.dim
     a = system.a_ho
-    m, r, xij = _pair_geometry(system, R)
+    m, r, xij = all_pairs(system, R)
     dudr = torch.where(m, system.du(r), 0.0)
     d2u = torch.where(m, system.d2u(r), 0.0)
     lap = 0.5 * ((d - 1.0) * dudr / r + d2u).sum((-1, -2))
@@ -79,7 +69,7 @@ def pair_correlation(system, R, weight):
     per pair within rcut (the full N x N matrix), walker w's pairs
     scaled by weight[w].  R [W, N, D]; returns gr[Nbin]."""
     cfg = system.cfg
-    m, r, _ = _pair_geometry(system, R)
+    m, r, _ = all_pairs(system, R)
     ibin = torch.clamp((r / system.geo.rbin).long(), 0, cfg.Nbin - 1)
     w = m.to(R.dtype) * weight[:, None, None]
     return torch.zeros(cfg.Nbin, dtype=R.dtype, device=R.device).index_add_(

@@ -19,9 +19,10 @@ of the kernel half of ops/cascade_kernels.py.
 
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
 pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
-CPU, and for a System that `kernel_route` sends away from the kernels (the
-trap, as the reference routes it).  Otherwise, on a CUDA tensor, it
-launches the kernel or raises; there is no fallback.  Each wrapper's
+CPU, and for a System that its route predicate sends away from the kernel
+(`rows_route`, `cascade_route`, `pair_route`: the trap, and exact F^2 for
+kernels A and 5, as the reference routes them).  Otherwise, on a CUDA
+tensor, it launches the kernel or raises; there is no fallback.  Each wrapper's
 `.launches` counts its kernel's launches, and nothing else.
 """
 
@@ -33,7 +34,7 @@ import torch
 
 from ..models import jastrow as jas
 from ..utils.build import kernels
-from ..utils.pbc import pair_mask, separation
+from ..utils.pbc import all_pairs, pair_geometry
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +52,34 @@ def self_mask(N: int, ip, device):
     return iota != ip[..., None]                   # [W, B, N]
 
 
+def pair_side(system, x, R, notself, need_force=True, need_wf=True):
+    """One Metropolis side of kernel A's plain form (pairwise.py:443-475):
+    per row of x[..., B, D] against the partners R[..., B, N, D], (pot,
+    F [..., D], the pair forces fpair [..., N, D], usum), with the trap's
+    one-body terms under the trap and the exact-coincidence guard r^2 > 0
+    on the force and on u.  F and fpair are None unless need_force, usum
+    unless need_wf."""
+    a = system.a_ho
+    xij, rij2, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
+    r, rinv = torch.sqrt(r2s), torch.rsqrt(r2s)
+    mf = m & (rij2 > 0.0)
+    vv, dv = system.potential.v_dv(r, rinv)
+    pot = torch.where(m, vv, 0.0).sum(-1)
+    F = fpair = usum = None
+    if need_force:
+        fpair = torch.where(mf, dv * rinv, 0.0)[..., None] * xij
+        F = fpair.sum(-2)
+        if a is not None:
+            F = F + jas.trap_pot_grad(a, x)
+    if a is not None:
+        pot = pot + jas.trap_pot(a, x)
+    if need_wf:
+        usum = torch.where(mf, system.u(r), 0.0).sum(-1)
+        if a is not None:
+            usum = usum + jas.trap_psi(a, x)
+    return pot, F, fpair, usum
+
+
 def pair_terms_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
                    rev=False):
     """The raw terms of kernel A's plain form: per row (dpot, df2, du) of
@@ -63,35 +92,13 @@ def pair_terms_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
     if rev:
         R = R.flip(1)
     notself = self_mask(R.shape[-2], ip, R.device)
-    a = system.a_ho
-
-    def side(x):
-        xij, rij2 = separation(system, x[..., None, :] - R)
-        ns = notself.expand(rij2.shape)
-        r2s = torch.where(ns, rij2, 1.0)
-        r, rinv = torch.sqrt(r2s), torch.rsqrt(r2s)
-        m = pair_mask(system, ns, rij2)
-        mf = m & (rij2 > 0.0)
-        vv, dv = system.potential.v_dv(r, rinv)
-        pot = torch.where(m, vv, 0.0).sum(-1)
-        f2 = usum = None
-        if need_f2:
-            F = (torch.where(mf, dv * rinv, 0.0)[..., None] * xij).sum(-2)
-            if a is not None:
-                F = F + jas.trap_pot_grad(a, x)
-            f2 = (F * F).sum(-1)
-        if a is not None:
-            pot = pot + jas.trap_pot(a, x)
-        if need_wf:
-            usum = torch.where(mf, system.u(r), 0.0).sum(-1)
-            if a is not None:
-                usum = usum + jas.trap_psi(a, x)
-        return pot, f2, usum
-
-    pot_n, f2_n, u_n = side(xnew)
-    pot_o, f2_o, u_o = side(xold)
+    pot_n, F_n, _, u_n = pair_side(system, xnew, R, notself, need_f2,
+                                   need_wf)
+    pot_o, F_o, _, u_o = pair_side(system, xold, R, notself, need_f2,
+                                   need_wf)
     dpot = pot_n - pot_o
-    df2 = f2_n - f2_o if need_f2 else torch.zeros_like(dpot)
+    df2 = ((F_n * F_n).sum(-1) - (F_o * F_o).sum(-1) if need_f2
+           else torch.zeros_like(dpot))
     du = u_n - u_o if need_wf else None
     return dpot, df2, du
 
@@ -119,12 +126,8 @@ def pair_pot_ref(system, R, with_force=False):
     (pairwise.py:591-617).  pot = 1/2 sum_{i != j} V within rcut (every
     pair under the trap, plus the trap potential); f2 = sum_i |F_i|^2
     (zeros without force).  No r^2 > 0 guard."""
-    N = R.shape[-2]
     a = system.a_ho
-    xij, rij2 = separation(system, R[..., :, None, :] - R[..., None, :, :])
-    notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
-    m = pair_mask(system, notself, rij2)
-    r = torch.sqrt(torch.where(notself, rij2, 1.0))
+    m, r, xij = all_pairs(system, R)
     if with_force:
         vv, dv = system.potential.v_dv(r)
         v = torch.where(m, vv, 0.0)
@@ -141,16 +144,6 @@ def pair_pot_ref(system, R, with_force=False):
     if a is not None:
         pot = pot + jas.trap_pot(a, R).sum(-1)
     return pot, f2
-
-
-def _dense_side_terms(system, x, R, notself):
-    """(xij, rij2, r2s, m) of x[..., B, D] against R[..., B, N, D] with the
-    dense forms' masks (pairwise.py:84-99, 247-303): m = notself & r^2 <=
-    rc^2 (notself under the trap), with no r^2 > 0 guard."""
-    xij, rij2 = separation(system, x[..., None, :] - R)
-    ns = notself.expand(rij2.shape)
-    r2s = torch.where(ns, rij2, 1.0)
-    return xij, rij2, r2s, pair_mask(system, ns, rij2)
 
 
 def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
@@ -174,7 +167,7 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
     a = system.a_ho
 
     def side(x):
-        xij, _, r2s, m = _dense_side_terms(system, x, R, notself)
+        xij, _, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
         r = torch.sqrt(r2s)
         F = None
         if with_force:
@@ -211,7 +204,7 @@ def pair_u_ref(system, R, xnew, xold, ip):
     a = system.a_ho
 
     def side(x):
-        _, _, r2s, m = _dense_side_terms(system, x, R, notself)
+        _, _, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
         u = torch.where(m, system.u(torch.sqrt(r2s)), 0.0).sum(-1)
         return u + jas.trap_psi(a, x) if a is not None else u
 
@@ -222,12 +215,28 @@ def pair_u_ref(system, R, xnew, xold, ip):
 # Routing and kernel parameters
 # ---------------------------------------------------------------------------
 
-def kernel_route(system) -> bool:
-    """Whether the kernels run this System's pair passes: under PBC only,
-    the `system.pbc` term of the reference's pallas_rows_ok, pallas_ok,
-    pallas_ok_wf and use_cascade_kernel (pallas_kernels.py:256, 328, 336;
-    cascade_kernels.py:432).  The trap runs the plain forms on every
-    device: a route by configuration, not a fallback."""
+def rows_route(system) -> bool:
+    """Whether kernel A runs this System's window passes: under PBC without
+    exact F^2, the reference's `not cfg.exact_f2` guard (pairwise.py:415)
+    with the `system.pbc` term of pallas_rows_ok (pallas_kernels.py:256).
+    Under exact F^2 the plain form runs on every device."""
+    return system.pbc and not system.cfg.exact_f2
+
+
+def cascade_route(system) -> bool:
+    """Whether kernel 5 runs the dyadic cascades: under PBC without exact
+    F^2, as use_cascade_kernel has it (cascade_kernels.py:428-436)."""
+    return system.pbc and not system.cfg.exact_f2
+
+
+def pair_route(system) -> bool:
+    """Whether kernels B, 3 and 4 run: under PBC, the `system.pbc` term of
+    pallas_ok and pallas_ok_wf (pallas_kernels.py:321-338).  Exact F^2
+    keeps them: its brute path calls kernel B on window blocks.
+
+    Each predicate is a route by configuration, as the reference routes
+    the trap and exact F^2 away from a kernel: the plain form runs on every
+    device, and a kernel that fails still raises."""
     return system.pbc
 
 
@@ -378,7 +387,7 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
     tab [3, M]: the Chin table (pairwise.chin_table); ib: contiguous long
     [B] or [W, B]; row_weights: [B] or None.  Kernel A runs rows_lanes(W,
     B, N) lanes per row."""
-    if R.device.type == "cpu" or not kernel_route(system):
+    if R.device.type == "cpu" or not rows_route(system):
         return pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf,
                              need_f2, rev, row_weights, reduce)
     _check_rows("pair_rows", system, R, xnew, xold)
@@ -446,7 +455,7 @@ def pair_pot(system, R, with_force=False):
     pair_pot_ref); R is read in place through its strides.  Each unordered
     pair is evaluated once, and two launches on the same input give bitwise
     the same sums."""
-    if R.device.type == "cpu" or not kernel_route(system):
+    if R.device.type == "cpu" or not pair_route(system):
         return pair_pot_ref(system, R, with_force)
     _check("pair_pot", system, R)
     W, B, N, D = R.shape
@@ -529,7 +538,7 @@ def pair_delta(system, R, xnew, xold, ip, with_force=True, tab=None, ib=None,
     chain-end rows (see pair_delta_ref); R [W, B, N, D] is read in place
     through its strides.  tab: the contiguous Chin table [3, M]; ib:
     contiguous long [B] or [W, B]."""
-    if R.device.type == "cpu" or not kernel_route(system):
+    if R.device.type == "cpu" or not pair_route(system):
         return pair_delta_ref(system, R, xnew, xold, ip, with_force, tab, ib,
                               wf)
     out = _dense("pair_delta", system, R, xnew, xold, ip,
@@ -544,7 +553,7 @@ pair_delta.launches = 0
 def pair_u(system, R, xnew, xold, ip):
     """Per row du of UpdateWf (see pair_u_ref), by the dense kernel's u
     mode; R [W, B, N, D] is read in place through its strides."""
-    if R.device.type == "cpu" or not kernel_route(system):
+    if R.device.type == "cpu" or not pair_route(system):
         return pair_u_ref(system, R, xnew, xold, ip)
     out = _dense("pair_u", system, R, xnew, xold, ip, _U, False)
     pair_u.launches += 1
@@ -602,7 +611,7 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
     particle ip; rg [W, S, L+1, D] gaussians by window position; ru
     [W, S, G] gate uniforms; act [W, S] bool (any strides).  Accepted slots'
     displaced rows are written into paths.  Returns acc [W, S] bool."""
-    if paths.device.type == "cpu" or not kernel_route(system):
+    if paths.device.type == "cpu" or not cascade_route(system):
         from .cascade import cascade_ref
         return cascade_ref(system, mode, paths, slots, rg, ru, act, nlev)
     if mode not in ("ends", "interior"):

@@ -12,6 +12,14 @@ on identical draws.
 `paths[W, M, N, D]` and `xend[W, 2, D]` are updated IN PLACE (and also
 returned); the window the pair pass reads is a view of `paths`.  A scalar
 particle index is a Python int; a per-walker one (the worm) a long tensor.
+
+Exact F^2 (cfg.exact_f2 with f2_cache): every move takes the odd-bead
+force-field cache `fodd` [W, Nb, N, D] (row k the field at bead 2k+1, the
+only beads whose F^2 carries Chin weight), evaluates its F^2 term through
+the cache rows under its window's odd beads, and adds the increments of
+its accepted proposals to the cache IN PLACE (moves.py:452-505).  Windows
+start on even beads, so a window's odd beads are one contiguous range of
+cache rows.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.pbc import wrap
-from .pairwise import delta_action_sum
+from .pairwise import delta_action_sum, delta_pot_cached
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +83,41 @@ def _win_write(paths, lo: int, ip, seg):
 def _where(acc, a, b):
     """Per-walker select over [W, ...] blocks."""
     return torch.where(acc.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+# ---------------------------------------------------------------------------
+# The odd-bead force-field cache (exact Chin F^2, cfg.exact_f2 + f2_cache)
+# ---------------------------------------------------------------------------
+
+def _codd_window(codd, lo: int, B: int):
+    """Cache rows under the odd beads of window rows 0..B-1 at beads
+    lo..lo+B-1 (moves.py:464-474): (f [W, mo, N, D] a view, (r0, 2), k0),
+    the window's rows r0::2 being the cache rows k0..k0+mo-1 in order."""
+    r0 = (lo % 2 + 1) % 2
+    mo = (B - r0 + 1) // 2
+    k0 = (lo + r0) // 2
+    return codd[:, k0:k0 + mo], (r0, 2), k0
+
+
+def _codd_window_rev(codd, hi: int, B: int):
+    """The reversed window's cache rows (moves.py:477-486): rows 0..B-1 at
+    beads hi, hi-1, .., hi-B+1.  Returns (f, (r0, 2), k_lo), f row-aligned
+    with the reversed window's odd rows (beads descending, a copy); it
+    goes back reversed at cache row k_lo."""
+    r0 = (hi % 2 + 1) % 2
+    mo = (B - r0 + 1) // 2
+    k_lo = (hi - r0) // 2 - mo + 1
+    return codd[:, k_lo:k_lo + mo].flip(1), (r0, 2), k_lo
+
+
+def _cache_win_write(codd, f_seg, dfield, acc, k0: int, reverse=False):
+    """Write back the window's cache rows with the increments of the
+    accepted walkers added (moves.py:489-504), in place; dfield rows align
+    with f_seg's, reverse un-reverses a tail-oriented window."""
+    f_new = f_seg + _where(acc, dfield, 0.0)
+    if reverse:
+        f_new = f_new.flip(1)
+    codd[:, k0:k0 + f_new.shape[1]] = f_new
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +218,7 @@ def regrow_proposal(system, seg, Ls, first_mode: str, g0, gs,
 
 def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
                    first_w: float, g0, gs, first_pos=None, fixed_L=None,
-                   rev=False):
+                   rev=False, fold=None, fold_sub=(0, 1)):
     """Regrow segments in head orientation (moves.py:229-365).
 
     seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
@@ -188,8 +231,10 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
     first_w: weight of the first bead's dS (1/2 worm centre, 0 Swap's pin).
     gs [Lb-1, W, D]: the bridge gaussians, in the reference's draw layout.
     fixed_L: every walker's Ls equals it (one bridge matrix).
+    fold: the cache rows under the odd rows fold_sub of displaced rows
+    0..Lb-1 (head orientation): the F^2 term is the exact cached one.
 
-    Returns (seg_new, dS[W])."""
+    Returns (seg_new, dS[W]), with fold (seg_new, dS, dfield)."""
     Lb = seg.shape[1] - 1
     xnew0, xnews = regrow_proposal(system, seg, Ls, first_mode, g0, gs,
                                    first_pos, fixed_L)
@@ -203,15 +248,18 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
         rw = system.const(("row_w", Lb, first_w, seg.dtype),
                           lambda: np.r_[first_w, np.ones(Lb - 1)], seg.dtype)
     R_rows = R_seg[:, 1:] if rev else R_seg[:, :Lb]
-    dS = delta_action_sum(system, R_rows, xnew_all, seg[:, :Lb], ip,
-                          ib_seg[:Lb], need_wf=first_mode == "gauss",
-                          row_weights=rw, rev=rev)
+    out = delta_action_sum(system, R_rows, xnew_all, seg[:, :Lb], ip,
+                           ib_seg[:Lb], need_wf=first_mode == "gauss",
+                           row_weights=rw, rev=rev, fold=fold,
+                           fold_sub=fold_sub)
     seg_new = torch.cat([xnew0[:, None], xnews, seg[:, Lb:]], 1)
-    return seg_new, dS
+    if fold is not None:
+        return (seg_new,) + out
+    return seg_new, out
 
 
 def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
-                       u_acc):
+                       u_acc, fodd=None):
     """MoveHead + MoveTail of particle ip as ONE composite update
     (moves.py:686-740; valid when 2 Lmax < M-1, caller-guaranteed).
 
@@ -220,7 +268,8 @@ def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
     construction regrows both ends: Ls [2W], g0 [2W, D], gs [Lmax-1, 2W,
     D], u_acc [2W] (head walkers first), as the reference draws them.  The
     pair pass reads each window in place (the tail backwards), one kernel
-    launch per window, instead of a stacked window copy.
+    launch per window, instead of a stacked window copy.  fodd: the
+    odd-bead cache, each window through its own cache rows.
     Returns (paths, acc_head[W], acc_tail[W])."""
     M = system.M
     W = paths.shape[0]
@@ -229,16 +278,24 @@ def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
     seg = torch.cat([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 0)
     xnew0, xnews = regrow_proposal(system, seg, Ls, "gauss", g0, gs)
     xnew = torch.cat([xnew0[:, None], xnews], 1)          # rows 0..Lmax-1
-    dS = torch.cat([
-        delta_action_sum(system, R_head[:, :Lmax], xnew[:W], seg[:W, :Lmax],
-                         ip, system.arange(Lmax)),
-        delta_action_sum(system, R_tail[:, 1:], xnew[W:], seg[W:, :Lmax],
-                         ip, system.arange(M - 1, M - 1 - Lmax, -1),
-                         rev=True)])
+    kw_h = kw_t = {}
+    if fodd is not None:
+        f_h, sub, k_h = _codd_window(fodd, 0, Lmax)
+        f_t, _, k_t = _codd_window_rev(fodd, M - 1, Lmax)
+        kw_h, kw_t = dict(fold=f_h, fold_sub=sub), dict(fold=f_t, fold_sub=sub)
+    out_h = delta_action_sum(system, R_head[:, :Lmax], xnew[:W],
+                             seg[:W, :Lmax], ip, system.arange(Lmax), **kw_h)
+    out_t = delta_action_sum(system, R_tail[:, 1:], xnew[W:], seg[W:, :Lmax],
+                             ip, system.arange(M - 1, M - 1 - Lmax, -1),
+                             rev=True, **kw_t)
+    dS = torch.cat([out_h, out_t] if fodd is None else [out_h[0], out_t[0]])
     acc = metropolis_u(u_acc, dS) & torch.cat([active, active])
     fin = _where(acc, torch.cat([xnew, seg[:, Lmax:]], 1), seg)
     R_head[:, :, ip] = fin[:W]
     R_tail[:, :, ip] = fin[W:].flip(1)
+    if fodd is not None:
+        _cache_win_write(fodd, f_h, out_h[1], acc[:W], k_h)
+        _cache_win_write(fodd, f_t, out_t[1], acc[W:], k_t, reverse=True)
     return paths, acc[:W], acc[W:]
 
 
@@ -246,39 +303,58 @@ def fused_end_stagings(system, paths, ip: int, active, Lmax: int, Ls, g0, gs,
 # Rigid translations (TranslateChain, vpi_mod.f90:313-476)
 # ---------------------------------------------------------------------------
 
-def translate_chain(system, paths, ip: int, active, delta, u_dx, u_acc):
+def translate_chain(system, paths, ip: int, active, delta, u_dx, u_acc,
+                    fodd=None):
     """Rigid CM displacement of particle ip's whole worldline.
 
     u_dx [W, 1, D], u_acc [W]: the uniforms of the displacement and the
-    accept.  Returns (paths, acc)."""
+    accept.  fodd: the odd-bead cache, whose rows are the chain's odd
+    beads 1, 3, .., M-2.  Returns (paths, acc)."""
     chain = get_chain(paths, ip)
     dx = delta * (2.0 * u_dx - 1.0)
     xnew = _wrap_pos(system, chain + dx)
-    dS = delta_action_sum(system, paths, xnew, chain, ip,
-                          system.arange(system.M))
+    ib = system.arange(system.M)
+    if fodd is None:
+        dS = delta_action_sum(system, paths, xnew, chain, ip, ib)
+    else:
+        dS, dfield = delta_action_sum(system, paths, xnew, chain, ip, ib,
+                                      fold=fodd, fold_sub=(1, 2))
     acc = metropolis_u(u_acc, dS) & active
+    if fodd is not None:
+        fodd += _where(acc, dfield, 0.0)
     set_chain(paths, ip, _where(acc, xnew, chain))
     return paths, acc
 
 
 def translate_half_chain(system, paths, xend, ip, half: int, active, delta,
-                         u_dx, u_acc):
+                         u_dx, u_acc, fodd=None):
     """Rigid displacement of one worm half (vpi_mod.f90:383-476).
 
     Bead Nb is first pinned to xend[half] (persisting on reject), for
-    active walkers only.  half 1 -> beads 0..Nb, 2 -> Nb..2Nb.
+    active walkers only.  half 1 -> beads 0..Nb, 2 -> Nb..2Nb.  fodd: the
+    odd-bead cache, which sees the pin first (_pin_center).
     Returns (paths, xend, acc)."""
     Nb = system.cfg.Nb
     lo, hi = (0, Nb + 1) if half == 1 else (Nb, 2 * Nb + 1)
     Rw = paths[:, lo:hi]
+    if fodd is not None:
+        _pin_center(system, paths, xend, ip, half, active, fodd)
     xold = get_chain(Rw, ip).clone()
     xold[:, Nb - lo] = _where(active, xend[:, half - 1], xold[:, Nb - lo])
     xnew = _wrap_pos(system, xold + delta * (2.0 * u_dx - 1.0))
-    dS = delta_action_sum(system, Rw, xnew, xold, ip, system.arange(lo, hi))
+    ib = system.arange(lo, hi)
+    if fodd is None:
+        dS = delta_action_sum(system, Rw, xnew, xold, ip, ib)
+    else:
+        f_seg, sub, k0 = _codd_window(fodd, lo, hi - lo)
+        dS, dfield = delta_action_sum(system, Rw, xnew, xold, ip, ib,
+                                      fold=f_seg, fold_sub=sub)
     acc = metropolis_u(u_acc, dS) & active
     seg_fin = _where(acc, xnew, xold)
     xend[:, half - 1] = _where(active, seg_fin[:, Nb - lo], xend[:, half - 1])
     _win_write(paths, lo, ip, seg_fin)
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, dfield, acc, k0)
     return paths, xend, acc
 
 
@@ -287,39 +363,52 @@ def translate_half_chain(system, paths, xend, ip, half: int, active, delta,
 # and their worm half-chain forms (vpi_mod.f90:1376-1817)
 # ---------------------------------------------------------------------------
 
-def _stage(system, paths, ip, active, ii: int, L: int, gs, u_acc):
+def _stage(system, paths, ip, active, ii: int, L: int, gs, u_acc,
+           fodd=None):
     """Interior staging of beads ii+1..ii+L-1 of particle ip, anchored at
     ii and ii+L: gs [L-1, W, D], u_acc [W].  In place; returns acc."""
     W = paths.shape[0]
     R_seg = paths[:, ii:ii + L + 1]
     seg = get_chain(R_seg, ip)
     Ls = torch.full((W,), L, dtype=torch.long, device=paths.device)
-    seg_new, dS = segment_regrow(system, seg, R_seg,
-                                 system.arange(ii, ii + L + 1), ip, Ls,
-                                 "fixed", 1.0, None, gs, fixed_L=L)
+    kw = {}
+    if fodd is not None:
+        f_seg, sub, k0 = _codd_window(fodd, ii, L)
+        kw = dict(fold=f_seg, fold_sub=sub)
+    seg_new, dS, *df = segment_regrow(system, seg, R_seg,
+                                      system.arange(ii, ii + L + 1), ip, Ls,
+                                      "fixed", 1.0, None, gs, fixed_L=L, **kw)
     acc = metropolis_u(u_acc, dS) & active
     _win_write(paths, ii, ip, _where(acc, seg_new, seg))
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df[0], acc, k0)
     return acc
 
 
 def _regrow_head(system, paths, ip, active, lo: int, Lmax: int, first_w,
-                 Ls, g0, gs, u_acc):
+                 Ls, g0, gs, u_acc, fodd=None):
     """Regrow beads lo..lo+Ls-1 of particle ip from a gaussian guess of
     bead lo (its dS weighted first_w) toward the anchor lo+Ls.  In place;
     returns (the window [W, Lmax+1, D] as written, acc)."""
     R_seg = paths[:, lo:lo + Lmax + 1]
     seg = get_chain(R_seg, ip)
-    seg_new, dS = segment_regrow(system, seg, R_seg,
-                                 system.arange(lo, lo + Lmax + 1), ip, Ls,
-                                 "gauss", first_w, g0, gs)
+    kw = {}
+    if fodd is not None:
+        f_seg, sub, k0 = _codd_window(fodd, lo, Lmax)
+        kw = dict(fold=f_seg, fold_sub=sub)
+    seg_new, dS, *df = segment_regrow(system, seg, R_seg,
+                                      system.arange(lo, lo + Lmax + 1), ip,
+                                      Ls, "gauss", first_w, g0, gs, **kw)
     acc = metropolis_u(u_acc, dS) & active
     seg_fin = _where(acc, seg_new, seg)
     _win_write(paths, lo, ip, seg_fin)
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df[0], acc, k0)
     return seg_fin, acc
 
 
 def _regrow_tail(system, paths, ip, active, hi: int, Lmax: int, first_w,
-                 Ls, g0, gs, u_acc):
+                 Ls, g0, gs, u_acc, fodd=None):
     """The mirror of _regrow_head: beads hi, hi-1, .., hi-Ls+1 from a guess
     of bead hi.  The partner window is read backwards in place (rev); only
     the small chain segment is flipped.  Returns (the window in head
@@ -327,83 +416,105 @@ def _regrow_tail(system, paths, ip, active, hi: int, Lmax: int, first_w,
     lo = hi - Lmax
     R_fwd = paths[:, lo:hi + 1]
     seg = get_chain(R_fwd, ip).flip(1)
-    seg_new, dS = segment_regrow(system, seg, R_fwd,
-                                 system.arange(hi, lo - 1, -1), ip, Ls,
-                                 "gauss", first_w, g0, gs, rev=True)
+    kw = {}
+    if fodd is not None:
+        f_seg, sub, k_lo = _codd_window_rev(fodd, hi, Lmax)
+        kw = dict(fold=f_seg, fold_sub=sub)
+    seg_new, dS, *df = segment_regrow(system, seg, R_fwd,
+                                      system.arange(hi, lo - 1, -1), ip, Ls,
+                                      "gauss", first_w, g0, gs, rev=True,
+                                      **kw)
     acc = metropolis_u(u_acc, dS) & active
     seg_fin = _where(acc, seg_new, seg)
     _win_write(paths, lo, ip, seg_fin.flip(1))
+    if fodd is not None:
+        _cache_win_write(fodd, f_seg, df[0], acc, k_lo, reverse=True)
     return seg_fin, acc
 
 
 def staging_move(system, paths, ip: int, active, L: int, start: int, gs,
-                 u_acc):
+                 u_acc, fodd=None):
     """Interior staging over the even-aligned window start..start+L
     (moves.py:507-542): start a host int shared by every walker, gs
     [L-1, W, D], u_acc [W].  Returns (paths, acc)."""
-    return paths, _stage(system, paths, ip, active, start, L, gs, u_acc)
+    return paths, _stage(system, paths, ip, active, start, L, gs, u_acc,
+                         fodd)
 
 
-def move_head(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc):
+def move_head(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc,
+              fodd=None):
     """MoveHead (moves.py:631-654): regrow the first Ls [W] beads from a
     free-gaussian guess of bead 0.  Returns (paths, acc)."""
     return paths, _regrow_head(system, paths, ip, active, 0, Lmax, 1.0, Ls,
-                               g0, gs, u_acc)[1]
+                               g0, gs, u_acc, fodd)[1]
 
 
-def move_tail(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc):
+def move_tail(system, paths, ip: int, active, Lmax: int, Ls, g0, gs, u_acc,
+              fodd=None):
     """MoveTail (moves.py:657-683): the mirror of move_head at bead M-1.
     Returns (paths, acc)."""
     return paths, _regrow_tail(system, paths, ip, active, system.M - 1,
-                               Lmax, 1.0, Ls, g0, gs, u_acc)[1]
+                               Lmax, 1.0, Ls, g0, gs, u_acc, fodd)[1]
 
 
-def _pin_center(system, paths, xend, ip, half: int, active):
+def _pin_center(system, paths, xend, ip, half: int, active, fodd=None):
     """Pin bead Nb of particle ip to xend[half], ACTIVE walkers only (closed
-    walkers' xend is stale, vpi_mod.f90:1400-1406).  In place."""
+    walkers' xend is stale, vpi_mod.f90:1400-1406).  In place.
+
+    The pin is a configuration change that persists on reject, so with the
+    cache its one-row field increment is applied unconditionally; an even
+    bead Nb has no cache row (moves.py:545-574)."""
     Nb = system.cfg.Nb
     row = paths[:, Nb:Nb + 1]
     cur = get_chain(row, ip)
-    _win_write(paths, Nb, ip, _where(active, xend[:, None, half - 1], cur))
+    pin = _where(active, xend[:, None, half - 1], cur)
+    if fodd is not None and Nb % 2 == 1:
+        k = (Nb - 1) // 2
+        fodd[:, k:k + 1] += delta_pot_cached(system, row, pin, cur, ip,
+                                             fodd[:, k:k + 1])[2]
+    _win_write(paths, Nb, ip, pin)
     return paths
 
 
 def staging_half_chain(system, paths, xend, ip, half: int, active, L: int,
-                       start: int, gs, u_acc):
+                       start: int, gs, u_acc, fodd=None):
     """Staging confined to one worm half (vpi_mod.f90:1376-1491).
 
     start: the even window offset inside the half (a host int, shared by
     every walker); gs [L-1, W, D]; u_acc [W].  Returns (paths, xend, acc)."""
     ii = (0 if half == 1 else system.cfg.Nb) + start
-    _pin_center(system, paths, xend, ip, half, active)
-    return paths, xend, _stage(system, paths, ip, active, ii, L, gs, u_acc)
+    _pin_center(system, paths, xend, ip, half, active, fodd)
+    return paths, xend, _stage(system, paths, ip, active, ii, L, gs, u_acc,
+                               fodd)
 
 
 def move_head_half_chain(system, paths, xend, ip, half: int, active,
-                         Lmax: int, Ls, g0, gs, u_acc):
+                         Lmax: int, Ls, g0, gs, u_acc, fodd=None):
     """MoveHeadHalfChain (vpi_mod.f90:1495-1656): half 1 regrows from bead
     0, half 2 from the centre bead Nb (weight 1/2 on its dS).
     Returns (paths, xend, acc)."""
     Nb = system.cfg.Nb
-    _pin_center(system, paths, xend, ip, half, active)
+    _pin_center(system, paths, xend, ip, half, active, fodd)
     seg_fin, acc = _regrow_head(system, paths, ip, active,
                                 0 if half == 1 else Nb, Lmax,
-                                1.0 if half == 1 else 0.5, Ls, g0, gs, u_acc)
+                                1.0 if half == 1 else 0.5, Ls, g0, gs, u_acc,
+                                fodd)
     if half == 2:
         xend[:, 1] = _where(active, seg_fin[:, 0], xend[:, 1])
     return paths, xend, acc
 
 
 def move_tail_half_chain(system, paths, xend, ip, half: int, active,
-                         Lmax: int, Ls, g0, gs, u_acc):
+                         Lmax: int, Ls, g0, gs, u_acc, fodd=None):
     """MoveTailHalfChain (vpi_mod.f90:1660-1817): half 1 regrows the centre
     bead Nb (weight 1/2), half 2 the last bead 2Nb.
     Returns (paths, xend, acc)."""
     Nb = system.cfg.Nb
-    _pin_center(system, paths, xend, ip, half, active)
+    _pin_center(system, paths, xend, ip, half, active, fodd)
     seg_fin, acc = _regrow_tail(system, paths, ip, active,
                                 Nb if half == 1 else 2 * Nb, Lmax,
-                                0.5 if half == 1 else 1.0, Ls, g0, gs, u_acc)
+                                0.5 if half == 1 else 1.0, Ls, g0, gs, u_acc,
+                                fodd)
     if half == 1:
         xend[:, 0] = _where(active, seg_fin[:, 0], xend[:, 0])
     return paths, xend, acc

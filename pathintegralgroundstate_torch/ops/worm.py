@@ -5,7 +5,8 @@ The torch counterpart of pathintegralgroundstate_tpu/ops/worm.py.  Draws
 come in as a `WormDraws` / `SwapDraws` tuple shaped as the reference draws
 them; the swap partner is a Gumbel-max pick, argmax(logits + gumbel), which
 is how jax.random.categorical samples.  `paths` (and, in swap, `xend`) are
-updated in place.
+updated in place, and so is the odd-bead force-field cache `fodd` of exact
+F^2 (ops/moves.py) where a move takes it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils.pbc import separation
-from .moves import _where, get_chain, metropolis_u, segment_regrow, set_chain
+from .moves import (_cache_win_write, _codd_window, _codd_window_rev, _where,
+                    get_chain, metropolis_u, segment_regrow, set_chain)
 
 
 class WormDraws(NamedTuple):
@@ -79,13 +81,51 @@ def _writeback_half(chain, half1, acc, sA_old, sA_new, sB_old, sB_new, Nb,
     return chain
 
 
+def _half_fold(fodd, half1: bool, Nb: int, Lmax: int):
+    """Cache rows under a worm-centre half segment's displaced rows
+    0..Lb-1 in segment orientation (worm.py:82-89): (f, fold_sub, k_lo)."""
+    if half1:
+        return _codd_window_rev(fodd, Nb, Lmax - 2)
+    return _codd_window(fodd, Nb, Lmax - 2)
+
+
+def _apply_half_dfield(fodd, half1, acc, infoA, infoB):
+    """Add the chosen half's accepted increments (worm.py:92-109).  In
+    place, one half after the other: with Nb odd both halves hold the
+    centre's cache row, and the gates are disjoint.  info = (dfield, k_lo)
+    in each half's segment orientation."""
+    for (df, k), gate, rev in ((infoA, acc & half1, True),
+                               (infoB, acc & ~half1, False)):
+        inc = _where(gate, df, 0.0)
+        fodd[:, k:k + df.shape[1]] += inc.flip(1) if rev else inc
+
+
+def _regrow_halves(system, paths, chain, ip, Lmax, d, mode, pin_of, fodd):
+    """segment_regrow of both worm-centre halves (half 1 reversed): per
+    half (seg, seg_new, dS, (dfield, k_lo) or None)."""
+    out = []
+    for h1 in (True, False):
+        seg, R_seg, ib = _half_segments(system, paths, chain, h1, Lmax)
+        kw, k = {}, None
+        if fodd is not None:
+            f, sub, k = _half_fold(fodd, h1, system.cfg.Nb, Lmax)
+            kw = dict(fold=f, fold_sub=sub)
+        seg_new, dS, *df = segment_regrow(
+            system, seg, R_seg, ib, ip, d.Ls, mode, 0.5, d.g0, d.gs,
+            first_pos=pin_of(h1), rev=h1, **kw)
+        out.append((seg, seg_new, dS, (df[0], k) if df else None))
+    return out
+
+
 def _anchor(seg, Ls):
     W, _, D = seg.shape
     return seg.gather(1, Ls.view(W, 1, 1).expand(W, 1, D))[:, 0]
 
 
-def open_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
-    """OpenChain (vpi_mod.f90:1821-2076).  ip [W] long.
+def open_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws,
+               fodd=None):
+    """OpenChain (vpi_mod.f90:1821-2076).  ip [W] long; fodd: the odd-bead
+    cache.
 
     Returns (paths, xend_new, opened); xend_new is the open worm's ends for
     every walker (on reject both are the restored centre bead)."""
@@ -95,15 +135,12 @@ def open_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
     chain = get_chain(paths, ip)
     dS_base = -math.log(cfg.CWorm * geo.density)
 
-    out = []
-    for h1 in (True, False):
-        seg, R_seg, ib = _half_segments(system, paths, chain, h1, Lmax)
-        dK = _broken_link_k(system, _gap_rij2(system, seg[:, 0],
-                                              _anchor(seg, d.Ls)), d.Ls)
-        seg_new, dS = segment_regrow(system, seg, R_seg, ib, ip, d.Ls,
-                                     "gauss", 0.5, d.g0, d.gs, rev=h1)
-        out.append((seg, seg_new, dS, dK))
-    (sA_old, sA_new, dsA, dkA), (sB_old, sB_new, dsB, dkB) = out
+    halves = _regrow_halves(system, paths, chain, ip, Lmax, d, "gauss",
+                            lambda h1: None, fodd)
+    (sA_old, sA_new, dsA, dfA), (sB_old, sB_new, dsB, dfB) = halves
+    dkA, dkB = (_broken_link_k(system, _gap_rij2(
+        system, seg[:, 0], _anchor(seg, d.Ls)), d.Ls) for seg in (sA_old,
+                                                                 sB_old))
     dS = dS_base + torch.where(half1, dsA, dsB)
     dK = torch.where(half1, dkA, dkB)
     acc = metropolis_u(d.u_acc, dS + dK) & active
@@ -115,11 +152,15 @@ def open_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
     xend1 = _where(acc, _where(half1, new_center, old_center), new_center)
     xend2 = _where(acc, _where(half1, old_center, new_center), new_center)
     set_chain(paths, ip, chain)
+    if fodd is not None:
+        _apply_half_dfield(fodd, half1, acc, dfA, dfB)
     return paths, torch.stack([xend1, xend2], 1), acc
 
 
-def close_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
-    """CloseChain (vpi_mod.f90:2080-2266).  ip [W] long.
+def close_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws,
+                fodd=None):
+    """CloseChain (vpi_mod.f90:2080-2266).  ip [W] long; fodd: the
+    odd-bead cache.
 
     Returns (paths, xend_new, closed)."""
     cfg, geo = system.cfg, system.geo
@@ -128,17 +169,14 @@ def close_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
     chain = get_chain(paths, ip)
     dS_base = math.log(cfg.CWorm * geo.density)
 
-    out = []
-    for h1 in (True, False):
-        seg, R_seg, ib = _half_segments(system, paths, chain, h1, Lmax)
-        pin = xend[:, 1] if h1 else xend[:, 0]
-        seg_new, dS = segment_regrow(system, seg, R_seg, ib, ip, d.Ls, "pin",
-                                     0.5, None, d.gs, first_pos=pin, rev=h1)
-        # closed-gap kinetic term from the NEW positions (vpi_mod.f90:2205)
-        dK = _broken_link_k(system, _gap_rij2(system, seg_new[:, 0],
-                                              _anchor(seg_new, d.Ls)), d.Ls)
-        out.append((seg, seg_new, dS, dK))
-    (sA_old, sA_new, dsA, dkA), (sB_old, sB_new, dsB, dkB) = out
+    halves = _regrow_halves(system, paths, chain, ip, Lmax, d, "pin",
+                            lambda h1: xend[:, 1] if h1 else xend[:, 0],
+                            fodd)
+    (sA_old, sA_new, dsA, dfA), (sB_old, sB_new, dsB, dfB) = halves
+    # closed-gap kinetic term from the NEW positions (vpi_mod.f90:2205)
+    dkA, dkB = (_broken_link_k(system, _gap_rij2(
+        system, seg[:, 0], _anchor(seg, d.Ls)), d.Ls) for seg in (sA_new,
+                                                                 sB_new))
     dS = dS_base + torch.where(half1, dsA, dsB)
     dK = torch.where(half1, dkA, dkB)
     acc = metropolis_u(d.u_acc, dS - dK) & active
@@ -148,12 +186,20 @@ def close_chain(system, paths, xend, ip, active, Lmax: int, d: WormDraws):
     center = chain[:, Nb]
     xend_new = _where(acc, torch.stack([center, center], 1), xend)
     set_chain(paths, ip, chain)
+    if fodd is not None:
+        _apply_half_dfield(fodd, half1, acc, dfA, dfB)
     return paths, xend_new, acc
 
 
-def swap_move(system, paths, xend, iw, active, Lmax: int, d: SwapDraws):
+def swap_move(system, paths, xend, iw, active, Lmax: int, d: SwapDraws,
+              fodd=None):
     """Swap (vpi_mod.f90:2270-2487): exchange the worm's tail half with a
     partner picked by tower sampling over kinetic weights.  iw [W] long.
+
+    fodd: the odd-bead cache.  On accept the partner's regrown beads get
+    their increments, and beads Nb..2Nb only swap labels between iw and
+    ik (the same set of positions), so there the two particles' force
+    columns swap (worm.py:232-236, 304-326).
 
     Returns (paths, xend, accepted, partner[W])."""
     cfg = system.cfg
@@ -181,10 +227,14 @@ def swap_move(system, paths, xend, iw, active, Lmax: int, d: SwapDraws):
     # itself carries no dS (vpi_mod.f90:2388-2436)
     Lb = Lmax - 2
     seg = chain_ik[:, Nb - Lb:Nb + 1].flip(1)
-    seg_new, dSr = segment_regrow(
+    kw = {}
+    if fodd is not None:
+        f_seg, sub, k_lo = _codd_window_rev(fodd, Nb, Lb)
+        kw = dict(fold=f_seg, fold_sub=sub)
+    seg_new, dSr, *df = segment_regrow(
         system, seg, paths[:, Nb - Lb:Nb + 1],
         system.arange(Nb, Nb - Lb - 1, -1), ik, d.Ls, "pin", 0.0, None,
-        d.gs, first_pos=xend[:, 1], rev=True)
+        d.gs, first_pos=xend[:, 1], rev=True, **kw)
     acc = ok & metropolis_u(d.u_acc, dSr)
 
     regrown = chain_ik.clone()
@@ -200,6 +250,18 @@ def swap_move(system, paths, xend, iw, active, Lmax: int, d: SwapDraws):
     # the partner write is the worm's own when ik == iw
     set_chain(paths, ik, _where(ik == iw, out_iw, out_ik))
     xend[:, 1] = _where(acc, chain_ik[:, Nb], xend[:, 1])
+    if fodd is not None:
+        # the regrow increments (the pin row's is 0, so a shared centre
+        # row is safe), then the label swap at the odd beads of [Nb, 2Nb]
+        _cache_win_write(fodd, f_seg, df[0], acc, k_lo, reverse=True)
+        f_tail = fodd[:, (Nb + (Nb + 1) % 2) // 2:]
+        f_iw, f_ik = f_tail[rows, :, iw], f_tail[rows, :, ik]
+        parts = system.arange(paths.shape[2])
+        oh_iw = (parts == iw[:, None])[:, None, :, None]
+        oh_ik = (parts == ik[:, None])[:, None, :, None]
+        swapped = torch.where(oh_iw, f_ik[:, :, None], torch.where(
+            oh_ik, f_iw[:, :, None], f_tail))
+        f_tail.copy_(_where(acc & (ik != iw), swapped, f_tail))
     return paths, xend, acc, ik
 
 

@@ -1,19 +1,26 @@
 """One Monte Carlo step over the whole walker ensemble (vpi.f90:297-475).
 
 The torch counterpart of pathintegralgroundstate_tpu/sweep.py
-`Sweeper.step` (reference-parity partial dF^2):
+`Sweeper.step`, with the reference's partial dF^2 or, with cfg.exact_f2,
+the exact Chin F^2 (ops/pairwise.py), through the odd-bead force-field
+cache (cfg.f2_cache: one field pass at the step's start, then every move
+updates it) or by brute force:
 
   1. open/close attempts toggling the per-walker `isopen` mask,
-  2. Np rigid CM translations (as cascades when cfg.cascade),
+  2. Np rigid CM translations (as cascades when cfg.cascade, unless the
+     cache is on), then with cfg.smart_mc one MALA whole-path move of the
+     diagonal walkers,
   3. the diagonal sweep, in one of two orders:
      unfused: Nstag*Np particle visits, each a head, a tail and an interior
          move: bisections (monoshot or per level, the ends at a random
          depth with cfg.bis_end_random_depth, head and tail paired with
-         cfg.paired_ends) or, with sampling='sta', staging moves;
+         cfg.paired_ends, except with the cache) or, with sampling='sta',
+         staging moves;
      fused (cfg.fused_sweep, when the windows fit): Nstag*Np head+tail
          composites (bisection, staging with end_regrow='sta', or the ends
          cascade), then Nstag*ceil(Np/K) interior composites of K particles
-         each (bisection, or the interior cascade),
+         each (bisection, or the interior cascade; with the cache on the
+         cascades give way to the bisection composites),
   4. Nobdm worm rounds: half translations, half head/tail/staging, swap,
      permutation bookkeeping and the OBDM histogram,
   5. the estimators of the diagonal walkers (g(r) and S(k) under PBC
@@ -40,6 +47,8 @@ from .ops import cascade as cas
 from .ops import estimators as est
 from .ops import moves as mv
 from .ops import worm as wm
+from .ops.pairwise import force_field
+from .ops.smartmc import mala_move
 from .state import MCState
 from .utils.draws import DeviceDraws
 
@@ -154,6 +163,13 @@ class Sweeper:
 
     def __init__(self, system):
         cfg = system.cfg
+        if cfg.smart_mc > 0.0 and not cfg.exact_f2:
+            # sweep.py:166-175: MALA's target is the exact Chin action, the
+            # partial-dF^2 moves sample a different measure
+            raise ValueError(
+                "smart_mc > 0 requires exact_f2=True: MALA's target is the "
+                "exact Chin action; the reference-parity partial-dF2 moves "
+                "(exact_f2=False) sample a different measure")
         self.system = system
         self.Lstag, self.Nlev = cfg.Lstag, cfg.Nlev
         self.delta = system.geo.delta_cm
@@ -176,6 +192,8 @@ class Sweeper:
                            and not cfg.bis_end_random_depth)
         self.paired_ends = (cfg.paired_ends and cfg.bis_monoshot
                             and 2 ** (max(cfg.Nlev, 2) + 1) < system.M - 1)
+        # the exact-F^2 force-field cache (sweep.py:310-320)
+        self.use_fcache = cfg.exact_f2 and cfg.f2_cache
 
     def draws(self, state: MCState) -> DeviceDraws:
         """The port's own draw source for `state`."""
@@ -200,6 +218,10 @@ class Sweeper:
         in_cycle, iperm = state.in_cycle, state.iperm
         perm_hist = stats.perm_hist.clone()
         parts = system.arange(Np)
+        # the field at the odd beads, the only rows whose F^2 carries Chin
+        # weight, fresh once per step and then kept by every move
+        fodd = force_field(system, paths[:, 1::2]) if self.use_fcache \
+            else None
 
         def count(name, x):
             ctr[_CIDX[name]] += x.sum()
@@ -210,7 +232,7 @@ class Sweeper:
             do_close = isopen & (iupdate == 0)
             paths, xend, closed = wm.close_chain(
                 system, paths, xend, iworm, do_close, Lstag,
-                src.worm(1, W, Lstag))
+                src.worm(1, W, Lstag), fodd)
             perm_hist.index_add_(0, (iperm - 1).clamp(0, Np - 1),
                                  closed.to(dtype))
             isopen = isopen & ~closed
@@ -218,7 +240,7 @@ class Sweeper:
             cand = src.cand(W, Np)
             paths, xend_o, opened = wm.open_chain(
                 system, paths, xend, cand, do_open, Lstag,
-                src.worm(3, W, Lstag))
+                src.worm(3, W, Lstag), fodd)
             xend = mv._where(do_open, xend_o, xend)
             iworm = torch.where(opened, cand, iworm)
             isopen = isopen | opened
@@ -236,23 +258,35 @@ class Sweeper:
 
         # ---- 2. CM translations (vpi.f90:329-342 / 412-419) ----
         if cfg.CMFreq > 0 and step_no % max(cfg.CMFreq, 1) == 0:
-            translate = cas.rigid_cascade if cfg.cascade \
-                else mv.translate_chain
             acc_cm = torch.zeros(W, dtype=torch.int32, device=system.device)
             for ip in range(Np):
                 u_dx, u_acc = src.translate(10, ip, W)
-                paths, acc = translate(system, paths, ip, active_all[:, ip],
-                                       self.delta, u_dx, u_acc)
+                if cfg.cascade and fodd is None:
+                    paths, acc = cas.rigid_cascade(
+                        system, paths, ip, active_all[:, ip], self.delta,
+                        u_dx, u_acc)
+                else:
+                    paths, acc = mv.translate_chain(
+                        system, paths, ip, active_all[:, ip], self.delta,
+                        u_dx, u_acc, fodd)
                 acc_cm += acc
             count("try_cm", active_all)
             count("acc_cm", acc_cm)
 
+        # ---- 2b. MALA whole-path move of the diagonal walkers ----
+        if cfg.smart_mc > 0.0:
+            diag = ~isopen
+            paths, acc_m = mala_move(system, paths, diag, cfg.smart_mc,
+                                     *src.mala(paths.shape), fodd)
+            count("try_mala", diag)
+            count("acc_mala", acc_m)
+
         # ---- 3. staging/bisection sweeps (vpi.f90:344-366 / 421-439) ----
         use_rand = self.batch_rand and W <= BATCH_RAND_MAX_W
         if cfg.Nstag > 0 and self.fused_diag:
-            self._fused_sweep(src, paths, active_all, ctr, use_rand)
+            self._fused_sweep(src, paths, active_all, ctr, use_rand, fodd)
         elif cfg.Nstag > 0:
-            self._unfused_sweep(src, paths, active_all, ctr, use_rand)
+            self._unfused_sweep(src, paths, active_all, ctr, use_rand, fodd)
 
         # ---- 4. worm updates + OBDM (vpi.f90:370-404) ----
         nrho = stats.nrho.clone()
@@ -266,25 +300,26 @@ class Sweeper:
                     u_dx, u_acc = src.translate(30 + h, iobdm, W)
                     paths, xend, acc = mv.translate_half_chain(
                         system, paths, xend, iworm, h, act, self.delta, u_dx,
-                        u_acc)
+                        u_acc, fodd)
                     acc6[0] += acc
                 for h in (1, 2):
                     paths, xend, acc_h = mv.move_head_half_chain(
                         system, paths, xend, iworm, h, act, Lstag,
-                        *src.regrow_half(40 + h, iobdm, W, Lstag))
+                        *src.regrow_half(40 + h, iobdm, W, Lstag), fodd)
                     paths, xend, acc_t = mv.move_tail_half_chain(
                         system, paths, xend, iworm, h, act, Lstag,
-                        *src.regrow_half(42 + h, iobdm, W, Lstag))
+                        *src.regrow_half(42 + h, iobdm, W, Lstag), fodd)
                     paths, xend, acc_s = mv.staging_half_chain(
                         system, paths, xend, iworm, h, act, Lstag,
-                        *src.staging_half(44 + h, iobdm, W, n_opts, Lstag))
+                        *src.staging_half(44 + h, iobdm, W, n_opts, Lstag),
+                        fodd)
                     acc6[1] += acc_h
                     acc6[2] += acc_t
                     acc6[3] += acc_s
                 if cfg.swapping:
                     paths, xend, acc_sw, partner = wm.swap_move(
                         system, paths, xend, iworm, act, Lstag,
-                        src.swap(iobdm, W, Np, Lstag))
+                        src.swap(iobdm, W, Np, Lstag), fodd)
                     acc6[4] += acc_sw
                     # permutation-cycle bookkeeping (sample_mod.f90:556-581)
                     rows = system.arange(W)
@@ -318,14 +353,18 @@ class Sweeper:
             return state, base
         return state, self._measure(paths, isopen, base)
 
-    def _unfused_sweep(self, src, paths, active_all, ctr, use_rand):
-        """The reference-order sweep (sweep.py:412-519), in place on paths
-        and the counters ctr: per particle visit a head, a tail and an
-        interior move."""
+    def _unfused_sweep(self, src, paths, active_all, ctr, use_rand,
+                       fodd=None):
+        """The reference-order sweep (sweep.py:412-519), in place on paths,
+        the cache fodd and the counters ctr: per particle visit a head, a
+        tail and an interior move; with the cache one after the other even
+        with paired ends, so that the cache sees each write-back
+        (sweep.py:448-458)."""
         system = self.system
         cfg = system.cfg
         W, Np, nlev, Lstag = paths.shape[0], cfg.Np, self.Nlev, self.Lstag
         per_level = not cfg.bis_monoshot
+        paired = self.paired_ends and fodd is None
         n_bis = (system.M - 1 - 2 ** nlev) // 2 + 1
         n_sta = (system.M - 1 - Lstag) // 2 + 1
         acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
@@ -334,12 +373,14 @@ class Sweeper:
             active = active_all[:, ip]
             if cfg.sampling != "bis":
                 paths, acc_h = mv.move_head(system, paths, ip, active, Lstag,
-                                            *src.regrow_half(20, it, W, Lstag))
+                                            *src.regrow_half(20, it, W, Lstag),
+                                            fodd)
                 paths, acc_t = mv.move_tail(system, paths, ip, active, Lstag,
-                                            *src.regrow_half(21, it, W, Lstag))
+                                            *src.regrow_half(21, it, W, Lstag),
+                                            fodd)
                 paths, acc_b = mv.staging_move(
                     system, paths, ip, active, Lstag,
-                    *src.staging_half(22, it, W, n_sta, Lstag))
+                    *src.staging_half(22, it, W, n_sta, Lstag), fodd)
             else:
                 if use_rand:
                     d_h = d_t = max(nlev, 2)
@@ -348,20 +389,22 @@ class Sweeper:
                     r_b = src.bisect(27, it, W, nlev, n_bis)
                 else:
                     # paired ends keep the fixed depth (bisection.py:406)
-                    rd = cfg.bis_end_random_depth and not self.paired_ends
+                    rd = cfg.bis_end_random_depth and not paired
                     d_h, r_h = src.end_bisect(20, it, W, nlev, per_level, rd)
                     d_t, r_t = src.end_bisect(21, it, W, nlev, per_level, rd)
                     r_b = src.bisect_keyed(22, it, W, nlev, n_bis, per_level)
-                if self.paired_ends:
+                if paired:
                     paths, acc_h, acc_t = bis.paired_end_bisections(
                         system, paths, ip, active, nlev, r_h, r_t)
                 else:
                     paths, acc_h = bis.move_head_bisection(
-                        system, paths, ip, active, d_h, r_h, not use_rand)
+                        system, paths, ip, active, d_h, r_h, not use_rand,
+                        fodd)
                     paths, acc_t = bis.move_tail_bisection(
-                        system, paths, ip, active, d_t, r_t, not use_rand)
+                        system, paths, ip, active, d_t, r_t, not use_rand,
+                        fodd)
                 paths, acc_b = bis.bisection(system, paths, ip, active, nlev,
-                                             r_b)
+                                             r_b, fodd)
             acc3[0] += acc_h
             acc3[1] += acc_t
             acc3[2] += acc_b
@@ -369,9 +412,10 @@ class Sweeper:
         for i, name in enumerate(("acc_head", "acc_tail", "acc_bd")):
             ctr[_CIDX[name]] += acc3[i].sum()
 
-    def _fused_sweep(self, src, paths, active_all, ctr, use_rand):
-        """The fused composite sweep (sweep.py:521-618), in place on paths
-        and the counters ctr."""
+    def _fused_sweep(self, src, paths, active_all, ctr, use_rand, fodd=None):
+        """The fused composite sweep (sweep.py:521-618), in place on paths,
+        the cache fodd and the counters ctr; with the cache the cascades
+        give way to the bisection composites (sweep.py:535, 601)."""
         system = self.system
         cfg = system.cfg
         W, Np, nlev = paths.shape[0], cfg.Np, self.Nlev
@@ -383,8 +427,9 @@ class Sweeper:
             active = active_all[:, ip]
             if cfg.end_regrow == "sta":
                 _, acc_h, acc_t = mv.fused_end_stagings(
-                    system, paths, ip, active, L, *src.end_stagings(it, W, L))
-            elif cfg.cascade:
+                    system, paths, ip, active, L, *src.end_stagings(it, W, L),
+                    fodd)
+            elif cfg.cascade and fodd is None:
                 _, acc_h, acc_t = cas.fused_ends_cascade(
                     system, paths, ip, active, nlev,
                     *src.cascade_ends(it, W, nlev))
@@ -392,7 +437,7 @@ class Sweeper:
                 rand = (src.fused_ends(it, W, nlev) if use_rand else
                         src.fused_ends_keyed(it, W, nlev, per_level))
                 _, acc_h, acc_t = bis.fused_end_bisections(
-                    system, paths, ip, active, nlev, rand)
+                    system, paths, ip, active, nlev, rand, fodd)
             acc2[0] += acc_h
             acc2[1] += acc_t
         ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
@@ -407,16 +452,19 @@ class Sweeper:
             off = src.group_offset(it, Np)
             ips = [(it * K + k + off) % Np for k in range(K)]
             act = torch.stack([active_all[:, p] for p in ips], 1)
-            if cfg.cascade:
+            if cfg.cascade and fodd is None:
                 _, acc = cas.interior_cascade(
                     system, paths, ips, act, nlev,
                     *src.cascade_interior(it, W, K, nlev, n_shift))
             else:
-                rand = (src.bisect_multi(it, W, K, nlev, n_shift) if use_rand
+                # batched randoms as sweep.py:589-599 takes them: not when
+                # the cascade is configured
+                rand = (src.bisect_multi(it, W, K, nlev, n_shift)
+                        if use_rand and not cfg.cascade
                         else src.bisect_multi_keyed(it, W, K, nlev, n_shift,
                                                     per_level))
                 _, acc = bis.bisection_multi(system, paths, ips, act, nlev,
-                                             rand)
+                                             rand, fodd)
             int2[0] += act
             int2[1] += acc
         ctr[_CIDX["try_int"]] += int2[0].sum()

@@ -27,8 +27,6 @@ _JASTROWS = ("mcmillan", "mcmillan_c1", "none")
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     waits = [
-        (cfg.exact_f2, "exact_f2=True", "slice 10 (exact-F^2 cache)"),
-        (cfg.smart_mc > 0.0, "smart_mc>0", "slice 13 (autodiff)"),
         (not cfg.shared_windows, "shared_windows=False",
          "slice 11 (per-walker windows)"),
         (cfg.v_table or cfg.wf_table, "v_table/wf_table",

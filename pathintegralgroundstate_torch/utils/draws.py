@@ -156,6 +156,11 @@ class DeviceDraws:
         start = 2 * self._host_int(n_opts)
         return start, self._g(L - 1, W, self.D), self._u(W)
 
+    def mala(self, shape):
+        """MALA (tag 60): (xi of paths' shape [W, M, N, D], u [W]), the
+        reference's split(key) -> k_xi, k_acc."""
+        return self._g(*shape), self._u(shape[0])
+
     def swap(self, it: int, W: int, Np: int, Lmax: int) -> SwapDraws:
         """swap_move (tag 50); the Gumbel noise is -log(-log U)."""
         tiny = torch.finfo(self.dtype).tiny

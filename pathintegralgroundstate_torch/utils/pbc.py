@@ -39,3 +39,24 @@ def pair_mask(system, notself, rij2):
     if system.pbc:
         return notself & (rij2 <= system.geo.rcut2)
     return notself.expand(rij2.shape)
+
+
+def pair_geometry(system, dx, notself):
+    """(xij, rij2, r2s, m) of displacements dx[..., D] whose self-pairs are
+    ~notself (broadcast against them): the separation, r2s = rij2 with 1 on
+    the self-pairs (so that r and its derivatives stay finite there), and
+    m the pairs that interact (pair_mask).  No r^2 > 0 guard."""
+    xij, rij2 = separation(system, dx)
+    ns = notself.expand(rij2.shape)
+    return xij, rij2, torch.where(ns, rij2, 1.0), pair_mask(system, ns, rij2)
+
+
+def all_pairs(system, R):
+    """(m, r, xij) of every ordered pair (i, j) of configurations R[..., N,
+    D]: the interacting pairs, r (1 on the diagonal) and the separations
+    x_i - x_j (pair_geometry)."""
+    N = R.shape[-2]
+    notself = ~torch.eye(N, dtype=torch.bool, device=R.device)
+    xij, _, r2s, m = pair_geometry(
+        system, R[..., :, None, :] - R[..., None, :, :], notself)
+    return m, torch.sqrt(r2s), xij

@@ -66,6 +66,7 @@ SITES = [
     ("regrow_half", (41, 0, W, LMAX)),
     ("staging_half", (45, 0, W, N_OPTS, LMAX)),
     ("swap", (0, W, NP, LMAX)),
+    ("mala", ((W, 5, NP, D),)),
 ]
 
 

@@ -93,8 +93,7 @@ WAITS = {"potential=none": r"slice 12 \(item 10",
 
 
 @pytest.mark.parametrize("overrides", [
-    {"fused_sweep": True, "exact_f2": True}, {"exact_f2": True},
-    {"smart_mc": 0.1}, {"shared_windows": False},
+    {"shared_windows": False},
     {"bis_monoshot": False, "shared_windows": False},
     {"trap": True, "v_table": True}, {"v_table": True}, {"wf_table": True},
     {"mesh_walkers": 2}, {"mesh_pairs": 2}, {"mesh_beads": 2},
@@ -118,6 +117,8 @@ def test_unported_options_raise(overrides):
     {"trap": True, "dim": 2, "potential": "none", "jastrow": "none"},
     {"trap": True, "dim": 1, "potential": "none"},
     {"trap": True, "dim": 2, "jastrow": "none"},
+    {"fused_sweep": True, "exact_f2": True}, {"exact_f2": True},
+    {"smart_mc": 0.1, "exact_f2": True},
 ], ids=_ids)
 def test_ported_options_build(overrides):
     Sweeper(make_system(other_cfg(small_cfg(**overrides)), "cpu"))
@@ -130,11 +131,24 @@ def test_per_walker_windows_name_their_item():
 
 
 def test_simconfig_default_raises():
-    """SimConfig's own default, the fused sweep, is ported and builds; the
-    same default with the exact-F^2 cache still raises."""
+    """SimConfig's own default, the fused sweep, is ported and builds, and
+    so does the same default with exact F^2, with the cache (its default)
+    and without it."""
     assert Sweeper(make_system(SimConfig(dtype="float64"), "cpu")).fused_diag
-    with pytest.raises(NotImplementedError, match="exact_f2.*slice 10"):
-        make_system(SimConfig(dtype="float64", exact_f2=True), "cpu")
+    for cache in (True, False):
+        sweeper = Sweeper(make_system(SimConfig(
+            dtype="float64", exact_f2=True, f2_cache=cache), "cpu"))
+        assert sweeper.fused_diag and sweeper.use_fcache == cache
+
+
+@pytest.mark.parametrize("overrides", [
+    {"smart_mc": 0.1}, {"smart_mc": 0.1, "fused_sweep": True},
+], ids=_ids)
+def test_smart_mc_without_exact_f2_raises(overrides):
+    """smart_mc > 0 with exact_f2 = F: ValueError from the Sweeper, as the
+    reference raises it (sweep.py:166-175)."""
+    with pytest.raises(ValueError, match="requires exact_f2"):
+        Sweeper(make_system(other_cfg(small_cfg(**overrides)), "cpu"))
 
 
 def test_make_system_defaults_to_the_card():

@@ -21,8 +21,8 @@ The reference's batched-randoms variants call the same torch functions as
 the plain ones; their places here hold the per-level forms instead
 (bis_monoshot=False, the Fortran order, with the dense end gate).  The
 cascade composites run through cascade_ref, the form the card holds
-kernel 5 against.  MALA (smart MC) waits for ROADMAP queue 1 item 11.
-No JAX here.
+kernel 5 against.  MALA (smart MC, ops/smartmc.py) targets exp(-S) with
+the full action, which is this Gaussian too.  No JAX here.
 """
 
 import numpy as np
@@ -34,6 +34,7 @@ from pathintegralgroundstate_torch.config import SimConfig
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import cascade as cas
 from pathintegralgroundstate_torch.ops import moves as mv
+from pathintegralgroundstate_torch.ops.smartmc import mala_move
 from pathintegralgroundstate_torch.system import make_system
 from pathintegralgroundstate_torch.utils.draws import DeviceDraws
 
@@ -310,6 +311,22 @@ def test_rigid_cascade_invariance():
     def move(p, src, it):
         cas.rigid_cascade(system, p, 0, ACTIVE, 0.5, *src.translate(10, 0, W))
     _run_single(system, move, 113, [0, NB, 2 * NB])
+
+
+def test_mala_invariance():
+    """tests/test_invariance.py:236 on the port: the gradient-drifted MALA
+    kernel (torch.autograd drift) targets exp(-total_action), the Gaussian
+    above, and leaves it invariant at a healthy acceptance."""
+    system = _system(exact_f2=True, smart_mc=0.05)
+
+    def move(p, src, it):
+        mala_move(system, p, ACTIVE, 0.05, *src.mala(p.shape))
+    _run_single(system, move, 114, [0, 2, NB, 2 * NB])
+    gen = torch.Generator().manual_seed(9)
+    _, acc = mala_move(system, _paths([7]), ACTIVE, 0.05, *DeviceDraws(
+        system, gen, torch.Generator()).mala((W, M, 1, 1)))
+    rate = float(acc.double().mean())
+    assert 0.2 < rate <= 1.0, f"MALA acceptance {rate}"
 
 
 def test_a_flipped_accept_fails_the_gate(monkeypatch):

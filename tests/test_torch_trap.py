@@ -257,12 +257,14 @@ def test_trap_cascade_matches_cascade_jnp(dim, mode):
 
 
 def test_trap_routes_every_wrapper_to_its_plain_form():
-    """kernel_route is the one predicate: false under the trap, true under
-    PBC; under the trap each wrapper returns its plain form and counts no
-    launch (on the card too: tests/test_torch_cuda.py)."""
+    """The route predicates (rows_route, cascade_route, pair_route) are
+    false under the trap and true under PBC; under the trap each wrapper
+    returns its plain form and counts no launch (on the card too:
+    tests/test_torch_cuda.py)."""
     cfg, _, _, tsys = _systems(2, "aziz2", "mcmillan_c1")
     pbc = make_system(other_cfg(trap_cfg(trap=False, density=0.3)), "cpu")
-    assert not kernels.kernel_route(tsys) and kernels.kernel_route(pbc)
+    routes = (kernels.rows_route, kernels.cascade_route, kernels.pair_route)
+    assert not any(f(tsys) for f in routes) and all(f(pbc) for f in routes)
     R, xnew, xold, ip = _window(cfg, seed=6, coincident=False)
     counts = [f.launches for f in (kernels.pair_rows, kernels.pair_pot,
                                    kernels.pair_delta, kernels.pair_u,

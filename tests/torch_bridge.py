@@ -98,6 +98,13 @@ def swap_draws(key, W, N, Lmax, D, dtype):
                      tt(jax.random.uniform(k_acc, (W,), dtype)))
 
 
+def mala_draws(key, shape, dtype):
+    """smartmc.mala_move: split(key) -> k_xi, k_acc; (xi, u)."""
+    k_xi, k_acc = split(key)
+    return (tt(jax.random.normal(k_xi, shape, dtype)),
+            tt(jax.random.uniform(k_acc, (shape[0],), dtype)))
+
+
 def _start(u, n_opts):
     """The reference's even window start 2 floor(u n_opts), a host int
     (bisection.py:256, 916)."""
@@ -315,6 +322,9 @@ class JaxDraws:
 
     def swap(self, it, W, Np, Lmax):
         return swap_draws(self._site(50, it), W, Np, Lmax, self.D, self.dtype)
+
+    def mala(self, shape):
+        return mala_draws(self._site(60), tuple(shape), self.dtype)
 
 
 # ---------------------------------------------------------------------------

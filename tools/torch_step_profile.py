@@ -1,17 +1,23 @@
 """Where the torch port's step spends its time, on one CUDA device.
 
     python3 tools/torch_step_profile.py [--walkers 1024]
-        [--scan 256,1024,4096] [--forms flagship,fused,cascade,reforder,sta]
-        [--kernels] [--root DIR]
+        [--scan 256,1024,4096]
+        [--forms flagship,fused,cascade,reforder,sta,exact,brute]
+        [--kernels] [--split] [--root DIR]
 
 --forms lists the steps: `flagship` (the unfused sweep), `fused`
 (fused_sweep=True), `cascade` (fused_sweep=True, cascade=True),
 `reforder` (the reference-order step: bis_monoshot=False,
-bis_end_random_depth=True) or `sta` (sampling='sta').
+bis_end_random_depth=True), `sta` (sampling='sta'), `exact` (the flagship
+with exact_f2=True, the odd-bead cache) or `brute` (exact_f2=True,
+f2_cache=False).
 Prints, in float32 after one warm-up step:
   1. for the first form, host time per move function in one step, first
      without and then with a device sync after each call (the second shows
-     what the device adds);
+     what the device adds); with --split, for every form, the same two
+     passes over the pair-level functions under the moves (the plain
+     window pass, the fold, the field pass, kernels B, 3, 4), each time
+     inclusive of the functions it calls;
   2. for each form, one step under torch.profiler: the device's busy share
      of the step's wall time (kernel time only), the number of kernel
      launches, the device time and launches of each of the five kernels
@@ -46,7 +52,9 @@ KERNELS = (("A", "pair_rows_kernel"), ("B", "pair_pot_kernel"),
 FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
          "cascade": {"fused_sweep": True, "cascade": True},
          "reforder": {"bis_monoshot": False, "bis_end_random_depth": True},
-         "sta": {"sampling": "sta"}}
+         "sta": {"sampling": "sta"},
+         "exact": {"exact_f2": True},
+         "brute": {"exact_f2": True, "f2_cache": False}}
 
 
 def timed_step(sweeper, state):
@@ -58,9 +66,9 @@ def timed_step(sweeper, state):
     return state, time.perf_counter() - t0
 
 
-def phase_times(sweeper, state, sync: bool):
+def move_phases():
     from pathintegralgroundstate_torch import sweep as SW
-    PHASES = [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
+    return [(SW.wm, "close_chain"), (SW.wm, "open_chain"),
               (SW.mv, "translate_chain"), (SW.bis, "move_head_bisection"),
               (SW.bis, "move_tail_bisection"), (SW.bis, "bisection"),
               (SW.mv, "translate_half_chain"),
@@ -72,6 +80,25 @@ def phase_times(sweeper, state, sync: bool):
               (SW.cas, "interior_cascade"), (SW.cas, "rigid_cascade"),
               (SW.mv, "staging_move"), (SW.mv, "move_head"),
               (SW.mv, "move_tail"), (SW.Sweeper, "_measure")]
+
+
+def pair_phases():
+    """The pair-level functions under the moves, as their callers reach
+    them (through the module attribute): the exact-F^2 fold branch
+    (_fold_rows, with its pair pass pair_side and the fold algebra _fold),
+    the brute rows (_brute_rows: the plain window pass pair_terms_ref and
+    kernel B twice), the cache's field pass, and kernels A, B, 3, 4."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops import pairwise as PW
+    from pathintegralgroundstate_torch import sweep as SW
+    return [(PW, "_fold_rows"), (K, "pair_side"), (PW, "_fold"),
+            (PW, "_brute_rows"), (K, "pair_terms_ref"), (SW, "force_field"),
+            (K, "pair_rows"), (K, "pair_pot"), (K, "pair_delta"),
+            (K, "pair_u")]
+
+
+def phase_times(sweeper, state, sync: bool, PHASES=None, what="phases"):
+    PHASES = PHASES or move_phases()
     total, calls = collections.Counter(), collections.Counter()
     orig = {name: getattr(mod, name) for mod, name in PHASES}
 
@@ -84,6 +111,9 @@ def phase_times(sweeper, state, sync: bool):
             total[name] += time.perf_counter() - t0
             calls[name] += 1
             return out
+        # a kernel wrapper counts its launches on its own attributes, which
+        # it reaches through the module's name: share them
+        call.__dict__ = fn.__dict__
         return call
 
     for mod, name in PHASES:
@@ -94,10 +124,10 @@ def phase_times(sweeper, state, sync: bool):
         for mod, name in PHASES:
             setattr(mod, name, orig[name])
     how = "sync after each call" if sync else "host only"
-    print(f"[phases] {how}: step {wall * 1e3:.1f} ms")
+    print(f"[{what}] {how}: step {wall * 1e3:.1f} ms")
     for name, t in total.most_common():
-        print(f"[phases]   {name:22s} {calls[name]:4d} calls {t * 1e3:9.1f} ms"
-              f" {t / calls[name] * 1e6:8.1f} us/call")
+        print(f"[{what}]   {name:22s} {calls[name]:5d} calls "
+              f"{t * 1e3:9.1f} ms {t / calls[name] * 1e6:8.1f} us/call")
     return state
 
 
@@ -181,6 +211,9 @@ def main():
     ap.add_argument("--kernels", action="store_true",
                     help="time kernel B's two calls and the dense "
                          "delta_action on the first form's paths")
+    ap.add_argument("--split", action="store_true",
+                    help="time the pair-level functions of every form, "
+                         "without and with a sync after each call")
     ap.add_argument("--root", default=str(
         pathlib.Path(__file__).resolve().parents[1]),
         help="checkout whose package runs (default: this one)")
@@ -214,6 +247,10 @@ def main():
                 state = phase_times(sweeper, state, sync)
             if args.kernels:
                 kernel_times(system, state.paths, card)
+        if args.split:
+            for sync in (False, True):
+                state = phase_times(sweeper, state, sync, pair_phases(),
+                                    "split")
         device_profile(sweeper, state, card)
 
     order = forms + forms[::-1] if len(forms) > 1 else forms

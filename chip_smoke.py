@@ -106,17 +106,44 @@ run exits non-zero):
                W=256 float64, 3 blocks of 20 steps (E/N = 1 within 1e-12,
                finite non-empty nr_vpi.out and density_vpi.out); each
                block's ms/step and bead-updates/s and one step's host syncs.
- 12. imports : no JAX module and no module of the reference package
+ 7b. variants: every kernel against its plain form for six pair models
+               (potential/Jastrow aziz2/mcmillan_c1, soft/dipolar2d,
+               dipolar/dipolar2d, dipolar/none, none/none, none/mcmillan_c1:
+               every potential on every kernel, every Jastrow on every
+               kernel that carries u) at the flagship's 3-D N=64 and the
+               dipolar gas's 2-D N=256 shapes, float32 and float64; non-finite
+               values (a coincident partner of the soft or dipolar core,
+               soft's r^-12 overflow in float32) exactly where the plain
+               form has them; then each kernel timed at the dipolar shapes
+               in float64 beside its plain form and its bound.
+ 12. tables  : the three RefRNG goldens replayed on the card in float64
+               (atol 1e-12, no kernel launch); BASELINE #2, the flagship's
+               He-4 at Np=16 with v_table = wf_table = T, W=1024 float32,
+               through cli.main (2 blocks, every launch count 0); v_table
+               alone in the reference order, where only kernel 4 launches.
+ 13. dipolar : BASELINE #5, the 2-D dipolar gas at N=256 float64
+               (flagship.dipolar_cfg): W=16 card == CPU replays without and
+               with cascade, the path at W=1024 without and with cascade
+               (main_path), cli.main with 2 burn-in and 2 blocks (E/N > 0,
+               Et/N > 0, g[0] < 0.05, g[1] < 0.5), and the ideal Bose gas
+               under PBC in the flagship's box and order through cli.main
+               (<E> = 0 +/- 0 exactly in each block, the flagship's
+               launches).
+ 14. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (float32
 outside the tensor cores), the H100 SXM's published peaks, counted from
-the inputs of its timed case; library_ms is null, as no single PyTorch
-call computes these Aziz pair sums.  Each entry also carries its launches
-over the 3 timed steps of the exact-F^2 flagship, cached and brute.
+the inputs of its timed case (float64 cases: 34 TFLOP/s, the data sheet's
+float64 rate outside the tensor cores); library_ms is null, as no single
+PyTorch call computes these pair sums.  Each entry also carries its
+launches over the 3 timed steps of the exact-F^2 flagship, cached and
+brute.  The entries '[dipolar N=256 float64]' are the same kernels at the
+dipolar gas's shapes, with their launches on the dipolar path.
 """
 
+import functools
 import json
 import math
 import subprocess
@@ -189,6 +216,22 @@ def _close(name, got, ref, rtol, atol, plain=None, near_cut=None):
     other side of the rcut mask than the 64-bit one: V(rcut) = -0.042 K
     for aziz2 at the flagship's box.  Returns (max abs err, rows excused
     by the cutoff)."""
+    # non-finite values (a coincident partner of a soft or dipolar core,
+    # an overflow of r^-12 in float32): got must be non-finite exactly
+    # where the plain form in its own type is (the float64 form where
+    # there is none); the finite values are compared
+    fin = torch.isfinite(plain if plain is not None else ref)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"{name}: non-finite values differ from the "
+                             f"plain form's ({int((~fin).sum())} there, "
+                             f"{int((~torch.isfinite(got)).sum())} here)")
+    if not bool(fin.all()):
+        fin = fin & torch.isfinite(ref)
+        got, ref = torch.where(fin, got, 0.0), torch.where(fin, ref, 0.0)
+        if plain is not None:
+            plain = torch.where(fin, plain, 0.0)
+        if isinstance(atol, torch.Tensor):
+            atol = torch.where(fin, atol, 0.0)
     err = (got.double() - ref).abs()
     if plain is not None:
         pe = (plain.double() - ref).abs().flatten()
@@ -264,9 +307,14 @@ def _flagship_paths(cfg, W, dtype, device, seed, dmin=0.95):
     """Liquid-like worldlines: each walker's particles placed by random
     sequential addition with a minimum distance dmin (no lattice shell at
     the cutoff), then 0.03 of gaussian noise per bead."""
+    x = _paths64(cfg.Np, cfg.dim, cfg.density, cfg.M, W, seed, dmin)
+    return x.to(device=device, dtype=dtype, copy=True)
+
+
+@functools.lru_cache(maxsize=16)
+def _paths64(N, D, density, M, W, seed, dmin):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    N, D = cfg.Np, cfg.dim
-    L = (N / cfg.density) ** (1.0 / D)
+    L = (N / density) ** (1.0 / D)
     X = torch.zeros(W, N, D, dtype=torch.float64)
     for i in range(N):
         todo = torch.ones(W, dtype=torch.bool)
@@ -278,9 +326,9 @@ def _flagship_paths(cfg, W, dtype, device, seed, dmin=0.95):
                 ok &= d2.min(1).values > dmin * dmin
             X[ok, i] = c[ok]
             todo &= ~ok
-    x = X[:, None] + 0.03 * torch.randn(W, cfg.M, N, D, generator=g,
+    x = X[:, None] + 0.03 * torch.randn(W, M, N, D, generator=g,
                                         dtype=torch.float64)
-    return _wrap(x, L).to(device=device, dtype=dtype)
+    return _wrap(x, L)
 
 
 def _rows_tol(sys64, dtype, R, xnew, xold, ip, ib, need_wf, need_f2, rev,
@@ -626,15 +674,17 @@ def _cascade_inputs(cfg, W, dtype, mode, seed):
     return system, paths, slots, rg, ru, act
 
 
-def cascade_check(cfg, W, dtype, mode, seed=11):
+def cascade_check(cfg, W, dtype, mode, seed=11, outcomes="both"):
     """Kernel 5 against cascade_ref (plain pair pass) on the same inputs.
 
     float64: accepts exactly equal, paths within rtol 1e-11 (atol 1e-12
     for coordinates near 0).  float32: decisions agree on more than 95 %
     of the slots, and where they agree the slot's window within rtol 2e-4 /
     atol 2e-5 (tests/test_cascade.py's criteria); every other bead exactly
-    unchanged.  Returns (agreement share, max abs err where agreeing,
-    accepted slots)."""
+    unchanged.  outcomes: 'both' (some active slots accepted and some
+    not: the default), 'all' (every active slot accepted: the ideal gas,
+    whose gates all see dS = 0) or 'any'.  Returns (agreement share, max
+    abs err where agreeing, accepted slots)."""
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.ops.cascade import cascade_ref
 
@@ -650,9 +700,12 @@ def cascade_check(cfg, W, dtype, mode, seed=11):
     if K.cascade.launches != n + 1:
         raise AssertionError("cascade did not count its launch")
     n_acc, n_act = int(acc.sum()), int(act.sum())
-    if not 0 < n_acc < n_act:
+    if outcomes == "both" and not 0 < n_acc < n_act:
         raise AssertionError(f"cascade {mode}: {n_acc} of {n_act} active "
                              "slots accepted; the check needs both outcomes")
+    if outcomes == "all" and n_acc != n_act:
+        raise AssertionError(f"cascade {mode}: {n_acc} of {n_act} active "
+                             "slots accepted; every gate sees dS = 0")
     if bool((acc & ~act).any()):
         raise AssertionError(f"cascade {mode}: an inactive slot accepted")
     agree = acc == acc_ref
@@ -768,11 +821,20 @@ def layout_parity(cfg, W=256):
     return n
 
 
-def pot_check(system, sys64, R, label):
+def _by_walkers(fn, R, chunk):
+    """fn(R) of a plain form returning a tuple of [W, ...] tensors, computed
+    on chunks of `chunk` walkers (the plain forms' [W, B, N, N, D] pair
+    tensors of a whole W=1024, N=256 batch would take tens of GB)."""
+    outs = [fn(R[i:i + chunk]) for i in range(0, R.shape[0], chunk)]
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def pot_check(system, sys64, R, label, chunk=256):
     """Kernel B (kernels.pair_pot) without and with force against its
     float64 plain form on the same inputs (_close with _tol: float32 also
-    within twice the plain float32 form's own error).  Returns (max abs
-    err, values excused by the cutoff)."""
+    within twice the plain float32 form's own error); the plain forms run
+    on `chunk` walkers at a time.  Returns (max abs err, values excused by
+    the cutoff)."""
     from pathintegralgroundstate_torch.ops import kernels as K
 
     f32 = system.dtype == torch.float32
@@ -780,8 +842,10 @@ def pot_check(system, sys64, R, label):
     err, excused = 0.0, 0
     for wf in (False, True):
         got = K.pair_pot(system, R, wf)
-        ref = K.pair_pot_ref(sys64, R.double(), wf)
-        plain = K.pair_pot_ref(system, R, wf) if f32 else (None, None)
+        ref = _by_walkers(lambda r: K.pair_pot_ref(sys64, r.double(), wf),
+                          R, chunk)
+        plain = (_by_walkers(lambda r: K.pair_pot_ref(system, r, wf), R,
+                             chunk) if f32 else (None, None))
         for i, name in enumerate(("pot", "f2")):
             e, n = _close(f"pair_pot {system.dtype} {label} force={wf} "
                           f"{name}", got[i], ref[i], *_tol(system.dtype, name),
@@ -1248,7 +1312,8 @@ class _Depths:
 def expected_launches(cfg, sweeper, nstep, use_rand, depths):
     """Launches over nstep steps, from the move sites the steps visit:
     {kernel: (count, exact)}.  Kernel A's count is a lower bound (CM and
-    worm sites at one pass each); its diagonal sweep part is exact, in the
+    worm sites at one pass each), exact without the worm (CWorm = 0: one
+    pass per CM move); its diagonal sweep part is exact, in the
     per-level form from the end moves' drawn depths: one pass per level,
     plus the gate's own pass with batched randoms (without them the gate
     is the dense delta_action, one launch of kernel 3 that also runs kernel
@@ -1283,7 +1348,9 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
                                      f"expected {2 * visits}")
             rows += sum(depths)
             dense = 2 * visits
-    return {"pair_rows": (rows, False), "pair_pot": (2 * nstep, True),
+    # without the worm (CWorm = 0) every kernel-A site is counted exactly
+    return {"pair_rows": (rows, cfg.CWorm == 0),
+            "pair_pot": (2 * nstep, True),
             "cascade": (casc, True), "pair_delta": (dense, True),
             "pair_u": (0, True)}
 
@@ -1343,7 +1410,8 @@ def main_path(cfg, card, label="main"):
                                  f"{'' if exact else 'at least '}{n}")
 
     c = dict(zip(COUNTER_NAMES, (stats.counters + warm.counters).tolist()))
-    tries = ("try_cm", "try_stag", "try_open") + (
+    tries = ("try_cm", "try_stag") + (
+        ("try_open",) if cfg.CWorm > 0 else ()) + (
         ("try_int",) if sweeper.fused_diag else ())
     for k in tries:
         if c[k] <= 0:
@@ -1382,7 +1450,8 @@ def main_path(cfg, card, label="main"):
         what += " exact F^2 " + ("cached" if cfg.f2_cache else "brute")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[{label}] {what} W={cfg.n_walkers} Np={cfg.Np} M={cfg.M} "
-          f"float32: {dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s, "
+          f"D={cfg.dim} {cfg.potential}/{cfg.jastrow} {cfg.dtype}: "
+          f"{dt * 1e3:.1f} ms/step, {bups:.4e} bead-updates/s, "
           f"peak memory {peak:.3f} GiB ({card})")
     if src.depths:
         hist = {d: src.depths.count(d) for d in sorted(set(src.depths))}
@@ -2002,27 +2071,587 @@ def exact_cli_phase(cfg, card, eps, W=256):
     _block_rates(d, card, "exact F^2 + MALA", nstep=nstep)
 
 
-def _ptxas_summary(log):
-    """One line per kernel of nvcc's -Xptxas -v log: its name with its
-    template arguments (type, then its int and bool arguments: lanes,
-    block size, mode, force), registers and spills."""
-    import re
-    name, spill, out = "?", "", []
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
-                      r"pair_delta|pair_u|cascade)_kernel)I([fd])"
-                      r"((?:L[ib]\d+E)*)", line)
-        if m:
-            args = ["float" if m.group(2) == "f" else "double"] + [
-                v if t == "i" else ("true" if v == "1" else "false")
-                for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
-            name = f"{m.group(1)}<{', '.join(args)}>"
-            spill = ""
-        elif "spill" in line:
-            spill = line.strip()
-        elif "registers" in line:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
-    return out
+# ---------------------------------------------------------------------------
+# The pair-model variants, table mode and the 2-D dipolar gas
+# ---------------------------------------------------------------------------
+
+# (potential, Jastrow) of the [variants] phase: every potential on every
+# kernel and every Jastrow on every kernel that carries u
+VARIANTS = (("aziz2", "mcmillan_c1"), ("soft", "dipolar2d"),
+            ("dipolar", "dipolar2d"), ("dipolar", "none"), ("none", "none"),
+            ("none", "mcmillan_c1"))
+
+# Operations per pair and Metropolis side of the dipolar pair model in 2-D,
+# counted as _OPS: the minimum image and r^2 8, r and 1/r 2, V and dV/dr
+# from 1/r 6 (V from r alone: 4), the force sum 5, the dipolar u from
+# q = Rm/r with its C1 shift 6, one per masked accumulate.
+_OPS_DIP = {"rows": 8 + 2 + 6 + 1 + 5 + 6 + 1,
+            "delta_force": 8 + 2 + 6 + 1 + 5,
+            "u": 8 + 2 + 6 + 1,
+            "u_fused": 6 + 1,
+            "pot_pair": 8 + 2 + 6 + 1 + 2 * 5,
+            "pot_pair_plain": 8 + 1 + 4 + 1}
+_PEAK_OPS64 = 34e12   # H100 SXM float64 outside the tensor cores (data sheet)
+
+
+def _bound64(nbytes, ops):
+    """_bound for float64 work: operations over the float64 rate."""
+    tb, to = nbytes / _PEAK_BYTES * 1e3, ops / _PEAK_OPS64 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def variant_cfgs():
+    """The [variants] phase's two shapes: the flagship's 3-D He-4 (N=64,
+    M=65) and the dipolar gas's 2-D (N=256, M=17), both under PBC."""
+    from pathintegralgroundstate_torch.flagship import (dipolar_cfg,
+                                                        flagship_cfg)
+    return (("flagship", flagship_cfg(256)), ("dipolar", dipolar_cfg(256)))
+
+
+def _overflow_rows(R, xnew, ip, d=1e-4):
+    """xnew with walker 5's row 1 at d from a partner: soft's r^-12
+    overflows float32 there (and not float64)."""
+    xn = xnew.clone()
+    j = (int(ip[5, 1]) + 1) % R.shape[2]
+    xn[5, 1] = R[5, 1, j]
+    xn[5, 1, 0] += d
+    return xn
+
+
+def variant_case(cfg, dtype, W=256):
+    """Every kernel against its plain form for one pair model and type, on
+    liquid-like paths of cfg's shape: kernel A over a window of 8 rows with
+    ip [W, B] and one coincident partner, forward (rows) and reversed
+    (walker sums), f2 and u and neither; kernel B on both ThermEnergy
+    views; kernel 3's raw and kernel 4's u mode at the gate's row and at
+    16 rows; the action mode at the gate's row and over whole chains, with
+    and without force; kernel 5 'ends' and 'interior' (every active slot
+    accepted for the ideal gas).  Non-finite values, from a coincident
+    partner of the soft or the dipolar core, must be exactly where the
+    plain form has them (_close, action_check).  For soft in float32 also a
+    row and a configuration with a pair 1e-4 apart, where r^-12 overflows.
+    Returns (cases, {kernel: float64 max abs err})."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    system = make_system(cfg, dev, dtype)
+    sys64 = make_system(cfg, dev, torch.float64)
+    paths = _flagship_paths(cfg, W, dtype, dev, seed=50)
+    g = torch.Generator(device=dev).manual_seed(51)
+    N, M, B = cfg.Np, cfg.M, 8
+    label = f"{cfg.potential}/{cfg.jastrow} D={cfg.dim} N={N}"
+    errs = dict.fromkeys(("pair_rows", "pair_pot", "pair_delta", "pair_u",
+                          "cascade"), 0.0)
+    f64 = dtype == torch.float64
+    n = 0
+    lo = (M - B) // 2
+    R = paths[:, lo:lo + B]
+    ib = torch.arange(lo, lo + B, device=dev)
+    ip = torch.randint(0, N, (W, B), generator=g, device=dev)
+    xnew, xold = _window_ip(R, ip, g)
+    for rev in (False, True):
+        e, _, c = rows_parity(system, sys64, R, xnew, xold, ip, ib, rev,
+                              [(True, True), (False, False)], label,
+                              reduce=rev)
+        errs["pair_rows"] = max(errs["pair_rows"], e) if f64 else 0.0
+        n += c
+    for sl, view in ((slice(0, M - 1, 2), "even view"),
+                     (slice(1, M - 1, 2), "odd view")):
+        e, _ = pot_check(system, sys64, paths[:, sl], f"{label} {view}")
+        errs["pair_pot"] = max(errs["pair_pot"], e) if f64 else 0.0
+        n += 2
+    w0 = (M - 16) // 2
+    for Rr, ipr, lab in (
+            (paths[:, :1], 5, "gate bead 0"),
+            (paths[:, w0:w0 + 16],
+             torch.randint(0, N, (W, 16), generator=g, device=dev),
+             "16 rows ip[W, B]")):
+        ed, eu, _, c = dense_raw_check(system, sys64, Rr, ipr, g,
+                                       f"{label} {lab}")
+        if f64:
+            errs["pair_delta"] = max(errs["pair_delta"], ed)
+            errs["pair_u"] = max(errs["pair_u"], eu)
+        n += c
+    for Rr, ipr, ibr, lab in (
+            (paths[:, :1], 5, system.arange(0, 1), "gate"),
+            (paths, torch.randint(0, N, (W,), generator=g, device=dev),
+             system.arange(0, M), "whole chains")):
+        xn, xo = _window_ip(Rr, ipr, g)
+        for wf in (True, False):
+            e, _, _ = action_check(system, sys64, Rr, xn, xo, ipr, ibr, wf,
+                                   f"{label} {lab}")
+            errs["pair_delta"] = max(errs["pair_delta"], e) if f64 else 0.0
+            n += 1
+    ideal = cfg.potential == "none" and cfg.jastrow == "none"
+    for mode in ("ends", "interior"):
+        _, e, _ = cascade_check(cfg, W, dtype, mode, seed=52,
+                                outcomes="all" if ideal else "any")
+        errs["cascade"] = max(errs["cascade"], e) if f64 else 0.0
+        n += 1
+    if cfg.potential == "soft" and not f64:
+        xo_ = _overflow_rows(R, xnew, ip)
+        plain = K.pair_rows_ref(system, R, xo_, xold, ip, chin_table(system),
+                                ib, True, True)
+        if not bool(torch.isinf(plain[5, 1]) | torch.isnan(plain[5, 1])):
+            raise AssertionError(f"{label}: the plain float32 form did not "
+                                 "overflow at r = 1e-4")
+        rows_parity(system, sys64, R, xo_, xold, ip, ib, False,
+                    [(True, True), (False, False)], f"{label} overflow")
+        P = paths[:, 1:M - 1:2].clone()
+        P[5, 2, 7] = P[5, 2, 8]
+        P[5, 2, 7, 0] += 1e-4
+        pot_check(system, sys64, P, f"{label} overflow pair")
+        n += 3
+    torch.cuda.synchronize()
+    return n, errs
+
+
+def variants_parity(card):
+    """The [variants] phase: variant_case for every pair model of VARIANTS
+    at both shapes of variant_cfgs, float32 and float64.  Returns {(shape,
+    potential, Jastrow): {kernel: float64 max abs err}} (absolute: the
+    soft core's values reach 1e15 where a proposal nears a partner, and
+    its errors scale with them)."""
+    kern = _kernel_fns()
+    before = {k: fn.launches for k, fn in kern.items()}
+    errs, total = {}, 0
+    for shape, base in variant_cfgs():
+        for pot, jas in VARIANTS:
+            cfg = base.replace(potential=pot, jastrow=jas)
+            for dtype in (torch.float32, torch.float64):
+                t0 = time.perf_counter()
+                n, e = variant_case(cfg, dtype)
+                total += n
+                if dtype == torch.float64:
+                    errs[(shape, pot, jas)] = e
+                    big = max(e, key=e.get)
+                    what = f"; float64 max abs err {e[big]:.3e} ({big})"
+                else:
+                    what = ""
+                print(f"[variants] {shape} {pot}/{jas} {str(dtype)[6:]}: "
+                      f"{n} cases pass{what} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    ran = {k: fn.launches - before[k] for k, fn in kern.items()}
+    if not all(ran.values()):
+        raise AssertionError(f"[variants] a kernel never launched: {ran}")
+    print(f"[variants] {total} cases of kernels A, B, 3, 4 and 5 pass "
+          f"against their plain forms for {len(VARIANTS)} pair models "
+          f"(every potential of aziz2, soft, dipolar, none and every Jastrow "
+          f"of mcmillan_c1, dipolar2d, none) at the flagship's 3-D N=64 and "
+          f"the dipolar gas's 2-D N=256 shapes, float32 and float64; "
+          f"kernel launches {ran}")
+    return errs
+
+
+def dipolar_path_parity(W=1024):
+    """Kernels A and B against their plain forms on the calls the dipolar
+    path makes: one step of flagship.dipolar_cfg(W) (float64) during which
+    the first call of each form of kernel A (window rows B, ip scalar or
+    [1, B], reversed, walker sums, f2 and u) and of kernel B is checked on
+    its own arguments before it runs, with rows_parity and pot_check, in
+    float64 and on the same inputs cast to float32.  At W=1024 the lane
+    rule (kernels.rows_lanes) gives the CM chains (B=17, walker sums) G=4,
+    the end windows (B=4) G=16 and the fused interior span (B=11) G=8, each
+    at its own layout (rows_layout): every G the path launches is held
+    here.  Returns the printed lines' cases."""
+    from pathintegralgroundstate_torch.flagship import dipolar_cfg
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    cfg = dipolar_cfg(W)
+    dev = torch.device("cuda")
+    sys64 = make_system(cfg, dev)
+    sys32 = make_system(cfg, dev, torch.float32)
+    N, D = cfg.Np, cfg.dim
+    rows, pot = K.pair_rows, K.pair_pot
+    seen, lanes, n = set(), set(), 0
+
+    def f32(t):
+        return t.float() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    def check_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True,
+                   need_f2=True, rev=False, row_weights=None, reduce=False):
+        nonlocal n
+        B = R.shape[1]
+        form = (B, "scalar" if isinstance(ip, int) else tuple(ip.shape),
+                need_wf, need_f2, rev, row_weights is not None, reduce)
+        if form not in seen:
+            seen.add(form)
+            G = K.rows_lanes(R.shape[0], B, N)
+            lanes.add(G)
+            for s, args in ((sys64, (R, xnew, xold, ip, ib)),
+                            (sys32, tuple(map(f32, (R, xnew, xold, ip,
+                                                    ib))))):
+                spw, wpb, _, smem = K.rows_layout(R.shape[0], B, N, D,
+                                                  s.dtype.itemsize, G)
+                e, x, c = rows_parity(s, sys64, *args, rev,
+                                      [(need_wf, need_f2)],
+                                      f"dipolar path {form}",
+                                      f32(row_weights) if s is sys32
+                                      else row_weights, reduce)
+                n += c
+                print(f"[variants] dipolar path kernel A [{R.shape[0]}, "
+                      f"{B}, {N}, {D}] ip {form[1]} wf={need_wf} "
+                      f"f2={need_f2} rev={rev} reduce={reduce} "
+                      f"{str(s.dtype)[6:]}: G={G}, {spw} slots x {wpb} "
+                      f"walkers a block, {smem} B shared; max abs err "
+                      f"{e:.3e} ({x} excused at the cutoff)")
+        return rows(system, R, xnew, xold, ip, tab, ib, need_wf, need_f2,
+                    rev, row_weights, reduce)
+
+    def check_pot(system, R, with_force=False):
+        nonlocal n
+        form = ("B",) + tuple(R.shape)
+        if form not in seen:
+            seen.add(form)
+            for s, Rs in ((sys64, R), (sys32, R.float())):
+                e, x = pot_check(s, sys64, Rs, f"dipolar path {form}",
+                                 chunk=128)
+                n += 2
+                print(f"[variants] dipolar path kernel B "
+                      f"{list(R.shape)} {str(s.dtype)[6:]}: both calls, "
+                      f"max abs err {e:.3e} ({x} excused at the cutoff)")
+        return pot(system, R, with_force)
+
+    # each wrapper counts its launches on its own attributes, which it
+    # reaches through the module's name: share them
+    check_rows.__dict__, check_pot.__dict__ = rows.__dict__, pot.__dict__
+    sweeper = Sweeper(sys64)
+    state = init_state(sys64)
+    K.pair_rows, K.pair_pot = check_rows, check_pot
+    try:
+        run_block(sweeper, state, 1)
+    finally:
+        K.pair_rows, K.pair_pot = rows, pot
+    torch.cuda.synchronize()
+    if lanes != {4, 8, 16}:
+        raise AssertionError(f"[variants] the dipolar path ran kernel A at "
+                             f"G = {sorted(lanes)}, not 4, 8 and 16")
+    print(f"[variants] dipolar path W={W}: {len(seen)} call forms of "
+          f"kernels A and B, {n} cases pass in float64 and float32 "
+          f"(kernel A at G = {sorted(lanes)})")
+    return n
+
+
+def variants_timing(card, W=1024):
+    """Every kernel at the dipolar gas's shapes, float64 (its type), W=1024,
+    with CUDA events beside its plain form and its bound (_bound64,
+    _OPS_DIP): kernel A over the CM move's whole chains [1024, 17, 256, 2]
+    (walker sums, f2 and u), kernel B on both ThermEnergy views [256, 8,
+    256, 2] (W=256: the plain form's pair tensors would take tens of GB at
+    1024; dipolar_path_parity checks kernel B at the path's W), the dense
+    kernel at the end gate's row [1024, 1, 256, 2] (action mode on the end
+    row, raw mode, u mode), kernel 5 'ends' (S=2) and 'interior' (S=3).
+    After each timing, check() holds the kernel's output on the timed
+    inputs against the plain form's (rows_parity, pot_check, action_check,
+    _close with _tol, cascade_check) and returns its max abs err.  Returns ({name: (ms, plain ms, (bound ms, by))},
+    {name: max abs err})."""
+    from pathintegralgroundstate_torch.flagship import dipolar_cfg
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.system import make_system
+
+    cfg = dipolar_cfg(W)
+    dev, dtype = torch.device("cuda"), torch.float64
+    system = make_system(cfg, dev, dtype)
+    paths = _flagship_paths(cfg, W, dtype, dev, seed=60)
+    N, D, M = cfg.Np, cfg.dim, cfg.M
+    es = 8
+    tab = chin_table(system)
+    times, errs = {}, {}
+
+    def timed(name, fn, plain, bound, what, check):
+        k, p = _events_ms(fn), _events_ms(plain, reps=3)
+        times[name] = (k, p, bound)
+        errs[name] = check()
+        print(f"[time] dipolar {name} {what} float64: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}; "
+              f"{card}); max abs err against the plain form "
+              f"{errs[name]:.3e}")
+
+    def close(name, got, ref, terms):
+        return max(_close(f"{name} dipolar timed", g, r,
+                          *_tol(dtype, t))[0]
+                   for g, r, t in zip(got, ref, terms))
+
+    xold = paths[:, :, 5]
+    xnew = (xold + 0.05).contiguous()
+    ib = system.arange(0, M)
+    timed("pair_rows", lambda: K.pair_rows(system, paths, xnew, xold, 5, tab,
+                                           ib, True, True, reduce=True),
+          lambda: K.pair_rows_ref(system, paths, xnew, xold, 5, tab, ib,
+                                  True, True, reduce=True),
+          _bound64(_nbytes(paths, xnew, xold, ib, tab) + W * es,
+                   2 * W * M * N * _OPS_DIP["rows"]),
+          f"CM whole chains [{W}, {M}, {N}, {D}] walker sums",
+          lambda: rows_parity(system, system, paths, xnew, xold, 5, ib,
+                              False, [(True, True)], "dipolar timed",
+                              reduce=True)[0])
+    for name, wf, sl in (("pair_pot", True, slice(1, M - 1, 2)),
+                         ("pair_pot plain V", False, slice(0, M - 1, 2))):
+        R = paths[:256, sl]
+        Wb = R.shape[0] * R.shape[1]
+        pairs = Wb * N * (N - 1) // 2
+        timed(name, lambda: K.pair_pot(system, R, wf),
+              lambda: K.pair_pot_ref(system, R, wf),
+              _bound64(_nbytes(R) + 2 * Wb * es,
+                       pairs * _OPS_DIP["pot_pair" if wf
+                                        else "pot_pair_plain"]),
+              f"force={wf} [{R.shape[0]}, {R.shape[1]}, {N}, {D}]",
+              lambda: pot_check(system, system, R,
+                                f"dipolar timed {name}")[0])
+    R = paths[:, :1]
+    xo = R[:, :, 5]
+    xn = (xo + 0.05).contiguous()
+    wf = dense_wf(system, True)
+    ib0 = system.arange(0, 1)
+    pairs = 2 * W * (N - 1)
+    xb = 2 * W * D * es
+    timed("pair_delta", lambda: K.pair_delta(system, R, xn, xo, 5, True, tab,
+                                             ib0, wf),
+          lambda: K.pair_delta_ref(system, R, xn, xo, 5, True, tab, ib0, wf),
+          _bound64(_nbytes(R, ib0, tab) + xb + W * es,
+                   pairs * (_OPS_DIP["delta_force"] + _OPS_DIP["u_fused"])),
+          f"action end row [{W}, 1, {N}, {D}]",
+          lambda: action_check(system, system, R, xn, xo, 5, ib0, True,
+                               "dipolar timed")[0])
+    timed("pair_delta raw", lambda: K.pair_delta(system, R, xn, xo, 5),
+          lambda: K.pair_delta_ref(system, R, xn, xo, 5),
+          _bound64(_nbytes(R) + xb + 2 * W * es,
+                   pairs * _OPS_DIP["delta_force"]),
+          f"raw (dpot, df2) [{W}, 1, {N}, {D}]",
+          lambda: close("pair_delta raw", K.pair_delta(system, R, xn, xo, 5),
+                        K.pair_delta_ref(system, R, xn, xo, 5),
+                        ("dpot", "df2")))
+    timed("pair_u", lambda: K.pair_u(system, R, xn, xo, 5),
+          lambda: K.pair_u_ref(system, R, xn, xo, 5),
+          _bound64(_nbytes(R) + xb + W * es, pairs * _OPS_DIP["u"]),
+          f"u mode [{W}, 1, {N}, {D}]",
+          lambda: close("pair_u", (K.pair_u(system, R, xn, xo, 5),),
+                        (K.pair_u_ref(system, R, xn, xo, 5),), ("du",)))
+    for mode in ("ends", "interior"):
+        sysc, p, slots, rg, ru, act = _cascade_inputs(cfg, W, dtype, mode,
+                                                      seed=61)
+        acc = K.cascade(sysc, mode, p.clone(), slots, rg, ru, act, cfg.Nlev)
+        L = 2 ** cfg.Nlev
+        n_acc = int(acc.sum())
+        nrows = (n_acc * (L if mode == "ends" else L - 1)
+                 + int((act & ~acc).sum()))
+        timed(f"cascade {mode}",
+              lambda: K.cascade(sysc, mode, p, slots, rg, ru, act, cfg.Nlev),
+              lambda: cascade_ref(sysc, mode, p, slots, rg, ru, act,
+                                  cfg.Nlev, K.pair_rows_ref),
+              _bound64(nrows * N * D * es + _nbytes(rg, ru, act)
+                       + W * len(slots) * (L + 1) * D * es
+                       + n_acc * L * D * es,
+                       2 * nrows * N * _OPS_DIP["delta_force"]),
+              f"S={len(slots)} [{W}, {len(slots)}, {L + 1}, {N}, {D}]",
+              lambda: cascade_check(cfg, W, dtype, mode, seed=61,
+                                    outcomes="any")[1])
+    return times, errs
+
+
+def tables_phase(card):
+    """The [tables] phase, table mode on the card:
+      1. the three RefRNG goldens (tests/golden/refrng_replay*.json)
+         replayed through utils/replay on the card in float64, every
+         Delta-S the port's delta_action with both tables, at atol 1e-12
+         (tests/test_refrng.py's), with no kernel launch (the tables route
+         every kernel away);
+      2. BASELINE configuration #2, the flagship's He-4 at Np=16 with
+         v_table = wf_table = T, W=1024 float32, through cli.main, Nstep=2,
+         2 blocks: every kernel's launch count 0, finite e_vpi.out, each
+         block's bead-updates/s;
+      3. v_table alone in the reference order (bis_monoshot=F,
+         bis_end_random_depth=T), Np=16, Nstep=2, 1 block: only kernel 4
+         launches, once per end gate (2 Nstag Np per step), the dense
+         action's u half, while its potential half runs the plain form.
+    Outputs under build/chip_smoke_tables/."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.config import namelist_text
+    from pathintegralgroundstate_torch.flagship import flagship_cfg
+    from pathintegralgroundstate_torch.utils import replay
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    gdir = os.path.join(repo, "tests", "golden")
+    t0 = time.perf_counter()
+    for name, fn, keys in (
+            ("refrng_replay.json", replay.replay_trajectory,
+             ("nsteps", "Np", "Nb", "dim", "Lstag", "density", "dt", "Rm",
+              "Nmax")),
+            ("refrng_replay_bisection.json",
+             replay.replay_bisection_trajectory,
+             ("nsteps", "Np", "Nb", "dim", "Nlev", "density", "dt", "Rm")),
+            ("refrng_replay_worm.json", replay.replay_worm_trajectory,
+             ("nsteps", "Np", "Nb", "dim", "Lstag", "density", "dt", "Rm",
+              "CWorm", "nequil"))):
+        with open(os.path.join(gdir, name)) as f:
+            gold = json.load(f)
+        want = np.array([[[float.fromhex(v) for v in row] for row in sl]
+                         for sl in gold["paths_hex"]])
+        out = fn(seed=gold["seed"], device="cuda",
+                 **{k: gold[k] for k in keys})
+        got = out[0] if isinstance(out, tuple) else out
+        err = float(np.abs(got - want).max())
+        if not err <= 1e-12:
+            raise AssertionError(f"[tables] {name}: max abs err {err}")
+        if isinstance(out, tuple) and [list(e) for e in out[2]] != [
+                list(e) for e in gold["events"]]:
+            raise AssertionError(f"[tables] {name}: the worm events differ")
+        print(f"[tables] golden {name} replayed on the card (float64, both "
+              f"tables): max abs err {err:.1e} (atol 1e-12)")
+    launches = {k: fn.launches for k, fn in kern.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[tables] the goldens launched kernels: "
+                             f"{launches}")
+    print(f"[tables] the three goldens in {time.perf_counter() - t0:.1f} s, "
+          f"no kernel launched: {launches}")
+
+    root = os.path.join(repo, "build", "chip_smoke_tables")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    he16 = flagship_cfg(1024).replace(Np=16, v_table=True, wf_table=True)
+    nml = os.path.join(root, "he4_n16_tables.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(he16))
+    d = os.path.join(root, "he4_n16_tables")
+    launches, _ = cli_run(nml, "BASELINE #2 He-4 N=16 v_table=wf_table=T "
+                          "W=1024 float32", d, "--set", "Nstep=2",
+                          "--blocks", "2", tag="tables")
+    if any(launches.values()):
+        raise AssertionError(f"[tables] table mode launched kernels: "
+                             f"{launches}")
+    rows, _ = _finite_total(os.path.join(d, "e_vpi.out"), 1)
+    if rows != 2:
+        raise AssertionError(f"[tables] e_vpi.out has {rows} rows")
+    for f in ("jastrow.out", "potential.out"):
+        if not os.path.getsize(os.path.join(d, f)):
+            raise AssertionError(f"[tables] {f} is empty")
+    _block_rates(d, card, "He-4 N=16 tables", nstep=2, tag="tables")
+
+    vt = he16.replace(wf_table=False)
+    nml = os.path.join(root, "he4_n16_vtable.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(vt))
+    d = os.path.join(root, "he4_n16_vtable_reforder")
+    nstep = 2
+    launches, _ = cli_run(nml, "He-4 N=16 v_table=T reference order", d,
+                          "--set", "bis_monoshot=F", "--set",
+                          "bis_end_random_depth=T", "--set",
+                          f"Nstep={nstep}", "--blocks", "1", tag="tables")
+    gates = 2 * vt.Nstag * vt.Np * nstep
+    want = {"pair_rows": 0, "pair_pot": 0, "cascade": 0, "pair_delta": 0,
+            "pair_u": gates}
+    if launches != want:
+        raise AssertionError(f"[tables] v_table reference order: launches "
+                             f"{launches}, expected {want}")
+    _block_rates(d, card, "He-4 N=16 v_table reference order", nstep=nstep,
+                 tag="tables")
+
+
+def dipolar_phase(card):
+    """The [dipolar] phase, BASELINE configuration #5 (flagship.dipolar_cfg:
+    the 2-D dipolar Bose gas, N=256, float64) on the card:
+      1. W=16 float64 replays, card (kernels) == CPU (plain forms), of the
+         dipolar step and of the same with cascade=True;
+      2. the dipolar path at W=1024 (main_path: warm-up, 3 timed steps,
+         exact launch counts of kernels A, B and 5, bead-updates/s, peak
+         memory, 0 host syncs), and the same with cascade=True;
+      3. cli.main on its namelist at W=1024: Nstep=5, --burnin 2, --blocks
+         2 (tools/dipolar2d.py's checks): E/N > 0 in each block, Et/N > 0,
+         and the correlation hole of g(r), g[0] < 0.05 and g[1] < 0.5;
+      4. the ideal Bose gas under PBC: the flagship's box and order with
+         potential = jastrow = 'none', W=1024 float32, Nstep=3, 2 blocks,
+         through cli.main: the mixed energy exactly 0 with zero variance in
+         every block, and the kernels launched as on the Aziz flagship
+         (the reference keeps this configuration on its kernels, which sum
+         zero pair terms).
+    Returns (the dipolar path's launches, the cascade path's, ms/step,
+    bead-updates/s).  Outputs under build/chip_smoke_dipolar/."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.config import namelist_text
+    from pathintegralgroundstate_torch.flagship import (dipolar_cfg,
+                                                        flagship_cfg)
+    from pathintegralgroundstate_torch.sweep import Sweeper
+    from pathintegralgroundstate_torch.system import make_system
+
+    dip = dipolar_cfg(1024)
+    replay_check(dip, "dipolar N=256")
+    replay_check(dip.replace(cascade=True), "dipolar N=256 + cascade")
+    launches, dt, bups = main_path(dip, card, "dipolar")
+    cas_launches, cas_dt, cas_bups = main_path(dip.replace(cascade=True),
+                                               card, "dipolar+cascade")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", "chip_smoke_dipolar")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    nml = os.path.join(root, "dipolar.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(dip))
+    d = os.path.join(root, "dipolar")
+    nstep, nblk, burn = 5, 2, 2
+    cl, _ = cli_run(nml, "dipolar N=256 W=1024 float64", d, "--set",
+                    f"Nstep={nstep}", "--burnin", str(burn), "--blocks",
+                    str(nblk), tag="dipolar")
+    steps = nstep * (nblk + burn)
+    want = expected_launches(dip, Sweeper(make_system(
+        dip, torch.device("cuda"))), steps, True, [])
+    for k, (n, exact) in want.items():
+        if (cl[k] != n) if exact else (cl[k] < n):
+            raise AssertionError(f"[dipolar] cli: {k} launched {cl[k]} "
+                                 f"times over {steps} steps, expected {n}")
+    e = np.loadtxt(os.path.join(d, "e_vpi.out"), ndmin=2)
+    et = np.loadtxt(os.path.join(d, "et_vpi.out"), ndmin=2)
+    gr = np.loadtxt(os.path.join(d, "gr_vpi.out"), ndmin=2)[:, 1]
+    if e.shape[0] != nblk or not (e[:, 1] > 0).all() \
+            or not (et[:, 1] > 0).all():
+        raise AssertionError(f"[dipolar] cli: E/N {e[:, 1]}, Et/N "
+                             f"{et[:, 1]}: a repulsive gas has E > 0")
+    if not (gr[0] < 0.05 and gr[1] < 0.5):
+        raise AssertionError(f"[dipolar] cli: no correlation hole, g(r) "
+                             f"{gr[:5]}")
+    print(f"[dipolar] cli: E/N per block {e[:, 1].tolist()}, Et/N "
+          f"{et[:, 1].tolist()}; g(r) first bins {np.round(gr[:5], 4)}, "
+          f"last 10 mean {float(np.mean(gr[-10:])):.4f}")
+    _block_rates(d, card, "dipolar", first=1, nstep=nstep, tag="dipolar")
+
+    ideal = flagship_cfg(1024).replace(potential="none", jastrow="none")
+    nml = os.path.join(root, "ideal_pbc.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(ideal))
+    d = os.path.join(root, "ideal_pbc")
+    nstep, nblk = 3, 2
+    il, log = cli_run(nml, "ideal Bose gas under PBC (flagship box and "
+                      "order) W=1024 float32", d, "--set", f"Nstep={nstep}",
+                      "--blocks", str(nblk), tag="dipolar")
+    want = expected_launches(ideal, Sweeper(make_system(
+        ideal, torch.device("cuda"))), nstep * nblk, True, [])
+    for k, (n, exact) in want.items():
+        if (il[k] != n) if exact else (il[k] < n):
+            raise AssertionError(f"[dipolar] ideal gas: {k} launched "
+                                 f"{il[k]} times, expected {n}")
+    e = np.loadtxt(os.path.join(d, "e_vpi.out"), ndmin=2)
+    if e.shape[0] != nblk or bool(np.any(e[:, 1:] != 0.0)) \
+            or log.count("<E>  =  0 +/- 0\n") != nblk:
+        raise AssertionError(f"[dipolar] ideal gas: E, K, V per block "
+                             f"{e[:, 1:].tolist()}, expected exactly 0")
+    print(f"[dipolar] ideal gas under PBC: <E> = 0 +/- 0 exactly in each of "
+          f"{nblk} blocks; launches {il}")
+    return launches, cas_launches, dt, bups, cas_dt, cas_bups
 
 
 def main():
@@ -2046,7 +2675,7 @@ def main():
     _, seconds, log = build.build()
     build.kernels()
     print(f"[build] nvcc {seconds:.1f} s -> {build.BUILD_ROOT}")
-    for line in _ptxas_summary(log):
+    for line in build.ptxas_summary(log):
         print(f"[build]   {line}")
 
     cfg = flagship_cfg(1024)
@@ -2061,6 +2690,10 @@ def main():
     dense_err, dense_times = dense_parity(cfg, card)
     clock("dims")
     dims_parity(cfg)
+    clock("variants")
+    var_errs = variants_parity(card)
+    dipolar_path_parity()
+    var_times, timed_errs = variants_timing(card)
     clock("replay")
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
@@ -2116,6 +2749,10 @@ def main():
     exact_cli_phase(cfg, card, eps)
     clock("trap")
     trap_cli_phase(card)
+    clock("tables")
+    tables_phase(card)
+    clock("dipolar")
+    dip_launches, dcas_launches, *_ = dipolar_phase(card)
     clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2126,7 +2763,9 @@ def main():
     print("[imports] no module of jax, jaxlib or pathintegralgroundstate_tpu "
           "was loaded")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              key=None):
+        key = key or name
         return {"name": name, "route": "cuda",
                 "source": f"pathintegralgroundstate_torch/csrc/{source}",
                 "replaces": f"pathintegralgroundstate_tpu/ops/{replaces}",
@@ -2134,8 +2773,8 @@ def main():
                 "max_abs_err": max(err, exact_errs.get(name, 0.0)),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None,
-                "exact_f2_launches": ex_launches[name],
-                "exact_f2_brute_launches": br_launches[name]}
+                "exact_f2_launches": ex_launches[key],
+                "exact_f2_brute_launches": br_launches[key]}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
@@ -2159,7 +2798,27 @@ def main():
              separate_launches=ref_launches["pair_u"],
              **dense_times["pair_u_extra"]),
         entry("cascade", "cascade.cu", "cascade_kernels.py:322",
-              cas_launches["cascade"], cas_err, *ends)]}))
+              cas_launches["cascade"], cas_err, *ends)] + [
+        dict(entry(f"{name} [dipolar N=256 float64]", src, rep, n,
+                   max(var_errs[("dipolar", "dipolar", "dipolar2d")][kname],
+                       timed_errs[tname]),
+                   *var_times[tname], key=kname),
+             main_path="dipolar" + (" + cascade" if kname == "cascade"
+                                    else ""),
+             max_abs_err_is="float64, dipolar/dipolar2d at N=256 "
+                            "([variants] and the timed inputs)",
+             exact_f2_launches=None, exact_f2_brute_launches=None)
+        for name, kname, tname, src, rep, n in (
+            ("pair_rows", "pair_rows", "pair_rows", "pair_rows.cu",
+             "pallas_kernels.py:300", dip_launches["pair_rows"]),
+            ("pair_pot", "pair_pot", "pair_pot", "pair_pot.cu",
+             "pallas_kernels.py:437", dip_launches["pair_pot"]),
+            ("pair_delta", "pair_delta", "pair_delta", "pair_delta.cu",
+             "pallas_kernels.py:392", dip_launches["pair_delta"]),
+            ("pair_u", "pair_u", "pair_u", "pair_delta.cu",
+             "pallas_kernels.py:413", dip_launches["pair_u"]),
+            ("cascade ends", "cascade", "cascade ends", "cascade.cu",
+             "cascade_kernels.py:322", dcas_launches["cascade"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,10 @@ banner (vpi.f90:161-194).
 
 It runs on the card.  PIGS_PLATFORM=cpu (the reference CLI's own platform
 override) runs the plain forms on the CPU instead; without a card and
-without it, the run raises rather than fall back to the CPU.  The crystal
-start (config_ini.in) is refused with the other unported options, when the
-Driver builds its System: the port's init_state takes no start positions.
+without it, the run raises rather than fall back to the CPU.  With
+crystal = T the start positions, the particle count, the box and the
+density come from `config_ini.in` beside the input file (the reference's
+crystal start, vpi.f90:101-107; cli.py:102-112).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import argparse
 import os
 import sys
 
-from .config import SimConfig, echo_namelists, load_namelist_config
+from .config import SimConfig, echo_namelists, load_namelist_config, \
+    read_crystal_file
 from .driver import Driver
 
 
@@ -113,7 +115,17 @@ def main(argv=None):
     print(f"  > Number of blocks    : {cfg.Nblock}")
     print(f"  > MC steps per block  : {cfg.Nstep}")
 
-    drv = Driver(cfg, out_dir=args.out_dir, device=device)
+    init_positions = None
+    if cfg.crystal:
+        base = (os.path.dirname(os.path.abspath(args.input)) if args.input
+                else ".")
+        cpath = os.path.join(base, cfg.crystal_positions_file)
+        Np, Lbox, density, init_positions = read_crystal_file(cpath)
+        cfg = cfg.replace(Np=Np, density=density, crystal_Lbox=Lbox)
+        print(f"# crystal start from {cpath}: Np={Np}, Lbox={Lbox}")
+
+    drv = Driver(cfg, out_dir=args.out_dir, device=device,
+                 init_positions=init_positions)
     if not cfg.trap:
         print(f"  > Size of the box     : {drv.system.geo.Lbox}")
     if args.burnin:

@@ -155,7 +155,7 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 // in buf[q], a row of more lanes (cpr warp chunks of 32) its 8 partial
 // sums per chunk.  Every thread returns the same sum, the rows added in
 // order.
-template <typename T>
+template <int PK, int JK, typename T>
 __device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
                                      int N, int L, int dir, int ip,
                                      const T* seg, T* segn, const T* rgs,
@@ -197,8 +197,8 @@ __device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
         }
       }
       const int row = dir > 0 ? p : L - p;
-      r = row_part(c, slab + row * N * D, N, ip, xn, xo, need_f2, need_wf, l,
-                   G);
+      r = row_part<PK, JK>(c, slab + row * N * D, N, ip, xn, xo, need_f2,
+                           need_wf, l, G);
     }
     group_sum(r, width, mask, need_f2, need_wf);
     if (q < m && (l & (width - 1)) == 0) {
@@ -241,7 +241,7 @@ __device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
 
 // paths [W, M, N, D] with strides sW, sM, sN (elements; the coordinate
 // axis contiguous); bulk: the window is one aligned contiguous slab.
-template <typename T>
+template <typename T, int PK, int JK>
 __global__ void __launch_bounds__(kThreads)
 cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
                long long sW, long long sM, long long sN,
@@ -322,7 +322,7 @@ cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
 
   int gate = 0;
   if (ends) {
-    const T dS0 = gate_ds<T>(c, slab, N, L, dir, ip, seg, segn, rgs, buf, 1,
+    const T dS0 = gate_ds<PK, JK, T>(c, slab, N, L, dir, ip, seg, segn, rgs, buf, 1,
                              0, 1, 0, T(0), T(a.wv_end), T(0), T(1), false,
                              true, gmax);
     if (!(rus[0] < exp_t(-dS0))) {
@@ -335,7 +335,7 @@ cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
     const int delta = 1 << (nlev - ilev + 1);
     const int d2 = delta >> 1;
     const bool odd = d2 & 1;
-    const T dS = gate_ds<T>(
+    const T dS = gate_ds<PK, JK, T>(
         c, slab, N, L, dir, ip, seg, segn, rgs, buf + (ilev & 1) * E,
         1 << (ilev - 1), d2, delta, d2, sqrt(T(0.25 * delta * a.dt)),
         T(odd ? a.wv_odd : a.wv_even), odd ? T(a.wf_odd) : T(0), T(0), odd,
@@ -365,19 +365,23 @@ int launch(const PairParams* p, const CascadeArgs* a, void* paths,
   if (S > kMaxSlots || S > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem =
       cascade_smem_elems(L, N, p->dim, nlev + ends) * sizeof(T);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cascade_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   int gmax = 4;
   while (gmax < N && gmax < kThreads) gmax <<= 1;
-  cascade_kernel<T><<<dim3(W, S), kThreads, smem, (cudaStream_t)stream>>>(
-      make_consts<T>(*p), *a, (T*)paths, sW, sM, sN, (const T*)rg,
-      (const T*)ru, (const bool*)act, sAw, sAs, (bool*)acc, S, N, L, nlev,
-      ends, bulk, gmax);
-  return (int)cudaGetLastError();
+  return with_pair_model(*p, [&](auto pk, auto jk) {
+    constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          cascade_kernel<T, PK, JK>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    cascade_kernel<T, PK, JK>
+        <<<dim3(W, S), kThreads, smem, (cudaStream_t)stream>>>(
+            make_consts<T>(*p), *a, (T*)paths, sW, sM, sN, (const T*)rg,
+            (const T*)ru, (const bool*)act, sAw, sAs, (bool*)acc, S, N, L,
+            nlev, ends, bulk, gmax);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace

@@ -11,7 +11,8 @@
 //   raw    (kernel 3, delta_pot): dpot = sum_m V(new) - sum_m V(old) and,
 //          with force, df2 = |F(new)|^2 - |F(old)|^2 with F = sum_m (dV/dr /
 //          r) dx from the fused (V, dV/dr); without force V is the plain V(r)
-//          and df2 = 0;
+//          and df2 = 0 (the pair model: the template parameters PK and JK
+//          of pigs_pair.cuh);
 //   u      (kernel 4, delta_wf): du = sum_m u(new) - sum_m u(old);
 //   action (kernels 3 and 4, the dense delta_action, the reference's
 //          pairwise.py:331-343): given the Chin table tab [3, M], the rows'
@@ -67,7 +68,7 @@ __device__ __forceinline__ void load3(const Consts<T>& c, const T* x, T* v) {
 
 // One Metropolis side against one partner rj: V (kPot) with its force
 // (kForce) and u (with_u), all from one minimum image dx and r^2.
-template <typename T, bool kPot, bool kForce>
+template <typename T, bool kPot, bool kForce, int PK, int JK>
 __device__ __forceinline__ void side(const Consts<T>& c, const T* x,
                                      const T* rj, bool notself, bool with_u,
                                      T& pot, T* F, T& u) {
@@ -84,27 +85,27 @@ __device__ __forceinline__ void side(const Consts<T>& c, const T* x,
   if (kPot && kForce) {
     const T rinv = rsqrt(r2s);
     T v, dv;
-    aziz_v_dv(c, r, rinv, v, dv);
+    pot_v_dv<PK>(c, r, rinv, v, dv);
     if (m) {
       pot += v;
       const T fr = dv * rinv;
 #pragma unroll
       for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
     }
-    if (with_u && m) u += jastrow_u_q(c, r, c.Rm * rinv);
+    if (with_u && m) u += jastrow_u_q<JK>(c, r, c.Rm * rinv);
   } else {
     if (kPot) {
-      const T v = aziz_v(c, r);
+      const T v = pot_v<PK>(c, r);
       if (m) pot += v;
     }
     if (with_u) {
-      const T uj = jastrow_u(c, r);
+      const T uj = jastrow_u<JK>(c, r);
       if (m) u += uj;
     }
   }
 }
 
-template <typename T, int kMode, bool kForce>
+template <typename T, int kMode, bool kForce, int PK, int JK>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
 pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
                   const T* __restrict__ xn, const T* __restrict__ xo,
@@ -139,8 +140,10 @@ pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
     T rj[3];
     load3(c, Rrow + j * a.sRn, rj);
     const bool notself = j != p;
-    side<T, kPot, kForce>(c, xnv, rj, notself, with_u, pot_n, Fn, u_n);
-    side<T, kPot, kForce>(c, xov, rj, notself, with_u, pot_o, Fo, u_o);
+    side<T, kPot, kForce, PK, JK>(c, xnv, rj, notself, with_u, pot_n, Fn,
+                                  u_n);
+    side<T, kPot, kForce, PK, JK>(c, xov, rj, notself, with_u, pot_o, Fo,
+                                  u_o);
   }
   T dp = T(0), d2 = T(0), du = T(0);
   if (kPot) dp = warp_sum(pot_n) - warp_sum(pot_o);
@@ -173,12 +176,12 @@ pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
   }
 }
 
-template <typename T, int kMode, bool kForce>
+template <typename T, int kMode, bool kForce, int PK, int JK>
 int launch(const Consts<T>& c, const RowArgs& a, const void* R,
            const void* xn, const void* xo, const void* ip, const void* ib,
            const void* tab, void* out0, void* out1, cudaStream_t s) {
   const long long rows = (long long)a.W * a.B;
-  pair_delta_kernel<T, kMode, kForce>
+  pair_delta_kernel<T, kMode, kForce, PK, JK>
       <<<(unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock),
          32 * kRowsPerBlock, 0, s>>>(
           c, a, (const T*)R, (const T*)xn, (const T*)xo,
@@ -198,13 +201,24 @@ int launch_delta(const PairParams* p, const RowArgs* a, const void* R,
   const auto args = [&](auto fn) {
     return fn(c, *a, R, xn, xo, ip, ib, tab, out0, out1, s);
   };
-  if (mode == kU) return args(launch<T, kU, false>);
+  // the raw mode evaluates no Jastrow, kernel 4's u mode no potential:
+  // one instantiation of the other kind serves each
+  if (mode == kU)
+    return with_jas_kind(p->jas_kind, [&](auto jk) {
+      return args(launch<T, kU, false, kAziz, decltype(jk)::value>);
+    });
   if (mode == kRaw)
-    return with_force ? args(launch<T, kRaw, true>)
-                      : args(launch<T, kRaw, false>);
+    return with_pot_kind(p->pot_kind, [&](auto pk) {
+      constexpr int PK = decltype(pk)::value;
+      return with_force ? args(launch<T, kRaw, true, PK, kMcMillan>)
+                        : args(launch<T, kRaw, false, PK, kMcMillan>);
+    });
   if (mode == kAction)
-    return with_force ? args(launch<T, kAction, true>)
-                      : args(launch<T, kAction, false>);
+    return with_pair_model(*p, [&](auto pk, auto jk) {
+      constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+      return with_force ? args(launch<T, kAction, true, PK, JK>)
+                        : args(launch<T, kAction, false, PK, JK>);
+    });
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,8 +6,9 @@
 // R[W, B, N, D] it returns
 //     pot = 1/2 sum_{i != j} V(r_ij)   over m = notself & r^2 <= rc^2
 //     f2  = sum_i |F_i|^2, F_i = sum_j (dV/dr / r) x_ij   (with_force)
-// with V from the plain Aziz form (r = sqrt(r^2)) without force and from
-// the fused (V, dV) form with force, as ops/kernels.pair_pot_ref.  Like the
+// with V from the potential's plain form (r = sqrt(r^2)) without force and
+// from the fused (V, dV) form with force, as ops/kernels.pair_pot_ref; the
+// potential is the template parameter PK (pigs_pair.cuh).  Like the
 // TPU kernel it has NO r^2 > 0 guard: exactly coincident particles give a
 // non-finite f2.
 //
@@ -71,7 +72,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // One unordered pair (i, j): adds V(r_ij) to pot and, with force, sets f to
 // the pair's force on i (-f on j), both only where valid & r^2 <= rc^2.
-template <typename T, bool kForce>
+template <typename T, bool kForce, int PK>
 __device__ __forceinline__ void pot_pair(const Consts<T>& c, const T* xi,
                                          const T* xj, bool valid, T& pot,
                                          T* f) {
@@ -86,18 +87,18 @@ __device__ __forceinline__ void pot_pair(const Consts<T>& c, const T* xi,
   if (kForce) {
     const T rinv = rsqrt(r2);
     T v, dv;
-    aziz_v_dv(c, r2 * rinv, rinv, v, dv);
+    pot_v_dv<PK>(c, r2 * rinv, rinv, v, dv);
     pot += m ? v : T(0);
     const T fr = dv * rinv;
 #pragma unroll
     for (int k = 0; k < 3; ++k) f[k] = m ? fr * dx[k] : T(0);
   } else {
-    const T v = aziz_v(c, sqrt(r2));
+    const T v = pot_v<PK>(c, sqrt(r2));
     pot += m ? v : T(0);
   }
 }
 
-template <typename T, int kMaxThreads, bool kForce>
+template <typename T, int kMaxThreads, bool kForce, int PK>
 __global__ void __launch_bounds__(kMaxThreads)
 pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
                 T* __restrict__ pot, T* __restrict__ f2) {
@@ -145,8 +146,8 @@ pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
     const int j = 32 * I + ((lane + s) & 31);
 #pragma unroll
     for (int k = 0; k < 3; ++k) xj[k] = k < D ? xs[j * D + k] : T(0);
-    pot_pair<T, kForce>(c, xi, xj, vi && j < a.N && (s < 16 || lane < 16),
-                        p, f);
+    pot_pair<T, kForce, PK>(c, xi, xj,
+                            vi && j < a.N && (s < 16 || lane < 16), p, f);
     if (kForce) {
 #pragma unroll
       for (int k = 0; k < 3; ++k)
@@ -167,7 +168,7 @@ pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
       const int j = 32 * J + ((lane + s) & 31);
 #pragma unroll
       for (int q = 0; q < 3; ++q) xj[q] = q < D ? xs[j * D + q] : T(0);
-      pot_pair<T, kForce>(c, xi, xj, vi && j < a.N, p, f);
+      pot_pair<T, kForce, PK>(c, xi, xj, vi && j < a.N, p, f);
       if (kForce) {
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
@@ -215,21 +216,21 @@ size_t pot_smem(const PotArgs& a, int D, bool force) {
          sizeof(T);
 }
 
-template <typename T, int kMaxThreads, bool kForce>
+template <typename T, int kMaxThreads, bool kForce, int PK>
 int launch_k(const Consts<T>& c, const PotArgs& a, const T* R, T* pot, T* f2,
              cudaStream_t stream) {
   const size_t smem = pot_smem<T>(a, c.dim, kForce);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pair_pot_kernel<T, kMaxThreads, kForce>,
+        pair_pot_kernel<T, kMaxThreads, kForce, PK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long rows = (long long)a.W * a.B;
   const dim3 block(32 * a.C, a.rpb);
   const unsigned grid = (unsigned)((rows + a.rpb - 1) / a.rpb);
-  pair_pot_kernel<T, kMaxThreads, kForce><<<grid, block, smem, stream>>>(
-      c, a, R, pot, f2);
+  pair_pot_kernel<T, kMaxThreads, kForce, PK>
+      <<<grid, block, smem, stream>>>(c, a, R, pot, f2);
   return (int)cudaGetLastError();
 }
 
@@ -245,11 +246,14 @@ int launch(const PairParams* p, const PotArgs* args, const void* R,
   auto s = (cudaStream_t)stream;
   auto Rp = (const T*)R;
   auto po = (T*)pot, fo = (T*)f2;
-  if (32 * a.C * a.rpb <= kBlock)
-    return with_force ? launch_k<T, kBlock, true>(c, a, Rp, po, fo, s)
-                      : launch_k<T, kBlock, false>(c, a, Rp, po, fo, s);
-  return with_force ? launch_k<T, 1024, true>(c, a, Rp, po, fo, s)
-                    : launch_k<T, 1024, false>(c, a, Rp, po, fo, s);
+  return with_pot_kind(p->pot_kind, [&](auto pk) {
+    constexpr int PK = decltype(pk)::value;
+    if (32 * a.C * a.rpb <= kBlock)
+      return with_force ? launch_k<T, kBlock, true, PK>(c, a, Rp, po, fo, s)
+                        : launch_k<T, kBlock, false, PK>(c, a, Rp, po, fo, s);
+    return with_force ? launch_k<T, 1024, true, PK>(c, a, Rp, po, fo, s)
+                      : launch_k<T, 1024, false, PK>(c, a, Rp, po, fo, s);
+  });
 }
 
 }  // namespace

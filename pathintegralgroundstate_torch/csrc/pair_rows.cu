@@ -8,7 +8,9 @@
 // x = xold[w, b] against the N partners R[w, b, :, :] it computes the
 // single-image minimum image, r^2, the self / rcut / coincidence masks (sum
 // V over m = notself & r^2 <= rc^2; force and u over mf = m & r^2 > 0) and
-// the fused Aziz (V, dV/dr), and writes the row's action delta
+// the fused (V, dV/dr) and u of the pair model (pigs_pair.cuh: the
+// potential PK and the Jastrow JK template parameters), and writes the
+// row's action delta
 //     dS_b = wv dpot + wf (|F(new)|^2 - |F(old)|^2) - wpsi du
 // with the Chin weights (wv, wf, wpsi) = tab[:, ib[b]] of the row's bead
 // (the force term only when need_f2, the u term only when need_wf), times
@@ -80,7 +82,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <typename T, int G>
+template <typename T, int G, int PK, int JK>
 __global__ void __launch_bounds__(kMaxThreads)
 pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
                  const T* __restrict__ xn, const T* __restrict__ xo,
@@ -125,7 +127,7 @@ pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
         xov[k] = k < c.dim ? xo[w * a.sOw + b * a.sOb + k] : T(0);
       }
       RowPart<T> r =
-          row_part(c, slab, a.N, p, xnv, xov, need_f2, need_wf, l, G);
+          row_part<PK, JK>(c, slab, a.N, p, xnv, xov, need_f2, need_wf, l, G);
       group_sum(r, G, mask, need_f2, need_wf);
       const long long jb = a.ib_mode ? ib[w * a.B + b] : ib[b];
       T dS = row_ds(r, tab[jb], tab[a.M + jb], tab[2 * a.M + jb], need_f2,
@@ -148,20 +150,22 @@ pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, int PK, int JK>
 int launch_g(const PairParams* p, const RowsArgs* a, const void* R,
              const void* xn, const void* xo, const void* ip, const void* ib,
              const void* tab, const void* rw, void* out, void* stream) {
   const size_t smem = (size_t)a->wpb * a->spw * (a->slab + 1) * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pair_rows_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pair_rows_kernel<T, G, PK, JK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(G * a->spw, a->wpb);
   const dim3 grid((a->W + a->wpb - 1) / a->wpb);
-  pair_rows_kernel<T, G><<<grid, block, smem, (cudaStream_t)stream>>>(
+  pair_rows_kernel<T, G, PK, JK>
+      <<<grid, block, smem, (cudaStream_t)stream>>>(
       make_consts<T>(*p), *a, (const T*)R, (const T*)xn, (const T*)xo,
       (const long long*)ip, (const long long*)ib, (const T*)tab,
       (const T*)rw, (T*)out);
@@ -174,18 +178,25 @@ int launch(const PairParams* p, const RowsArgs* a, const void* R,
            const void* tab, const void* rw, void* out, void* stream) {
   if (a->W == 0 || a->B == 0) return 0;
   if (a->G * a->spw * a->wpb > kMaxThreads) return (int)cudaErrorInvalidValue;
-  switch (a->G) {
-    case 4:
-      return launch_g<T, 4>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
-    case 8:
-      return launch_g<T, 8>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
-    case 16:
-      return launch_g<T, 16>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
-    case 32:
-      return launch_g<T, 32>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_pair_model(*p, [&](auto pk, auto jk) {
+    constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+    switch (a->G) {
+      case 4:
+        return launch_g<T, 4, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
+                                      stream);
+      case 8:
+        return launch_g<T, 8, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
+                                      stream);
+      case 16:
+        return launch_g<T, 16, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
+                                       stream);
+      case 32:
+        return launch_g<T, 32, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
+                                       stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace

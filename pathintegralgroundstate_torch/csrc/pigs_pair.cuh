@@ -1,12 +1,30 @@
 // Shared pair physics of the hand-written Hopper kernels (pair_rows.cu,
-// pair_pot.cu, cascade.cu): the single-image minimum image, the closed-form Aziz
-// potential (aziz2 and aziz1 share the form; only the constants differ) and
-// the McMillan Jastrow with the optional C1 shift.  Every formula follows
-// the plain-PyTorch forms in ops/pairwise.py and models/, which follow
-// pathintegralgroundstate_tpu/models/potentials.py operation for operation.
+// pair_pot.cu, pair_delta.cu, cascade.cu): the single-image minimum image,
+// the pair-model selector, the closed-form potentials and the two-body
+// Jastrows.  Every formula follows the plain-PyTorch forms in models/,
+// which follow pathintegralgroundstate_tpu/models operation for operation.
+//
+// The selector.  The pair model is two template parameters of every kernel
+// that evaluates it: the potential PK (enum PotKind: Aziz, whose aziz2 and
+// aziz1 share the form and differ in the constants, the soft sphere
+// V0 (1/r^6 - 1)/r^6, the dipolar Cdd/r^3, or none, the ideal gas, whose
+// pass sums zero terms) and the Jastrow JK (enum JasKind: McMillan
+// -1/2 (Rm/r)^5, the 2-D dipolar -2 sqrt(Rm/r), or none), each Jastrow
+// C1-shifted at rcut when the runtime flag c1 is set (the System sets it
+// for mcmillan_c1 and dipolar2d under PBC).  Both Jastrows come from
+// q = Rm/r, which the row passes take from the one reciprocal square root.
+// Each launcher picks the instantiation from PairParams::pot_kind and
+// ::jas_kind (with_pair_model), so the Aziz + McMillan instantiation is the
+// code it was before the selector: a runtime Jastrow switch measured 14 %
+// slower on kernel A at the flagship's shape (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+enum PotKind { kAziz = 0, kSoft = 1, kDipolar = 2, kPotNone = 3 };
+enum JasKind { kMcMillan = 0, kDipolar2d = 1, kJasNone = 2 };
 
 // Host-side parameter block, filled field for field by ops/kernels.py
 // (ctypes.Structure _PairParams).  Doubles first, ints last: no padding.
@@ -17,8 +35,11 @@ struct PairParams {
   double V0, V0s, s, s_inv, A, neg_alpha, beta, two_beta;
   double C6, C8, C10, Dcore, d_min, d_min_inv, two_C8, four_C10;
   double Rm, rc, u_rc, du_rc;
+  double soft_V0, Cdd;
   int c1;
   int dim;
+  int pot_kind;  // enum PotKind
+  int jas_kind;  // enum JasKind
 };
 
 // The same constants in the kernel's working type.
@@ -28,8 +49,50 @@ struct Consts {
   T V0, V0s, s, s_inv, A, neg_alpha, beta, two_beta;
   T C6, C8, C10, Dcore, d_min, d_min_inv, two_C8, four_C10;
   T Rm, rc, u_rc, du_rc;
+  T soft_V0, Cdd;
   int c1, dim;
 };
+
+// fn(std::integral_constant<int, PK>) for the PotKind `kind`: the host
+// side of the selector.
+template <typename Fn>
+inline int with_pot_kind(int kind, Fn&& fn) {
+  switch (kind) {
+    case kAziz:
+      return fn(std::integral_constant<int, kAziz>{});
+    case kSoft:
+      return fn(std::integral_constant<int, kSoft>{});
+    case kDipolar:
+      return fn(std::integral_constant<int, kDipolar>{});
+    case kPotNone:
+      return fn(std::integral_constant<int, kPotNone>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fn(std::integral_constant<int, JK>) for the JasKind `kind`.
+template <typename Fn>
+inline int with_jas_kind(int kind, Fn&& fn) {
+  switch (kind) {
+    case kMcMillan:
+      return fn(std::integral_constant<int, kMcMillan>{});
+    case kDipolar2d:
+      return fn(std::integral_constant<int, kDipolar2d>{});
+    case kJasNone:
+      return fn(std::integral_constant<int, kJasNone>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fn(PK, JK) for the pair model of p.
+template <typename Fn>
+inline int with_pair_model(const PairParams& p, Fn&& fn) {
+  return with_pot_kind(p.pot_kind, [&](auto pk) {
+    return with_jas_kind(p.jas_kind, [&](auto jk) { return fn(pk, jk); });
+  });
+}
 
 template <typename T>
 inline Consts<T> make_consts(const PairParams& p) {
@@ -46,6 +109,7 @@ inline Consts<T> make_consts(const PairParams& p) {
   c.d_min = T(p.d_min); c.d_min_inv = T(p.d_min_inv);
   c.two_C8 = T(p.two_C8); c.four_C10 = T(p.four_C10);
   c.Rm = T(p.Rm); c.rc = T(p.rc); c.u_rc = T(p.u_rc); c.du_rc = T(p.du_rc);
+  c.soft_V0 = T(p.soft_V0); c.Cdd = T(p.Cdd);
   c.c1 = p.c1;
   c.dim = p.dim;
   return c;
@@ -93,29 +157,77 @@ __device__ __forceinline__ void aziz_v_dv(const Consts<T>& c, T r, T rinv,
   dv = c.V0s * (drep - dG);
 }
 
-// McMillan log-Jastrow u(r) = -1/2 (Rm/r)^5, C1-shifted at rcut when c1,
-// from q = Rm/r.
-template <typename T>
-__device__ __forceinline__ T jastrow_u_q(const Consts<T>& c, T r, T q) {
-  T q2 = q * q;
-  T u = T(-0.5) * (q2 * q2 * q);
-  if (c.c1) u = u - c.u_rc - c.du_rc * (r - c.rc);
-  return u;
+// V(r) from r alone, the potential's plain form (models/potentials v);
+// the Aziz form is the kernels' V without force.
+template <int PK, typename T>
+__device__ __forceinline__ T pot_v(const Consts<T>& c, T r) {
+  if constexpr (PK == kAziz) {
+    return aziz_v(c, r);
+  } else if constexpr (PK == kSoft) {
+    const T r2 = r * r;
+    const T r6 = r2 * r2 * r2;
+    return c.soft_V0 * (T(1) / r6 - T(1)) / r6;
+  } else if constexpr (PK == kDipolar) {
+    return c.Cdd / (r * r * r);
+  } else {
+    return T(0);
+  }
 }
 
-template <typename T>
+// Fused (V, dV/dr) from r and 1/r.  The soft and dipolar forms are powers
+// of 1/r: r^2 = 0 gives V = +inf, as the plain form's V(0) does.
+template <int PK, typename T>
+__device__ __forceinline__ void pot_v_dv(const Consts<T>& c, T r, T rinv,
+                                         T& val, T& dv) {
+  if constexpr (PK == kAziz) {
+    aziz_v_dv(c, r, rinv, val, dv);
+  } else if constexpr (PK == kSoft) {
+    const T r2i = rinv * rinv;
+    const T r6i = r2i * r2i * r2i;
+    val = c.soft_V0 * (r6i - T(1)) * r6i;
+    dv = c.soft_V0 * (r6i * rinv) * (T(6) - T(12) * r6i);
+  } else if constexpr (PK == kDipolar) {
+    const T r3i = rinv * rinv * rinv;
+    val = c.Cdd * r3i;
+    dv = T(-3) * c.Cdd * (r3i * rinv);
+  } else {
+    val = T(0);
+    dv = T(0);
+  }
+}
+
+// The two-body log-Jastrow u(r) of JK from q = Rm/r, C1-shifted at rcut
+// when c1.
+template <int JK, typename T>
+__device__ __forceinline__ T jastrow_u_q(const Consts<T>& c, T r, T q) {
+  if constexpr (JK == kJasNone) {
+    return T(0);
+  } else {
+    T u;
+    if constexpr (JK == kMcMillan) {
+      const T q2 = q * q;
+      u = T(-0.5) * (q2 * q2 * q);
+    } else {
+      u = T(-2) * sqrt(q);
+    }
+    if (c.c1) u = u - c.u_rc - c.du_rc * (r - c.rc);
+    return u;
+  }
+}
+
+template <int JK, typename T>
 __device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
-  return jastrow_u_q(c, r, c.Rm / r);
+  return jastrow_u_q<JK>(c, r, c.Rm / r);
 }
 
 // One Metropolis side of one displaced row against one partner rj: adds the
-// partner's V to pot (m = notself & r^2 <= rc^2), and over mf = m & r^2 > 0
+// partner's V (potential PK) to pot (m = notself & r^2 <= rc^2), and over mf = m & r^2 > 0
 // its force to F when need_f2 and its u to u when need_wf.  Components
 // k >= dim are zero on both sides and add nothing.  r and Rm/r come from
 // the one reciprocal square root (r = r^2 rsqrt(r^2)) in place of a precise
 // sqrt and a precise division, which cost the pass more instructions; the
 // results stay within a few ulp of the plain form's.
-template <typename T>
+template <int PK, int JK, typename T>
 __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
                                           const T* rj, bool notself,
                                           bool need_f2, bool need_wf, T& pot,
@@ -133,14 +245,14 @@ __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
   bool m = notself && r2 <= c.rcut2;
   bool mf = m && r2 > T(0);
   T v, dv;
-  aziz_v_dv(c, r, rinv, v, dv);
+  pot_v_dv<PK>(c, r, rinv, v, dv);
   if (m) pot += v;
   if (need_f2 && mf) {
     T fr = dv * rinv;
 #pragma unroll
     for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
   }
-  if (need_wf && mf) u += jastrow_u_q(c, r, c.Rm * rinv);
+  if (need_wf && mf) u += jastrow_u_q<JK>(c, r, c.Rm * rinv);
 }
 
 template <typename T>
@@ -167,7 +279,7 @@ struct RowPart {
 // Lane l's partial sums over the partners j = l, l + G, ... < N of the row
 // P (partner j's coordinates at P[j * D], D = c.dim), for the positions
 // xn (new) and xo (old) of particle ip.
-template <typename T>
+template <int PK, int JK, typename T>
 __device__ __forceinline__ RowPart<T> row_part(const Consts<T>& c,
                                                const T* P, int N,
                                                long long ip, const T* xn,
@@ -182,8 +294,8 @@ __device__ __forceinline__ RowPart<T> row_part(const Consts<T>& c,
 #pragma unroll
     for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? P[j * c.dim + k] : T(0);
     const bool notself = j != ip;
-    pair_side(c, xn, rj, notself, need_f2, need_wf, pn, r.Fn, un);
-    pair_side(c, xo, rj, notself, need_f2, need_wf, po, r.Fo, uo);
+    pair_side<PK, JK>(c, xn, rj, notself, need_f2, need_wf, pn, r.Fn, un);
+    pair_side<PK, JK>(c, xo, rj, notself, need_f2, need_wf, po, r.Fo, uo);
   }
   r.dpot = pn - po;
   r.du = un - uo;

@@ -92,10 +92,11 @@ class Driver:
 
     device: the System's device (default the card; "cpu" runs the plain
     forms).  draws: a draw source for every step (default the state's own
-    generators), passed on to run_block."""
+    generators), passed on to run_block.  init_positions: the crystal
+    start's positions [N, D] (config_ini.in) for a fresh ensemble."""
 
     def __init__(self, cfg: SimConfig, out_dir: str = ".", device=None,
-                 verbose: bool = True, draws=None):
+                 verbose: bool = True, draws=None, init_positions=None):
         self.cfg = cfg
         self.out_dir = out_dir
         self.verbose = verbose
@@ -109,7 +110,8 @@ class Driver:
         if cfg.resume and os.path.exists(ckpt):
             self.state, self.acc = self.load_checkpoint(ckpt)
         else:
-            self.state = init_state(self.system)
+            self.state = init_state(self.system,
+                                    init_positions=init_positions)
             self.acc = self._zero_global()
 
     # ------------------------------------------------------------------
@@ -139,9 +141,20 @@ class Driver:
         )
 
     def _write_tables(self):
-        """The reference echoes its tables (jastrow.out, potential.out);
-        table mode waits for ROADMAP queue 1, slice 2, and the System
-        refuses it, so there is nothing to write."""
+        """Echo the tables as JastrowTable / PotentialTable do (jastrow.out,
+        potential.out; vpi_mod.f90:96, 129; driver.py:214-229): r, exp(u)
+        and u, or r and V, on the first min(Nmax, 10000) grid points."""
+        tables, dr = self.system.tables, self.system.geo.dr
+        n = min(self.cfg.Nmax, 10000)
+        r = (np.arange(1, n + 1) - 1) * dr
+        if tables.logwf is not None:
+            wf = tables.logwf[1:n + 1].cpu().numpy()
+            np.savetxt(os.path.join(self.out_dir, "jastrow.out"),
+                       np.column_stack([r, np.exp(wf), wf]))
+        if tables.vtab is not None:
+            np.savetxt(os.path.join(self.out_dir, "potential.out"),
+                       np.column_stack([r, tables.vtab[1:n + 1].cpu()
+                                        .numpy()]))
 
     # ------------------------------------------------------------------
 

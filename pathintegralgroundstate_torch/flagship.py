@@ -1,6 +1,7 @@
 """The port's named configurations: the flagship workload (He-4, N=64,
-Chin action; the reference's vpi.in) and the trapped worm flagship
-(tools/trap_worm.py's ideal bosons in a 2-D trap)."""
+Chin action; the reference's vpi.in), the trapped worm flagship
+(tools/trap_worm.py's ideal bosons in a 2-D trap) and the 2-D dipolar Bose
+gas (tools/dipolar2d.py, BASELINE configuration #5)."""
 
 from .config import SimConfig
 
@@ -35,3 +36,19 @@ def trap_worm_cfg(nblocks: int = 30, n_walkers: int = 256) -> SimConfig:
         potential="none", jastrow="none", Rm=1.2,
         n_walkers=n_walkers, dtype="float64", seed=17,
         Nstep=20, Nblock=nblocks, density_map=True)
+
+
+def dipolar_cfg(n_walkers: int = 1024, nblocks: int = 3) -> SimConfig:
+    """The 2-D dipolar Bose gas at N=256 (BASELINE configuration #5):
+    potential Cdd/r^3 with the zero-energy dipolar Jastrow, density 0.25,
+    the fused bisection sweep (Nb 8, Nlev 2, Nstag 1), float64.  A copy of
+    tools/dipolar2d.py's build_cfg (dipolar2d.py:47-63) without its device
+    mesh; the reference's use_pallas=False exists for that mesh's
+    tensor-parallel axis, and the port routes by physics."""
+    return SimConfig(
+        dim=2, Np=256, density=0.25, trap=False,
+        dt=1e-3, Nb=8, sampling="bis", Lstag=8, Nlev=2, Nstag=1,
+        CMFreq=1, delta_cm=0.12, Rm=1.0,
+        potential="dipolar", jastrow="dipolar2d",
+        n_walkers=n_walkers, dtype="float64", seed=11,
+        Nstep=5, Nblock=nblocks, Nbin=50, Nk=20)

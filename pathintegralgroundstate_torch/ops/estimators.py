@@ -29,7 +29,7 @@ def local_energy(system, R):
     dudr = torch.where(m, system.du(r), 0.0)
     d2u = torch.where(m, system.d2u(r), 0.0)
     lap = 0.5 * ((d - 1.0) * dudr / r + d2u).sum((-1, -2))
-    pot = 0.5 * torch.where(m, system.potential.v(r), 0.0).sum((-1, -2))
+    pot = 0.5 * torch.where(m, system.v(r), 0.0).sum((-1, -2))
     F = ((dudr / r)[..., None] * xij).sum(-2)
     if a is not None:
         F = F + jas.trap_psi_grad(a, R)

@@ -20,8 +20,8 @@ of the kernel half of ops/cascade_kernels.py.
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
 pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
 CPU, and for a System that its route predicate sends away from the kernel
-(`rows_route`, `cascade_route`, `pair_route`: the trap, and exact F^2 for
-kernels A and 5, as the reference routes them).  Otherwise, on a CUDA
+(`rows_route`, `cascade_route`, `pair_route`, `u_route`: the trap, the
+tables, and exact F^2 for kernels A and 5, as the reference routes them).  Otherwise, on a CUDA
 tensor, it launches the kernel or raises; there is no fallback.  Each wrapper's
 `.launches` counts its kernel's launches, and nothing else.
 """
@@ -63,7 +63,7 @@ def pair_side(system, x, R, notself, need_force=True, need_wf=True):
     xij, rij2, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
     r, rinv = torch.sqrt(r2s), torch.rsqrt(r2s)
     mf = m & (rij2 > 0.0)
-    vv, dv = system.potential.v_dv(r, rinv)
+    vv, dv = system.v_dv(r, rinv)
     pot = torch.where(m, vv, 0.0).sum(-1)
     F = fpair = usum = None
     if need_force:
@@ -129,10 +129,10 @@ def pair_pot_ref(system, R, with_force=False):
     a = system.a_ho
     m, r, xij = all_pairs(system, R)
     if with_force:
-        vv, dv = system.potential.v_dv(r)
+        vv, dv = system.v_dv(r)
         v = torch.where(m, vv, 0.0)
     else:
-        v = torch.where(m, system.potential.v(r), 0.0)
+        v = torch.where(m, system.v(r), 0.0)
     pot = 0.5 * v.sum((-1, -2))
     f2 = torch.zeros_like(pot)
     if with_force:
@@ -172,11 +172,11 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
         F = None
         if with_force:
             rinv = torch.rsqrt(r2s)
-            vv, dv = system.potential.v_dv(r, rinv)
+            vv, dv = system.v_dv(r, rinv)
             pot = torch.where(m, vv, 0.0).sum(-1)
             F = (torch.where(m, dv * rinv, 0.0)[..., None] * xij).sum(-2)
         else:
-            pot = torch.where(m, system.potential.v(r), 0.0).sum(-1)
+            pot = torch.where(m, system.v(r), 0.0).sum(-1)
         if a is not None:
             pot = pot + jas.trap_pot(a, x)
             if with_force:
@@ -189,7 +189,14 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
     df2 = f2_n - f2_o if with_force else torch.zeros_like(dpot)
     if tab is None:
         return dpot, df2
-    du = pair_u_ref(system, R, xnew, xold, ip)
+    return chin_action(tab, ib, wf, dpot, df2,
+                       pair_u_ref(system, R, xnew, xold, ip))
+
+
+def chin_action(tab, ib, wf, dpot, df2, du):
+    """The dense action delta from a row's terms (pairwise.py:331-343):
+    dS = wv dpot + wf_b df2 - where(wpsi > 0, du, 0), (wv, _, wpsi) =
+    tab[:, ib], wf_b = wf on odd interior rows (tab[1, ib] > 0), else 0."""
     w = tab[:, ib]
     dS = w[0] * dpot + (w[1] > 0).to(dpot.dtype) * wf * df2
     return dS - torch.where(w[2] > 0, du, 0.0)
@@ -215,29 +222,50 @@ def pair_u_ref(system, R, xnew, xold, ip):
 # Routing and kernel parameters
 # ---------------------------------------------------------------------------
 
+def _tables(system) -> bool:
+    return system.cfg.v_table or system.cfg.wf_table
+
+
 def rows_route(system) -> bool:
     """Whether kernel A runs this System's window passes: under PBC without
-    exact F^2, the reference's `not cfg.exact_f2` guard (pairwise.py:415)
-    with the `system.pbc` term of pallas_rows_ok (pallas_kernels.py:256).
-    Under exact F^2 the plain form runs on every device."""
-    return system.pbc and not system.cfg.exact_f2
+    exact F^2 and without either table, the reference's `not
+    cfg.exact_f2` guard (pairwise.py:415) with pallas_rows_ok
+    (pallas_kernels.py:252-258).  Otherwise the plain form runs on every
+    device."""
+    return system.pbc and not system.cfg.exact_f2 and not _tables(system)
 
 
 def cascade_route(system) -> bool:
     """Whether kernel 5 runs the dyadic cascades: under PBC without exact
-    F^2, as use_cascade_kernel has it (cascade_kernels.py:428-436)."""
-    return system.pbc and not system.cfg.exact_f2
+    F^2 and without either table, as use_cascade_kernel has it
+    (cascade_kernels.py:428-436)."""
+    return system.pbc and not system.cfg.exact_f2 and not _tables(system)
 
 
 def pair_route(system) -> bool:
-    """Whether kernels B, 3 and 4 run: under PBC, the `system.pbc` term of
-    pallas_ok and pallas_ok_wf (pallas_kernels.py:321-338).  Exact F^2
-    keeps them: its brute path calls kernel B on window blocks.
+    """Whether kernels B and 3 run: under PBC without v_table, as pallas_ok
+    has it (pallas_kernels.py:321-330).  Exact F^2 keeps them: its brute
+    path calls kernel B on window blocks.
 
     Each predicate is a route by configuration, as the reference routes
-    the trap and exact F^2 away from a kernel: the plain form runs on every
-    device, and a kernel that fails still raises."""
-    return system.pbc
+    the trap, the tables and exact F^2 away from a kernel: the plain form
+    runs on every device, and a kernel that fails still raises."""
+    return system.pbc and not system.cfg.v_table
+
+
+def u_route(system) -> bool:
+    """Whether kernel 4 runs: under PBC without wf_table, as pallas_ok_wf
+    has it (pallas_kernels.py:333-338)."""
+    return system.pbc and not system.cfg.wf_table
+
+
+def action_route(system) -> bool:
+    """Whether the dense action delta is kernel 3's action mode, one launch
+    that carries kernel 4's u on the chain-end rows: only where both
+    kernels run.  Otherwise delta_action takes the kernel that still
+    applies and the plain form of the other half, as the reference's
+    separate delta_pot / delta_wf calls do (pairwise.py:331-341)."""
+    return pair_route(system) and u_route(system)
 
 
 class _PairParams(ctypes.Structure):
@@ -246,8 +274,9 @@ class _PairParams(ctypes.Structure):
         (n, ctypes.c_double) for n in (
             "rcut2", "V0", "V0s", "s", "s_inv", "A", "neg_alpha", "beta",
             "two_beta", "C6", "C8", "C10", "Dcore", "d_min", "d_min_inv",
-            "two_C8", "four_C10", "Rm", "rc", "u_rc", "du_rc")] + [
-        ("c1", ctypes.c_int), ("dim", ctypes.c_int)]
+            "two_C8", "four_C10", "Rm", "rc", "u_rc", "du_rc", "soft_V0",
+            "Cdd")] + [
+        (n, ctypes.c_int) for n in ("c1", "dim", "pot_kind", "jas_kind")]
 
 
 def _params(system) -> _PairParams:
@@ -259,8 +288,9 @@ def _params(system) -> _PairParams:
             L=(ctypes.c_double * 3)(*L),
             half=(ctypes.c_double * 3)(*[0.5 * x for x in L]),
             rcut2=geo.rcut2, Rm=cfg.Rm, rc=geo.rcut, u_rc=system.u_rc,
-            du_rc=system.du_rc, c1=int(system.c1),
-            dim=cfg.dim, **system.potential.consts)
+            du_rc=system.du_rc, c1=int(system.c1), dim=cfg.dim,
+            pot_kind=system.potential.kind, jas_kind=system.jas_kind,
+            **system.potential.consts)
         system._consts["kernel_params"] = p
     return p
 
@@ -538,7 +568,8 @@ def pair_delta(system, R, xnew, xold, ip, with_force=True, tab=None, ib=None,
     chain-end rows (see pair_delta_ref); R [W, B, N, D] is read in place
     through its strides.  tab: the contiguous Chin table [3, M]; ib:
     contiguous long [B] or [W, B]."""
-    if R.device.type == "cpu" or not pair_route(system):
+    if R.device.type == "cpu" or not (
+            action_route(system) if tab is not None else pair_route(system)):
         return pair_delta_ref(system, R, xnew, xold, ip, with_force, tab, ib,
                               wf)
     out = _dense("pair_delta", system, R, xnew, xold, ip,
@@ -553,7 +584,7 @@ pair_delta.launches = 0
 def pair_u(system, R, xnew, xold, ip):
     """Per row du of UpdateWf (see pair_u_ref), by the dense kernel's u
     mode; R [W, B, N, D] is read in place through its strides."""
-    if R.device.type == "cpu" or not pair_route(system):
+    if R.device.type == "cpu" or not u_route(system):
         return pair_u_ref(system, R, xnew, xold, ip)
     out = _dense("pair_u", system, R, xnew, xold, ip, _U, False)
     pair_u.launches += 1

@@ -197,7 +197,7 @@ def force_field(system, R):
     calls it on paths[:, 1::2], the odd beads, the only rows whose F^2
     carries Chin weight."""
     m, r, xij = all_pairs(system, R)
-    fr = torch.where(m & (r > 0.0), system.potential.dvdr(r) / r, 0.0)
+    fr = torch.where(m & (r > 0.0), system.dv(r) / r, 0.0)
     F = (fr[..., None] * xij).sum(-2)
     if system.a_ho is not None:
         F = F + jas.trap_pot_grad(system.a_ho, R)
@@ -244,20 +244,22 @@ def delta_action(system, R, xnew, xold, ip, ib, with_force=True):
     force.  ib [B] or [W, B].
 
     One launch and nothing after it, kernel 3 with kernel 4's pass on the
-    chain-end rows closing the sum with the Chin table, except under
-    cfg.exact_f2 with force: that launch's epilogue adds the moved
-    particle's partial dF^2, so the exact form is kernel 3's raw mode for
-    dPot, kernel B twice for F^2, kernel 4's u mode, and the Chin weights
-    applied here (pairwise.py:331-343)."""
+    chain-end rows closing the sum with the Chin table, except in two
+    cases, where the terms come from delta_pot and delta_wf and the Chin
+    weights are applied here (pairwise.py:331-343): under cfg.exact_f2 with
+    force (that launch's epilogue adds the moved particle's partial dF^2,
+    so the exact form is kernel 3's raw mode for dPot, kernel B twice for
+    F^2 and kernel 4's u mode), and where the action mode does not run
+    (kernels.action_route: under a table the kernel that still applies and
+    the plain form of the other half; under the trap both plain)."""
     dt = system.cfg.dt
     wf = (4.0 * dt / 3.0) * dt * dt / 6.0 if with_force else 0.0
     tab = chin_table(system, xnew.dtype)
-    if with_force and system.cfg.exact_f2:
-        dpot, df2 = delta_pot(system, R, xnew, xold, ip)
-        w = tab[:, ib]
-        dS = w[0] * dpot + (w[1] > 0).to(dpot.dtype) * wf * df2
-        return dS - torch.where(w[2] > 0,
-                                delta_wf(system, R, xnew, xold, ip), 0.0)
+    if (with_force and system.cfg.exact_f2) \
+            or not kernels.action_route(system):
+        dpot, df2 = delta_pot(system, R, xnew, xold, ip, with_force)
+        return kernels.chin_action(tab, ib, wf, dpot, df2,
+                                   delta_wf(system, R, xnew, xold, ip))
     return kernels.pair_delta(system, R, xnew, xold, ip, with_force, tab, ib,
                               wf)
 

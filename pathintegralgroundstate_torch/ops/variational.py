@@ -10,8 +10,8 @@ as a tensor with requires_grad and differentiate the result, e.g.
     torch.autograd.grad(total_action_params(system, paths_w, Rm), Rm)
 
 The closed forms only (the reference keeps its tables out of the
-derivative chain); the trial WF families are the port's, McMillan (with
-the C1 shift under PBC) and none.  Every function takes slices R[..., N,
+derivative chain); the trial WF families are McMillan (with the C1 shift
+under PBC), the 2-D dipolar form and none.  Every function takes slices R[..., N,
 D] or worldlines paths_w[..., M, N, D] with any leading batch.
 """
 
@@ -29,32 +29,19 @@ from .pairwise import chin_table
 # ---------------------------------------------------------------------------
 
 def u_params(system, r, Rm):
-    """Two-body log-Jastrow u(r; Rm): System.u with Rm an explicit
+    """Two-body log-Jastrow u(r; Rm): System.u_closed with Rm an explicit
     argument (the same family and C1 truncation rules)."""
-    cfg = system.cfg
-    if cfg.jastrow == "none":
-        return torch.zeros_like(r)
-    u = jas.mcmillan_u(Rm, r)
-    if cfg.jastrow == "mcmillan_c1" and system.pbc:
-        rc = system.geo.rcut
-        u = u - jas.mcmillan_u(Rm, rc) - jas.mcmillan_du(Rm, rc) * (r - rc)
-    return u
+    return jas.two_body_u(system.cfg.jastrow, Rm, r, system.geo.rcut,
+                          system.pbc)
 
 
 def du_params(system, r, Rm):
-    cfg = system.cfg
-    if cfg.jastrow == "none":
-        return torch.zeros_like(r)
-    du = jas.mcmillan_du(Rm, r)
-    if cfg.jastrow == "mcmillan_c1" and system.pbc:
-        du = du - jas.mcmillan_du(Rm, system.geo.rcut)
-    return du
+    return jas.two_body_du(system.cfg.jastrow, Rm, r, system.geo.rcut,
+                           system.pbc)
 
 
 def d2u_params(system, r, Rm):
-    if system.cfg.jastrow == "none":
-        return torch.zeros_like(r)
-    return jas.mcmillan_d2u(Rm, r)
+    return jas.two_body_d2u(system.cfg.jastrow, Rm, r)
 
 
 def _trap_lengths(system, a_ho, like):

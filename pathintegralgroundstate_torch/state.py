@@ -46,17 +46,24 @@ def _generators(system, seed: int):
     return gen, host
 
 
-def init_state(system, seed=None) -> MCState:
+def init_state(system, seed=None, init_positions=None) -> MCState:
     """Fresh ensemble (vpi_mod.f90:149-259): particles uniform in the box,
     or under the trap uniform in [-a_ho, a_ho] per axis (state.py:60-62),
-    the one time slice replicated to every bead, xend at the last
-    particle's central bead."""
+    or at the given crystal positions init_positions ([N, D], the
+    reference's config_ini.in, or [W, N, D] per walker); the one time
+    slice replicated to every bead, xend at the last particle's central
+    bead.  The generators are seeded either way, so a crystal start draws
+    the same moves as a random one."""
     cfg = system.cfg
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
     gen, host = _generators(system, cfg.seed if seed is None else seed)
     u = torch.rand((W, N, D), generator=gen, device=system.device,
                    dtype=system.dtype) - 0.5
-    R = 2.0 * system.a_ho * u if cfg.trap else system.L * u
+    if init_positions is not None:
+        R = torch.as_tensor(np.asarray(init_positions), dtype=system.dtype,
+                            device=system.device).expand(W, N, D)
+    else:
+        R = 2.0 * system.a_ho * u if cfg.trap else system.L * u
     paths = R[:, None].expand(W, M, N, D).contiguous()
     xend = paths[:, cfg.Nb, N - 1][:, None].expand(W, 2, D).contiguous()
     kw = dict(device=system.device)

@@ -3,7 +3,14 @@
 The torch counterpart of pathintegralgroundstate_tpu/system.py.  It also
 holds the device copies of the host-built constant tables (bridge and
 dyadic matrices, Chin weights, index ranges), made once per System so the
-Monte Carlo step never copies from the host.
+Monte Carlo step never copies from the host, and the optional lookup
+tables of table mode (`make_tables`).
+
+Its pair functions v, dv, v_dv, u, du and d2u are the one seam every plain
+form calls: each takes the table exactly where the reference's
+_v_of_r / _dv_of_r / _v_dv_of_r / _u_of_r (pairwise.py:102-128) and
+_du_of_r / _d2u_of_r (estimators.py:38-47) take it, and the closed form
+otherwise.
 
 The constructor refuses every configuration outside the ported slice with
 NotImplementedError naming the ROADMAP item it waits for.
@@ -12,6 +19,7 @@ NotImplementedError naming the ROADMAP item it waits for.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,8 +28,12 @@ from .config import Geometry, SimConfig, geometry
 
 from .models import jastrow as jas
 from .models.potentials import Potential, get_potential
+from .utils.interpolate import build_table, interpolate
 
-_JASTROWS = ("mcmillan", "mcmillan_c1", "none")
+# enum JasKind in csrc/pigs_pair.cuh
+JAS_MCMILLAN, JAS_DIPOLAR, JAS_NONE = 0, 1, 2
+_JASTROWS = {"mcmillan": JAS_MCMILLAN, "mcmillan_c1": JAS_MCMILLAN,
+             "dipolar2d": JAS_DIPOLAR, "none": JAS_NONE}
 
 
 def check_supported(cfg: SimConfig) -> None:
@@ -29,20 +41,9 @@ def check_supported(cfg: SimConfig) -> None:
     waits = [
         (not cfg.shared_windows, "shared_windows=False",
          "slice 11 (per-walker windows)"),
-        (cfg.v_table or cfg.wf_table, "v_table/wf_table",
-         "slice 2 (table mode)"),
         (max(cfg.mesh_walkers, cfg.mesh_pairs, cfg.mesh_beads) > 1,
          "mesh_*>1", "slice 14 (multi-device)"),
         (cfg.distributed, "distributed=True", "slice 14 (multi-device)"),
-        (cfg.crystal, "crystal=True",
-         "slice 12 (item 10: the crystal start and config_ini.in)"),
-        (cfg.jastrow not in _JASTROWS, f"jastrow={cfg.jastrow!r}",
-         "slice 12 (geometry and model variants)"),
-        # the kernels' pair chain is Aziz and McMillan (csrc/pigs_pair.cuh):
-        # the ideal-gas forms run only where the trap routes the plain forms
-        (not cfg.trap and "none" in (cfg.potential, cfg.jastrow),
-         f"potential={cfg.potential!r}, jastrow={cfg.jastrow!r} under PBC",
-         "slice 12 (item 10: the kernels' pair-chain selector)"),
         (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
          "no slice (float32 and float64 only)"),
         (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),
@@ -51,7 +52,18 @@ def check_supported(cfg: SimConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to torch yet: ROADMAP queue 1, {item}")
-    get_potential(cfg.potential)  # raises for all but aziz2, aziz1, none
+    if cfg.jastrow not in _JASTROWS:
+        raise ValueError(f"unknown jastrow {cfg.jastrow!r}; known: "
+                         f"{sorted(_JASTROWS)}")
+    get_potential(cfg.potential)  # KeyError for an unknown name
+
+
+class Tables(NamedTuple):
+    """The optional lookup tables of table mode (vpi_mod.f90:84-145):
+    logwf [Nmax+2] the tabulated log-Jastrow, vtab [Nmax+2] the tabulated
+    potential; None where the closed form runs."""
+    logwf: Optional[torch.Tensor]
+    vtab: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(eq=False)
@@ -70,15 +82,19 @@ class System:
         self.half = 0.5 * self.L
         rc = self.geo.rcut
         Rm = self.cfg.Rm
-        # the C1 shift applies under PBC only (system.py:93, 108); its
-        # constants in Python floats, as the reference folds them
-        self.c1 = self.cfg.jastrow == "mcmillan_c1" and self.pbc
-        self.u_rc = jas.mcmillan_u(Rm, rc) if self.c1 else 0.0
-        self.du_rc = jas.mcmillan_du(Rm, rc) if self.c1 else 0.0
+        self.jas_kind = _JASTROWS[self.cfg.jastrow]
+        # the C1 shift's constants, in Python floats as the reference folds
+        # them: the kernels' parameters
+        self.c1 = jas.c1_shifted(self.cfg.jastrow, self.pbc)
+        self.u_rc = self.du_rc = 0.0
+        if self.c1:
+            u0, du0, _ = jas.FAMILIES[self.cfg.jastrow]
+            self.u_rc, self.du_rc = u0(Rm, rc), du0(Rm, rc)
         # the trap lengths [D], read by the one-body terms
         self.a_ho = (torch.tensor(self.cfg.a_ho, **kw) if self.cfg.trap
                      else None)
         self._consts: dict = {}
+        self.tables: Tables = make_tables(self)
 
     @property
     def M(self) -> int:
@@ -88,28 +104,59 @@ class System:
     def pbc(self) -> bool:
         return not self.cfg.trap
 
+    # -- the closed forms ----------------------------------------------------
+
+    def u_closed(self, r):
+        """Two-body log-Jastrow in closed form (models/jastrow.two_body_u):
+        'mcmillan' bare, 'mcmillan_c1' and 'dipolar2d' C1-matched at rcut
+        under PBC, 'none' u = 0 (the ideal gas)."""
+        return jas.two_body_u(self.cfg.jastrow, self.cfg.Rm, r,
+                              self.geo.rcut, self.pbc)
+
+    def du_closed(self, r):
+        return jas.two_body_du(self.cfg.jastrow, self.cfg.Rm, r,
+                               self.geo.rcut, self.pbc)
+
+    def d2u_closed(self, r):
+        """u'' (never shifted)."""
+        return jas.two_body_d2u(self.cfg.jastrow, self.cfg.Rm, r)
+
+    # -- the pair functions of the plain forms --------------------------------
+
+    def v(self, r):
+        """V(r): the table under v_table, else the closed form."""
+        if self.tables.vtab is not None:
+            return interpolate(0, self.geo.dr, self.tables.vtab, r)
+        return self.potential.v(r)
+
+    def dv(self, r):
+        """dV/dr(r): the table's first difference under v_table."""
+        if self.tables.vtab is not None:
+            return interpolate(1, self.geo.dr, self.tables.vtab, r)
+        return self.potential.dvdr(r)
+
+    def v_dv(self, r, rinv=None):
+        """(V, dV/dr): the table under v_table, else the fused closed form
+        (Aziz from r and 1/r, the others from r alone)."""
+        if self.tables.vtab is not None:
+            return self.v(r), self.dv(r)
+        return self.potential.v_dv(r, rinv)
+
     def u(self, r):
-        """Two-body log-Jastrow; 'mcmillan_c1' is C1-matched at rcut under
-        PBC, 'none' is u = 0 (the ideal gas)."""
-        if self.cfg.jastrow == "none":
-            return torch.zeros_like(r)
-        u = jas.mcmillan_u(self.cfg.Rm, r)
-        if self.c1:
-            u = u - self.u_rc - self.du_rc * (r - self.geo.rcut)
-        return u
+        """u(r): the table under wf_table, else u_closed."""
+        if self.tables.logwf is not None:
+            return interpolate(0, self.geo.dr, self.tables.logwf, r)
+        return self.u_closed(r)
 
     def du(self, r):
-        if self.cfg.jastrow == "none":
-            return torch.zeros_like(r)
-        du = jas.mcmillan_du(self.cfg.Rm, r)
-        if self.c1:
-            du = du - self.du_rc
-        return du
+        if self.tables.logwf is not None:
+            return interpolate(1, self.geo.dr, self.tables.logwf, r)
+        return self.du_closed(r)
 
     def d2u(self, r):
-        if self.cfg.jastrow == "none":
-            return torch.zeros_like(r)
-        return jas.mcmillan_d2u(self.cfg.Rm, r)
+        if self.tables.logwf is not None:
+            return interpolate(2, self.geo.dr, self.tables.logwf, r)
+        return self.d2u_closed(r)
 
     # -- device constants ----------------------------------------------------
 
@@ -128,6 +175,22 @@ class System:
             lo, hi = 0, lo
         return self.const(("arange", lo, hi, step),
                           lambda: np.arange(lo, hi, step), torch.long)
+
+
+def make_tables(system: System) -> Tables:
+    """The optional tables on the reference grid (system.py:124-137):
+    JastrowTable and PotentialTable (vpi_mod.f90:84-145), Nmax points on
+    [0, rcut] with ghost cells at both ends, tabulated in the System's
+    dtype on its device."""
+    cfg, geo = system.cfg, system.geo
+    logwf = vtab = None
+    if cfg.wf_table:
+        logwf, _ = build_table(system.u_closed, geo.rcut, cfg.Nmax,
+                               system.dtype, system.device)
+    if cfg.v_table:
+        vtab, _ = build_table(system.potential.v, geo.rcut, cfg.Nmax,
+                              system.dtype, system.device)
+    return Tables(logwf=logwf, vtab=vtab)
 
 
 def make_system(cfg: SimConfig, device=None, dtype=None) -> System:

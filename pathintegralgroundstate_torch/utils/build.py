@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -81,6 +82,28 @@ def build() -> tuple[Path, float, str]:
     log.write_text(text)
     os.replace(tmp, lib)
     return lib, seconds, text
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of nvcc's -Xptxas -v log: its name with its
+    template arguments (type, then its int and bool arguments: lanes,
+    block size, mode, force, pair model), registers and spills."""
+    name, spill, out = "?", "", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
+                      r"pair_delta|pair_u|cascade)_kernel)I([fd])"
+                      r"((?:L[ib]\d+E)*)", line)
+        if m:
+            args = ["float" if m.group(2) == "f" else "double"] + [
+                v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{', '.join(args)}>"
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 _P = ctypes.c_void_p

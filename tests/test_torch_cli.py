@@ -19,7 +19,8 @@ import torch
 from torch_bridge import small_cfg
 
 from pathintegralgroundstate_torch import cli
-from pathintegralgroundstate_torch.config import namelist_text
+from pathintegralgroundstate_torch.config import load_namelist_config, \
+    namelist_text
 from pathintegralgroundstate_tpu import cli as jcli
 
 torch.set_num_threads(1)
@@ -159,10 +160,31 @@ def test_unknown_platform_raises(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kv,item", [
-    ("crystal=T", r"ROADMAP queue 1, slice 12 \(item 10"),
     ("distributed=T", r"ROADMAP queue 1, slice 14"),
 ])
 def test_unported_options_raise(runs, tmp_path, monkeypatch, kv, item):
     monkeypatch.setenv("PIGS_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=item):
         cli.main([runs[0], "-o", str(tmp_path), "--set", kv])
+
+
+def test_crystal_start_runs(runs, tmp_path, monkeypatch, capsys):
+    """crystal=T: the CLI reads config_ini.in beside the input file and
+    starts every walker from its positions, with its box and density."""
+    monkeypatch.setenv("PIGS_PLATFORM", "cpu")
+    cfg = load_namelist_config(runs[0])
+    L = 5.0
+    g = (np.arange(2) + 0.25) * L / 2 - L / 2
+    R = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    lines = [f"{len(R)}", f"{L} {L} {L}", f"{len(R) / L ** 3}"]
+    lines += [" ".join(map(str, x)) for x in R]
+    nml = tmp_path / "run.in"
+    nml.write_text(open(runs[0]).read())
+    (tmp_path / "config_ini.in").write_text("\n".join(lines) + "\n")
+    out = tmp_path / "out"
+    cli.main([str(nml), "-o", str(out), "--set", "crystal=T", "--blocks",
+              "1"])
+    assert "# crystal start from" in capsys.readouterr().out
+    z = np.load(str(out / "checkpoint.npz"))
+    assert z["paths"].shape == (cfg.n_walkers, cfg.M, len(R), 3)
+    assert np.all(np.abs(z["paths"]) <= L / 2 + 1e-9)

@@ -43,6 +43,13 @@ MODULES = [
     "pathintegralgroundstate_torch.utils.pbc",
     "pathintegralgroundstate_torch.utils.build",
     "pathintegralgroundstate_torch.utils.draws",
+    "pathintegralgroundstate_torch.utils.interpolate",
+    "pathintegralgroundstate_torch.utils.refrng",
+    "pathintegralgroundstate_torch.utils.replay",
+    "pathintegralgroundstate_torch.utils.compat",
+    "pathintegralgroundstate_torch.ops.estimators",
+    "pathintegralgroundstate_torch.ops.variational",
+    "pathintegralgroundstate_torch.ops.total_action",
     "chip_smoke",
 ]
 
@@ -85,20 +92,15 @@ def _ids(o):
     return ",".join(f"{k}={v}" for k, v in o.items())
 
 
-# the ROADMAP item each refusal names, where the test holds it to one: the
-# ideal-gas forms under PBC wait for the kernels' pair-chain selector
-WAITS = {"potential=none": r"slice 12 \(item 10",
-         "jastrow=none": r"slice 12 \(item 10",
-         "trap=True,v_table=True": r"slice 2 \(table mode\)"}
+# the ROADMAP item each refusal names, where the test holds it to one
+WAITS = {"mesh_walkers=2": r"slice 14 \(multi-device\)"}
 
 
 @pytest.mark.parametrize("overrides", [
     {"shared_windows": False},
     {"bis_monoshot": False, "shared_windows": False},
-    {"trap": True, "v_table": True}, {"v_table": True}, {"wf_table": True},
     {"mesh_walkers": 2}, {"mesh_pairs": 2}, {"mesh_beads": 2},
-    {"potential": "soft"}, {"potential": "dipolar"}, {"potential": "none"},
-    {"jastrow": "none"}, {"jastrow": "dipolar2d"},
+    {"distributed": True},
 ], ids=_ids)
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError,
@@ -119,6 +121,13 @@ def test_unported_options_raise(overrides):
     {"trap": True, "dim": 2, "jastrow": "none"},
     {"fused_sweep": True, "exact_f2": True}, {"exact_f2": True},
     {"smart_mc": 0.1, "exact_f2": True},
+    {"trap": True, "v_table": True}, {"v_table": True}, {"wf_table": True},
+    {"v_table": True, "wf_table": True},
+    {"potential": "soft"}, {"potential": "dipolar"}, {"potential": "none"},
+    {"potential": "aziz1"}, {"jastrow": "none"}, {"jastrow": "dipolar2d"},
+    {"jastrow": "mcmillan"}, {"trap": True, "jastrow": "dipolar2d"},
+    {"fused_sweep": True, "cascade": True, "potential": "dipolar",
+     "jastrow": "dipolar2d", "dim": 2},
 ], ids=_ids)
 def test_ported_options_build(overrides):
     Sweeper(make_system(other_cfg(small_cfg(**overrides)), "cpu"))

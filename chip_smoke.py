@@ -50,11 +50,15 @@ run exits non-zero):
                interior; each case prints whether kernels A and B staged
                with 16-byte copies and kernel 5 with its bulk copy.
   8. replay  : one step at W=16 in float64 on the card and on the CPU
-               (plain forms) from the same recorded draws, for the flagship,
-               the fused sweep with cascade off and on, the reference-order
-               step (per-level bisection, random end depth), the staging
-               sampler with regrow='scan', the fused sweep in per-level
-               form and the flagship's moves on a 2-D He-4 film: states,
+               (plain forms) from the same recorded draws, for the
+               flagship and the reference-order step (per-level bisection,
+               random end depth) at their full depth (Nstag=5, Nobdm=10),
+               and with the depth cut to Nstag=1 and at most 2 worm rounds
+               (every move site still runs; the cut saves about 60 s of
+               the CPU side's plain forms) for the fused sweep with
+               cascade off and on, the staging sampler with
+               regrow='scan', the fused sweep in per-level form and the
+               flagship's moves on a 2-D He-4 film: states,
                counters and statistics must agree.  Then the trap's
                replays (the trapped worm flagship, dim 2, and the 1-D
                oscillator with bisection), with every kernel's launch count
@@ -129,7 +133,33 @@ run exits non-zero):
                under PBC in the flagship's box and order through cli.main
                (<E> = 0 +/- 0 exactly in each block, the flagship's
                launches).
- 14. imports : no JAX module and no module of the reference package
+ 9c. windows : per-walker windows (shared_windows=False): kernel A on
+               gathered per-walker windows (ib [W, B], ip scalar and [W],
+               rows and walker sums) against its float64 plain form,
+               float32 and float64; the window's gather and scatter timed;
+               a W=16 float64 step card == CPU on recorded draws (full
+               depth); the
+               flagship with per-walker windows as a main path (exact
+               launch counts, equal to the shared flagship's, peak memory,
+               0 host syncs), read beside [main]'s shared-window flagship,
+               then both timed in turns (shared, per-walker, per-walker,
+               shared; 2 steps each).
+ 15. mesh    : dp walker sharding over 2 ranks on the one card (gloo;
+               torchrun starts the ranks, `chip_smoke.py --mesh-rank`):
+               one Driver block of the flagship at global W=1024 float32
+               (kernel A's lane width pinned from the global W; counters
+               and perm_hist equal, the statistics within rtol 1e-5, the
+               paths within 1e-4) and at
+               W=64 float64 (rtol 1e-10) against the same blocks unsharded
+               in this process, each rank's ms/step and collectives; then
+               the dry run (parallel/dryrun.py) at dp 2 x tp 2 over 4
+               ranks.
+ 16. dipolar mesh: BASELINE #5 at dp 2 x tp 2 over 4 ranks through the CLI
+               (2 blocks of 2 steps, started by torchrun) against the
+               unsharded CLI run: the outputs within rtol 1e-9, counters
+               equal, rank 0 alone printing and writing; ms/step,
+               collectives per step and their share.
+ 17. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
@@ -139,8 +169,10 @@ the inputs of its timed case (float64 cases: 34 TFLOP/s, the data sheet's
 float64 rate outside the tensor cores); library_ms is null, as no single
 PyTorch call computes these pair sums.  Each entry also carries its
 launches over the 3 timed steps of the exact-F^2 flagship, cached and
-brute.  The entries '[dipolar N=256 float64]' are the same kernels at the
-dipolar gas's shapes, with their launches on the dipolar path.
+brute, and over the 3 timed steps of the per-walker-window flagship
+(windows_launches).  The entries '[dipolar N=256 float64]' are the same
+kernels at the dipolar gas's shapes, with their launches on the dipolar
+path.
 """
 
 import functools
@@ -1258,9 +1290,9 @@ def replay_check(cfg, label="flagship", cut=False):
 
     cfg = cfg.replace(n_walkers=16, dtype="float64")
     if cut:
-        # the exact-F^2 steps run the plain window pass on the card: their
-        # depth is cut to one particle sweep and at most two worm rounds,
-        # and every move site of the step still runs
+        # the CPU side of a replay runs the plain forms: the depth is cut
+        # to one particle sweep and at most two worm rounds, and every move
+        # site of the step still runs
         cfg = cfg.replace(Nstag=min(cfg.Nstag, 1), Nobdm=min(cfg.Nobdm, 2))
     out = []
     rec = start = None
@@ -1311,13 +1343,16 @@ class _Depths:
 
 def expected_launches(cfg, sweeper, nstep, use_rand, depths):
     """Launches over nstep steps, from the move sites the steps visit:
-    {kernel: (count, exact)}.  Kernel A's count is a lower bound (CM and
-    worm sites at one pass each), exact without the worm (CWorm = 0: one
-    pass per CM move); its diagonal sweep part is exact, in the
-    per-level form from the end moves' drawn depths: one pass per level,
-    plus the gate's own pass with batched randoms (without them the gate
-    is the dense delta_action, one launch of kernel 3 that also runs kernel
-    4's pass, and no separate kernel-4 launch)."""
+    {kernel: (count, exact)}, every count exact.  Kernel A: one pass per CM
+    move; with the worm two for each of open and close (both worm halves)
+    and per worm round eight (the half translations, heads, tails and
+    stagings of both halves) and the swap's one; one per window of the
+    diagonal sweep, in the per-level form from the end moves' drawn
+    depths: one pass per level, plus the gate's own pass with batched
+    randoms (without them the gate is the dense delta_action, one launch of
+    kernel 3 that also runs kernel 4's pass, and no separate kernel-4
+    launch).  Per-walker windows (shared_windows=False) launch as shared
+    ones: the gathered window is one kernel-A pass like the view."""
     Np, Ns = cfg.Np, cfg.Nstag
     rows = (Np * (cfg.CMFreq > 0)
             + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
@@ -1348,8 +1383,7 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
                                      f"expected {2 * visits}")
             rows += sum(depths)
             dense = 2 * visits
-    # without the worm (CWorm = 0) every kernel-A site is counted exactly
-    return {"pair_rows": (rows, cfg.CWorm == 0),
+    return {"pair_rows": (rows, True),
             "pair_pot": (2 * nstep, True),
             "cascade": (casc, True), "pair_delta": (dense, True),
             "pair_u": (0, True)}
@@ -2654,10 +2688,394 @@ def dipolar_phase(card):
     return launches, cas_launches, dt, bups, cas_dt, cas_bups
 
 
+# ---------------------------------------------------------------------------
+# [windows]: per-walker windows (shared_windows=False)
+# ---------------------------------------------------------------------------
+
+def windows_phase(cfg, card, shared):
+    """Per-walker windows on the card: kernel A on a gathered per-walker
+    window (ib [W, B]) against its float64 plain form, float32 and float64;
+    the gather and the scatter of a window timed with CUDA events; a W=16
+    float64 step card == CPU on recorded draws; the flagship with
+    shared_windows=False at W=1024 float32 as a main path (exact launch
+    counts, peak memory, 0 host syncs), read beside the shared-window
+    flagship of [main] (`shared`: its (launches, s/step, bead-updates/s))
+    in this call.  Returns the per-walker path's launches."""
+    from pathintegralgroundstate_torch.ops import moves as mv
+    from pathintegralgroundstate_torch.system import make_system
+
+    dev = torch.device("cuda")
+    W, L, M = cfg.n_walkers, 2 ** cfg.Nlev, cfg.M
+    n_opts = (M - 1 - L) // 2 + 1
+    sys64 = make_system(cfg, dev, torch.float64)
+    err, ncase = 0.0, 0
+    for dtype in (torch.float32, torch.float64):
+        system = make_system(cfg, dev, dtype)
+        paths = _flagship_paths(cfg, W, dtype, dev, seed=41)
+        g = torch.Generator(device=dev).manual_seed(42)
+        ii = 2 * torch.randint(0, n_opts, (W,), generator=g, device=dev)
+        R_seg = mv._slice_beads(paths, ii, L + 1)        # [W, L+1, N, D]
+        want = torch.stack([paths[w, int(ii[w]):int(ii[w]) + L + 1]
+                            for w in range(0, W, 97)])
+        if not torch.equal(R_seg[::97], want):
+            raise AssertionError("windows: the gathered window is not the "
+                                 "walkers' own beads")
+        for lo, hi, flags in ((1, L, [(False, True)]),      # bisection rows
+                              (0, L, [(True, True), (False, False)])):
+            R = R_seg[:, lo:hi]
+            ib = mv.bead_index(system, ii, lo, hi)
+            for k, ip in enumerate((7, torch.randint(
+                    0, cfg.Np, (W,), generator=g, device=dev))):
+                xnew, xold = _window_ip(R, ip, g)
+                e, _, c = rows_parity(system, sys64, R, xnew, xold, ip, ib,
+                                      False, flags, f"per-walker window "
+                                      f"rows {lo}..{hi - 1}",
+                                      reduce=bool(k))
+                ncase += c
+                if dtype == torch.float64:
+                    err = max(err, e)
+    paths = _flagship_paths(cfg, W, torch.float32, dev, seed=43)
+    seg = mv._slice_beads(paths, ii, L + 1)[:, :, 7].clone()
+    gather_ms = _events_ms(lambda: mv._slice_beads(paths, ii, L + 1))
+    scatter_ms = _events_ms(lambda: mv._win_write(paths, ii, 7, seg))
+    gbytes = 2 * W * (L + 1) * cfg.Np * cfg.dim * 4
+    print(f"[windows] kernel A on gathered per-walker windows (ib [W, B]): "
+          f"{ncase} cases pass, float64 max abs err {err:.3e}; the gather "
+          f"of a [{W},{L + 1},{cfg.Np},{cfg.dim}] float32 window "
+          f"{gather_ms:.4f} ms (bound {gbytes / _PEAK_BYTES * 1e3:.4f} ms, "
+          f"bytes), the scatter of the moved particle's beads "
+          f"{scatter_ms:.4f} ms ({card})")
+    per = cfg.replace(shared_windows=False)
+    replay_check(per, "per-walker windows")
+    launches, dt, bups = main_path(per, card, "windows")
+    l0, dt0, bups0 = shared
+    print(f"[windows] per-walker {dt * 1e3:.1f} ms/step, {bups:.4e} "
+          f"bead-updates/s, launches {launches}; shared windows ([main], "
+          f"this call) {dt0 * 1e3:.1f} ms/step, {bups0:.4e} bead-updates/s, "
+          f"launches {l0} ({card})")
+    if launches != l0:
+        raise AssertionError("windows: the per-walker flagship's launches "
+                             "differ from the shared-window flagship's")
+    turns = _paired_steps((cfg, per))
+    print(f"[windows] in turns shared, per-walker, per-walker, shared, 2 "
+          f"steps each after a warm-up step: shared "
+          f"{', '.join(f'{t:.1f}' for t in turns[0])} ms/step, per-walker "
+          f"{', '.join(f'{t:.1f}' for t in turns[1])} ms/step ({card})")
+    return launches, dict(gather_ms=gather_ms, scatter_ms=scatter_ms,
+                          ms_step=dt * 1e3, shared_ms_step=dt0 * 1e3,
+                          turns=turns)
+
+
+def _paired_steps(cfgs, nstep=2):
+    """ms/step of the two configurations' steps, each warmed up by one step,
+    then timed in the turns a, b, b, a of nstep steps: [[a, a], [b, b]]."""
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    runs = []
+    for c in cfgs:
+        sweeper = Sweeper(make_system(c, torch.device("cuda")))
+        runs.append([sweeper, run_block(sweeper, init_state(sweeper.system),
+                                        1)[0]])
+    times = [[], []]
+    for i in (0, 1, 1, 0):
+        sweeper, state = runs[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[i][1], _ = run_block(sweeper, state, nstep)
+        torch.cuda.synchronize()
+        times[i].append((time.perf_counter() - t0) * 1e3 / nstep)
+    return times
+
+
+# ---------------------------------------------------------------------------
+# [mesh] and [dipolar mesh]: dp and tp sharding over ranks on the one card
+# ---------------------------------------------------------------------------
+
+def _repo():
+    import os
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _ranks(n, argv, timeout, label):
+    """`torchrun --standalone --nproc-per-node n argv...` from the repo's
+    root, each rank's output redirected into torchrun's log directory
+    under build/; fails unless torchrun exits 0 within `timeout` seconds
+    (at the timeout torchrun gets SIGTERM, on which it stops its ranks).
+    Returns the ranks' stdout."""
+    import glob
+    import os
+    import shutil
+    import subprocess
+    logs = os.path.join(_repo(), "build", "chip_smoke_torchrun",
+                        label.replace(" ", "_"))
+    shutil.rmtree(logs, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "--redirects=3", f"--log-dir={logs}"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + list(argv), cwd=_repo(), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise
+
+    def read(rank, stream):
+        paths = glob.glob(os.path.join(logs, "*", "attempt_0", str(rank),
+                                       f"{stream}.log"))
+        if len(paths) != 1:
+            return ""
+        with open(paths[0]) as fh:
+            return fh.read()
+
+    so = [read(r, "stdout") for r in range(n)]
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"{label}: torchrun exit {proc.returncode}: {err[-2500:]}\n"
+            + "\n".join(f"rank {r}: {so[r][-600:]}\n"
+                        f"{read(r, 'stderr')[-2500:]}" for r in range(n)))
+    print(f"[mesh] {label}: {n} ranks under torchrun in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return so
+
+
+def _cfg_dict(cfg):
+    import dataclasses
+    return dataclasses.asdict(cfg)
+
+
+def _cfg_of(d):
+    from pathintegralgroundstate_torch.config import SimConfig
+    return SimConfig(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in d.items()})
+
+
+def _timed_block(drv):
+    """One warm-up step, then one Driver block timed: (state gathered over
+    dp, block statistics as numpy, ms/step, collectives per step, their
+    host ms per step)."""
+    from pathintegralgroundstate_torch.parallel.mesh import gather_state
+    from pathintegralgroundstate_torch.sweep import run_block, stats_to_numpy
+    drv.state, _ = run_block(drv.sweeper, drv.state, 1)
+    torch.cuda.synchronize()
+    mesh = drv.mesh
+    c0, s0 = (mesh.collectives, mesh.coll_s) if mesh else (0, 0.0)
+    t0 = time.perf_counter()
+    drv.state, stats = drv._block()
+    torch.cuda.synchronize()
+    n = drv.cfg.Nstep
+    dt = (time.perf_counter() - t0) * 1e3 / n
+    c1, s1 = (mesh.collectives, mesh.coll_s) if mesh else (0, 0.0)
+    st = gather_state(drv.system, drv.state)
+    return st, stats_to_numpy(stats), dt, (c1 - c0) / n, (s1 - s0) * 1e3 / n
+
+
+def mesh_rank(spec_path, res_dir):
+    """One rank of the [mesh] phase (`python3 chip_smoke.py --mesh-rank
+    SPEC RES` under torchrun): each run of SPEC as one
+    timed Driver block with distributed=True; the rank saves its results
+    to RES/<run>_rank<R>.npz."""
+    import os
+
+    from pathintegralgroundstate_torch.driver import Driver
+    rank = int(os.environ["RANK"])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    for name, d in spec.items():
+        cfg = _cfg_of(d).replace(distributed=True)
+        drv = Driver(cfg, out_dir=os.path.join(res_dir, name),
+                     verbose=False)
+        st, stats, ms, coll, coll_ms = _timed_block(drv)
+        np.savez(os.path.join(res_dir, f"{name}_rank{rank}.npz"),
+                 paths=st.paths.cpu().numpy(), ms=ms, coll=coll,
+                 coll_ms=coll_ms, backend=drv.backend,
+                 device=str(drv.system.device),
+                 **{f"s_{k}": v for k, v in stats.items()})
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _hold(label, got, want, rtol, atol):
+    """Counters and perm_hist equal; the other statistics within rtol/atol;
+    returns the largest relative difference of the energy sums."""
+    for k in ("counters", "perm_hist"):
+        if not np.array_equal(got[f"s_{k}"], want[k]):
+            raise AssertionError(f"{label}: {k} differ: "
+                                 f"{got[f's_{k}']} vs {want[k]}")
+    rel = 0.0
+    for k, v in want.items():
+        if k in ("counters", "perm_hist"):
+            continue
+        np.testing.assert_allclose(got[f"s_{k}"], v, rtol=rtol, atol=atol,
+                                   err_msg=f"{label}: {k}")
+        if k.startswith("sum"):
+            rel = max(rel, float(abs(got[f"s_{k}"] - v) / max(abs(v),
+                                                              1e-300)))
+    return rel
+
+
+def mesh_phase(cfg, card):
+    """dp walker sharding on the card: 2 ranks (gloo: they share the one
+    card) each run one Driver block of the flagship at global W=1024
+    float32 with mesh_walkers=2 (3 steps after a warm-up step), and of the
+    flagship at W=64 float64 (2 steps); this process runs the same blocks
+    unsharded.  float32: kernel A's lane width is pinned from the global W
+    (kernels.pair_rows), so each walker's sums are the unsharded run's;
+    the counters and perm_hist must be equal, the statistics within rtol
+    1e-5 (sums over walkers in another order and g(r)'s atomics), the
+    paths within 1e-4.  float64: rtol 1e-10, paths 1e-10.  Then the dry
+    run (parallel/dryrun.py) at dp 2 x tp 2 over 4 ranks.  Prints each
+    rank's ms/step, its collectives per step and their share."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.driver import Driver
+
+    root = os.path.join(_repo(), "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs = {"f32": cfg.replace(mesh_walkers=2, Nstep=3),
+            "f64": cfg.replace(mesh_walkers=2, Nstep=2, n_walkers=64,
+                               dtype="float64")}
+    spec = os.path.join(root, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({k: _cfg_dict(c) for k, c in runs.items()}, f)
+    _ranks(2, [os.path.abspath(__file__), "--mesh-rank", spec, root], 420,
+           "flagship dp=2")
+    report = {}
+    for name, c in runs.items():
+        drv = Driver(c.replace(mesh_walkers=1),
+                     out_dir=os.path.join(root, name + "_one"),
+                     verbose=False)
+        st1, stats1, ms1, _, _ = _timed_block(drv)
+        z = [np.load(os.path.join(root, f"{name}_rank{r}.npz"))
+             for r in range(2)]
+        f32 = c.dtype == "float32"
+        rtol, atol, ptol = (1e-5, 1e-6, 1e-4) if f32 else (1e-10, 1e-12,
+                                                          1e-10)
+        rel = max(_hold(f"mesh {name} rank {r}", z[r], stats1, rtol, atol)
+                  for r in range(2))
+        dpath = float(np.abs(z[0]["paths"] - st1.paths.cpu().numpy()).max())
+        if not dpath <= ptol:
+            raise AssertionError(f"mesh {name}: paths differ by {dpath}")
+        for r in range(2):
+            print(f"[mesh] flagship W={c.n_walkers} {c.dtype} dp=2 rank {r} "
+                  f"({z[r]['device']}, {z[r]['backend']}): "
+                  f"{float(z[r]['ms']):.1f} ms/step, "
+                  f"{float(z[r]['coll']):.2f} collectives/step, "
+                  f"{float(z[r]['coll_ms']):.2f} ms/step in them "
+                  f"({100 * float(z[r]['coll_ms']) / float(z[r]['ms']):.2f} "
+                  f"%) ({card})")
+        print(f"[mesh] flagship W={c.n_walkers} {c.dtype}: sharded == "
+              f"unsharded ({ms1:.1f} ms/step unsharded): counters, "
+              f"perm_hist equal, sums max rel diff {rel:.3e} (rtol {rtol}), "
+              f"paths max abs diff {dpath:.3e} (tol {ptol})")
+        report[name] = dict(ms=[float(x["ms"]) for x in z], unsharded_ms=ms1,
+                            coll=float(z[0]["coll"]), rel=rel, dpath=dpath)
+    so = _ranks(4, ["-m", "pathintegralgroundstate_torch.parallel.dryrun"],
+                300, "dry run dp 2 x tp 2")
+    rep = json.loads(so[0].strip().splitlines()[-1])
+    if rep["world"] != 4 or any(v["mesh"] != [2, 2]
+                                for v in rep["dryrun"].values()):
+        raise AssertionError(f"mesh dry run: {rep}")
+    if any(so[1:]):
+        raise AssertionError("mesh dry run: a rank other than 0 printed")
+    for tag, v in rep["dryrun"].items():
+        print(f"[mesh] dry run {tag} dp x tp = 2 x 2 ({rep['backend']}): "
+              f"sharded == unsharded, max rel diff {v['max_rel']:.3e}; "
+              f"{v['ms']:.1f} ms per 2-step block, {v['collectives']} "
+              f"collectives on rank 0 ({card})")
+    report["dryrun"] = rep["dryrun"]
+    return report
+
+
+def dipolar_mesh_phase(card):
+    """BASELINE #5 (flagship.dipolar_cfg, N=256 float64, W=1024) on the
+    mesh the reference ran it on: dp 2 x tp 2 over 4 ranks (gloo, one
+    card), through the CLI as torchrun starts it (2 blocks of 2 steps),
+    against the unsharded CLI run of the same seed in this process.  Under
+    tp every pair sum takes the plain forms, the unsharded run the
+    kernels, so the two differ by rounding only: E/N, Et/N and the other
+    block averages within rtol 1e-9, g(r) within 1e-9, the counters equal.
+    Rank 0 alone prints and writes (the directory holds exactly the
+    Driver's files, e_vpi.out two rows)."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.config import namelist_text
+    from pathintegralgroundstate_torch.flagship import dipolar_cfg
+    from pathintegralgroundstate_torch.sweep import COUNTER_NAMES
+
+    root = os.path.join(_repo(), "build", "chip_smoke_dipolar_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = dipolar_cfg(1024, 2).replace(Nstep=2)
+    nml = os.path.join(root, "dipolar.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(cfg))
+    sh, one = os.path.join(root, "dp2tp2"), os.path.join(root, "one")
+    so = _ranks(4, ["-m", "pathintegralgroundstate_torch", nml, "-o", sh,
+                    "--set", "mesh_walkers=2", "--set", "mesh_pairs=2"], 900,
+                "dipolar dp 2 x tp 2 CLI")
+    if "BLOCK NUMBER : 2" not in so[0] or any(so[1:]):
+        raise AssertionError("dipolar mesh: rank 0 must print both blocks "
+                             "and no other rank anything")
+    launches, _ = cli_run(nml, "dipolar unsharded", one, tag="mesh")
+    want = sorted(os.listdir(one))
+    if sorted(f for f in os.listdir(sh)) != sorted(
+            f for f in want if f != "console.log"):
+        raise AssertionError(f"dipolar mesh: files {os.listdir(sh)} vs "
+                             f"{want}")
+    for fn in ("e_vpi.out", "et_vpi.out", "gr_vpi.out", "sk_vpi.out"):
+        a = np.loadtxt(os.path.join(sh, fn))
+        b = np.loadtxt(os.path.join(one, fn))
+        if fn in ("e_vpi.out", "et_vpi.out") and a.shape[0] != 2:
+            raise AssertionError(f"dipolar mesh: {fn} has {a.shape[0]} rows")
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
+                                   err_msg=f"dipolar mesh {fn}")
+
+    def recs(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [json.loads(x) for x in f]
+
+    rs, r1 = recs(sh), recs(one)
+    for a, b in zip(rs, r1):
+        if [a[n] for n in COUNTER_NAMES] != [b[n] for n in COUNTER_NAMES]:
+            raise AssertionError("dipolar mesh: counters differ")
+        if a["backend"] != "gloo" or a["mesh"] != [2, 2]:
+            raise AssertionError(f"dipolar mesh: {a['backend']} {a['mesh']}")
+    e = np.loadtxt(os.path.join(sh, "e_vpi.out"))
+    e1 = np.loadtxt(os.path.join(one, "e_vpi.out"))
+    coll = (rs[1]["collectives"] - rs[0]["collectives"]) / cfg.Nstep
+    coll_ms = (rs[1]["collective_s"] - rs[0]["collective_s"]) * 1e3 \
+        / cfg.Nstep
+    ms = rs[1]["time_s"] * 1e3 / cfg.Nstep
+    print(f"[dipolar mesh] dp 2 x tp 2 CLI == unsharded CLI: E/N "
+          f"{e[:, 1].tolist()} vs {e1[:, 1].tolist()} (max rel diff "
+          f"{float(np.max(np.abs(e - e1) / np.abs(e1).clip(1e-300))):.3e}, "
+          f"rtol 1e-9); rank 0, block 2: {ms:.1f} ms/step, {coll:.1f} "
+          f"collectives/step, {coll_ms:.1f} ms/step in them "
+          f"({100 * coll_ms / ms:.1f} %); unsharded block 2 "
+          f"{r1[1]['time_s'] * 1e3 / cfg.Nstep:.1f} ms/step, launches "
+          f"{launches} ({card})")
+    return dict(e=e[:, 1].tolist(), e1=e1[:, 1].tolist(), ms=ms, coll=coll,
+                coll_ms=coll_ms)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(*sys.argv[2:4])
     from pathintegralgroundstate_torch.flagship import flagship_cfg
     from pathintegralgroundstate_torch.utils import build
 
@@ -2698,13 +3116,14 @@ def main():
     fused = cfg.replace(fused_sweep=True)
     ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
     replay_check(cfg)
-    replay_check(fused, "fused")
-    replay_check(fused.replace(cascade=True), "fused+cascade")
+    replay_check(fused, "fused", cut=True)
+    replay_check(fused.replace(cascade=True), "fused+cascade", cut=True)
     replay_check(ref_order, "reference order")
     replay_check(cfg.replace(sampling="sta", regrow="scan"),
-                 "staging + scan")
-    replay_check(fused.replace(bis_monoshot=False), "fused per level")
-    replay_check(cfg.replace(dim=2, density=0.26), "2-D film")
+                 "staging + scan", cut=True)
+    replay_check(fused.replace(bis_monoshot=False), "fused per level",
+                 cut=True)
+    replay_check(cfg.replace(dim=2, density=0.26), "2-D film", cut=True)
     trap_replays()
     clock("exact_f2")
 
@@ -2734,7 +3153,8 @@ def main():
     exact_cache_vs_brute(cfg)
     clock("main")
 
-    launches, _, _ = main_path(cfg, card)
+    flagship = main_path(cfg, card)
+    launches = flagship[0]
     main_path(fused, card, "fused")
     cas_launches, _, _ = main_path(fused.replace(cascade=True), card,
                                    "fused+cascade")
@@ -2742,6 +3162,8 @@ def main():
     ex_launches, _, _ = main_path(exact, card, "exact_f2")
     br_launches, _, _ = main_path(exact.replace(f2_cache=False), card,
                                   "exact_f2 brute")
+    clock("windows")
+    win_launches, _ = windows_phase(cfg, card, flagship)
     clock("mala")
     eps = mala_phase(cfg, card)
     clock("cli")
@@ -2753,6 +3175,10 @@ def main():
     tables_phase(card)
     clock("dipolar")
     dip_launches, dcas_launches, *_ = dipolar_phase(card)
+    clock("mesh")
+    mesh_phase(cfg, card)
+    clock("dipolar mesh")
+    dipolar_mesh_phase(card)
     clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2774,7 +3200,8 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None,
                 "exact_f2_launches": ex_launches[key],
-                "exact_f2_brute_launches": br_launches[key]}
+                "exact_f2_brute_launches": br_launches[key],
+                "windows_launches": win_launches[key]}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
@@ -2807,7 +3234,8 @@ def main():
                                     else ""),
              max_abs_err_is="float64, dipolar/dipolar2d at N=256 "
                             "([variants] and the timed inputs)",
-             exact_f2_launches=None, exact_f2_brute_launches=None)
+             exact_f2_launches=None, exact_f2_brute_launches=None,
+             windows_launches=None)
         for name, kname, tname, src, rep, n in (
             ("pair_rows", "pair_rows", "pair_rows", "pair_rows.cu",
              "pallas_kernels.py:300", dip_launches["pair_rows"]),

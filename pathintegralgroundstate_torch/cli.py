@@ -12,11 +12,21 @@ without it, the run raises rather than fall back to the CPU.  With
 crystal = T the start positions, the particle count, the box and the
 density come from `config_ini.in` beside the input file (the reference's
 crystal start, vpi.f90:101-107; cli.py:102-112).
+
+Sharded over several processes it runs under torchrun, e.g.
+
+    torchrun --nproc-per-node 2 -m pathintegralgroundstate_torch in.in \
+        --set mesh_walkers=2
+
+torchrun's environment (WORLD_SIZE) turns distributed on, each rank takes
+the card cuda:(LOCAL_RANK % device_count), and only rank 0 prints and
+writes the outputs (driver.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -72,6 +82,14 @@ def _profile_block(drv: Driver, out_dir: str) -> None:
 
 
 def main(argv=None):
+    """The CLI; under torchrun every rank but rank 0 runs silently."""
+    if int(os.environ.get("RANK", "0")) == 0:
+        return _main(argv)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return _main(argv)
+
+
+def _main(argv=None):
     ap = argparse.ArgumentParser(
         prog="pathintegralgroundstate_torch",
         description="PIGS/VPI quantum Monte Carlo on PyTorch and CUDA")
@@ -93,6 +111,8 @@ def main(argv=None):
         cfg = load_namelist_config(args.input, **overrides)
     else:
         cfg = SimConfig(**overrides)
+    if "WORLD_SIZE" in os.environ and not cfg.distributed:
+        cfg = cfg.replace(distributed=True)    # launched by torchrun
     # echo every namelist back to stdout for self-contained run provenance
     # (the reference does write(*,nml=...) after each read, vpi_mod.f90:64-75)
     echo_namelists(cfg)
@@ -139,6 +159,7 @@ def main(argv=None):
             drv.run(remaining)
     else:
         drv.run(args.blocks)
+    drv.close()
     return 0
 
 

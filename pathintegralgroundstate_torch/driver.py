@@ -18,6 +18,16 @@ reads its state) would checkpoint block k+1's half-written paths here.
 
 The checkpoint is the reference's npz archive with the threefry key
 replaced by the two torch generators' states (`gen_state`, `host_gen_state`).
+
+Multi-device runs (driver.py:80-135, 170-183, 507-531): distributed=True
+initialises torch.distributed from torchrun's environment
+(parallel/mesh.init_from_env), and mesh_walkers x mesh_pairs > 1 shards
+the walkers over dp and the partner axis over tp (parallel/mesh.py), one
+rank per mesh position.  Every rank holds the replicated block statistics;
+only rank 0 makes the output directory, writes the files and the
+checkpoint, and prints.  The checkpoint gathers the walker slices into the
+unsharded layout, so that a run resumes under any mesh; both generators
+are identical on every rank and saved once.
 """
 
 from __future__ import annotations
@@ -30,8 +40,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import SimConfig
+from .parallel.mesh import gather_state, init_from_env, local_device, \
+    make_mesh, reduce_stats
 from .state import MCState, generator_states, init_state, \
     set_generator_states, state_from_numpy, state_to_numpy
 from .sweep import _CIDX, StepStats, Sweeper, bead_updates_per_step, \
@@ -90,7 +103,8 @@ def _nonfinite(state: MCState, stats: StepStats):
 class Driver:
     """The block loop of one run.
 
-    device: the System's device (default the card; "cpu" runs the plain
+    device: the System's device (default the card, under a process group
+    the rank's card cuda:(LOCAL_RANK % device_count); "cpu" runs the plain
     forms).  draws: a draw source for every step (default the state's own
     generators), passed on to run_block.  init_positions: the crystal
     start's positions [N, D] (config_ini.in) for a fresh ensemble."""
@@ -99,14 +113,54 @@ class Driver:
                  verbose: bool = True, draws=None, init_positions=None):
         self.cfg = cfg
         self.out_dir = out_dir
-        self.verbose = verbose
         self.draws = draws
-        os.makedirs(out_dir, exist_ok=True)
-        self.system: System = make_system(cfg, device)
+        if cfg.distributed:
+            init_from_env(device)
+        grouped = dist.is_initialized()
+        self.backend = dist.get_backend() if grouped else None
+        world = dist.get_world_size() if grouped else 1
+        self.rank = dist.get_rank() if grouped else 0
+        self.is_main = self.rank == 0
+        self.verbose = verbose and self.is_main
+        if grouped:
+            device = local_device(device)
+        self.mesh = None
+        n_dp, n_tp = cfg.mesh_walkers, cfg.mesh_pairs
+        if n_dp * n_tp > 1:
+            # driver.py:119-130, with the process group in place of the
+            # visible devices
+            if n_dp * n_tp != world:
+                raise ValueError(
+                    f"mesh_walkers*mesh_pairs={n_dp * n_tp} does not match "
+                    f"the {world} ranks of the process group: run it as "
+                    f"torchrun --nproc-per-node {n_dp * n_tp} -m "
+                    "pathintegralgroundstate_torch in.in --set "
+                    f"mesh_walkers={n_dp} --set mesh_pairs={n_tp}")
+            if cfg.n_walkers % n_dp:
+                raise ValueError(f"n_walkers={cfg.n_walkers} must divide "
+                                 f"mesh_walkers={n_dp}")
+            if n_tp > 1 and cfg.Np % n_tp:
+                raise ValueError(f"Np={cfg.Np} must divide "
+                                 f"mesh_pairs={n_tp}")
+            self.mesh = make_mesh(n_dp, n_tp)
+        if self.is_main:
+            os.makedirs(out_dir, exist_ok=True)
+        self.system: System = make_system(cfg, device, mesh=self.mesh)
         self.sweeper = Sweeper(self.system)
-        self._write_tables()
+        if self.is_main:
+            self._write_tables()
+        if self.verbose and grouped:
+            print(f"# Process group       : {world} ranks, backend "
+                  f"{self.backend}, mesh dp x tp = {n_dp} x {n_tp}")
 
         ckpt = os.path.join(out_dir, "checkpoint.npz")
+        if cfg.resume and world > 1 and not os.path.exists(ckpt):
+            # only rank 0 writes checkpoints; a fresh start on this rank
+            # would mix resumed and fresh walkers into one ensemble
+            raise RuntimeError(
+                f"resume=True but {ckpt} is not visible on rank "
+                f"{self.rank}: a multi-process resume needs the checkpoint "
+                "on storage that every rank reaches")
         if cfg.resume and os.path.exists(ckpt):
             self.state, self.acc = self.load_checkpoint(ckpt)
         else:
@@ -172,7 +226,11 @@ class Driver:
             if bad is not None:
                 raise FloatingPointError(
                     f"debug: non-finite {bad} after MC step {state.step}")
-        return state, stats
+        return state, reduce_stats(self.system, stats)
+
+    def _open(self, path, mode):
+        """The output file on rank 0, a sink on every other rank."""
+        return open(path if self.is_main else os.devnull, mode)
 
     def run_burnin(self, nblocks: int):
         """Equilibration: advance the ensemble without touching the global
@@ -196,8 +254,9 @@ class Driver:
         mode = "a" if (cfg.resume or self.acc["iblock"] > 0) else "w"
         paths = [os.path.join(self.out_dir, f)
                  for f in ("e_vpi.out", "et_vpi.out", "metrics.jsonl")]
-        with open(paths[0], mode) as fe, open(paths[1], mode) as fet, \
-                open(paths[2], mode) as fjl:
+        with self._open(paths[0], mode) as fe, \
+                self._open(paths[1], mode) as fet, \
+                self._open(paths[2], mode) as fjl:
             for _ in range(nblocks):
                 t0 = time.time()
                 self.state, stats = self._block()
@@ -288,7 +347,7 @@ class Driver:
         for what, z, n in (
                 ("energy block means", zE, len(acc["hist_E"])),
                 ("OBDM super-block weight", zn0, len(acc["hist_n0"]))):
-            if abs(z) > 3.0:
+            if abs(z) > 3.0 and self.is_main:
                 print(f"# WARNING: {what} drift z={z:+.1f} (first vs "
                       f"second half of {n} points) — the chain looks "
                       "non-stationary; burn-in was probably "
@@ -307,6 +366,13 @@ class Driver:
         # sweep.bead_updates_per_step)
         rec["bead_updates"] = cfg.Nstep * W * bead_updates_per_step(cfg)
         rec["bead_updates_per_s"] = rec["bead_updates"] / max(dt_block, 1e-9)
+        if self.backend is not None:
+            # the route by layout and this rank's collectives so far
+            rec["backend"] = self.backend
+            if self.mesh is not None:
+                rec["mesh"] = [self.mesh.dp, self.mesh.tp]
+                rec["collectives"] = self.mesh.collectives
+                rec["collective_s"] = self.mesh.coll_s
         fjl.write(json.dumps(rec) + "\n")
         fjl.flush()
 
@@ -321,7 +387,8 @@ class Driver:
                 (n_int_trials, "acc_bd", "staging/bisection"),
                 ("try_stag", "acc_head", "head"),
                 ("try_stag", "acc_tail", "tail")):
-            if c[trial] >= 1000 and c[accepted] < 0.005 * c[trial]:
+            if self.is_main and c[trial] >= 1000 \
+                    and c[accepted] < 0.005 * c[trial]:
                 print(f"# WARNING: {label} acceptance collapsed "
                       f"({c[accepted]}/{c[trial]} = "
                       f"{100.0 * c[accepted] / c[trial]:.2f}%) — "
@@ -378,6 +445,7 @@ class Driver:
                 m2 = acc[f"Av{nm}2"] / nb
                 out[nm] = m / cfg.Np
                 out[f"Var{nm}"] = var(nb, m, m2) / cfg.Np
+        if nb > 0 and self.is_main:
             r = (np.arange(1, cfg.Nbin + 1) - 0.5) * self.system.geo.rbin
             if not cfg.trap:
                 avg = acc["AvGr"] / nb
@@ -401,7 +469,7 @@ class Driver:
                                                   for x in (avn[m], vn[m])]))
             if cfg.density_map:
                 self._write_density(acc["AvDens"] / nb)
-        if cfg.swapping:
+        if cfg.swapping and self.is_main:
             np.savetxt(os.path.join(self.out_dir, "perm_histogram.out"),
                        np.column_stack([np.arange(1, cfg.Np + 1),
                                         acc["perm_hist"]]), fmt="%d %.0f")
@@ -435,8 +503,12 @@ class Driver:
         (`gen_state`, `host_gen_state`: their get_state() bytes, read
         without a device sync) in place of the reference's key, the host
         step counter, the configuration and the global accumulators.
-        Written to a temporary file, then moved into place."""
-        st = self.state
+        Written to a temporary file, then moved into place.  Under walker
+        sharding the walker slices are first gathered (every rank takes
+        part), and rank 0 alone writes the unsharded layout."""
+        st = gather_state(self.system, self.state)
+        if not self.is_main:
+            return
         gen, host = generator_states(st)
         arrs = dict(state_to_numpy(st), gen_state=gen, host_gen_state=host)
         scalars = {k: v for k, v in self.acc.items() if np.isscalar(v)}
@@ -466,3 +538,11 @@ class Driver:
             if f"acc_{k}" in z:
                 acc[k] = z[f"acc_{k}"]
         return st, acc
+
+    def close(self):
+        """Leave the process group that distributed=True opened, every rank
+        together (a rank that exits while a peer still holds its gloo
+        connection can abort)."""
+        if self.cfg.distributed and dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()

@@ -13,9 +13,11 @@ its two forms (cfg.bis_monoshot):
       levels' beads, the accept chain cut short by the first rejection.
 
 Every move takes `rand = (start, g_rows [W, L, D], u_acc [W, ngroups])`:
-start is the window's even first bead (a host int, shared by every walker;
-None for the end moves), g_rows the gaussians by window position (the end
-gate takes row 0, level ilev rows d2::delta), u_acc the accept uniforms
+start is the window's even first bead (a host int, shared by every walker,
+or with shared_windows=False per-walker starts [W] whose window is gathered
+and scattered back, ops/moves._slice_beads; None for the end moves),
+g_rows the gaussians by window position (the end gate takes row 0, level
+ilev rows d2::delta), u_acc the accept uniforms
 (column 0 the end gate, column ilev level ilev).  The reference's batched
 randoms come in this layout; its per-level key draws are laid out so by
 the draw source (utils/draws.py).  `paths` is updated in place.
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 
 from .moves import (_cache_win_write, _codd_window, _codd_window_rev, _mi,
-                    _where, _wrap_pos, metropolis_u)
+                    _slice_beads, _where, _win_write, _wrap_pos, bead_index,
+                    metropolis_u)
 from .pairwise import delta_action, delta_action_rows, delta_action_sum
 
 
@@ -169,17 +172,17 @@ def _bisection_monoshot(system, paths, ip: int, active, level: int, rand,
     one pair pass for all levels.  Returns (paths, alive)."""
     L = 2 ** level
     ii, g_rows, u_acc = rand
-    R_seg = paths[:, ii:ii + L + 1]
+    R_seg = _slice_beads(paths, ii, L + 1)
     seg0 = R_seg[:, :, ip]
     seg = _construct_levels(system, seg0, level, L, g_rows)
-    f_seg, _, k0 = _codd_window(fodd, ii, L) if fodd is not None \
+    f_seg, _, k0 = _codd_window(fodd, ii, L, 0) if fodd is not None \
         else (None, None, None)
     rows, df = _split(delta_action_rows(
         system, R_seg[:, 1:L], seg[:, 1:L], seg0[:, 1:L], ip,
-        system.arange(ii + 1, ii + L), need_wf=False,
+        bead_index(system, ii, 1, L), need_wf=False,
         **_fold_kw(fodd, f_seg, (0, 2))), fodd)
     alive = _monoshot_accept(system, active, rows, u_acc[:, 1:], level, False)
-    R_seg[:, :, ip] = _where(alive, seg, seg0)
+    _win_write(paths, ii, ip, _where(alive, seg, seg0))
     if fodd is not None:
         _cache_win_write(fodd, f_seg, df, alive, k0)
     return paths, alive
@@ -193,10 +196,10 @@ def _bisection_per_level(system, paths, ip: int, active, level: int, rand,
     Returns (paths, alive)."""
     L = 2 ** level
     ii, g_rows, u_acc = rand
-    R_seg = paths[:, ii:ii + L + 1]
+    R_seg = _slice_beads(paths, ii, L + 1)
     seg0 = R_seg[:, :, ip]
     seg, alive = seg0.clone(), active
-    f_seg, _, k0 = _codd_window(fodd, ii, L) if fodd is not None \
+    f_seg, _, k0 = _codd_window(fodd, ii, L, 0) if fodd is not None \
         else (None, None, None)
     for ilev in range(1, level + 1):
         d2, delta, xold, xnew = _level_proposal(system, seg, ilev, level,
@@ -204,12 +207,12 @@ def _bisection_per_level(system, paths, ip: int, active, level: int, rand,
         last = ilev == level
         dS, df = _split(delta_action_sum(
             system, R_seg[:, d2::delta], xnew, xold, ip,
-            system.arange(ii + d2, ii + L, delta), need_wf=False,
+            bead_index(system, ii, d2, L, delta), need_wf=False,
             need_f2=last, **_fold_kw(fodd if last else None, f_seg, (0, 1))),
             fodd if last else None)
         seg[:, d2::delta] = xnew
         alive = alive & metropolis_u(u_acc[:, ilev], dS)
-    R_seg[:, :, ip] = _where(alive, seg, seg0)
+    _win_write(paths, ii, ip, _where(alive, seg, seg0))
     if fodd is not None:
         _cache_win_write(fodd, f_seg, df, alive, k0)
     return paths, alive

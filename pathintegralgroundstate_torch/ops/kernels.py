@@ -21,9 +21,17 @@ Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
 pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
 CPU, and for a System that its route predicate sends away from the kernel
 (`rows_route`, `cascade_route`, `pair_route`, `u_route`: the trap, the
-tables, and exact F^2 for kernels A and 5, as the reference routes them).  Otherwise, on a CUDA
-tensor, it launches the kernel or raises; there is no fallback.  Each wrapper's
-`.launches` counts its kernel's launches, and nothing else.
+tables, exact F^2 for kernels A and 5, and a tp mesh for all five, as the
+reference routes them).  Otherwise, on a CUDA tensor, it launches the
+kernel or raises; there is no fallback.  Each wrapper's `.launches` counts
+its kernel's launches, and nothing else.
+
+Under a tp mesh (System.tp, parallel/mesh.py) the plain forms are the
+partner seam: each rank evaluates its N/tp partners (pair_terms_ref,
+pair_delta_ref, pair_u_ref) or its N/tp particles' rows (pair_pot_ref)
+with the self mask in global particle indices, adds the one-body trap
+terms on tp rank 0 only, and all-reduces the partial sums over the tp
+group before anything nonlinear in them (|F|^2, the Metropolis test).
 """
 
 from __future__ import annotations
@@ -41,15 +49,37 @@ from ..utils.pbc import all_pairs, pair_geometry
 # Plain forms
 # ---------------------------------------------------------------------------
 
-def self_mask(N: int, ip, device):
+def self_mask(N: int, ip, device, lo: int = 0):
     """notself mask against [..., B, N] pair arrays for ip = int, [W],
-    [W, B] or [1, B] (long tensors)."""
-    iota = torch.arange(N, device=device)
+    [W, B] or [1, B] (long tensors); the N partners are the particles
+    lo..lo+N-1 (a tp rank's slice)."""
+    iota = torch.arange(lo, lo + N, device=device)
     if isinstance(ip, int):
         return iota != ip                          # [N]
     if ip.dim() == 1:
         return iota[None, None, :] != ip[:, None, None]   # [W, 1, N]
     return iota != ip[..., None]                   # [W, B, N]
+
+
+def partners(system, R, ip):
+    """(the partners of this rank, R[..., B, N/tp, D] under tp, else R;
+    their self mask against ip in global particle indices)."""
+    lo = 0
+    if system.tp is not None:
+        R, lo = system.tp.partners(R)
+    return R, self_mask(R.shape[-2], ip, R.device, lo)
+
+
+def one_body(system):
+    """The trap lengths where this rank adds the one-body terms: under the
+    trap, on tp rank 0 only (None elsewhere)."""
+    tp = system.tp
+    return system.a_ho if tp is None or tp.tp_rank == 0 else None
+
+
+def tp_sum(system, *ts):
+    """ts summed over the tp group in one all-reduce; ts without tp."""
+    return ts if system.tp is None else system.tp.tp_sum(*ts)
 
 
 def pair_side(system, x, R, notself, need_force=True, need_wf=True):
@@ -58,8 +88,9 @@ def pair_side(system, x, R, notself, need_force=True, need_wf=True):
     F [..., D], the pair forces fpair [..., N, D], usum), with the trap's
     one-body terms under the trap and the exact-coincidence guard r^2 > 0
     on the force and on u.  F and fpair are None unless need_force, usum
-    unless need_wf."""
-    a = system.a_ho
+    unless need_wf.  Under tp, R is this rank's partners and the sums are
+    its partial sums (the one-body terms on tp rank 0 only)."""
+    a = one_body(system)
     xij, rij2, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
     r, rinv = torch.sqrt(r2s), torch.rsqrt(r2s)
     mf = m & (rij2 > 0.0)
@@ -88,14 +119,16 @@ def pair_terms_ref(system, R, xnew, xold, ip, need_wf=True, need_f2=True,
     trap.
 
     rev=True pairs row b with R[:, B-1-b].  df2 is zero unless need_f2; du
-    is None unless need_wf."""
+    is None unless need_wf.  Under tp one all-reduce of both sides' sums."""
     if rev:
         R = R.flip(1)
-    notself = self_mask(R.shape[-2], ip, R.device)
+    R, notself = partners(system, R, ip)
     pot_n, F_n, _, u_n = pair_side(system, xnew, R, notself, need_f2,
                                    need_wf)
     pot_o, F_o, _, u_o = pair_side(system, xold, R, notself, need_f2,
                                    need_wf)
+    pot_n, pot_o, F_n, F_o, u_n, u_o = tp_sum(system, pot_n, pot_o, F_n, F_o,
+                                              u_n, u_o)
     dpot = pot_n - pot_o
     df2 = ((F_n * F_n).sum(-1) - (F_o * F_o).sum(-1) if need_f2
            else torch.zeros_like(dpot))
@@ -121,13 +154,44 @@ def pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf=True,
     return dS.sum(-1) if reduce else dS
 
 
-def pair_pot_ref(system, R, with_force=False):
+# pair elements [.., rows, N, D] of one chunk of pair_pot_ref's blocks
+PLAIN_PAIR_ELEMS = 1 << 26
+
+
+def pair_pot_ref(system, R, with_force=False, shard=True):
     """Plain form of kernel B: (pot, f2) of configurations R[..., N, D]
     (pairwise.py:591-617).  pot = 1/2 sum_{i != j} V within rcut (every
     pair under the trap, plus the trap potential); f2 = sum_i |F_i|^2
-    (zeros without force).  No r^2 > 0 guard."""
+    (zeros without force).  No r^2 > 0 guard.
+
+    Under tp (with shard) each rank sums the rows i of its N/tp particles
+    against every partner, each F_i whole, and one all-reduce adds the
+    ranks' (pot, f2); shard=False sums every row on every rank (the
+    differentiable total action).  A 4-D block [W, B, N, D] whose pair
+    arrays would exceed PLAIN_PAIR_ELEMS elements runs in bead chunks (each
+    bead's sums are its own), as the reference chunks its pair block
+    (pairwise.py:570-590)."""
     a = system.a_ho
-    m, r, xij = all_pairs(system, R)
+    tp = system.tp if shard else None
+    if R.dim() == 4:
+        W, B, N, D = R.shape
+        per_bead = W * (N // (tp.tp if tp is not None else 1)) * N * D
+        step = max(1, PLAIN_PAIR_ELEMS // per_bead)
+        if step < B:
+            outs = [pair_pot_ref(system, R[:, b:b + step], with_force, shard)
+                    for b in range(0, B, step)]
+            return (torch.cat([o[0] for o in outs], 1),
+                    torch.cat([o[1] for o in outs], 1))
+    if tp is not None:
+        Ri, lo = tp.partners(R)
+        n = Ri.shape[-2]
+        notself = (torch.arange(lo, lo + n, device=R.device)[:, None]
+                   != torch.arange(R.shape[-2], device=R.device))
+        xij, _, r2s, m = pair_geometry(
+            system, Ri[..., :, None, :] - R[..., None, :, :], notself)
+        r, R = torch.sqrt(r2s), Ri
+    else:
+        m, r, xij = all_pairs(system, R)
     if with_force:
         vv, dv = system.v_dv(r)
         v = torch.where(m, vv, 0.0)
@@ -143,6 +207,8 @@ def pair_pot_ref(system, R, with_force=False):
         f2 = (F * F).sum((-1, -2))
     if a is not None:
         pot = pot + jas.trap_pot(a, R).sum(-1)
+    if tp is not None:
+        pot, f2 = tp.tp_sum(pot, f2)
     return pot, f2
 
 
@@ -162,9 +228,11 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
     reference's delta_action (pairwise.py:331-343), dS = wv dpot + wf_b
     df2 - where(wpsi > 0, du, 0) with du of pair_u_ref, (wv, _, wpsi) =
     tab[:, ib] and wf_b = wf on odd interior rows (tab[1, ib] > 0), else
-    0."""
-    notself = self_mask(R.shape[-2], ip, R.device)
-    a = system.a_ho
+    0.  Under tp one all-reduce of both sides' partial sums (and one more
+    in pair_u_ref for the action's u)."""
+    R_all = R
+    R, notself = partners(system, R, ip)
+    a = one_body(system)
 
     def side(x):
         xij, _, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
@@ -181,16 +249,18 @@ def pair_delta_ref(system, R, xnew, xold, ip, with_force=True, tab=None,
             pot = pot + jas.trap_pot(a, x)
             if with_force:
                 F = F + jas.trap_pot_grad(a, x)
-        return pot, None if F is None else (F * F).sum(-1)
+        return pot, F
 
-    pot_n, f2_n = side(xnew)
-    pot_o, f2_o = side(xold)
+    pot_n, F_n = side(xnew)
+    pot_o, F_o = side(xold)
+    pot_n, pot_o, F_n, F_o = tp_sum(system, pot_n, pot_o, F_n, F_o)
     dpot = pot_n - pot_o
-    df2 = f2_n - f2_o if with_force else torch.zeros_like(dpot)
+    df2 = ((F_n * F_n).sum(-1) - (F_o * F_o).sum(-1) if with_force
+           else torch.zeros_like(dpot))
     if tab is None:
         return dpot, df2
     return chin_action(tab, ib, wf, dpot, df2,
-                       pair_u_ref(system, R, xnew, xold, ip))
+                       pair_u_ref(system, R_all, xnew, xold, ip))
 
 
 def chin_action(tab, ib, wf, dpot, df2, du):
@@ -206,16 +276,18 @@ def pair_u_ref(system, R, xnew, xold, ip):
     """Plain form of kernel 4: per row du = sum u(new) - sum u(old) over the
     partners, as the jnp branch of the reference's delta_wf
     (pairwise.py:291-303): m = notself & r^2 <= rc^2, no r^2 > 0 guard;
-    under the trap every partner and the trap's one-body log WF."""
-    notself = self_mask(R.shape[-2], ip, R.device)
-    a = system.a_ho
+    under the trap every partner and the trap's one-body log WF.  Under tp
+    one all-reduce of both sides' partial sums."""
+    R, notself = partners(system, R, ip)
+    a = one_body(system)
 
     def side(x):
         _, _, r2s, m = pair_geometry(system, x[..., None, :] - R, notself)
         u = torch.where(m, system.u(torch.sqrt(r2s)), 0.0).sum(-1)
         return u + jas.trap_psi(a, x) if a is not None else u
 
-    return side(xnew) - side(xold)
+    u_n, u_o = tp_sum(system, side(xnew), side(xold))
+    return u_n - u_o
 
 
 # ---------------------------------------------------------------------------
@@ -228,35 +300,38 @@ def _tables(system) -> bool:
 
 def rows_route(system) -> bool:
     """Whether kernel A runs this System's window passes: under PBC without
-    exact F^2 and without either table, the reference's `not
-    cfg.exact_f2` guard (pairwise.py:415) with pallas_rows_ok
+    exact F^2, without either table and without a tp mesh, the reference's
+    `not cfg.exact_f2` guard (pairwise.py:415) with pallas_rows_ok
     (pallas_kernels.py:252-258).  Otherwise the plain form runs on every
     device."""
-    return system.pbc and not system.cfg.exact_f2 and not _tables(system)
+    return (system.pbc and not system.cfg.exact_f2 and not _tables(system)
+            and system.tp is None)
 
 
 def cascade_route(system) -> bool:
     """Whether kernel 5 runs the dyadic cascades: under PBC without exact
-    F^2 and without either table, as use_cascade_kernel has it
-    (cascade_kernels.py:428-436)."""
-    return system.pbc and not system.cfg.exact_f2 and not _tables(system)
+    F^2, without either table and without a tp mesh, as
+    use_cascade_kernel has it (cascade_kernels.py:428-436)."""
+    return (system.pbc and not system.cfg.exact_f2 and not _tables(system)
+            and system.tp is None)
 
 
 def pair_route(system) -> bool:
-    """Whether kernels B and 3 run: under PBC without v_table, as pallas_ok
-    has it (pallas_kernels.py:321-330).  Exact F^2 keeps them: its brute
-    path calls kernel B on window blocks.
+    """Whether kernels B and 3 run: under PBC without v_table and without a
+    tp mesh, as pallas_ok has it (pallas_kernels.py:321-330).  Exact F^2
+    keeps them: its brute path calls kernel B on window blocks.
 
     Each predicate is a route by configuration, as the reference routes
-    the trap, the tables and exact F^2 away from a kernel: the plain form
-    runs on every device, and a kernel that fails still raises."""
-    return system.pbc and not system.cfg.v_table
+    the trap, the tables, exact F^2 and a tp mesh away from a kernel: the
+    plain form runs on every device, and a kernel that fails still
+    raises."""
+    return system.pbc and not system.cfg.v_table and system.tp is None
 
 
 def u_route(system) -> bool:
-    """Whether kernel 4 runs: under PBC without wf_table, as pallas_ok_wf
-    has it (pallas_kernels.py:333-338)."""
-    return system.pbc and not system.cfg.wf_table
+    """Whether kernel 4 runs: under PBC without wf_table and without a tp
+    mesh, as pallas_ok_wf has it (pallas_kernels.py:333-338)."""
+    return system.pbc and not system.cfg.wf_table and system.tp is None
 
 
 def action_route(system) -> bool:
@@ -416,7 +491,8 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
     walker), [W, B] (per row) or [1, B] (per window row, every walker).
     tab [3, M]: the Chin table (pairwise.chin_table); ib: contiguous long
     [B] or [W, B]; row_weights: [B] or None.  Kernel A runs rows_lanes(W,
-    B, N) lanes per row."""
+    B, N) lanes per row, W the global walker count under dp (so that a
+    walker's sums do not depend on the sharding)."""
     if R.device.type == "cpu" or not rows_route(system):
         return pair_rows_ref(system, R, xnew, xold, ip, tab, ib, need_wf,
                              need_f2, rev, row_weights, reduce)
@@ -437,7 +513,7 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
             or not row_weights.is_contiguous()):
         raise ValueError(f"pair_rows: row_weights must be a contiguous "
                          f"[B] tensor on {R.device} in {R.dtype}")
-    G = rows_lanes(W, B, N)
+    G = rows_lanes(W * (system.mesh.dp if system.mesh else 1), B, N)
     spw, wpb, slab, _ = rows_layout(W, B, N, D, R.element_size(), G)
     out = torch.empty((W,) if reduce else (W, B), dtype=R.dtype,
                       device=R.device)

@@ -13,6 +13,13 @@ on identical draws.
 returned); the window the pair pass reads is a view of `paths`.  A scalar
 particle index is a Python int; a per-walker one (the worm) a long tensor.
 
+A window start is a Python int shared by every walker (cfg.shared_windows,
+the default), or with shared_windows=False a long tensor [W] of per-walker
+starts (moves.py:161-176): the window is then gathered into a contiguous
+copy [W, L, N, D] (`_slice_beads`), its bead indices are [W, L], and the
+accepted beads are scattered back (`_win_write`), as the reference's
+_slice_beads / _update_beads gather and scatter (moves.py:105-129).
+
 Exact F^2 (cfg.exact_f2 with f2_cache): every move takes the odd-bead
 force-field cache `fodd` [W, Nb, N, D] (row k the field at bead 2k+1, the
 only beads whose F^2 carries Chin weight), evaluates its F^2 term through
@@ -74,9 +81,41 @@ def set_chain(paths, ip, chain):
     return paths
 
 
-def _win_write(paths, lo: int, ip, seg):
-    """Write the moved particle's beads seg[W, L, D] at beads lo.. in place."""
-    set_chain(paths[:, lo:lo + seg.shape[1]], ip, seg)
+@functools.lru_cache(maxsize=None)
+def _iota(n: int, device) -> torch.Tensor:
+    """arange(n) on device (torch.long), built once per (n, device)."""
+    return torch.arange(n, device=device)
+
+
+def _slice_beads(arr, ii, L: int):
+    """Window of L beads from ii along axis 1 (moves.py:105-119): ii an int,
+    a view; ii a long tensor [W] of per-walker starts, one gather into a
+    contiguous copy [W, L, ...]."""
+    if isinstance(ii, int):
+        return arr[:, ii:ii + L]
+    idx = ii[:, None] + _iota(L, arr.device)
+    return arr[_iota(arr.shape[0], arr.device)[:, None], idx]
+
+
+def bead_index(system, ii, lo: int, hi: int, step: int = 1):
+    """Bead indices ii+lo, ii+lo+step, .. below ii+hi: a cached [B] range
+    for an int start, [W, B] (contiguous) for per-walker starts ii [W]."""
+    if isinstance(ii, int):
+        return system.arange(ii + lo, ii + hi, step)
+    return ii[:, None] + system.arange(lo, hi, step)
+
+
+def _win_write(paths, lo, ip, seg):
+    """Write the moved particle's beads seg[W, L, D] at beads lo.. in place:
+    lo an int (a window view), or per-walker starts lo [W], one scatter
+    (the reference's _update_beads, moves.py:122-129)."""
+    if isinstance(lo, int):
+        set_chain(paths[:, lo:lo + seg.shape[1]], ip, seg)
+        return paths
+    W, L = seg.shape[:2]
+    rows = _iota(W, paths.device)[:, None]
+    idx = lo[:, None] + _iota(L, paths.device)
+    paths[rows, idx, ip if isinstance(ip, int) else ip[:, None]] = seg
     return paths
 
 
@@ -89,14 +128,16 @@ def _where(acc, a, b):
 # The odd-bead force-field cache (exact Chin F^2, cfg.exact_f2 + f2_cache)
 # ---------------------------------------------------------------------------
 
-def _codd_window(codd, lo: int, B: int):
+def _codd_window(codd, lo, B: int, par: int = None):
     """Cache rows under the odd beads of window rows 0..B-1 at beads
-    lo..lo+B-1 (moves.py:464-474): (f [W, mo, N, D] a view, (r0, 2), k0),
-    the window's rows r0::2 being the cache rows k0..k0+mo-1 in order."""
-    r0 = (lo % 2 + 1) % 2
+    lo..lo+B-1 (moves.py:464-474): (f [W, mo, N, D], (r0, 2), k0), the
+    window's rows r0::2 being the cache rows k0..k0+mo-1 in order.  lo an
+    int: f a view; per-walker starts lo [W] (all of parity par): f a
+    gathered copy and k0 [W]."""
+    r0 = ((lo % 2 if par is None else par) + 1) % 2
     mo = (B - r0 + 1) // 2
     k0 = (lo + r0) // 2
-    return codd[:, k0:k0 + mo], (r0, 2), k0
+    return _slice_beads(codd, k0, mo), (r0, 2), k0
 
 
 def _codd_window_rev(codd, hi: int, B: int):
@@ -110,14 +151,20 @@ def _codd_window_rev(codd, hi: int, B: int):
     return codd[:, k_lo:k_lo + mo].flip(1), (r0, 2), k_lo
 
 
-def _cache_win_write(codd, f_seg, dfield, acc, k0: int, reverse=False):
+def _cache_win_write(codd, f_seg, dfield, acc, k0, reverse=False):
     """Write back the window's cache rows with the increments of the
     accepted walkers added (moves.py:489-504), in place; dfield rows align
-    with f_seg's, reverse un-reverses a tail-oriented window."""
+    with f_seg's, reverse un-reverses a tail-oriented window.  k0 an int,
+    or per-walker rows k0 [W] (one scatter)."""
     f_new = f_seg + _where(acc, dfield, 0.0)
     if reverse:
         f_new = f_new.flip(1)
-    codd[:, k0:k0 + f_new.shape[1]] = f_new
+    if isinstance(k0, int):
+        codd[:, k0:k0 + f_new.shape[1]] = f_new
+        return
+    W, mo = f_new.shape[:2]
+    codd[_iota(W, codd.device)[:, None],
+         k0[:, None] + _iota(mo, codd.device)] = f_new
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +271,8 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
     seg [W, Lb+1, D]: index 0 = the end being regrown, index Ls = the fixed
     anchor.  R_seg [W, Lb+1, N, D]: the partners at the segment's beads, in
     head orientation, or in forward bead order with rev=True (then
-    seg[:, b] sits at R_seg[:, Lb-b]).  ib_seg [Lb+1]: bead indices in head
-    orientation.  Ls [W] long.
+    seg[:, b] sits at R_seg[:, Lb-b]).  ib_seg [Lb+1] or [W, Lb+1]:
+    bead indices in head orientation.  Ls [W] long.
     first_mode: 'gauss' (free gaussian guess of bead 0, sigma sqrt(Ls dt),
     from g0 [W, D]), 'pin' (bead 0 := first_pos) or 'fixed'.
     first_w: weight of the first bead's dS (1/2 worm centre, 0 Swap's pin).
@@ -249,7 +296,8 @@ def segment_regrow(system, seg, R_seg, ib_seg, ip, Ls, first_mode: str,
                           lambda: np.r_[first_w, np.ones(Lb - 1)], seg.dtype)
     R_rows = R_seg[:, 1:] if rev else R_seg[:, :Lb]
     out = delta_action_sum(system, R_rows, xnew_all, seg[:, :Lb], ip,
-                           ib_seg[:Lb], need_wf=first_mode == "gauss",
+                           ib_seg[..., :Lb].contiguous(),
+                           need_wf=first_mode == "gauss",
                            row_weights=rw, rev=rev, fold=fold,
                            fold_sub=fold_sub)
     seg_new = torch.cat([xnew0[:, None], xnews, seg[:, Lb:]], 1)
@@ -363,21 +411,23 @@ def translate_half_chain(system, paths, xend, ip, half: int, active, delta,
 # and their worm half-chain forms (vpi_mod.f90:1376-1817)
 # ---------------------------------------------------------------------------
 
-def _stage(system, paths, ip, active, ii: int, L: int, gs, u_acc,
-           fodd=None):
+def _stage(system, paths, ip, active, ii, L: int, gs, u_acc, fodd=None,
+           par: int = 0):
     """Interior staging of beads ii+1..ii+L-1 of particle ip, anchored at
-    ii and ii+L: gs [L-1, W, D], u_acc [W].  In place; returns acc."""
+    ii and ii+L: ii an int or per-walker starts [W] of parity par, gs
+    [L-1, W, D], u_acc [W].  In place; returns acc."""
     W = paths.shape[0]
-    R_seg = paths[:, ii:ii + L + 1]
+    R_seg = _slice_beads(paths, ii, L + 1)
     seg = get_chain(R_seg, ip)
     Ls = torch.full((W,), L, dtype=torch.long, device=paths.device)
     kw = {}
     if fodd is not None:
-        f_seg, sub, k0 = _codd_window(fodd, ii, L)
+        f_seg, sub, k0 = _codd_window(fodd, ii, L, par)
         kw = dict(fold=f_seg, fold_sub=sub)
     seg_new, dS, *df = segment_regrow(system, seg, R_seg,
-                                      system.arange(ii, ii + L + 1), ip, Ls,
-                                      "fixed", 1.0, None, gs, fixed_L=L, **kw)
+                                      bead_index(system, ii, 0, L + 1), ip,
+                                      Ls, "fixed", 1.0, None, gs, fixed_L=L,
+                                      **kw)
     acc = metropolis_u(u_acc, dS) & active
     _win_write(paths, ii, ip, _where(acc, seg_new, seg))
     if fodd is not None:
@@ -432,11 +482,12 @@ def _regrow_tail(system, paths, ip, active, hi: int, Lmax: int, first_w,
     return seg_fin, acc
 
 
-def staging_move(system, paths, ip: int, active, L: int, start: int, gs,
+def staging_move(system, paths, ip: int, active, L: int, start, gs,
                  u_acc, fodd=None):
     """Interior staging over the even-aligned window start..start+L
-    (moves.py:507-542): start a host int shared by every walker, gs
-    [L-1, W, D], u_acc [W].  Returns (paths, acc)."""
+    (moves.py:507-542): start a host int shared by every walker, or with
+    shared_windows=False per-walker starts [W]; gs [L-1, W, D], u_acc [W].
+    Returns (paths, acc)."""
     return paths, _stage(system, paths, ip, active, start, L, gs, u_acc,
                          fodd)
 
@@ -477,15 +528,16 @@ def _pin_center(system, paths, xend, ip, half: int, active, fodd=None):
 
 
 def staging_half_chain(system, paths, xend, ip, half: int, active, L: int,
-                       start: int, gs, u_acc, fodd=None):
+                       start, gs, u_acc, fodd=None):
     """Staging confined to one worm half (vpi_mod.f90:1376-1491).
 
     start: the even window offset inside the half (a host int, shared by
-    every walker); gs [L-1, W, D]; u_acc [W].  Returns (paths, xend, acc)."""
-    ii = (0 if half == 1 else system.cfg.Nb) + start
+    every walker, or per-walker offsets [W] with shared_windows=False); gs
+    [L-1, W, D]; u_acc [W].  Returns (paths, xend, acc)."""
+    base = 0 if half == 1 else system.cfg.Nb
     _pin_center(system, paths, xend, ip, half, active, fodd)
-    return paths, xend, _stage(system, paths, ip, active, ii, L, gs, u_acc,
-                               fodd)
+    return paths, xend, _stage(system, paths, ip, active, base + start, L,
+                               gs, u_acc, fodd, base % 2)
 
 
 def move_head_half_chain(system, paths, xend, ip, half: int, active,

@@ -24,6 +24,11 @@ it runs in jnp in the reference.
 
 Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 [W, B, D]; ip an int, [W], [W, B] or [1, B]; ib [B] or [W, B] bead indices.
+
+Under a tp mesh (System.tp) the fold and the force field are partner
+seams too (see ops/kernels.py): each rank sums its N/tp partners, and the
+partial sums, and the fold's field increments of this rank's partners
+(zero-padded), are all-reduced over the tp group.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from ..models import jastrow as jas
-from ..utils.pbc import all_pairs
+from ..utils.pbc import all_pairs, pair_geometry
 from . import kernels
 
 
@@ -80,7 +85,7 @@ def _brute_df2(system, R, xnew, ip):
     return f2n - f2o
 
 
-def _fold(F_n, F_o, fp_n, fp_o, fold, notself):
+def _fold(F_n, F_o, fp_n, fp_o, fold, notself, system=None):
     """The cached exact dF^2 of a move and its field increment dfield [...,
     N, D] from the two sides' forces (kernels.pair_side) and the cache rows
     fold beneath them (pairwise.py:159-205).  Moving ip changes F_ip
@@ -88,11 +93,23 @@ def _fold(F_n, F_o, fp_n, fp_o, fold, notself):
 
         dF^2 = |F_ip^new|^2 - |F_ip^old|^2 + sum_j (2 fold_j . dg_j + |dg_j|^2)
 
-    and dfield[ip] = F_ip^new - F_ip^old, dfield[j] = dg_j."""
+    and dfield[ip] = F_ip^new - F_ip^old, dfield[j] = dg_j.  Under tp
+    (system.tp) F_n and F_o are whole, fp_n / fp_o / notself this rank's
+    partners and fold all N particles' rows: the partner sum and dfield
+    (this rank's columns, zeros elsewhere) take one all-reduce."""
+    tp = system.tp if system is not None else None
+    if tp is not None:
+        n = fp_n.shape[-2]
+        fold, lo = tp.partners(fold)
     dg = -(fp_n - fp_o)
-    df2 = ((F_n * F_n).sum(-1) - (F_o * F_o).sum(-1)
-           + (2.0 * fold * dg + dg * dg).sum((-1, -2)))
+    part = (2.0 * fold * dg + dg * dg).sum((-1, -2))
     dfield = torch.where(~notself[..., None], (F_n - F_o)[..., None, :], dg)
+    if tp is not None:
+        full = dfield.new_zeros(dfield.shape[:-2] + (n * tp.tp,
+                                                     dfield.shape[-1]))
+        full[..., lo:lo + n, :] = dfield
+        part, dfield = tp.tp_sum(part, full)
+    df2 = (F_n * F_n).sum(-1) - (F_o * F_o).sum(-1) + part
     return df2, dfield
 
 
@@ -101,18 +118,21 @@ def _fold_rows(system, R, xnew, xold, ip, ib, fold, fold_sub, need_wf):
     (dS [W, B], dfield [W, mo, N, D]) with the exact Chin F^2 of the rows
     r0::s (fold_sub) from the cache rows fold [W, mo, N, D] beneath them."""
     wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
-    N = R.shape[-2]
-    notself = kernels.self_mask(N, ip, R.device)
+    R, notself = kernels.partners(system, R, ip)
+    lo = 0 if system.tp is None else system.tp.tp_rank * R.shape[-2]
     pot_n, F_n, fp_n, u_n = kernels.pair_side(system, xnew, R, notself, True,
                                               need_wf)
     pot_o, F_o, fp_o, u_o = kernels.pair_side(system, xold, R, notself, True,
                                               need_wf)
+    pot_n, pot_o, F_n, F_o, u_n, u_o = kernels.tp_sum(
+        system, pot_n, pot_o, F_n, F_o, u_n, u_o)
     r0, s = fold_sub
     rows = slice(r0, None, s)
     ip_o = ip if isinstance(ip, int) or ip.dim() < 2 else ip[..., rows]
     df2_o, dfield = _fold(F_n[..., rows, :], F_o[..., rows, :],
                           fp_n[..., rows, :, :], fp_o[..., rows, :, :], fold,
-                          kernels.self_mask(N, ip_o, R.device))
+                          kernels.self_mask(R.shape[-2], ip_o, R.device, lo),
+                          system)
     if (r0, s) == (0, 1):
         df2 = df2_o
     else:
@@ -196,12 +216,23 @@ def force_field(system, R):
     trap gradient, with the exact-coincidence guard r^2 > 0.  The sweep
     calls it on paths[:, 1::2], the odd beads, the only rows whose F^2
     carries Chin weight."""
-    m, r, xij = all_pairs(system, R)
+    tp = system.tp
+    if tp is None:
+        m, r, xij = all_pairs(system, R)
+    else:
+        # this rank's partners j of every particle i, then one all-reduce
+        Rj, lo = tp.partners(R)
+        notself = (torch.arange(R.shape[-2], device=R.device)[:, None]
+                   != torch.arange(lo, lo + Rj.shape[-2], device=R.device))
+        xij, _, r2s, m = pair_geometry(
+            system, R[..., :, None, :] - Rj[..., None, :, :], notself)
+        r = torch.sqrt(r2s)
     fr = torch.where(m & (r > 0.0), system.dv(r) / r, 0.0)
     F = (fr[..., None] * xij).sum(-2)
-    if system.a_ho is not None:
-        F = F + jas.trap_pot_grad(system.a_ho, R)
-    return F
+    a = kernels.one_body(system)
+    if a is not None:
+        F = F + jas.trap_pot_grad(a, R)
+    return kernels.tp_sum(system, F)[0]
 
 
 def delta_pot_cached(system, R, xnew, xold, ip, fold):
@@ -209,12 +240,14 @@ def delta_pot_cached(system, R, xnew, xold, ip, fold):
     cache (pairwise.py:159-205): fold [W, B, N, D], the current forces at
     the displaced beads (rows aligned with R).  Returns (dpot, df2,
     dfield), dfield [W, B, N, D] the field increment of the move (_fold)."""
-    notself = kernels.self_mask(R.shape[-2], ip, R.device)
+    R, notself = kernels.partners(system, R, ip)
     pot_n, F_n, fp_n, _ = kernels.pair_side(system, xnew, R, notself, True,
                                             False)
     pot_o, F_o, fp_o, _ = kernels.pair_side(system, xold, R, notself, True,
                                             False)
-    return (pot_n - pot_o, *_fold(F_n, F_o, fp_n, fp_o, fold, notself))
+    pot_n, pot_o, F_n, F_o = kernels.tp_sum(system, pot_n, pot_o, F_n, F_o)
+    return (pot_n - pot_o,
+            *_fold(F_n, F_o, fp_n, fp_o, fold, notself, system))
 
 
 def delta_pot(system, R, xnew, xold, ip, with_force=True):

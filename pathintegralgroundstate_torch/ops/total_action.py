@@ -47,7 +47,7 @@ def kinetic_action(system, paths):
 
 def _weighted_pot(system, paths):
     wv, wf, _ = chin_table(system, paths.dtype)
-    pot, f2 = pair_pot_ref(system, paths, True)
+    pot, f2 = pair_pot_ref(system, paths, True, shard=False)
     s = (wv * pot).sum(-1) + (wf * f2).sum(-1)
     s = s - log_trial_wf(system, paths[..., 0, :, :])
     return s - log_trial_wf(system, paths[..., -1, :, :])

@@ -9,6 +9,11 @@ conversion does for a model port; `generator_states` /
 `set_generator_states` carry the generators across a checkpoint.
 
 Layout: paths[W, M, N, D] with M = 2 Nb + 1 beads.
+
+Under walker sharding (a System whose mesh has dp > 1) both constructors
+build the global ensemble of cfg.n_walkers walkers, identically on every
+rank, and keep this rank's rows (parallel/mesh.shard_state), as the
+reference's shard_state assumes every process holds the same global state.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .parallel.mesh import shard_state
 
 _FIELDS = ("paths", "xend", "isopen", "iworm", "in_cycle", "iperm")
 
@@ -67,13 +74,14 @@ def init_state(system, seed=None, init_positions=None) -> MCState:
     paths = R[:, None].expand(W, M, N, D).contiguous()
     xend = paths[:, cfg.Nb, N - 1][:, None].expand(W, 2, D).contiguous()
     kw = dict(device=system.device)
-    return MCState(
+    state = MCState(
         paths=paths, xend=xend,
         isopen=torch.zeros(W, dtype=torch.bool, **kw),
         iworm=torch.zeros(W, dtype=torch.long, **kw),
         in_cycle=torch.zeros((W, N), dtype=torch.bool, **kw),
         iperm=torch.ones(W, dtype=torch.long, **kw),
         step=0, gen=gen, host_gen=host)
+    return shard_state(system, state)
 
 
 def state_from_numpy(system, d: dict, seed=None) -> MCState:
@@ -81,7 +89,7 @@ def state_from_numpy(system, d: dict, seed=None) -> MCState:
     is not carried: the generators are seeded from `seed` (cfg.seed)."""
     kw = dict(device=system.device)
     gen, host = _generators(system, system.cfg.seed if seed is None else seed)
-    return MCState(
+    return shard_state(system, MCState(
         paths=torch.as_tensor(np.array(d["paths"]), dtype=system.dtype, **kw),
         xend=torch.as_tensor(np.array(d["xend"]), dtype=system.dtype, **kw),
         isopen=torch.as_tensor(np.array(d["isopen"]), dtype=torch.bool, **kw),
@@ -89,7 +97,7 @@ def state_from_numpy(system, d: dict, seed=None) -> MCState:
         in_cycle=torch.as_tensor(np.array(d["in_cycle"]), dtype=torch.bool,
                                  **kw),
         iperm=torch.as_tensor(np.array(d["iperm"]), dtype=torch.long, **kw),
-        step=int(np.asarray(d["step"])), gen=gen, host_gen=host)
+        step=int(np.asarray(d["step"])), gen=gen, host_gen=host))
 
 
 def generator_states(state: MCState):

@@ -32,6 +32,11 @@ own draws; as in the reference, the bisections take batched randoms up to
 BATCH_RAND_MAX_W walkers and per-move draws above (or with random end
 depths).  The step calls no .item() and indexes with no boolean mask:
 all Python-side control flow depends on host integers only.
+
+Under walker sharding (System.mesh, parallel/mesh.py) W is this rank's
+walker count, as the reference's per-device W_dev (sweep.py:296-297): the
+batched-randoms threshold applies to it, and the draw source keeps this
+rank's rows of every block.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from .ops import moves as mv
 from .ops import worm as wm
 from .ops.pairwise import force_field
 from .ops.smartmc import mala_move
+from .parallel.mesh import reduce_stats
 from .state import MCState
 from .utils.draws import DeviceDraws
 
@@ -511,8 +517,11 @@ class Sweeper:
 
 
 def run_block(sweeper: Sweeper, state: MCState, nstep: int, draws=None):
-    """nstep MC steps from zero statistics: (state, block StepStats)."""
+    """nstep MC steps from zero statistics: (state, block StepStats).
+    Under walker sharding the statistics are this rank's walkers' until the
+    block's end, then summed over the dp group (parallel/mesh.reduce_stats),
+    as the reference's sharded block all-reduces them."""
     stats = zero_stats(sweeper.system)
     for _ in range(nstep):
         state, stats = sweeper.step(state, stats, draws)
-    return state, stats
+    return state, reduce_stats(sweeper.system, stats)

@@ -12,6 +12,11 @@ _v_of_r / _dv_of_r / _v_dv_of_r / _u_of_r (pairwise.py:102-128) and
 _du_of_r / _d2u_of_r (estimators.py:38-47) take it, and the closed form
 otherwise.
 
+A System may carry its rank's place in a dp x tp mesh (`mesh`,
+parallel/mesh.Mesh): `tp` is that mesh where it shards the partner axis,
+and every kernel route (ops/kernels.py) is then off, as the reference
+routes its kernels off under a tp mesh.
+
 The constructor refuses every configuration outside the ported slice with
 NotImplementedError naming the ROADMAP item it waits for.
 """
@@ -39,11 +44,8 @@ _JASTROWS = {"mcmillan": JAS_MCMILLAN, "mcmillan_c1": JAS_MCMILLAN,
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     waits = [
-        (not cfg.shared_windows, "shared_windows=False",
-         "slice 11 (per-walker windows)"),
-        (max(cfg.mesh_walkers, cfg.mesh_pairs, cfg.mesh_beads) > 1,
-         "mesh_*>1", "slice 14 (multi-device)"),
-        (cfg.distributed, "distributed=True", "slice 14 (multi-device)"),
+        (cfg.mesh_beads > 1, "mesh_beads>1",
+         "item 14 (SP bead sharding, parallel/beadshard.py)"),
         (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
          "no slice (float32 and float64 only)"),
         (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),
@@ -74,6 +76,7 @@ class System:
     geo: Geometry
     device: torch.device
     dtype: torch.dtype
+    mesh: Optional[object] = None   # parallel/mesh.Mesh of a sharded run
 
     def __post_init__(self):
         self.potential: Potential = get_potential(self.cfg.potential)
@@ -103,6 +106,12 @@ class System:
     @property
     def pbc(self) -> bool:
         return not self.cfg.trap
+
+    @property
+    def tp(self):
+        """The mesh where it shards the partner axis (tp > 1), else None."""
+        return self.mesh if self.mesh is not None and self.mesh.tp > 1 \
+            else None
 
     # -- the closed forms ----------------------------------------------------
 
@@ -193,11 +202,12 @@ def make_tables(system: System) -> Tables:
     return Tables(logwf=logwf, vtab=vtab)
 
 
-def make_system(cfg: SimConfig, device=None, dtype=None) -> System:
+def make_system(cfg: SimConfig, device=None, dtype=None, mesh=None) -> System:
     """System on `device` in `dtype` (default cfg.dtype).
 
     The default device is the card ("cuda"); without one it raises rather
-    than run on the CPU.  device="cpu" runs the plain forms."""
+    than run on the CPU.  device="cpu" runs the plain forms.  mesh: this
+    rank's parallel/mesh.Mesh in a sharded run (the Driver builds it)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_system: no CUDA device is present; pass "
@@ -207,4 +217,5 @@ def make_system(cfg: SimConfig, device=None, dtype=None) -> System:
     check_supported(cfg)   # before geometry(), which needs crystal_Lbox
     device = torch.device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
-    return System(cfg=cfg, geo=geometry(cfg), device=device, dtype=dtype)
+    return System(cfg=cfg, geo=geometry(cfg), device=device, dtype=dtype,
+                  mesh=mesh)

@@ -10,7 +10,12 @@ Two sources implement the same methods:
       generator; the scalar, state-independent values (the shared window
       starts, the end moves' random depths, the fused sweep's group offsets
       and interior shifts) from its host generator as Python ints, so the
-      step never synchronises with the device.  It ignores the addresses.
+      step never synchronises with the device.  With shared_windows=False
+      the window starts are per walker, a long tensor [W] drawn on the
+      device (the reference's _window_start / _draw_monoshot with
+      start_shape (W,), moves.py:161-176, bisection.py:231-240); the
+      composites' interior shift stays shared, as in the reference.  It
+      ignores the addresses.
   the test bridge (tests/torch_bridge.py): replays the reference's own JAX
       key tree split for split, so the port can be held equal to the
       reference step.
@@ -20,6 +25,12 @@ the reference's batched-randoms layout (ops/bisection.py); the `*_keyed`
 sites are the reference's draws without batched randoms (W above
 sweep.BATCH_RAND_MAX_W, or the random end depth), which the bridge lays
 out the same way.  Here both are the same draws.
+
+Under walker sharding (a System whose mesh has dp > 1) every rank draws
+each block for all the global walkers and keeps its own rows, and the host
+generator is seeded alike on every rank: a sharded run then draws exactly
+the numbers of the unsharded run of the same seed, at dp times the random
+number work per rank (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -36,23 +47,58 @@ class DeviceDraws:
         self.gen, self.host = gen, host_gen
         self.device, self.dtype = system.device, system.dtype
         self.D = system.cfg.dim
+        self.shared = system.cfg.shared_windows
+        mesh = system.mesh
+        self.dp, self.dp_rank = (mesh.dp, mesh.dp_rank) if mesh else (1, 0)
 
     def begin_step(self) -> None:
         """Start of a step (the bridge splits its step key here)."""
 
     # -- primitives --------------------------------------------------------
 
-    def _u(self, *shape):
-        return torch.rand(shape, generator=self.gen, device=self.device,
-                          dtype=self.dtype)
+    def _keep(self, t, axis: int = 0, blocks: int = 1):
+        """This rank's walkers of t, drawn for all dp * W walkers along
+        `axis` (blocks such runs of walkers one after the other, each kept
+        in its rows); t itself without walker sharding."""
+        if self.dp == 1:
+            return t
+        n = t.shape[axis] // (blocks * self.dp)
+        lo = self.dp_rank * n
+        parts = [t.narrow(axis, b * n * self.dp + lo, n)
+                 for b in range(blocks)]
+        return torch.cat(parts, axis) if blocks > 1 else parts[0].contiguous()
 
-    def _g(self, *shape):
-        return torch.randn(shape, generator=self.gen, device=self.device,
-                           dtype=self.dtype)
+    def _global(self, shape, axis):
+        shape = list(shape)
+        shape[axis] *= self.dp
+        return shape
+
+    def _u(self, *shape, axis=0):
+        """Uniforms of `shape`, walkers (this rank's) on `axis`."""
+        return self._keep(torch.rand(self._global(shape, axis),
+                                     generator=self.gen, device=self.device,
+                                     dtype=self.dtype), axis)
+
+    def _g(self, *shape, axis=0):
+        """Gaussians of `shape`, walkers on `axis`."""
+        return self._keep(torch.randn(self._global(shape, axis),
+                                      generator=self.gen, device=self.device,
+                                      dtype=self.dtype), axis)
 
     def _int(self, hi: int, W: int):
-        return torch.randint(0, hi, (W,), generator=self.gen,
-                             device=self.device)
+        return self._keep(torch.randint(0, hi, (W * self.dp,),
+                                        generator=self.gen,
+                                        device=self.device))
+
+    def _start(self, n_opts: int, W: int):
+        """An even window start of n_opts choices: a host int shared by
+        every walker, or per walker a long tensor [W] on the device
+        (shared_windows=False), 2 U{0..n_opts-1}: the law of the
+        reference's 2 floor(u n_opts), drawn as integers so that no float
+        rounding reaches the top choice."""
+        if self.shared:
+            return 2 * self._host_int(n_opts)
+        return 2 * self._int(n_opts, W)
 
     # -- sites -------------------------------------------------------------
 
@@ -66,9 +112,10 @@ class DeviceDraws:
 
     def worm(self, tag: int, W: int, Lmax: int) -> WormDraws:
         """close_chain (tag 1) / open_chain (tag 3)."""
-        return WormDraws(_rand_even_ls(self.gen, W, Lmax, self.device),
+        return WormDraws(self._keep(_rand_even_ls(self.gen, W * self.dp,
+                                                  Lmax, self.device)),
                          self._int(2, W), self._g(W, self.D),
-                         self._g(Lmax - 3, W, self.D), self._u(W))
+                         self._g(Lmax - 3, W, self.D, axis=1), self._u(W))
 
     def translate(self, tag: int, it: int, W: int):
         """translate_chain and rigid_cascade (tag 10) / translate_half_chain
@@ -78,9 +125,9 @@ class DeviceDraws:
     def bisect(self, tag: int, it: int, W: int, nlev: int,
                n_opts: int = None):
         """Bisection with batched randoms (tags 25, 26, 27): (even window
-        start host int, of n_opts choices, or None for an end move;
-        g [W, 2**nlev, D], u [W, nlev+1])."""
-        ii = 2 * self._host_int(n_opts) if n_opts else None
+        start of n_opts choices, a host int or per walker [W], or None for
+        an end move; g [W, 2**nlev, D], u [W, nlev+1])."""
+        ii = self._start(n_opts, W) if n_opts else None
         return ii, self._g(W, 2 ** nlev, self.D), self._u(W, nlev + 1)
 
     def bisect_keyed(self, tag: int, it: int, W: int, nlev: int,
@@ -129,7 +176,7 @@ class DeviceDraws:
     def end_stagings(self, it: int, W: int, Lmax: int):
         """Fused head+tail staging (tag 20), head walkers then tail
         walkers: (Ls [2W], g0 [2W, D], gs [Lmax-1, 2W, D], u_acc [2W])."""
-        return self.regrow_half(20, it, 2 * W, Lmax)
+        return self._regrow(2 * W, Lmax, 2)
 
     def cascade_ends(self, it: int, W: int, nlev: int):
         """Ends cascade (tag 20): (rg [W, 2, 2**nlev+1, D],
@@ -147,14 +194,25 @@ class DeviceDraws:
     def regrow_half(self, tag: int, it: int, W: int, Lmax: int):
         """move_head/tail_half_chain (tags 41-44) and the staging sampler's
         move_head/tail (tags 20, 21): (Ls, g0, gs, u_acc)."""
-        return (_rand_ls(self.gen, W, Lmax, self.device), self._g(W, self.D),
-                self._g(Lmax - 1, W, self.D), self._u(W))
+        return self._regrow(W, Lmax)
+
+    def _regrow(self, W: int, Lmax: int, blocks: int = 1):
+        """(Ls [W], g0 [W, D], gs [Lmax-1, W, D], u_acc [W]) of W walkers
+        made of `blocks` runs of walkers (the fused ends' head and tail)."""
+        Wg, kw = W * self.dp, dict(generator=self.gen, device=self.device)
+        fl = dict(kw, dtype=self.dtype)
+        return (self._keep(_rand_ls(self.gen, Wg, Lmax, self.device), 0,
+                           blocks),
+                self._keep(torch.randn((Wg, self.D), **fl), 0, blocks),
+                self._keep(torch.randn((Lmax - 1, Wg, self.D), **fl), 1,
+                           blocks),
+                self._keep(torch.rand((Wg,), **fl), 0, blocks))
 
     def staging_half(self, tag: int, it: int, W: int, n_opts: int, L: int):
         """staging_half_chain (tags 45, 46) and staging_move (tag 22):
-        (start host int, gs, u_acc)."""
-        start = 2 * self._host_int(n_opts)
-        return start, self._g(L - 1, W, self.D), self._u(W)
+        (start, a host int or per walker [W]; gs, u_acc)."""
+        start = self._start(n_opts, W)
+        return start, self._g(L - 1, W, self.D, axis=1), self._u(W)
 
     def mala(self, shape):
         """MALA (tag 60): (xi of paths' shape [W, M, N, D], u [W]), the
@@ -165,6 +223,7 @@ class DeviceDraws:
         """swap_move (tag 50); the Gumbel noise is -log(-log U)."""
         tiny = torch.finfo(self.dtype).tiny
         gumbel = -torch.log(-torch.log(self._u(W, Np).clamp_(min=tiny)))
-        return SwapDraws(_rand_even_ls(self.gen, W, Lmax, self.device),
-                         gumbel, self._u(W), self._g(Lmax - 3, W, self.D),
-                         self._u(W))
+        return SwapDraws(self._keep(_rand_even_ls(self.gen, W * self.dp,
+                                                  Lmax, self.device)),
+                         gumbel, self._u(W),
+                         self._g(Lmax - 3, W, self.D, axis=1), self._u(W))

@@ -159,12 +159,17 @@ def test_unknown_platform_raises(runs, tmp_path, monkeypatch):
         cli.main([runs[0], "-o", str(tmp_path)])
 
 
-@pytest.mark.parametrize("kv,item", [
-    ("distributed=T", r"ROADMAP queue 1, slice 14"),
-])
-def test_unported_options_raise(runs, tmp_path, monkeypatch, kv, item):
+@pytest.mark.parametrize("kv,exc,item", [
+    ("mesh_beads=2", NotImplementedError, r"ROADMAP queue 1, item 14"),
+    ("distributed=T", RuntimeError, r"torchrun --nproc-per-node"),
+], ids=["mesh_beads=2", "distributed=T"])
+def test_unported_options_raise(runs, tmp_path, monkeypatch, kv, exc, item):
+    """The one option still refused names its ROADMAP item; distributed=T
+    outside torchrun's environment names the torchrun command."""
     monkeypatch.setenv("PIGS_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(exc, match=item):
         cli.main([runs[0], "-o", str(tmp_path), "--set", kv])
 
 

@@ -137,3 +137,75 @@ def test_device_draws_follow_the_reference_law(site):
                 seen_g[i].add(g[i])
                 seen_w[i].add(w[i])
         assert seen_g == seen_w, (seen_g, seen_w)
+
+
+# ---------------------------------------------------------------------------
+# Per-walker window starts, and the draws of a walker-sharded rank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("site", [
+    ("bisect_keyed", (22, 0, W, NLEV, N_OPTS, False)),
+    ("bisect_keyed", (22, 0, W, NLEV, N_OPTS, True)),
+    ("staging_half", (45, 0, W, N_OPTS, LMAX)),
+], ids=_id)
+def test_per_walker_starts_follow_the_reference_law(site):
+    """With shared_windows=False the start is per walker: a long tensor [W]
+    of even starts with the reference's support, and its law by a
+    two-sample KS test (ALPHA) at W = 4096 (moves._window_start,
+    bisection._draw_monoshot with start_shape (W,))."""
+    name, args = site
+    system = make_system(other_cfg(small_cfg(dim=D, Np=NP,
+                                             shared_windows=False)), "cpu")
+    port = DeviceDraws(system, torch.Generator().manual_seed(3),
+                       torch.Generator().manual_seed(4))
+    ref = JaxDraws(jax.random.key(3), D, jnp.float64, shared=False)
+    got, want = _draw(port, name, args)[0], _draw(ref, name, args)[0]
+    assert got.dtype == want.dtype == torch.long
+    assert got.shape == want.shape == (W,)
+    assert set(got.unique().tolist()) == set(want.unique().tolist()) \
+        == set(range(0, 2 * N_OPTS, 2))
+    assert sps.ks_2samp(got.numpy(), want.numpy()).pvalue > ALPHA
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared",
+                                                       "per_walker"])
+@pytest.mark.parametrize("site", SITES, ids=_id)
+def test_dp_rank_draws_its_rows_of_the_unsharded_draws(site, shared):
+    """A rank of a dp = 2 mesh draws every block for all the walkers and
+    keeps its own rows (both runs of walkers of the fused ends' [2W]
+    blocks), and the host ints alike: each rank's draws are its rows of
+    the unsharded draws of the same generators (parallel/mesh.py)."""
+    from pathintegralgroundstate_torch.parallel.mesh import Mesh
+    name, args = site
+    w = 8
+    cfg = other_cfg(small_cfg(dim=D, Np=NP, shared_windows=shared))
+    full = _leaves_of(make_system(cfg, "cpu"), name, _walkers(args, w))
+    for rank in range(2):
+        mesh = Mesh(dp=2, tp=1, rank=rank, backend="gloo")
+        got = _leaves_of(make_system(cfg, "cpu", mesh=mesh), name,
+                         _walkers(args, w // 2))
+        assert len(got) == len(full)
+        rows = slice(rank * w // 2, (rank + 1) * w // 2)
+        for g, f in zip(got, full):
+            if not isinstance(f, torch.Tensor):
+                assert g == f
+                continue
+            ax = next(i for i, n in enumerate(f.shape) if n in (w, 2 * w))
+            if f.shape[ax] == 2 * w:          # head walkers, tail walkers
+                f = torch.cat([f.narrow(ax, b * w, w)[
+                    (slice(None),) * ax + (rows,)] for b in (0, 1)], ax)
+            else:
+                f = f[(slice(None),) * ax + (rows,)]
+            assert torch.equal(g, f), name
+
+
+def _leaves_of(system, name, args):
+    src = DeviceDraws(system, torch.Generator().manual_seed(9),
+                      torch.Generator().manual_seed(10))
+    return _draw(src, name, args)
+
+
+def _walkers(args, w):
+    """args with every W, also inside a shape tuple, replaced by w."""
+    return tuple(_walkers(a, w) if isinstance(a, tuple) else
+                 w if a == W else a for a in args)

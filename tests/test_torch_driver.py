@@ -211,9 +211,14 @@ def test_debug_mode_matches_and_names_the_step(tmp_path):
         dbg.run(1)
 
 
-def test_distributed_is_refused(tmp_path):
+def test_distributed_is_refused(tmp_path, monkeypatch):
+    """distributed=True outside torchrun's environment (no MASTER_ADDR,
+    MASTER_PORT, RANK, WORLD_SIZE) is refused, naming the torchrun command;
+    under it the Driver joins the process group
+    (tests/test_torch_multihost.py)."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     cfg = other_cfg(small_cfg(distributed=True))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, slice 14"):
+    with pytest.raises(RuntimeError, match=r"torchrun --nproc-per-node"):
         tdriver.Driver(cfg, out_dir=str(tmp_path), device="cpu",
                        verbose=False)

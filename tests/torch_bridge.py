@@ -78,10 +78,19 @@ def half_draws(key, W, Lmax, D, dtype):
     return ti(Ls), g0, gs, tt(jax.random.uniform(k_acc, (W,), dtype))
 
 
-def staging_half_draws(key, W, n_opts, L, D, dtype):
-    """moves.staging_half_chain: (start, gs, u_acc)."""
+def _window_start(key, W, n_opts, shared):
+    """moves._window_start (moves.py:161-176): 2 randint over n_opts, one
+    host int shared by every walker, or per walker a long tensor [W]."""
+    ii = 2 * jax.random.randint(key, () if shared else (W,), 0, n_opts,
+                                dtype=jnp.int32)
+    return int(ii) if shared else ti(ii)
+
+
+def staging_half_draws(key, W, n_opts, L, D, dtype, shared=True):
+    """moves.staging_half_chain / staging_move: (start, gs, u_acc); the
+    start per walker without shared windows."""
     k_ii, k_reg, k_acc = split(key, 3)
-    start = int(2 * jax.random.randint(k_ii, (), 0, n_opts, dtype=jnp.int32))
+    start = _window_start(k_ii, W, n_opts, shared)
     _, gs = regrow_draws(k_reg, W, L, D, dtype)
     return start, gs, tt(jax.random.uniform(k_acc, (W,), dtype))
 
@@ -146,18 +155,24 @@ def bisect_draws(kk, W, nlev, D, dtype, n_opts=None):
     return (s, g, u), (None if s is None else _start(s, n_opts), tt(g), tt(u))
 
 
-def bisect_keyed_draws(key, W, level, D, dtype, n_opts, per_level):
+def bisect_keyed_draws(key, W, level, D, dtype, n_opts, per_level,
+                       shared=True):
     """bisection without rand: per level, split(key, level+2) (window start,
     then level ilev from keys[ilev], accepts from fold_in(keys[-1], ilev));
-    monoshot, _draw_monoshot (bisection.py:231-241)."""
+    monoshot, _draw_monoshot (bisection.py:231-241).  Without shared
+    windows the start is per walker, a long tensor [W]."""
     if per_level:
         keys = split(key, level + 2)
-        ii = 2 * int(jax.random.randint(keys[0], (), 0, n_opts,
-                                        dtype=jnp.int32))
+        ii = _window_start(keys[0], W, n_opts, shared)
         g, u = _level_rows(keys[1:], keys[-1], (W,), level, D, dtype)
         return ii, tt(g), tt(u)
     k_g, k_u, k_s = split(key, 3)
-    return (_start(jax.random.uniform(k_s, (), dtype), n_opts),
+    if shared:
+        ii = _start(jax.random.uniform(k_s, (), dtype), n_opts)
+    else:
+        ii = ti(2 * jnp.floor(jax.random.uniform(k_s, (W,), dtype)
+                              * n_opts).astype(jnp.int32))
+    return (ii,
             tt(jax.random.normal(k_g, (W, 2 ** level, D), dtype)),
             tt(jax.random.uniform(k_u, (W, level + 1), dtype)))
 
@@ -241,10 +256,12 @@ def cascade_interior_draws(key, W, K, nlev, n_shift, D, dtype):
 
 
 class JaxDraws:
-    """Draw source replaying the reference Sweeper.step's key tree."""
+    """Draw source replaying the reference Sweeper.step's key tree; shared:
+    cfg.shared_windows (False: per-walker window starts)."""
 
-    def __init__(self, key, D, dtype):
+    def __init__(self, key, D, dtype, shared=True):
         self.key, self.D, self.dtype = key, D, dtype
+        self.shared = shared
 
     def begin_step(self):
         self.key, self.k_step = split(self.key)
@@ -272,7 +289,7 @@ class JaxDraws:
 
     def bisect_keyed(self, tag, it, W, nlev, n_opts, per_level):
         return bisect_keyed_draws(self._site(tag, it), W, nlev, self.D,
-                                  self.dtype, n_opts, per_level)
+                                  self.dtype, n_opts, per_level, self.shared)
 
     def end_bisect(self, tag, it, W, level, per_level, random_depth):
         return end_bisect_draws(self._site(tag, it), W, level, self.D,
@@ -318,7 +335,7 @@ class JaxDraws:
 
     def staging_half(self, tag, it, W, n_opts, L):
         return staging_half_draws(self._site(tag, it), W, n_opts, L, self.D,
-                                  self.dtype)
+                                  self.dtype, self.shared)
 
     def swap(self, it, W, Np, Lmax):
         return swap_draws(self._site(50, it), W, Np, Lmax, self.D, self.dtype)
@@ -369,41 +386,51 @@ STATE_FIELDS = ("paths", "xend", "isopen", "iworm", "in_cycle", "iperm",
                 "step")
 
 
-def step_pair(cfg, nstep=2, nburn=150, max_w=None):
+def burn_ref(cfg, nstep=2, nburn=150):
     """Burn a reference state in with the reference's jitted step of cfg
     (until some walkers are open and some closed), then run nstep more
-    steps of the reference and of the port (on the reference's draws) from
-    it.  max_w: the batched-randoms threshold of both packages during the
-    run (a W above it takes the draws without batched randoms).
-    Returns (reference state, reference stats, port state, port stats)."""
-    from pathintegralgroundstate_torch import sweep as tsweep
-    from pathintegralgroundstate_torch.state import state_from_numpy
-    from pathintegralgroundstate_torch.system import make_system
+    steps of the reference from it.  Returns (burned reference state,
+    reference state after nstep steps, their statistics)."""
     from pathintegralgroundstate_tpu import sweep as jsweep
     from pathintegralgroundstate_tpu.state import init_state
     from pathintegralgroundstate_tpu.system import make_system as jmake
     from pathintegralgroundstate_tpu.system import make_tables
 
+    jsys = jmake(cfg)
+    step = jax.jit(jsweep.Sweeper(jsys, make_tables(jsys)).step)
+    st, stats = init_state(jsys), jsweep.zero_stats(jsys)
+    for _ in range(nburn):
+        st, stats = step(st, stats)
+    nopen = int(np.sum(np.asarray(st.isopen)))
+    assert 0 < nopen < cfg.n_walkers, nopen
+    burned, ref_stats = st, jsweep.zero_stats(jsys)
+    for _ in range(nstep):
+        st, ref_stats = step(st, ref_stats)
+    return burned, st, ref_stats
+
+
+def step_pair(cfg, nstep=2, nburn=150, max_w=None):
+    """burn_ref, then nstep steps of the port (on the reference's draws)
+    from the burned state.  max_w: the batched-randoms threshold of both
+    packages during the run (a W above it takes the draws without batched
+    randoms).  Returns (reference state, reference stats, port state, port
+    stats)."""
+    from pathintegralgroundstate_torch import sweep as tsweep
+    from pathintegralgroundstate_torch.state import state_from_numpy
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_tpu import sweep as jsweep
+
     saved = jsweep.BATCH_RAND_MAX_W, tsweep.BATCH_RAND_MAX_W
     if max_w is not None:
         jsweep.BATCH_RAND_MAX_W = tsweep.BATCH_RAND_MAX_W = max_w
     try:
-        jsys = jmake(cfg)
-        step = jax.jit(jsweep.Sweeper(jsys, make_tables(jsys)).step)
-        st, stats = init_state(jsys), jsweep.zero_stats(jsys)
-        for _ in range(nburn):
-            st, stats = step(st, stats)
-        nopen = int(np.sum(np.asarray(st.isopen)))
-        assert 0 < nopen < cfg.n_walkers, nopen
-        burned, ref_stats = st, jsweep.zero_stats(jsys)
-        for _ in range(nstep):
-            st, ref_stats = step(st, ref_stats)
+        burned, st, ref_stats = burn_ref(cfg, nstep, nburn)
         tsys = make_system(other_cfg(cfg), "cpu")
         state = state_from_numpy(tsys, {k: getattr(burned, k)
                                         for k in STATE_FIELDS})
         state, stats = tsweep.run_block(
             tsweep.Sweeper(tsys), state, nstep,
-            JaxDraws(burned.key, cfg.dim, jnp.float64))
+            JaxDraws(burned.key, cfg.dim, jnp.float64, cfg.shared_windows))
     finally:
         jsweep.BATCH_RAND_MAX_W, tsweep.BATCH_RAND_MAX_W = saved
     return st, ref_stats, state, stats

@@ -2,15 +2,16 @@
 
     python3 tools/torch_step_profile.py [--walkers 1024]
         [--scan 256,1024,4096]
-        [--forms flagship,fused,cascade,reforder,sta,exact,brute]
+        [--forms flagship,fused,cascade,reforder,sta,exact,brute,windows]
         [--kernels] [--split] [--root DIR]
 
 --forms lists the steps: `flagship` (the unfused sweep), `fused`
 (fused_sweep=True), `cascade` (fused_sweep=True, cascade=True),
 `reforder` (the reference-order step: bis_monoshot=False,
 bis_end_random_depth=True), `sta` (sampling='sta'), `exact` (the flagship
-with exact_f2=True, the odd-bead cache) or `brute` (exact_f2=True,
-f2_cache=False).
+with exact_f2=True, the odd-bead cache), `brute` (exact_f2=True,
+f2_cache=False) or `windows` (the flagship with per-walker windows,
+shared_windows=False).
 Prints, in float32 after one warm-up step:
   1. for the first form, host time per move function in one step, first
      without and then with a device sync after each call (the second shows
@@ -54,7 +55,8 @@ FORMS = {"flagship": {}, "fused": {"fused_sweep": True},
          "reforder": {"bis_monoshot": False, "bis_end_random_depth": True},
          "sta": {"sampling": "sta"},
          "exact": {"exact_f2": True},
-         "brute": {"exact_f2": True, "f2_cache": False}}
+         "brute": {"exact_f2": True, "f2_cache": False},
+         "windows": {"shared_windows": False}}
 
 
 def timed_step(sweeper, state):

@@ -159,6 +159,25 @@ run exits non-zero):
                unsharded CLI run: the outputs within rtol 1e-9, counters
                equal, rank 0 alone printing and writing; ms/step,
                collectives per step and their share.
+ 18. routes  : use_pallas=False (every kernel route off) on the flagship
+               and the fused sweep with cascade, and a plug-in potential (a
+               registered copy of the soft core) against the built-in soft:
+               W=16 float64 steps on the card, each launching 0 kernels and
+               equal to the kernel step on the same draws (the replay
+               tolerances); then a W=1024 float32 flagship step with
+               use_pallas=False timed (0 launches).
+ 19. sp      : the SP bead sharding (mesh_beads=4) over 4 ranks on the one
+               card (gloo; torchrun starts `chip_smoke.py --sp-rank`): at
+               W=16 float64, M=129, 3 sharded sweeps == sp_staging_sweep_ref
+               on one process bit for bit (kernel A in both, the ring's halo
+               == the local copy) and == the CPU's plain forms; the He-4
+               long-M path (Np=64, M=257, W=1024 float32, staging Lstag=32,
+               Nstag=5) per rank: 1 warm-up and 3 timed steps, exact
+               launches, collectives and their ms by CUDA events, 0 host
+               syncs outside the exchanges; the same path on one process
+               as a main path; the CLI with --set mesh_beads=4 under
+               torchrun (2 blocks of 2 steps), its E/N equal to the
+               one-process blocks within float32 rtol 1e-5.
  17. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
@@ -169,8 +188,9 @@ the inputs of its timed case (float64 cases: 34 TFLOP/s, the data sheet's
 float64 rate outside the tensor cores); library_ms is null, as no single
 PyTorch call computes these pair sums.  Each entry also carries its
 launches over the 3 timed steps of the exact-F^2 flagship, cached and
-brute, and over the 3 timed steps of the per-walker-window flagship
-(windows_launches).  The entries '[dipolar N=256 float64]' are the same
+brute, over the 3 timed steps of the per-walker-window flagship
+(windows_launches), and over the 3 timed steps of the SP path on rank 0
+(sp_launches).  The entries '[dipolar N=256 float64]' are the same
 kernels at the dipolar gas's shapes, with their launches on the dipolar
 path.
 """
@@ -1370,7 +1390,11 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
             casc += ints
         else:
             rows += ints
-    elif cfg.sampling != "bis" or cfg.bis_monoshot:
+    elif cfg.sampling != "bis":
+        # head, tail and the interior window; under mesh_beads > 1 one
+        # window per shard on one process, this rank's shard's on a rank
+        rows += (2 + (1 if sweeper.sp_sharded else sweeper.sp)) * visits
+    elif cfg.bis_monoshot:
         rows += 3 * visits
     else:
         nlev = cfg.Nlev
@@ -3070,12 +3094,462 @@ def dipolar_mesh_phase(card):
                 coll_ms=coll_ms)
 
 
+# ---------------------------------------------------------------------------
+# [routes]: use_pallas=False and a plug-in potential run no kernel
+# ---------------------------------------------------------------------------
+
+def _card_step(system, start, src):
+    """One step of `system` on the card from the numpy state `start` on
+    the draw source src, the kernels' launch counts set to 0 before and
+    read after: (state, stats as numpy, launches)."""
+    from pathintegralgroundstate_torch.state import (state_from_numpy,
+                                                     state_to_numpy)
+    from pathintegralgroundstate_torch.sweep import (Sweeper, stats_to_numpy,
+                                                     zero_stats)
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    state, stats = Sweeper(system).step(state_from_numpy(system, start),
+                                        zero_stats(system), src)
+    torch.cuda.synchronize()
+    return (state_to_numpy(state), stats_to_numpy(stats),
+            {k: fn.launches for k, fn in kern.items()})
+
+
+def route_check(cfg_kernel, cfg_plain, label):
+    """One W=16 float64 step of cfg_kernel on the card (the kernels), and
+    the same step of cfg_plain on the card from the same state on the same
+    draws (replayed): cfg_plain must launch no kernel and give the kernel
+    step within the replay tolerances (states rtol 1e-9, atol 1e-11;
+    statistics rtol 1e-9, atol 1e-9; counters equal)."""
+    from pathintegralgroundstate_torch.state import init_state, state_to_numpy
+    from pathintegralgroundstate_torch.sweep import Sweeper
+    from pathintegralgroundstate_torch.system import make_system
+
+    cuda = torch.device("cuda")
+    ksys = make_system(cfg_kernel.replace(n_walkers=16, dtype="float64"),
+                       cuda)
+    state = init_state(ksys)
+    start = state_to_numpy(state)
+    rec = _Recorder(Sweeper(ksys).draws(state))
+    s_k, t_k, l_k = _card_step(ksys, start, rec)
+    psys = make_system(cfg_plain.replace(n_walkers=16, dtype="float64"),
+                       cuda)
+    s_p, t_p, l_p = _card_step(psys, start, _Replayer(rec.log, cuda))
+    if any(l_p.values()) or not l_k["pair_rows"]:
+        raise AssertionError(f"routes {label}: launches {l_p} (plain), "
+                             f"{l_k} (kernels)")
+    for k in s_k:
+        if s_k[k].dtype.kind == "f":
+            np.testing.assert_allclose(s_p[k], s_k[k], rtol=1e-9, atol=1e-11,
+                                       err_msg=f"routes {label}: {k}")
+        else:
+            np.testing.assert_array_equal(s_p[k], s_k[k],
+                                          err_msg=f"routes {label}: {k}")
+    np.testing.assert_array_equal(t_p["counters"], t_k["counters"])
+    rel = 0.0
+    for k in t_k:
+        if k != "counters":
+            np.testing.assert_allclose(t_p[k], t_k[k], rtol=1e-9, atol=1e-9,
+                                       err_msg=f"routes {label}: {k}")
+    for k in ("sumE", "sumEt"):
+        rel = max(rel, float(abs(t_p[k] - t_k[k]) / abs(t_k[k])))
+    print(f"[routes] {label}: W=16 float64 step on the card launches "
+          f"{sum(l_p.values())} kernels (the kernel step {l_k}) and equals "
+          f"the kernel step on its draws (sums max rel diff {rel:.3e}, "
+          f"rtol 1e-9)")
+    return l_p
+
+
+def routes_phase(cfg, card, W=1024):
+    """use_pallas=False (every route off, as the reference's pallas_ok,
+    pallas_ok_wf and use_cascade_kernel) on the flagship and the fused
+    sweep with cascade, and a plug-in potential (a registered copy of the
+    soft core, models/potentials.register) against the built-in soft:
+    each step on the card launches 0 kernels and equals the kernel step.
+    Then one flagship step at W=1024 float32 with use_pallas=False, timed,
+    launching 0 kernels."""
+    from pathintegralgroundstate_torch.models import potentials as P
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    route_check(cfg, cfg.replace(use_pallas=False), "flagship use_pallas=F")
+    fc = cfg.replace(fused_sweep=True, cascade=True, Nstag=1, Nobdm=2)
+    route_check(fc, fc.replace(use_pallas=False),
+                "fused+cascade use_pallas=F (Nstag=1, Nobdm=2)")
+    soft = P.get_potential("soft")
+    P.register("soft_plugin", soft.v, soft.dvdr)
+    sc = cfg.replace(potential="soft", Nstag=1, Nobdm=2)
+    route_check(sc, sc.replace(potential="soft_plugin"),
+                "registered soft copy vs built-in soft (Nstag=1, Nobdm=2)")
+    system = make_system(cfg.replace(use_pallas=False, n_walkers=W),
+                         torch.device("cuda"))
+    sweeper = Sweeper(system)
+    state = init_state(system)
+    kern = _kernel_fns()
+    for fn in kern.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = run_block(sweeper, state, 1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = sum(fn.launches for fn in kern.values())
+    if n or not math.isfinite(float(stats.sumE)):
+        raise AssertionError(f"routes: use_pallas=F W={W} step launched {n}")
+    print(f"[routes] flagship W={W} float32 use_pallas=F, the plain forms on "
+          f"the card: first step {ms:.1f} ms, 0 kernel launches ({card})")
+
+
+# ---------------------------------------------------------------------------
+# [sp]: the SP bead sharding over 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+SP = 4
+
+
+def sp_cfg(W=1024):
+    """The reference's long-M SP case (docs/VALIDATION.md:238-244): He-4
+    Aziz-II / McMillan C1, Np=64 at 0.365, Nb=128 (M=257), the staging
+    sampler (Lstag=32, Nstag=5), no worm, float32, mesh_beads=4 (Mloc=64)."""
+    from pathintegralgroundstate_torch.config import SimConfig
+    return SimConfig(dim=3, Np=64, density=0.365, dt=5e-3, Nb=128,
+                     sampling="sta", Lstag=32, Nstag=5, CMFreq=1,
+                     delta_cm=0.12, Rm=1.2, swapping=False, CWorm=0.0,
+                     Nobdm=0, n_walkers=W, dtype="float32",
+                     potential="aziz2", jastrow="mcmillan_c1",
+                     mesh_beads=SP, seed=1982)
+
+
+def _sp_draws(system, seed):
+    from pathintegralgroundstate_torch.utils.draws import DeviceDraws
+    gen = torch.Generator(device=system.device)
+    gen.manual_seed(seed)
+    host = torch.Generator()
+    host.manual_seed(seed + 1)
+    return DeviceDraws(system, gen, host)
+
+
+def _quiet_exchanges(mesh):
+    """Patch the mesh's exchanges to run outside sync_debug_mode('warn'),
+    so that step_syncs counts the host syncs outside them; returns the
+    undo."""
+    def quiet(fn):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        return call
+    mesh.ring_next = quiet(mesh.ring_next)
+    mesh.all_reduce = quiet(mesh.all_reduce)
+
+    def undo():
+        del mesh.ring_next, mesh.all_reduce
+    return undo
+
+
+def sp_parity(system, paths, k):
+    """Kernels A and B at the SP path's shapes, float32 against their
+    float64 plain forms on the same inputs (rows_parity, pot_check: _tol's
+    tolerances): shard k's two kinds of window as
+    beadshard.shard_window builds them, the view of the shard at local
+    start 0 and the last start's copy joined with the halo (the next
+    shard's first bead; bead M-1 on the last shard), each with its global
+    bead indices and segment_regrow's flags (need_wf=False, need_f2=True),
+    per row and summed; and for k < 2 ThermEnergy's view k of the paths
+    (paths[:, k:M-1:2]) without and with force.  Returns (kernel A's max
+    abs err, kernel B's (None for k >= 2), values excused by the cutoff,
+    slabs16 of each window, the largest finite |value| of kernel A's rows
+    and of kernel B's outputs, which set the scale of the errors)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.parallel.beadshard import shard_window
+    from pathintegralgroundstate_torch.system import make_system
+
+    cfg = system.cfg
+    sys64 = make_system(cfg, paths.device, torch.float64)
+    M, L, N = paths.shape[1], cfg.Lstag, cfg.Np
+    Mloc = (M - 1) // cfg.mesh_beads
+    lo = k * Mloc
+    paths_l, halo = paths[:, lo:lo + Mloc], paths[:, lo + Mloc]
+    g = torch.Generator(device=paths.device).manual_seed(40 + k)
+    ip = (7 * k + 3) % N
+    def amax(*ts):
+        return max(float(t[torch.isfinite(t)].abs().max()) for t in ts)
+
+    err_a, excused, slabs, max_a = 0.0, 0, [], 0.0
+    for ii in (0, Mloc - L):
+        R = shard_window(paths_l, halo, ii, L)[:, :L]
+        if (R.data_ptr() == paths_l[:, ii:].data_ptr()) != (ii + L < Mloc):
+            raise AssertionError(f"sp shard {k} ii={ii}: the window is not "
+                                 "the kind expected")
+        ib = torch.arange(lo + ii, lo + ii + L, device=paths.device)
+        xnew, xold = _window_ip(R, ip, g)
+        for reduce in (False, True):
+            e, x, _ = rows_parity(system, sys64, R, xnew, xold, ip, ib,
+                                  False, [(False, True)],
+                                  f"sp shard {k} ii={ii} ib {lo + ii}.."
+                                  f"{lo + ii + L - 1}", reduce=reduce)
+            err_a, excused = max(err_a, e), excused + x
+        slabs.append(K.slabs16(R))
+        max_a = max(max_a, amax(K.pair_rows(system, R, xnew, xold, ip,
+                                            chin_table(system), ib, False,
+                                            True)))
+    err_b = max_b = None
+    if k < 2:
+        R = paths[:, k:M - 1:2]
+        err_b, x = pot_check(system, sys64, R, f"sp ThermEnergy view {k}")
+        excused += x
+        max_b = amax(*K.pair_pot(system, R, True))
+    torch.cuda.synchronize()
+    return err_a, err_b, excused, slabs, max_a, max_b
+
+
+def sp_rank(spec_path, res_dir):
+    """One rank of the [sp] phase (`python3 chip_smoke.py --sp-rank SPEC
+    RES` under torchrun, 4 ranks on the one card over gloo): (1) at W=16
+    float64, M=129, 3 sharded SP sweeps against sp_staging_sweep_ref on
+    this process (bitwise), kernel A's launches in both, and on rank 0 the
+    same sweeps on the CPU's plain forms (the float64 replay tolerance);
+    (2) the full-width path (sp_cfg) as a main path: 1 warm-up step, 3
+    timed steps, launches, collectives and their ms by CUDA events, one
+    step's host syncs outside the exchanges.  Saves RES/rank<R>.json."""
+    import contextlib
+    import os
+
+    from pathintegralgroundstate_torch.parallel import beadshard as bs
+    from pathintegralgroundstate_torch.parallel.mesh import (init_from_env,
+                                                             make_mesh)
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import (COUNTER_NAMES, Sweeper,
+                                                     run_block)
+    from pathintegralgroundstate_torch.system import make_system
+
+    rank = int(os.environ["RANK"])
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend = init_from_env()
+    mesh = make_mesh(1, 1, SP)
+    cuda = torch.device("cuda")
+    kern = _kernel_fns()
+    out = dict(rank=rank, backend=backend)
+
+    # (1) bitwise: sharded == unsharded, kernel A in both
+    cfg = _cfg_of(spec["small"])
+    ssys = make_system(cfg, cuda, mesh=mesh)
+    rsys = make_system(cfg, cuda)
+    paths = init_state(ssys).paths
+    start = paths.clone()
+    ref = paths.clone()
+    W, M = paths.shape[:2]
+    Mloc, L = (M - 1) // SP, cfg.Lstag
+    src_s, src_r = _sp_draws(ssys, 5), _sp_draws(rsys, 5)
+    halo = mesh.ring_next(paths[:, mesh.sp_rank * Mloc])
+    if not torch.equal(halo, paths[:, (mesh.sp_rank + 1) % SP * Mloc]):
+        raise AssertionError("sp: the ring's halo differs from the local "
+                             "copy")
+    n_a, logged, accs = [0, 0], [], []
+    for it in range(3):
+        ip = (7 * it + 3) % cfg.Np
+        ds = src_s.sp_staging(it, W, SP, bs.n_starts(Mloc, L), L)
+        dr = src_r.sp_staging(it, W, SP, bs.n_starts(Mloc, L), L)
+        logged.append((ip, dr))
+        a0 = kern["pair_rows"].launches
+        acc_s = bs.sp_staging_sweep(ssys, paths, ip, L, ds)
+        a1 = kern["pair_rows"].launches
+        acc_r = bs.sp_staging_sweep_ref(rsys, ref, ip, SP, L, dr)
+        n_a[0] += a1 - a0
+        n_a[1] += kern["pair_rows"].launches - a1
+        if not torch.equal(acc_s, acc_r):
+            raise AssertionError(f"sp: accepts differ in call {it}")
+        accs.append(int(acc_s.sum()))
+    if not torch.equal(paths, ref):
+        raise AssertionError("sp: sharded paths differ from "
+                             "sp_staging_sweep_ref's")
+    if n_a != [3, 3 * SP] or not sum(accs):
+        raise AssertionError(f"sp: kernel A launches {n_a}, accepts {accs}")
+    out.update(small_launches=n_a, small_accepted=accs)
+    if rank == 0:
+        csys = make_system(cfg, "cpu")
+        cpaths = start.cpu()
+        for ip, dr in logged:
+            bs.sp_staging_sweep_ref(csys, cpaths, ip, SP, L, [
+                (ii, g.cpu(), u.cpu()) for ii, g, u in dr])
+        diff = float((cpaths - paths.cpu()).abs().max())
+        np.testing.assert_allclose(paths.cpu().numpy(), cpaths.numpy(),
+                                   rtol=1e-9, atol=1e-11,
+                                   err_msg="sp: card vs CPU plain forms")
+        out["cpu_max_abs_diff"] = diff
+    torch.distributed.barrier()
+
+    # (2) the full-width path
+    cfg = _cfg_of(spec["full"])
+    system = make_system(cfg, cuda, mesh=mesh)
+    sweeper = Sweeper(system)
+    state = init_state(system)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, warm = run_block(sweeper, state, 1)
+    torch.cuda.synchronize()
+    out["warm_s"] = time.perf_counter() - t0
+    nstep = 3
+    for fn in kern.values():
+        fn.launches = 0
+    c0, s0 = mesh.collectives, mesh.coll_s
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stats = run_block(sweeper, state, nstep)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / nstep
+    out.update(ms=dt * 1e3, coll=(mesh.collectives - c0) / nstep,
+               coll_ms=(mesh.coll_s - s0) * 1e3 / nstep,
+               launches={k: fn.launches for k, fn in kern.items()},
+               counters=dict(zip(COUNTER_NAMES,
+                                 (stats.counters + warm.counters).tolist())),
+               E=float(stats.sumE / stats.n_diag) / cfg.Np,
+               Et=float(stats.sumEt / stats.n_diag) / cfg.Np,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    want = expected_launches(cfg, sweeper, nstep, False, [])
+    for k, (n, _) in want.items():
+        if out["launches"][k] != n:
+            raise AssertionError(f"sp rank {rank}: {k} launched "
+                                 f"{out['launches'][k]}, expected {n}")
+    undo = _quiet_exchanges(mesh)
+    try:
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            syncs = step_syncs(sweeper, state, None, f"sp rank {rank}")
+    finally:
+        undo()
+    out["syncs"] = syncs
+    out["parity"] = sp_parity(system, state.paths, mesh.sp_rank)
+    with open(os.path.join(res_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def sp_phase(card):
+    """The SP bead sharding on the card: 4 ranks under torchrun (gloo, one
+    card) run sp_rank; this process runs the same full-width path
+    unsharded (sp_staging_sweep_ref, main_path) and then, as the users run
+    it, the CLI with mesh_beads=4 under torchrun (2 blocks of 2 steps),
+    whose block energies must equal the unsharded blocks of this process
+    within float32 rtol 1e-5.  Returns (rank 0's launches over the 3 timed
+    steps, the report)."""
+    import os
+    import shutil
+
+    from pathintegralgroundstate_torch.config import namelist_text
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+
+    root = os.path.join(_repo(), "build", "chip_smoke_sp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    full = sp_cfg()
+    small = full.replace(Nb=64, Lstag=16, n_walkers=16, dtype="float64")
+    spec = os.path.join(root, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"small": _cfg_dict(small), "full": _cfg_dict(full)}, f)
+    _ranks(SP, [os.path.abspath(__file__), "--sp-rank", spec, root], 420,
+           "sp 4 ranks")
+    z = []
+    for r in range(SP):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            z.append(json.load(f))
+    print(f"[sp] W=16 float64 M=129 Lstag=16, 3 calls: sharded == "
+          f"sp_staging_sweep_ref bitwise on every rank (kernel A "
+          f"{z[0]['small_launches'][0]} launches sharded per rank, "
+          f"{z[0]['small_launches'][1]} unsharded; accepted "
+          f"{z[0]['small_accepted']}); the ring's halo == the local copy; "
+          f"card == CPU plain forms, max abs diff "
+          f"{z[0]['cpu_max_abs_diff']:.3e} (rtol 1e-9, atol 1e-11)")
+    for r in range(1, SP):
+        if z[r]["counters"] != z[0]["counters"] or z[r]["E"] != z[0]["E"]:
+            raise AssertionError(f"sp: rank {r} differs from rank 0")
+    for zr in z:
+        if zr["syncs"]:
+            raise AssertionError(f"sp rank {zr['rank']}: {zr['syncs']} host "
+                                 "syncs outside the exchanges")
+        print(f"[sp] {full.n_walkers} walkers M={full.M} Np={full.Np} "
+              f"float32 mesh_beads={SP} rank {zr['rank']} ({zr['backend']}):"
+              f" {zr['ms']:.1f} ms/step, {zr['coll']:.1f} collectives/step,"
+              f" {zr['coll_ms']:.1f} ms/step in them ("
+              f"{100 * zr['coll_ms'] / zr['ms']:.1f} %), launches "
+              f"{zr['launches']}, 0 host syncs outside the exchanges, peak "
+              f"{zr['peak_gib']:.3f} GiB ({card})")
+    pa = [zr["parity"] for zr in z]
+    print(f"[sp] kernels A and B at the path's shapes, float32 against the "
+          f"float64 plain forms (_tol, weighted as the terms): kernel A on "
+          f"each shard's view window (ii=0) and halo copy window "
+          f"(ii=Mloc-L), [{full.n_walkers}, {full.Lstag}, {full.Np}, 3], "
+          f"global ib up to {full.M - 2}, per row and summed, max abs err "
+          f"{max(p[0] for p in pa):.3e} (per rank "
+          f"{', '.join(f'{p[0]:.3e}' for p in pa)}; largest |row| "
+          f"{max(p[4] for p in pa):.3e}), slabs16 {[p[3] for p in pa]}; "
+          f"kernel B on both ThermEnergy views [{full.n_walkers}, "
+          f"{full.Nb}, {full.Np}, 3] without and with force, max abs err "
+          f"{max(pa[0][1], pa[1][1]):.3e} (largest |value| "
+          f"{max(pa[0][5], pa[1][5]):.3e}); values "
+          f"beyond tolerance, each at a pair within 1e-5 of rcut^2: "
+          f"{sum(p[2] for p in pa)}")
+    print(f"[sp] counters over 4 steps {z[0]['counters']}; <E>/N "
+          f"{z[0]['E']:.4f} <Et>/N {z[0]['Et']:.4f}")
+    one_launches, one_dt, _ = main_path(full, card, "sp unsharded")
+
+    # the CLI under torchrun against the unsharded blocks of this process
+    cli_cfg = full.replace(Nstep=2, Nblock=2)
+    nml = os.path.join(root, "sp.in")
+    with open(nml, "w") as f:
+        f.write(namelist_text(cli_cfg.replace(mesh_beads=1)))
+    out = os.path.join(root, "cli")
+    so = _ranks(SP, ["-m", "pathintegralgroundstate_torch", nml, "-o", out,
+                     "--set", f"mesh_beads={SP}"], 420, "sp CLI")
+    if "BLOCK NUMBER : 2" not in so[0] or any(so[1:]):
+        raise AssertionError("sp CLI: rank 0 must print both blocks and no "
+                             "other rank anything")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    system = make_system(cli_cfg, torch.device("cuda"))
+    sweeper = Sweeper(system)
+    state = init_state(system)
+    rel = 0.0
+    for rec in recs:
+        state, st = run_block(sweeper, state, cli_cfg.Nstep)
+        for k in ("E", "Et"):
+            want = float(getattr(st, f"sum{k}") / st.n_diag) / cli_cfg.Np
+            d = abs(rec[f"Av{k}"] - want) / abs(want)
+            if not d <= 1e-5:
+                raise AssertionError(f"sp CLI block {rec['block']}: {k}/N "
+                                     f"{rec[f'Av{k}']} vs {want}")
+            rel = max(rel, d)
+        if rec.get("sp") != SP or rec["backend"] != "gloo":
+            raise AssertionError(f"sp CLI: {rec.get('sp')} {rec['backend']}")
+    e = [r["AvE"] for r in recs]
+    coll = (recs[1]["collectives"] - recs[0]["collectives"]) / 2
+    print(f"[sp] CLI mesh_beads={SP} under torchrun, 2 blocks of 2 steps: "
+          f"E/N {e} == unsharded blocks (max rel diff {rel:.3e}, rtol "
+          f"1e-5); rank 0 block 2 {recs[1]['time_s'] * 1e3 / 2:.1f} "
+          f"ms/step, {coll:.1f} collectives/step ({card})")
+    return z[0]["launches"], dict(ranks=z, unsharded_ms=one_dt * 1e3,
+                                  unsharded_launches=one_launches, cli_e=e,
+                                  cli_rel=rel)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--sp-rank"]:
+        return sp_rank(*sys.argv[2:4])
     from pathintegralgroundstate_torch.flagship import flagship_cfg
     from pathintegralgroundstate_torch.utils import build
 
@@ -3179,6 +3653,10 @@ def main():
     mesh_phase(cfg, card)
     clock("dipolar mesh")
     dipolar_mesh_phase(card)
+    clock("routes")
+    routes_phase(cfg, card)
+    clock("sp")
+    sp_launches, _ = sp_phase(card)
     clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -3201,7 +3679,8 @@ def main():
                 "bound_by": bound[1], "library_ms": None,
                 "exact_f2_launches": ex_launches[key],
                 "exact_f2_brute_launches": br_launches[key],
-                "windows_launches": win_launches[key]}
+                "windows_launches": win_launches[key],
+                "sp_launches": sp_launches[key]}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
@@ -3235,7 +3714,7 @@ def main():
              max_abs_err_is="float64, dipolar/dipolar2d at N=256 "
                             "([variants] and the timed inputs)",
              exact_f2_launches=None, exact_f2_brute_launches=None,
-             windows_launches=None)
+             windows_launches=None, sp_launches=None)
         for name, kname, tname, src, rep, n in (
             ("pair_rows", "pair_rows", "pair_rows", "pair_rows.cu",
              "pallas_kernels.py:300", dip_launches["pair_rows"]),

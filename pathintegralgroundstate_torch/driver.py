@@ -23,7 +23,9 @@ Multi-device runs (driver.py:80-135, 170-183, 507-531): distributed=True
 initialises torch.distributed from torchrun's environment
 (parallel/mesh.init_from_env), and mesh_walkers x mesh_pairs > 1 shards
 the walkers over dp and the partner axis over tp (parallel/mesh.py), one
-rank per mesh position.  Every rank holds the replicated block statistics;
+rank per mesh position; mesh_beads > 1 (alone) shards the bead axis of the
+SP staging sweep over as many ranks (parallel/beadshard.py), the state
+replicated.  Every rank holds the replicated block statistics;
 only rank 0 makes the output directory, writes the files and the
 checkpoint, and prints.  The checkpoint gathers the walker slices into the
 unsharded layout, so that a run resumes under any mesh; both generators
@@ -43,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from .config import SimConfig
+from .parallel.beadshard import check_sp_config
 from .parallel.mesh import gather_state, init_from_env, local_device, \
     make_mesh, reduce_stats
 from .state import MCState, generator_states, init_state, \
@@ -126,7 +129,20 @@ class Driver:
             device = local_device(device)
         self.mesh = None
         n_dp, n_tp = cfg.mesh_walkers, cfg.mesh_pairs
-        if n_dp * n_tp > 1:
+        if cfg.mesh_beads > 1:
+            # the SP envelope first (sweep.py:234-250), then one rank per
+            # bead shard, as the reference wants a device per shard
+            # (sweep.py:251-254)
+            check_sp_config(cfg)
+            if cfg.mesh_beads != world:
+                raise ValueError(
+                    f"mesh_beads={cfg.mesh_beads} does not match the {world} "
+                    "ranks of the process group: run it as torchrun "
+                    f"--nproc-per-node {cfg.mesh_beads} -m "
+                    "pathintegralgroundstate_torch in.in --set "
+                    f"mesh_beads={cfg.mesh_beads}")
+            self.mesh = make_mesh(1, 1, cfg.mesh_beads)
+        elif n_dp * n_tp > 1:
             # driver.py:119-130, with the process group in place of the
             # visible devices
             if n_dp * n_tp != world:
@@ -150,8 +166,10 @@ class Driver:
         if self.is_main:
             self._write_tables()
         if self.verbose and grouped:
+            sp = (f", bead shards (sp) = {cfg.mesh_beads}"
+                  if cfg.mesh_beads > 1 else "")
             print(f"# Process group       : {world} ranks, backend "
-                  f"{self.backend}, mesh dp x tp = {n_dp} x {n_tp}")
+                  f"{self.backend}, mesh dp x tp = {n_dp} x {n_tp}{sp}")
 
         ckpt = os.path.join(out_dir, "checkpoint.npz")
         if cfg.resume and world > 1 and not os.path.exists(ckpt):
@@ -371,6 +389,8 @@ class Driver:
             rec["backend"] = self.backend
             if self.mesh is not None:
                 rec["mesh"] = [self.mesh.dp, self.mesh.tp]
+                if self.mesh.sp > 1:
+                    rec["sp"] = self.mesh.sp
                 rec["collectives"] = self.mesh.collectives
                 rec["collective_s"] = self.mesh.coll_s
         fjl.write(json.dumps(rec) + "\n")

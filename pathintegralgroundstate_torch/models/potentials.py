@@ -11,13 +11,16 @@ reference does for every potential but Aziz (pallas_kernels.py:87-90).
 
 The CUDA kernels (csrc/pigs_pair.cuh) evaluate the same formulas, selected
 by `Potential.kind` (KIND_AZIZ, KIND_SOFT, KIND_DIPOLAR, KIND_NONE), from
-`Potential.consts`.
+`Potential.consts`.  `register` adds a plug-in potential by name, as the
+reference's register does (potentials.py:136-137); its kind is None, and
+the route predicates (ops/kernels.py) send every pair call of a System
+with it to the plain forms.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -50,7 +53,8 @@ class Potential:
     dvdr: Callable   # dV/dr(r), analytic
     v_dv: Callable   # fused (V, dV/dr)(r, rinv=None)
     consts: dict     # the closed form's constants (kernel parameters)
-    kind: int        # the kernels' pair-model selector (KIND_*)
+    kind: Optional[int]  # the kernels' pair-model selector (KIND_*);
+    #                      None for a plug-in potential (plain forms only)
 
 
 def _aziz(name, p) -> Potential:
@@ -148,8 +152,22 @@ _REGISTRY = {"aziz2": lambda: _aziz("aziz2", _AZIZ2),
              "soft": _soft, "dipolar": _dipolar, "none": _none}
 
 
+def register(name: str, v: Callable, dvdr: Callable,
+             v_dv: Optional[Callable] = None) -> None:
+    """Register a plug-in pair potential under `name` (the reference's
+    register, potentials.py:136-137): v(r) and dV/dr(r) elementwise on
+    tensors, v_dv(r) their fused pair (default: the two calls).  It has no
+    kernel kind, so a System with it runs every pair call on the plain
+    forms (ops/kernels._kernels_on), on every device."""
+    fused = (lambda r, rinv=None: (v(r), dvdr(r))) if v_dv is None else \
+        (lambda r, rinv=None: v_dv(r))
+    pot = Potential(name, v, dvdr, fused, {}, None)
+    _REGISTRY[name] = lambda: pot
+
+
 def get_potential(name: str) -> Potential:
-    """aziz2, aziz1, soft, dipolar or none (potentials.py:139-150)."""
+    """aziz2, aziz1, soft, dipolar, none or a registered name
+    (potentials.py:139-150)."""
     try:
         return _REGISTRY[name]()
     except KeyError:

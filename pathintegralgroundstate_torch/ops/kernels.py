@@ -20,10 +20,11 @@ of the kernel half of ops/cascade_kernels.py.
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
 pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
 CPU, and for a System that its route predicate sends away from the kernel
-(`rows_route`, `cascade_route`, `pair_route`, `u_route`: the trap, the
-tables, exact F^2 for kernels A and 5, and a tp mesh for all five, as the
-reference routes them).  Otherwise, on a CUDA tensor, it launches the
-kernel or raises; there is no fallback.  Each wrapper's `.launches` counts
+(`rows_route`, `cascade_route`, `pair_route`, `u_route`:
+use_pallas=False, the trap, a plug-in potential, the tables, exact F^2 for
+kernels A and 5, and a tp mesh for all five, as the reference routes
+them).  Otherwise, on a CUDA tensor, it launches the kernel or raises;
+there is no fallback.  Each wrapper's `.launches` counts
 its kernel's launches, and nothing else.
 
 Under a tp mesh (System.tp, parallel/mesh.py) the plain forms are the
@@ -298,40 +299,57 @@ def _tables(system) -> bool:
     return system.cfg.v_table or system.cfg.wf_table
 
 
+def _kernels_on(system) -> bool:
+    """What every kernel needs: cfg.use_pallas (False runs the plain forms
+    on every device, as the reference's pallas_ok, pallas_ok_wf and
+    use_cascade_kernel have it, pallas_kernels.py:321-338,
+    cascade_kernels.py:428-436), PBC, a potential of the kernels' selector
+    (a plug-in potential, models/potentials.register, has no kind) and no
+    tp mesh."""
+    return (system.cfg.use_pallas and system.pbc
+            and system.potential.kind is not None and system.tp is None)
+
+
 def rows_route(system) -> bool:
-    """Whether kernel A runs this System's window passes: under PBC without
-    exact F^2, without either table and without a tp mesh, the reference's
-    `not cfg.exact_f2` guard (pairwise.py:415) with pallas_rows_ok
-    (pallas_kernels.py:252-258).  Otherwise the plain form runs on every
-    device."""
-    return (system.pbc and not system.cfg.exact_f2 and not _tables(system)
-            and system.tp is None)
+    """Whether kernel A runs this System's window passes: with the kernels
+    on (_kernels_on), without exact F^2 and without either table, the
+    reference's `not cfg.exact_f2` guard (pairwise.py:415) with
+    pallas_rows_ok (pallas_kernels.py:252-258).  Otherwise the plain form
+    runs on every device.
+
+    Two departures from the reference, both on purpose: the reference
+    keeps its rows kernel off by default (cfg.pallas_rows=False) and
+    ignores use_pallas for it; the port runs kernel A by default whatever
+    pallas_rows says, and use_pallas=False turns it off with the other
+    four, so that one switch gives an all-plain run."""
+    return (_kernels_on(system) and not system.cfg.exact_f2
+            and not _tables(system))
 
 
 def cascade_route(system) -> bool:
-    """Whether kernel 5 runs the dyadic cascades: under PBC without exact
-    F^2, without either table and without a tp mesh, as
-    use_cascade_kernel has it (cascade_kernels.py:428-436)."""
-    return (system.pbc and not system.cfg.exact_f2 and not _tables(system)
-            and system.tp is None)
+    """Whether kernel 5 runs the dyadic cascades: with the kernels on,
+    without exact F^2 and without either table, as use_cascade_kernel has
+    it (cascade_kernels.py:428-436)."""
+    return (_kernels_on(system) and not system.cfg.exact_f2
+            and not _tables(system))
 
 
 def pair_route(system) -> bool:
-    """Whether kernels B and 3 run: under PBC without v_table and without a
-    tp mesh, as pallas_ok has it (pallas_kernels.py:321-330).  Exact F^2
+    """Whether kernels B and 3 run: with the kernels on and without
+    v_table, as pallas_ok has it (pallas_kernels.py:321-330).  Exact F^2
     keeps them: its brute path calls kernel B on window blocks.
 
     Each predicate is a route by configuration, as the reference routes
-    the trap, the tables, exact F^2 and a tp mesh away from a kernel: the
-    plain form runs on every device, and a kernel that fails still
-    raises."""
-    return system.pbc and not system.cfg.v_table and system.tp is None
+    use_pallas=False, the trap, the tables, exact F^2 and a tp mesh away
+    from a kernel: the plain form runs on every device, and a kernel that
+    fails still raises."""
+    return _kernels_on(system) and not system.cfg.v_table
 
 
 def u_route(system) -> bool:
-    """Whether kernel 4 runs: under PBC without wf_table and without a tp
-    mesh, as pallas_ok_wf has it (pallas_kernels.py:333-338)."""
-    return system.pbc and not system.cfg.wf_table and system.tp is None
+    """Whether kernel 4 runs: with the kernels on and without wf_table, as
+    pallas_ok_wf has it (pallas_kernels.py:333-338)."""
+    return _kernels_on(system) and not system.cfg.wf_table
 
 
 def action_route(system) -> bool:

@@ -1,8 +1,9 @@
-"""Walker (dp) and partner (tp) sharding over torch.distributed.
+"""Walker (dp), partner (tp) and bead (sp) sharding over torch.distributed.
 
-The torch counterpart of pathintegralgroundstate_tpu/parallel/mesh.py and
-of the reference's tensor-parallel pair annotation
-(ops/pairwise._tp_constrain).  One process per mesh position:
+The torch counterpart of pathintegralgroundstate_tpu/parallel/mesh.py, of
+the reference's tensor-parallel pair annotation
+(ops/pairwise._tp_constrain) and of the exchanges of its sp mesh
+(parallel/beadshard.py).  One process per mesh position:
 
   * the world of dp * tp ranks is laid out as the reference lays out its
     devices (make_mesh's reshape(n_dp, n_tp)): rank = dp index * tp + tp
@@ -21,14 +22,22 @@ of the reference's tensor-parallel pair annotation
     partners (`partners`) and all-reduce the partial sums over the tp group
     (`tp_sum`) before the Metropolis test; under tp every pair call takes
     the plain forms, as the reference routes its Pallas kernels off under
-    a tp mesh.
+    a tp mesh;
+  * sp (mesh_beads, alone: dp = tp = 1): rank k owns the bead shard k of
+    the SP staging sweep (parallel/beadshard.py).  The state stays
+    replicated; each sweep call takes its halo from the next rank around
+    the ring (`ring_next`) and gathers every shard's moved beads
+    (`gather`).
 
 The backend is NCCL when every rank has a card of its own and gloo when
 ranks share a card (NCCL refuses two ranks on one GPU) or run on the CPU:
-a route by layout (`pick_backend`).  Every collective here is an
+a route by layout (`pick_backend`).  Every collective but the ring is an
 all-reduce, which both backends take on CUDA tensors (gloo stages them
-through the host inside the call); the checkpoint's gather is a zero-padded
-all-reduce for the same reason.  Each rank counts its collectives and the
+through the host inside the call); the checkpoint's gather and the sp
+gather are padded all-reduces for the same reason.  The ring is
+point-to-point: on the tensor's device under NCCL and for CPU tensors,
+staged through the host under gloo with CUDA tensors (gloo's send and recv
+take CPU tensors only).  Each rank counts its collectives and the
 seconds spent inside them (`collectives`, `coll_s`): on the card the time
 between CUDA events recorded on the current stream just before and just
 after each call, which spans the collective under either backend (NCCL's
@@ -39,6 +48,7 @@ host clock around the call, which returns when the sum is done.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -93,24 +103,30 @@ def init_from_env(device=None) -> str:
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """One rank's place in the dp x tp mesh and its two process groups."""
+    """One rank's place in the dp x tp mesh and its two process groups, or
+    in the sp ring (sp > 1, dp = tp = 1, the default group)."""
     dp: int
     tp: int
     rank: int
     backend: str
     dp_group: object = None
     tp_group: object = None
+    sp: int = 1
     collectives: int = 0      # collectives this rank issued
     _done_s: float = 0.0      # seconds inside them, read so far
     _events: list = dataclasses.field(default_factory=list)
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // (self.sp * self.tp)
 
     @property
     def tp_rank(self) -> int:
-        return self.rank % self.tp
+        return self.rank // self.sp % self.tp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.rank % self.sp
 
     def walkers(self, W: int) -> slice:
         """This rank's rows of a global ensemble of W walkers."""
@@ -123,20 +139,58 @@ class Mesh:
         lo = self.tp_rank * n
         return R[..., lo:lo + n, :], lo
 
-    def all_reduce(self, t, group):
-        """t summed over `group`, in place; counted and timed."""
-        if t.is_cuda:
+    @contextlib.contextmanager
+    def _timed(self, on_card: bool):
+        """Count one collective and time it: CUDA events around it on the
+        card, the host clock on the CPU."""
+        if on_card:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            yield
             ev[1].record()
             self._events.append(ev)
         else:
             t0 = time.perf_counter()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+            yield
             self._done_s += time.perf_counter() - t0
         self.collectives += 1
+
+    def all_reduce(self, t, group):
+        """t summed over `group` (None: the default group), in place;
+        counted and timed."""
+        with self._timed(t.is_cuda):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
         return t
+
+    def ring_next(self, t):
+        """The next sp rank's t (rank + 1 mod sp), this rank's t going to
+        the previous one: lax.ppermute's shift around the ring
+        (beadshard.py:113-115).  Point-to-point on t's device where the
+        backend takes it (NCCL, or a CPU tensor), else (gloo and a CUDA
+        tensor) staged through the host.  Counted and timed."""
+        S, k = self.sp, self.sp_rank
+        direct = self.backend == "nccl" or not t.is_cuda
+        with self._timed(t.is_cuda):
+            send = t.contiguous() if direct else t.cpu()
+            recv = torch.empty_like(send)
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, send, (k - 1) % S),
+                dist.P2POp(dist.irecv, recv, (k + 1) % S)])
+            for r in reqs:
+                r.wait()
+            out = recv if direct else recv.to(t.device)
+        return out
+
+    def gather(self, t, n: int, i: int, group):
+        """[n, *t.shape]: t of each of the n ranks of `group` (None: the
+        default group), i this rank's index in it, on every rank: one
+        all-reduce of a buffer holding -0.0 (0 for integers) but at row i.
+        It is exact bit for bit: x + (-0.0) == x for every x, +0.0 and
+        -0.0 included."""
+        buf = torch.full((n,) + tuple(t.shape), -0.0, dtype=t.dtype,
+                         device=t.device)
+        buf[i] = t
+        return self.all_reduce(buf, group)
 
     @property
     def coll_s(self) -> float:
@@ -170,17 +224,24 @@ class Mesh:
         return self.all_reduce(t, self.dp_group) if self.dp > 1 else t
 
 
-def make_mesh(n_dp: int, n_tp: int = 1) -> Mesh:
+def make_mesh(n_dp: int, n_tp: int = 1, n_sp: int = 1) -> Mesh:
     """This rank's Mesh over the initialised default group, whose world must
-    be n_dp * n_tp ranks.  Every rank builds every subgroup, in one order,
-    as dist.new_group requires."""
+    be n_dp * n_tp ranks, or n_sp ranks for an sp ring (which takes no dp
+    or tp).  Every rank builds every subgroup, in one order, as
+    dist.new_group requires; the sp ring is the default group."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != n_dp * n_tp:
-        raise ValueError(f"a {n_dp} x {n_tp} mesh needs {n_dp * n_tp} "
-                         f"ranks, the process group has {world}")
-    mesh = Mesh(dp=n_dp, tp=n_tp, rank=rank, backend=dist.get_backend())
+    if n_sp > 1 and n_dp * n_tp > 1:
+        raise ValueError("an sp mesh takes no dp or tp axis")
+    if world != n_dp * n_tp * n_sp:
+        raise ValueError(f"a {n_dp} x {n_tp} x {n_sp} (dp x tp x sp) mesh "
+                         f"needs {n_dp * n_tp * n_sp} ranks, the process "
+                         f"group has {world}")
+    mesh = Mesh(dp=n_dp, tp=n_tp, rank=rank, backend=dist.get_backend(),
+                sp=n_sp)
+    if n_sp > 1:
+        return mesh
     for t in range(n_tp):
         g = dist.new_group([d * n_tp + t for d in range(n_dp)])
         if mesh.tp_rank == t:
@@ -213,17 +274,14 @@ def shard_state(system, state):
 
 def gather_walkers(system, t):
     """The global [dp * W, ...] tensor of this rank's t [W, ...], on every
-    rank of the dp group: a zero-padded all-reduce (exact: each row is
-    one rank's, the others add zeros).  Bool tensors come back bool."""
+    rank of the dp group (Mesh.gather, exact bit for bit).  Bool tensors
+    come back bool."""
     mesh = system.mesh
     if mesh is None or mesh.dp == 1:
         return t
-    W = t.shape[0]
     work = t.to(torch.int32) if t.dtype == torch.bool else t
-    full = torch.zeros((W * mesh.dp,) + tuple(t.shape[1:]), dtype=work.dtype,
-                       device=t.device)
-    full[mesh.walkers(W * mesh.dp)] = work
-    mesh.all_reduce(full, mesh.dp_group)
+    full = mesh.gather(work, mesh.dp, mesh.dp_rank, mesh.dp_group).flatten(
+        0, 1)
     return full.bool() if t.dtype == torch.bool else full
 
 

@@ -15,7 +15,8 @@ updates it) or by brute force:
          move: bisections (monoshot or per level, the ends at a random
          depth with cfg.bis_end_random_depth, head and tail paired with
          cfg.paired_ends, except with the cache) or, with sampling='sta',
-         staging moves;
+         staging moves (with cfg.mesh_beads > 1 the interior move is the
+         SP sweep, one window per bead shard, parallel/beadshard.py);
      fused (cfg.fused_sweep, when the windows fit): Nstag*Np head+tail
          composites (bisection, staging with end_regrow='sta', or the ends
          cascade), then Nstag*ceil(Np/K) interior composites of K particles
@@ -36,7 +37,9 @@ all Python-side control flow depends on host integers only.
 Under walker sharding (System.mesh, parallel/mesh.py) W is this rank's
 walker count, as the reference's per-device W_dev (sweep.py:296-297): the
 batched-randoms threshold applies to it, and the draw source keeps this
-rank's rows of every block.
+rank's rows of every block.  Under bead sharding (an sp mesh) the state is
+replicated and this rank moves its own shard's windows; without a mesh
+the SP sweep runs its unsharded form.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from .ops import moves as mv
 from .ops import worm as wm
 from .ops.pairwise import force_field
 from .ops.smartmc import mala_move
+from .parallel import beadshard as bs
 from .parallel.mesh import reduce_stats
 from .state import MCState
 from .utils.draws import DeviceDraws
@@ -200,6 +204,16 @@ class Sweeper:
                             and 2 ** (max(cfg.Nlev, 2) + 1) < system.M - 1)
         # the exact-F^2 force-field cache (sweep.py:310-320)
         self.use_fcache = cfg.exact_f2 and cfg.f2_cache
+        # the SP bead sharding (sweep.py:233-256): S shards of the interior
+        # staging sweep, this rank's under an sp mesh, else all of them
+        self.sp = max(cfg.mesh_beads, 1)
+        mesh = system.mesh
+        self.sp_sharded = mesh is not None and mesh.sp > 1
+        if self.sp > 1:
+            bs.check_sp_config(cfg)
+        if self.sp_sharded and mesh.sp != self.sp:
+            raise ValueError(f"mesh_beads={cfg.mesh_beads} on an sp mesh "
+                             f"of {mesh.sp} ranks")
 
     def draws(self, state: MCState) -> DeviceDraws:
         """The port's own draw source for `state`."""
@@ -373,6 +387,7 @@ class Sweeper:
         paired = self.paired_ends and fodd is None
         n_bis = (system.M - 1 - 2 ** nlev) // 2 + 1
         n_sta = (system.M - 1 - Lstag) // 2 + 1
+        n_sp = bs.n_starts((system.M - 1) // self.sp, Lstag)
         acc3 = torch.zeros((3, W), dtype=torch.int32, device=system.device)
         for it in range(cfg.Nstag * Np):
             ip = it % Np
@@ -384,9 +399,21 @@ class Sweeper:
                 paths, acc_t = mv.move_tail(system, paths, ip, active, Lstag,
                                             *src.regrow_half(21, it, W, Lstag),
                                             fodd)
-                paths, acc_b = mv.staging_move(
-                    system, paths, ip, active, Lstag,
-                    *src.staging_half(22, it, W, n_sta, Lstag), fodd)
+                if self.sp > 1:
+                    # one window per bead shard, every shard's accepts
+                    # counted (sweep.py:492-500; diagonal-only, so every
+                    # walker is active)
+                    draws = src.sp_staging(it, W, self.sp, n_sp, Lstag)
+                    acc_b = (bs.sp_staging_sweep(system, paths, ip, Lstag,
+                                                 draws)
+                             if self.sp_sharded else
+                             bs.sp_staging_sweep_ref(system, paths, ip,
+                                                     self.sp, Lstag, draws)
+                             ).sum(0)
+                else:
+                    paths, acc_b = mv.staging_move(
+                        system, paths, ip, active, Lstag,
+                        *src.staging_half(22, it, W, n_sta, Lstag), fodd)
             else:
                 if use_rand:
                     d_h = d_t = max(nlev, 2)
@@ -414,7 +441,8 @@ class Sweeper:
             acc3[0] += acc_h
             acc3[1] += acc_t
             acc3[2] += acc_b
-        ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
+        # the SP sweep counts a try per shard (sweep.py:513-514)
+        ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum() * self.sp
         for i, name in enumerate(("acc_head", "acc_tail", "acc_bd")):
             ctr[_CIDX[name]] += acc3[i].sum()
 

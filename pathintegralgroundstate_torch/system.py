@@ -12,13 +12,13 @@ _v_of_r / _dv_of_r / _v_dv_of_r / _u_of_r (pairwise.py:102-128) and
 _du_of_r / _d2u_of_r (estimators.py:38-47) take it, and the closed form
 otherwise.
 
-A System may carry its rank's place in a dp x tp mesh (`mesh`,
-parallel/mesh.Mesh): `tp` is that mesh where it shards the partner axis,
-and every kernel route (ops/kernels.py) is then off, as the reference
-routes its kernels off under a tp mesh.
+A System may carry its rank's place in a dp x tp mesh or an sp ring
+(`mesh`, parallel/mesh.Mesh): `tp` is that mesh where it shards the
+partner axis, and every kernel route (ops/kernels.py) is then off, as the
+reference routes its kernels off under a tp mesh.
 
-The constructor refuses every configuration outside the ported slice with
-NotImplementedError naming the ROADMAP item it waits for.
+The constructor refuses only what no slice ports (a dtype other than
+float32 and float64, dim > 3) with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,8 +44,6 @@ _JASTROWS = {"mcmillan": JAS_MCMILLAN, "mcmillan_c1": JAS_MCMILLAN,
 def check_supported(cfg: SimConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
     waits = [
-        (cfg.mesh_beads > 1, "mesh_beads>1",
-         "item 14 (SP bead sharding, parallel/beadshard.py)"),
         (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
          "no slice (float32 and float64 only)"),
         (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),

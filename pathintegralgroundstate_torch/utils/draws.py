@@ -30,7 +30,8 @@ Under walker sharding (a System whose mesh has dp > 1) every rank draws
 each block for all the global walkers and keeps its own rows, and the host
 generator is seeded alike on every rank: a sharded run then draws exactly
 the numbers of the unsharded run of the same seed, at dp times the random
-number work per rank (parallel/mesh.py).
+number work per rank (parallel/mesh.py).  Under bead sharding (sp) every
+rank draws every shard's window in the same way (`sp_staging`).
 """
 
 from __future__ import annotations
@@ -213,6 +214,15 @@ class DeviceDraws:
         (start, a host int or per walker [W]; gs, u_acc)."""
         start = self._start(n_opts, W)
         return start, self._g(L - 1, W, self.D, axis=1), self._u(W)
+
+    def sp_staging(self, it: int, W: int, S: int, n_opts: int, L: int):
+        """The SP sweep (tag 22, each shard's key folded with its index,
+        beadshard.py:70-76): for each of the S shards in shard order, (even
+        local start of n_opts choices, a host int; gs [L-1, W, D]; u_acc
+        [W]).  Every rank of an sp mesh draws all S and keeps its own."""
+        return [(2 * self._host_int(n_opts), self._g(L - 1, W, self.D,
+                                                      axis=1), self._u(W))
+                for _ in range(S)]
 
     def mala(self, shape):
         """MALA (tag 60): (xi of paths' shape [W, M, N, D], u [W]), the

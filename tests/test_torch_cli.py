@@ -6,8 +6,8 @@ small_cfg, written by config.namelist_text) and writes the
 reference's output files; three blocks in one run are bitwise equal to two
 blocks followed by a resumed `--blocks 1` (which prints BLOCK NUMBER : 3
 and appends to e_vpi.out); --profile writes a trace.  Without a card and
-without PIGS_PLATFORM it raises, and unported options raise naming their
-ROADMAP item.
+without PIGS_PLATFORM it raises, and a run that needs ranks outside
+torchrun names the torchrun command.
 """
 
 import json
@@ -160,17 +160,23 @@ def test_unknown_platform_raises(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kv,exc,item", [
-    ("mesh_beads=2", NotImplementedError, r"ROADMAP queue 1, item 14"),
+    ("mesh_beads=2", ValueError,
+     r"mesh_beads=2 does not match the 1 ranks .* torchrun "
+     r"--nproc-per-node 2"),
     ("distributed=T", RuntimeError, r"torchrun --nproc-per-node"),
 ], ids=["mesh_beads=2", "distributed=T"])
 def test_unported_options_raise(runs, tmp_path, monkeypatch, kv, exc, item):
-    """The one option still refused names its ROADMAP item; distributed=T
-    outside torchrun's environment names the torchrun command."""
+    """Outside torchrun's environment a run that needs ranks names the
+    torchrun command: mesh_beads=2 (on the staging sampler without the
+    worm, inside the SP envelope: one rank per bead shard, as the reference
+    wants a device per shard) and distributed=T."""
     monkeypatch.setenv("PIGS_PLATFORM", "cpu")
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
+    sets = [kv] + (["sampling=sta", "CWorm=0"] if "mesh_beads" in kv else [])
     with pytest.raises(exc, match=item):
-        cli.main([runs[0], "-o", str(tmp_path), "--set", kv])
+        cli.main([runs[0], "-o", str(tmp_path)]
+                 + [a for s in sets for a in ("--set", s)])
 
 
 def test_crystal_start_runs(runs, tmp_path, monkeypatch, capsys):

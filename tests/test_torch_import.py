@@ -1,7 +1,8 @@
 """The torch port imports without JAX or the reference package, its copies
 of the reference's flagship configuration, throughput metric and batched-
 randoms threshold equal the originals, and it builds every ported option
-and refuses the others."""
+and refuses the others: only a dtype other than float32/float64 and
+dim > 3, or a configuration the reference itself refuses."""
 
 import os
 import subprocess
@@ -53,6 +54,8 @@ MODULES = [
     "pathintegralgroundstate_torch.parallel",
     "pathintegralgroundstate_torch.parallel.mesh",
     "pathintegralgroundstate_torch.parallel.dryrun",
+    "pathintegralgroundstate_torch.parallel.beadshard",
+    "pathintegralgroundstate_torch.utils.special",
     "chip_smoke",
 ]
 
@@ -95,8 +98,9 @@ def _ids(o):
     return ",".join(f"{k}={v}" for k, v in o.items())
 
 
-# the ROADMAP item each refusal names, where the test holds it to one
-WAITS = {"mesh_beads=2": r"item 14 \(SP bead sharding"}
+# the SP envelope (sweep.py:237-246): mesh_beads > 1 outside it raises the
+# reference's own ValueError from the Sweeper
+SP_ENVELOPE = r"mesh_beads>1 is the SP correctness demo"
 
 
 @pytest.mark.parametrize("overrides", [
@@ -105,9 +109,25 @@ WAITS = {"mesh_beads=2": r"item 14 \(SP bead sharding"}
     {"dim": 4},
 ], ids=_ids)
 def test_unported_options_raise(overrides):
-    with pytest.raises(NotImplementedError,
-                       match=WAITS.get(_ids(overrides), "ROADMAP")):
-        make_system(other_cfg(small_cfg(**overrides)), "cpu")
+    """Only a dtype other than float32/float64 and dim > 3 are refused by
+    the System (NotImplementedError).  mesh_beads > 1 is ported: outside
+    the SP envelope (here the flagship's bisection or its worm, or a dp
+    mesh beside it) the port's Sweeper raises the ValueError that the
+    reference's Sweeper raises for the same configuration."""
+    cfg = small_cfg(**overrides)
+    if "mesh_beads" not in overrides:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_system(other_cfg(cfg), "cpu")
+        return
+    from pathintegralgroundstate_tpu.system import make_system as jmake
+    from pathintegralgroundstate_tpu.system import make_tables
+    system = make_system(other_cfg(cfg), "cpu")
+    with pytest.raises(ValueError, match=SP_ENVELOPE) as got:
+        Sweeper(system)
+    jsys = jmake(cfg)
+    with pytest.raises(ValueError, match=SP_ENVELOPE) as want:
+        jsweep.Sweeper(jsys, make_tables(jsys))
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("overrides", [
@@ -133,6 +153,9 @@ def test_unported_options_raise(overrides):
     {"shared_windows": False},
     {"bis_monoshot": False, "shared_windows": False},
     {"mesh_walkers": 2}, {"mesh_pairs": 2}, {"distributed": True},
+    {"mesh_beads": 2, "sampling": "sta", "CWorm": 0.0},
+    {"mesh_beads": 4, "sampling": "sta", "CWorm": 0.0},
+    {"use_pallas": False}, {"use_pallas": False, "fused_sweep": True},
 ], ids=_ids)
 def test_ported_options_build(overrides):
     Sweeper(make_system(other_cfg(small_cfg(**overrides)), "cpu"))
@@ -141,13 +164,20 @@ def test_ported_options_build(overrides):
 def test_per_walker_windows_name_their_item():
     """Per-walker windows are ported (their item is done): the System
     builds and the Sweeper takes the draws without batched randoms, as
-    sweep.py:227 does; the one option still refused names its own item."""
+    sweep.py:227 does.  So is the SP bead sharding: mesh_beads=2 builds its
+    System, and a Sweeper without an sp mesh runs the unsharded composite
+    inside the envelope and refuses a shard geometry the reference
+    refuses (_check_sp_geometry)."""
     sweeper = Sweeper(make_system(other_cfg(small_cfg(shared_windows=False)),
                                   "cpu"))
     assert not sweeper.batch_rand
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP queue 1, item 14 \(SP bead sharding"):
-        make_system(other_cfg(small_cfg(mesh_beads=2)), "cpu")
+    sp = dict(sampling="sta", CWorm=0.0)
+    sweeper = Sweeper(make_system(other_cfg(small_cfg(mesh_beads=2, **sp)),
+                                  "cpu"))
+    assert sweeper.sp == 2 and not sweeper.sp_sharded
+    with pytest.raises(ValueError, match=r"Mloc=3 must be even"):
+        Sweeper(make_system(other_cfg(small_cfg(mesh_beads=4, Nb=6, **sp)),
+                            "cpu"))
 
 
 def test_simconfig_default_raises():

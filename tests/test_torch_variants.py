@@ -267,8 +267,9 @@ def test_cascade_ref_matches_reference(model, mode):
 
 def test_dipolar_cfg_matches_the_reference_tool():
     """flagship.dipolar_cfg is tools/dipolar2d.py's build_cfg without its
-    mesh and without use_pallas=False (the reference's switch for its
-    tensor-parallel mesh; the port routes by physics)."""
+    mesh and without use_pallas=False, so that the dipolar path runs the
+    kernels (use_pallas=False would route all five to their plain
+    forms)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(

@@ -95,6 +95,20 @@ def staging_half_draws(key, W, n_opts, L, D, dtype, shared=True):
     return start, gs, tt(jax.random.uniform(k_acc, (W,), dtype))
 
 
+def sp_draws(key, W, S, n_opts, L, D, dtype):
+    """parallel/beadshard._shard_move's draws for each of the S shards of
+    one SP sweep call with key `key`: fold_in(key, k) -> split(3) ->
+    (2 randint start, the bridge gaussians of segment_regrow, the accept
+    uniform) (beadshard.py:70-76, 84-85)."""
+    out = []
+    for k in range(S):
+        k_ii, k_reg, k_acc = split(fold_in(key, k), 3)
+        ii = 2 * int(jax.random.randint(k_ii, (), 0, n_opts, dtype=jnp.int32))
+        _, gs = regrow_draws(k_reg, W, L, D, dtype)
+        out.append((ii, gs, tt(jax.random.uniform(k_acc, (W,), dtype))))
+    return out
+
+
 def swap_draws(key, W, N, Lmax, D, dtype):
     """worm.swap_move: categorical = argmax(logits + gumbel(k_pick)); the
     pre-accept uniform is drawn in JAX's default float type."""
@@ -339,6 +353,10 @@ class JaxDraws:
 
     def swap(self, it, W, Np, Lmax):
         return swap_draws(self._site(50, it), W, Np, Lmax, self.D, self.dtype)
+
+    def sp_staging(self, it, W, S, n_opts, L):
+        return sp_draws(self._site(22, it), W, S, n_opts, L, self.D,
+                        self.dtype)
 
     def mala(self, shape):
         return mala_draws(self._site(60), tuple(shape), self.dtype)

@@ -19,7 +19,14 @@ and the blocks to run ("blocks").  Modes:
           the global state in SPEC["start"] (an npz), on the draws logged
           for all walkers in SPEC["draws"] (a torch.save'd list of (site,
           result)), each rank keeping its rows as DeviceDraws._keep does;
-          each rank saves the gathered state and the block statistics.
+          each rank saves the gathered state and the block statistics;
+  sp      the SP bead sharding over an sp ring of world ranks (the
+          counterparts of tests/test_beadshard.py): the ring's halo
+          against the rank's own copy; SPEC["calls"] sharded sweeps of
+          particle SPEC["ip"] from the paths in SPEC["start"] (an npz) on
+          DeviceDraws seeded with SPEC["draw_seed"]; SPEC["bridge"] sweeps
+          of the free particle (SPEC["free_cfg"]); then a Driver run of
+          SPEC["cfg_run"] over "blocks" blocks.  Each rank saves all of it.
 """
 
 import json
@@ -179,11 +186,65 @@ def replay(spec, res, rank):
              **{f"stats_{k}": v for k, v in stats_to_numpy(stats).items()})
 
 
+def _draw_source(system, seed):
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    host = torch.Generator()
+    host.manual_seed(seed + 1)
+    return DeviceDraws(system, gen, host)
+
+
+def sp(spec, res, rank):
+    from pathintegralgroundstate_torch.parallel import beadshard as bs
+    from pathintegralgroundstate_torch.system import make_system
+    init_from_env("cpu")
+    S = torch.distributed.get_world_size()
+    mesh = make_mesh(1, 1, S)
+    out = {}
+    # the sharded sweep from the given paths
+    cfg = _cfg(spec["cfg"])
+    system = make_system(cfg, "cpu", mesh=mesh)
+    paths = torch.from_numpy(np.load(spec["start"])["paths"])
+    W, M = paths.shape[:2]
+    Mloc, L = (M - 1) // S, cfg.Lstag
+    k = mesh.sp_rank
+    halo = mesh.ring_next(paths[:, k * Mloc])
+    out["halo_equal"] = bool(torch.equal(halo,
+                                         paths[:, (k + 1) % S * Mloc]))
+    src = _draw_source(system, spec["draw_seed"])
+    accs = []
+    for it in range(spec["calls"]):
+        accs.append(bs.sp_staging_sweep(
+            system, paths, spec["ip"], L,
+            src.sp_staging(it, W, S, bs.n_starts(Mloc, L), L)).numpy())
+    out.update(paths=paths.numpy(), acc=np.stack(accs),
+               sweep_collectives=mesh.collectives)
+    # the free particle's bridge statistics through the halo windows
+    free = make_system(_cfg(spec["free_cfg"]), "cpu", mesh=mesh)
+    fpaths = torch.from_numpy(np.load(spec["start"])["free"])
+    src = _draw_source(free, spec["draw_seed"] + 7)
+    all_acc = True
+    for it in range(spec["bridge"]):
+        acc = bs.sp_staging_sweep(free, fpaths, 0, L, src.sp_staging(
+            it, W, S, bs.n_starts(Mloc, L), L))
+        all_acc = all_acc and bool(acc.all())
+    out.update(free=fpaths.numpy(), free_all_accepted=all_acc)
+    # the production Driver over the sp ring
+    drv = Driver(_cfg(spec["cfg_run"]).replace(distributed=True),
+                 out_dir=spec["out"], device="cpu", verbose=False)
+    acc = drv.run(spec["blocks"])
+    out.update(run_paths=drv.state.paths.numpy(),
+               run_collectives=drv.mesh.collectives,
+               **{f"acc_{k}": np.asarray(v) for k, v in acc.items()})
+    np.savez(os.path.join(res, f"rank{rank}.npz"), **out)
+
+
 if __name__ == "__main__":
     mode, spec_path, res = sys.argv[1:4]
     with open(spec_path) as fh:
         spec = json.load(fh)
-    {"run": run, "seam": seam, "errors": errors, "replay": replay}[mode](
+    {"run": run, "seam": seam, "errors": errors, "replay": replay,
+     "sp": sp}[mode](
         spec, res, int(os.environ["RANK"]))
     # leave the group together: a rank that exits while a peer still
     # holds the connection can abort in gloo's teardown

@@ -11,9 +11,10 @@ thermodynamic energies per atom in Kelvin with the potential's tail
 correction added, one JSON line per setting.  The exact form should close
 the mixed-vs-thermodynamic gap that the partial form opens.
 
-It carries its own copies of tools/tau_ladder.py's rung_cfg and
-tail_correction (that module imports JAX) and imports nothing of JAX.  It
-runs on the card, or on the CPU with PIGS_PLATFORM=cpu (as the CLI does).
+The rung and the tail correction are the port's copies of
+tools/tau_ladder.py's (flagship.he4_rung_cfg and tail_correction; that
+module imports JAX), and it imports nothing of JAX.  It runs on the card,
+or on the CPU with PIGS_PLATFORM=cpu (as the CLI does).
 
 Usage: python3 tools/torch_f2_validation.py [outdir] [Nb] [nblocks]
            [burnin] [Nstep]
@@ -21,49 +22,21 @@ Usage: python3 tools/torch_f2_validation.py [outdir] [Nb] [nblocks]
 """
 
 import json
-import math
 import os
-import subprocess
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from pathintegralgroundstate_torch.cli import _device  # noqa: E402
-from pathintegralgroundstate_torch.config import SimConfig  # noqa: E402
 from pathintegralgroundstate_torch.driver import Driver  # noqa: E402
-from pathintegralgroundstate_torch.models.potentials import \
-    get_potential  # noqa: E402
+from pathintegralgroundstate_torch.flagship import (  # noqa: E402
+    KELVIN, he4_rung_cfg, tail_correction)
+from tools.torch_card import card_line  # noqa: E402
 
-KELVIN = 1.85505  # the reference's unit scale (system_mod.f90:163)
 W = 256
-
-
-def tail_correction(density: float, rcut: float) -> float:
-    """dV/N in configuration units, 2 pi rho int_rcut^inf V(r) r^2 dr (a
-    copy of tools/tau_ladder.tail_correction: aziz2 to 10 rcut on a log
-    grid, the trapezoid rule)."""
-    v = get_potential("aziz2").v
-    r = np.geomspace(rcut, 10.0 * rcut, 4001)
-    vr = v(torch.from_numpy(r)).numpy()
-    trapezoid = getattr(np, "trapezoid", None) or np.trapz
-    return 2.0 * math.pi * density * trapezoid(vr * r * r, r)
-
-
-def rung_cfg(Nb: int, dt: float, nstep: int, nblock: int,
-             jastrow: str = "mcmillan_c1") -> SimConfig:
-    """tools/tau_ladder.rung_cfg at W=256 (f2_validation's walker count)."""
-    return SimConfig(
-        dim=3, Np=64, density=0.365, trap=False,
-        dt=dt, Nb=Nb, sampling="bis", Lstag=32, Nlev=4, Nstag=5,
-        CMFreq=1, delta_cm=0.12, Rm=1.2,
-        swapping=False, CWorm=0.0, Nobdm=0, Npw=0,
-        n_walkers=W, dtype="float32", potential="aziz2", jastrow=jastrow,
-        Nstep=nstep, Nblock=nblock, seed=1982 + Nb,
-    )
 
 
 def main():
@@ -75,13 +48,11 @@ def main():
     os.makedirs(outdir, exist_ok=True)
     device = _device()
     if device != "cpu":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
-        print(f"# {torch.cuda.get_device_name(0)} | {card}", flush=True)
+        print(f"# {torch.cuda.get_device_name(0)} | {card_line()}",
+              flush=True)
     for exact in (False, True):
-        cfg = rung_cfg(Nb, 5e-3, nstep, nblocks).replace(exact_f2=exact)
+        cfg = he4_rung_cfg(Nb, 5e-3, W, nstep, nblocks).replace(
+            exact_f2=exact)
         rdir = os.path.join(outdir, f"exact{int(exact)}_Nb{Nb}")
         t0 = time.time()
         drv = Driver(cfg, out_dir=rdir, device=device, verbose=False)

@@ -41,7 +41,6 @@ with `git archive`), so that two commits compare in one call.
 import argparse
 import collections
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -232,9 +231,9 @@ def main():
             ap.error(f"unknown form {f!r}: one of {sorted(FORMS)}")
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
+    # this script's own directory, not --root's: torch_card is a sibling
+    from torch_card import card_line
+    card = card_line()
     print(f"[device] {card} | torch {torch.__version__} | package "
           f"{pathlib.Path(SW.__file__).resolve().parents[1]}")
 

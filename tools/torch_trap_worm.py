@@ -21,7 +21,6 @@ Usage: python3 tools/torch_trap_worm.py [nblocks] [out_dir]
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -33,6 +32,7 @@ import torch  # noqa: E402
 from pathintegralgroundstate_torch.cli import _device  # noqa: E402
 from pathintegralgroundstate_torch.driver import Driver  # noqa: E402
 from pathintegralgroundstate_torch.flagship import trap_worm_cfg  # noqa: E402
+from tools.torch_card import card_line  # noqa: E402
 
 
 def gauss_width(r, y):
@@ -68,11 +68,7 @@ def main():
     device = _device()
     drv = Driver(cfg, out_dir=out, device=device, verbose=False)
     if drv.system.device.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
-        print(f"# {torch.cuda.get_device_name(0)} | {card}")
+        print(f"# {torch.cuda.get_device_name(0)} | {card_line()}")
     drv.run_burnin(8)
     acc = drv.run()
     sig2_obdm, sig2_dens = fits(cfg, drv.system.geo, acc)

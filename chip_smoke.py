@@ -178,6 +178,14 @@ run exits non-zero):
                as a main path; the CLI with --set mesh_beads=4 under
                torchrun (2 blocks of 2 steps), its E/N equal to the
                one-process blocks within float32 rtol 1e-5.
+ 20. bench   : `python3 bench_torch.py` as a process of its own, as a user
+               runs it (the flagship at W=1024 float32, one warm-up block
+               and 3 timed blocks of 5 steps): its last line holds
+               bench.py's keys and the port's, pallas true, n_walkers
+               1024, kernels A and B launched in the timed blocks and no
+               other kernel, and value == W * bead_updates_per_step * 5 /
+               median(reps_s) within 1e-9 relative; the rate printed
+               beside the card's name and power limit.
  17. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
 The last two lines are the kernels JSON and the device JSON.  Each kernel's
@@ -190,7 +198,8 @@ PyTorch call computes these pair sums.  Each entry also carries its
 launches over the 3 timed steps of the exact-F^2 flagship, cached and
 brute, over the 3 timed steps of the per-walker-window flagship
 (windows_launches), and over the 3 timed steps of the SP path on rank 0
-(sp_launches).  The entries '[dipolar N=256 float64]' are the same
+(sp_launches), and over bench_torch.py's 3 timed blocks of 5 steps
+(bench_launches).  The entries '[dipolar N=256 float64]' are the same
 kernels at the dipolar gas's shapes, with their launches on the dipolar
 path.
 """
@@ -3542,6 +3551,44 @@ def sp_phase(card):
                                   cli_rel=rel)
 
 
+def bench_phase(card, W=1024):
+    """The [bench] phase: bench_torch.py run as a user runs it, its last
+    line checked against the flagship's count; returns its launches."""
+    import bench_torch
+    from pathintegralgroundstate_torch.flagship import flagship_cfg
+    from pathintegralgroundstate_torch.sweep import bead_updates_per_step
+
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=_repo(),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    if set(line) != set(bench_torch.KEYS):
+        raise AssertionError(f"bench_torch.py's keys {sorted(line)}")
+    if line["pallas"] is not True or line["n_walkers"] != W:
+        raise AssertionError(f"bench_torch.py ran pallas={line['pallas']} "
+                             f"n_walkers={line['n_walkers']}")
+    nstep = bench_torch.NSTEP
+    want = (W * bead_updates_per_step(flagship_cfg(W)) * nstep
+            / float(np.median(line["reps_s"])))
+    if (len(line["reps_s"]) != bench_torch.NREPS
+            or abs(line["value"] - want) > 1e-9 * want):
+        raise AssertionError(f"bench_torch.py value {line['value']!r}, "
+                             f"reps {line['reps_s']}: expected {want!r}")
+    n = line["launches"]
+    if (n["pair_rows"] <= 0 or n["pair_pot"] != 2 * nstep * bench_torch.NREPS
+            or n["pair_delta"] or n["pair_u"] or n["cascade"]):
+        raise AssertionError(f"bench_torch.py's launches {n}")
+    print(f"[bench] bench_torch.py: {line['value']:.6e} bead-updates/s at "
+          f"W={W}, {line['ms_per_step']:.1f} ms/step, reps {line['reps_s']} "
+          f"s, warm-up {line['warmup_s']:.1f} s, peak "
+          f"{line['peak_mem_gib']:.3f} GiB, open fraction "
+          f"{line['open_walker_frac']}, launches {n} ({card}; the script's "
+          f"own device line: {line['device']})")
+    return n
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3657,6 +3704,8 @@ def main():
     routes_phase(cfg, card)
     clock("sp")
     sp_launches, _ = sp_phase(card)
+    clock("bench")
+    bench_launches = bench_phase(card)
     clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -3680,7 +3729,8 @@ def main():
                 "exact_f2_launches": ex_launches[key],
                 "exact_f2_brute_launches": br_launches[key],
                 "windows_launches": win_launches[key],
-                "sp_launches": sp_launches[key]}
+                "sp_launches": sp_launches[key],
+                "bench_launches": bench_launches[key]}
 
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
@@ -3714,7 +3764,7 @@ def main():
              max_abs_err_is="float64, dipolar/dipolar2d at N=256 "
                             "([variants] and the timed inputs)",
              exact_f2_launches=None, exact_f2_brute_launches=None,
-             windows_launches=None, sp_launches=None)
+             windows_launches=None, sp_launches=None, bench_launches=None)
         for name, kname, tname, src, rep, n in (
             ("pair_rows", "pair_rows", "pair_rows", "pair_rows.cu",
              "pallas_kernels.py:300", dip_launches["pair_rows"]),

@@ -42,8 +42,9 @@ run exits non-zero):
                interior row (kernel 3 alone) in alternating turns, u's
                marginal time between them, the raw and u modes and the
                whole delta_action timed.
-  7. dims    : every kernel at D = 1 and D = 2 under PBC (a 1-D chain,
-               a 2-D He-4 film), float32 and float64, N = 30, 31 and 64,
+  7. dims    : every kernel at D = 1, 2, 4 and 5 under PBC (a 1-D chain,
+               a 2-D He-4 film, D = 4 at the flagship's density, D = 5 at
+               0.1), float32 and float64, N = 30, 31 and 64,
                against its plain form: kernel A (windows, ip forms, rev,
                walker sums, every lane-group width), kernel B (both views),
                the dense kernel's raw, u and action modes, kernel 5 ends and
@@ -186,9 +187,23 @@ run exits non-zero):
                other kernel, and value == W * bead_updates_per_step * 5 /
                median(reps_s) within 1e-9 relative; the rate printed
                beside the card's name and power limit.
+ 21. bf16    : every kernel in bfloat16 at D = 1, 2, 3 and 4, N = 30, 31
+               and 64, held with its bfloat16 plain form to float64 truth
+               by utils/bf16's bound (|x - x64| <= C 2^-8 sum|terms|,
+               C = 8; kernel 5's decisions and positions against float64
+               truth); each case prints the worst ratios and the staging
+               path; then the flagship in bfloat16 at W=1024: each kernel
+               timed at its shapes beside its plain form and bound and
+               held to the bound, and the flagship, fused + cascade and
+               reference-order forms as main paths (all five kernels,
+               exact launches, 0 host syncs, acceptance ratios).
+ 22. wide    : the same timings and main paths for the flagship at D = 4
+               in float32 (density unchanged, Lbox 3.64), each timed
+               output held to float64 truth by the [dims] checks.
  17. imports : no JAX module and no module of the reference package
                (pathintegralgroundstate_tpu) was loaded.
-The last two lines are the kernels JSON and the device JSON.  Each kernel's
+The last two lines are the kernels JSON and the device JSON, after the
+run's total seconds.  Each kernel's
 bound_ms is the larger of its bytes (each input read once, each output
 written once) over 3.35 TB/s and its operations over 67 TFLOP/s (float32
 outside the tensor cores), the H100 SXM's published peaks, counted from
@@ -201,7 +216,10 @@ brute, over the 3 timed steps of the per-walker-window flagship
 (sp_launches), and over bench_torch.py's 3 timed blocks of 5 steps
 (bench_launches).  The entries '[dipolar N=256 float64]' are the same
 kernels at the dipolar gas's shapes, with their launches on the dipolar
-path.
+path; the entries '[bf16]' and '[wide D=4]' the kernels on those paths
+(launches on their main paths, ms and plain_ms at the flagship's shapes in
+that dtype or dimension; bfloat16 entries also carry bound_ratio, the
+worst over [bf16]'s parity cases bound_ratio_parity, and bound_C).
 """
 
 import functools
@@ -1713,7 +1731,7 @@ def cli_phase(cfg, card):
 
 # The [dims] phase's geometries: a 1-D chain at 0.5 sigma^-1 and a 2-D He-4
 # film at 0.26 sigma^-2 (about 0.04 A^-2), both under PBC with aziz2
-DIMS = ((1, 0.5), (2, 0.26))
+DIMS = ((1, 0.5), (2, 0.26), (4, 0.365), (5, 0.1))
 
 
 def dims_case(cfg, D, density, dtype, N, W=256):
@@ -1784,11 +1802,12 @@ def dims_case(cfg, D, density, dtype, N, W=256):
 
 
 def dims_parity(cfg):
-    """The [dims] phase: dims_case at D = 1 (a chain) and D = 2 (a He-4
-    film), float32 and float64, N = 30, 31 and 64.  At these N the 16-byte
-    rule of kernels A and B (slabs16) and kernel 5's bulk copy flip with D
-    and the dtype: each case prints the path it took.  Returns the number
-    of cases."""
+    """The [dims] phase: dims_case at D = 1 (a chain), D = 2 (a He-4
+    film), D = 4 (the flagship's density) and D = 5 (density 0.1: the box
+    of D = 4 at N = 64), float32 and float64, N = 30, 31 and 64.  At
+    these N the 16-byte rule of kernels A and B (slabs16) and kernel 5's
+    bulk copy flip with D and the dtype: each case prints the path it
+    took.  Returns the number of cases."""
     total = 0
     for D, density in DIMS:
         for dtype in (torch.float32, torch.float64):
@@ -1805,7 +1824,7 @@ def dims_parity(cfg):
                       + ", ".join(f"{x:.6f}" for x in shares) + ")")
                 total += n
     print(f"[dims] {total} parity cases of kernels A, B, 3/4 and 5 pass at "
-          f"D = 1 and 2, float32 and float64, N = 30, 31, 64")
+          f"D = 1, 2, 4 and 5, float32 and float64, N = 30, 31, 64")
     return total
 
 
@@ -3589,6 +3608,399 @@ def bench_phase(card, W=1024):
     return n
 
 
+# ---------------------------------------------------------------------------
+# [bf16] and [wide]: bfloat16 in every kernel, and the flagship at D = 4
+# ---------------------------------------------------------------------------
+
+BF16_DIMS = ((1, 0.5), (2, 0.26), (3, 0.365), (4, 0.365))
+# operations per pair and side added by each dimension past the third
+# (the minimum image and r^2: 4; a force component: 2)
+_OPS_PER_DIM = {"rows": 6, "delta_force": 6, "delta_pot": 4, "u": 4,
+                "u_fused": 0, "pot_pair": 8, "pot_pair_plain": 4}
+
+
+def _ops(name, D):
+    return _OPS[name] + (D - 3) * _OPS_PER_DIM[name]
+
+
+def bf16_case(cfg, D, density, N, W=128):
+    """One case of the [bf16] phase: every kernel in bfloat16 at dimension
+    D with N particles, held with its bfloat16 plain form to float64 truth
+    (the plain form in float64 on the same bfloat16 inputs) by the bound of
+    utils/bf16: |x - x64| <= C 2^-8 sum|terms|, non-finite exactly where
+    the truth is.  Kernel A over windows of B=16 and 65 (ip int, [W], [W,
+    B], [1, B], forward and reversed, rows and walker sums), kernel B on
+    both ThermEnergy views, the dense kernel's raw, u and action modes at
+    the gate's row and at B=16 (one exactly coincident partner per block),
+    kernel 5 'ends' and 'interior' against float64 truth (decisions agree
+    on more than 90 % of the slots; where both accept, each position within
+    C 2^-8 (|x64| + |xold| + sqrt(L dt) max|g|)).  Returns (cases,
+    {kernel: (worst kernel ratio, worst plain ratio)}, kernel 5's decision
+    agreement per mode, whether kernels A and B stage with 16-byte copies,
+    whether kernel 5 takes its bulk copy)."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_torch.utils import bf16 as BB
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    c = cfg.replace(dim=D, Np=N, density=density)
+    system = make_system(c, dev, bf)
+    sys64 = make_system(c, dev, torch.float64)
+    paths = _flagship_paths(c, W, bf, dev, seed=70 + N + D)
+    g = torch.Generator(device=dev).manual_seed(71)
+    M, tab, tab64 = c.M, chin_table(system), chin_table(sys64)
+    worst, n = {}, 0
+
+    def hold(name, label, got, plain, truth, scale):
+        nonlocal n
+        where = f"[bf16] {name} D={D} N={N} {label}"
+        r, rp = BB.ratio(got, truth, scale), BB.ratio(plain, truth, scale)
+        if r > BB.C:
+            raise AssertionError(f"{where}: |x - x64| reaches {r:.3f} x "
+                                 f"2^-8 sum|terms|, above C = {BB.C}")
+        k, p = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(k, r), max(p, rp))
+        n += 1
+
+    for B in (16, 65):
+        lo = (M - B) // 2
+        R = paths[:, lo:lo + B]
+        ib = torch.arange(lo, lo + B, device=dev)
+        ips = (7 % N, torch.randint(0, N, (W,), generator=g, device=dev),
+               torch.randint(0, N, (W, B), generator=g, device=dev),
+               torch.randint(0, N, (1, B), generator=g, device=dev))
+        for k, ip in enumerate(ips):
+            xnew, xold = _window_ip(R, ip, g)
+            a64 = (R.double(), xnew.double(), xold.double(), ip)
+            for rev in (False, True):
+                red = bool((k + rev) % 2)
+                for wf, f2 in ((True, True), (False, False)):
+                    hold("pair_rows", f"B={B} ip#{k} rev={rev} wf={wf}",
+                         K.pair_rows(system, R, xnew, xold, ip, tab, ib, wf,
+                                     f2, rev, None, red),
+                         K.pair_rows_ref(system, R, xnew, xold, ip, tab, ib,
+                                         wf, f2, rev, None, red),
+                         K.pair_rows_ref(sys64, *a64, tab64, ib, wf, f2, rev,
+                                         None, red),
+                         BB.rows_scale(sys64, *a64, tab64, ib, wf, f2, rev,
+                                       None, red))
+    for sl, view in ((slice(0, M - 1, 2), "even view"),
+                     (slice(1, M - 1, 2), "odd view")):
+        R = paths[:, sl]
+        for wf in (False, True):
+            got, plain = K.pair_pot(system, R, wf), K.pair_pot_ref(system, R,
+                                                                   wf)
+            truth = K.pair_pot_ref(sys64, R.double(), wf)
+            scale = BB.pot_scale(sys64, R.double(), wf)
+            for i in range(1 + wf):
+                hold("pair_pot", f"{view} force={wf} out{i}", got[i],
+                     plain[i], truth[i], scale[i])
+    lo = (M - 16) // 2
+    for R, ip, ib, label in (
+            (paths[:, :1], 5, system.arange(0, 1), "gate row"),
+            (paths[:, lo:lo + 16],
+             torch.randint(0, N, (W,), generator=g, device=dev),
+             system.arange(lo, lo + 16), "B=16 ip[W]")):
+        xnew, xold = _window_ip(R, ip, g)
+        a = (R, xnew, xold, ip)
+        a64 = (R.double(), xnew.double(), xold.double(), ip)
+        for wf in (True, False):
+            got, plain = K.pair_delta(system, *a, wf), K.pair_delta_ref(
+                system, *a, wf)
+            truth = K.pair_delta_ref(sys64, *a64, wf)
+            scale = BB.dense_scale(sys64, *a64, wf)
+            for i in range(1 + wf):
+                hold("pair_delta", f"{label} raw force={wf} out{i}", got[i],
+                     plain[i], truth[i], scale[i])
+            w = dense_wf(system, wf)
+            hold("pair_delta", f"{label} action force={wf}",
+                 K.pair_delta(system, *a, wf, tab, ib, w),
+                 K.pair_delta_ref(system, *a, wf, tab, ib, w),
+                 K.pair_delta_ref(sys64, *a64, wf, tab64, ib, w),
+                 BB.dense_scale(sys64, *a64, wf, tab64, ib, w))
+        hold("pair_u", label, K.pair_u(system, *a), K.pair_u_ref(system, *a),
+             K.pair_u_ref(sys64, *a64), BB.u_scale(sys64, *a64))
+    shares = []
+    L, nlev = 2 ** c.Nlev, c.Nlev
+    for mode in ("ends", "interior"):
+        sysb, p, slots, rg, ru, act = _cascade_inputs(c, W, bf, mode, 72)
+        got, ref = p.clone(), p.double()
+        acc = K.cascade(sysb, mode, got, slots, rg, ru, act, nlev)
+        acc64 = cascade_ref(sys64, mode, ref, slots, rg.double(), ru.double(),
+                            act, nlev, K.pair_rows_ref)
+        if bool((acc & ~act).any()) or not 0 < int(acc.sum()) < int(
+                act.sum()):
+            raise AssertionError(f"[bf16] cascade {mode} D={D} N={N}: "
+                                 f"{int(acc.sum())} of {int(act.sum())} "
+                                 "active slots accepted")
+        agree = acc == acc64
+        share = float(agree.double().mean())
+        if share <= 0.9:
+            raise AssertionError(f"[bf16] cascade {mode} D={D} N={N}: "
+                                 f"decisions agree with float64 truth on "
+                                 f"{share:.4f} of the slots, not > 0.9")
+        sig = math.sqrt(L * c.dt) * float(rg.double().abs().max())
+        for s, (b0, step, ip) in enumerate(slots):
+            beads = torch.arange(L + 1, device=dev) * step + b0
+            both = agree[:, s] & acc[:, s]
+            x64 = ref[both][:, beads, ip]
+            # a position that rounds across the box's edge is the same
+            # point: its difference is taken by the minimum image
+            x = x64 + _wrap(got[both][:, beads, ip].double() - x64,
+                            sys64.geo.Lbox[0])
+            xo = p[both][:, beads, ip].double()
+            hold("cascade", f"{mode} slot {s} positions", x, x, x64,
+                 x64.abs() + xo.abs() + sig)
+        shares.append(share)
+    torch.cuda.synchronize()
+    vec = K.slabs16(paths)
+    return n, worst, shares, vec, vec and paths.stride(1) == N * D
+
+
+def bf16_parity(cfg):
+    """The [bf16] phase's parity: bf16_case at D = 1, 2, 3 and 4 and N =
+    30, 31 and 64 (rows of partners of 60 to 512 bytes: the 16-byte rule
+    of kernels A and B and kernel 5's bulk copy flip with N and D).
+    Returns ({kernel: worst ratio over every case}, cases)."""
+    from pathintegralgroundstate_torch.utils import bf16 as BB
+
+    total, worst = 0, {}
+    for D, density in BF16_DIMS:
+        for N in (30, 31, 64):
+            n, w, shares, vec, bulk = bf16_case(cfg, D, density, N)
+            total += n
+            for k, (r, rp) in w.items():
+                worst[k] = max(worst.get(k, 0.0), r)
+            print(f"[bf16] D={D} N={N}: {n} cases within C = {BB.C} (worst "
+                  f"ratio kernel / bfloat16 plain form: "
+                  + ", ".join(f"{k} {r:.3f} / {rp:.3f}"
+                              for k, (r, rp) in w.items())
+                  + f"); a row of partners {N * D * 2} bytes: kernels A and "
+                  f"B {'16-byte copies' if vec else 'element by element'}, "
+                  f"kernel 5 {'bulk copy' if bulk else 'element by element'}"
+                  "; kernel 5 decisions agree with float64 truth on "
+                  + ", ".join(f"{x:.4f}" for x in shares))
+    print(f"[bf16] {total} cases of kernels A, B, 3/4 and 5 within the bound "
+          f"at D = 1-4, N = 30, 31, 64; worst ratios {worst} (C = {BB.C})")
+    return worst, total
+
+
+def _bf16_held(label, name, out, truth, scale):
+    """Max abs err of the bfloat16 outputs out against float64 truth, each
+    within utils/bf16's bound (raises above C); and the worst ratio."""
+    from pathintegralgroundstate_torch.utils import bf16 as BB
+
+    held = max(BB.ratio(o, r, sc) for o, r, sc in zip(out, truth, scale))
+    if held > BB.C:
+        raise AssertionError(f"[{label}] {name}: bound ratio {held:.3f} "
+                             f"above C = {BB.C}")
+    err = max(float((o.double() - r)[torch.isfinite(r)].abs().max())
+              for o, r in zip(out, truth))
+    return err, held
+
+
+def wide_timing(cfg, card, label, W=1024):
+    """Every kernel at the flagship's shapes (cfg: its dim and dtype) at
+    W=1024, with CUDA events beside its plain form and its bound (bytes in
+    the tensors' dtype over 3.35 TB/s, or operations over the float32 peak,
+    with _ops per dimension): kernel A on an end move's window [W, 16, N,
+    D] (f2 and u), kernel B's force call on the odd view [256, 32, N, D]
+    (W=256: the plain form's pair tensors), the dense action delta at the
+    end gate's row [W, 1, N, D], kernel 5 'ends'.  Each timed output is
+    then held to float64 truth: bfloat16 by utils/bf16's bound, float32 by
+    the [dims] checks (rows_parity, pot_check, action_check,
+    cascade_check).  Returns ({name: (ms, plain ms, (bound ms, by))},
+    {name: max abs err against float64 truth}, {name: bound ratio})."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops.cascade import cascade_ref
+    from pathintegralgroundstate_torch.ops.pairwise import chin_table
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_torch.utils import bf16 as BB
+
+    dev = torch.device("cuda")
+    dtype = getattr(torch, cfg.dtype)
+    bf = dtype == torch.bfloat16
+    system = make_system(cfg, dev)
+    sys64 = make_system(cfg, dev, torch.float64)
+    paths = _flagship_paths(cfg, W, dtype, dev, seed=80)
+    N, D, M = cfg.Np, cfg.dim, cfg.M
+    es = paths.element_size()
+    tab, tab64 = chin_table(system), chin_table(sys64)
+    times, errs, ratios = {}, {}, {}
+
+    def timed(name, fn, plain, bound, what, check):
+        k, p = _events_ms(fn), _events_ms(plain, reps=3)
+        times[name] = (k, p, bound)
+        errs[name], ratios[name] = check()
+        held = ("" if ratios[name] is None else
+                f", bound ratio {ratios[name]:.3f} (C = {BB.C})")
+        print(f"[{label}] {name} {what}: kernel {k:.4f} ms, plain {p:.4f} "
+              f"ms, bound {bound[0]:.5f} ms ({bound[1]}; {card}); max abs "
+              f"err against float64 truth {errs[name]:.3e}{held}")
+
+    R = paths[:, :16]
+    xold = R[:, :, 5]
+    xnew = (xold + 0.05).contiguous()
+    ib = system.arange(0, 16)
+    a64 = (R.double(), xnew.double(), xold.double(), 5)
+    timed("pair_rows", lambda: K.pair_rows(system, R, xnew, xold, 5, tab, ib),
+          lambda: K.pair_rows_ref(system, R, xnew, xold, 5, tab, ib),
+          _bound(_nbytes(R, xnew, xold, ib, tab) + W * 16 * es,
+                 2 * W * 16 * N * _ops("rows", D)),
+          f"end move B=16 [{W}, 16, {N}, {D}]",
+          (lambda: _bf16_held(
+              label, "pair_rows",
+              (K.pair_rows(system, R, xnew, xold, 5, tab, ib),),
+              (K.pair_rows_ref(sys64, *a64, tab64, ib),),
+              (BB.rows_scale(sys64, *a64, tab64, ib),))) if bf else
+          (lambda: (rows_parity(system, sys64, R, xnew, xold, 5, ib, False,
+                                [(True, True)], f"{label} timed")[0], None)))
+    Rp = paths[:256, 1:M - 1:2]
+    Wb = Rp.shape[0] * Rp.shape[1]
+    timed("pair_pot", lambda: K.pair_pot(system, Rp, True),
+          lambda: K.pair_pot_ref(system, Rp, True),
+          _bound(_nbytes(Rp) + 2 * Wb * es,
+                 Wb * N * (N - 1) // 2 * _ops("pot_pair", D)),
+          f"force=True [256, {Rp.shape[1]}, {N}, {D}]",
+          (lambda: _bf16_held(label, "pair_pot", K.pair_pot(system, Rp, True),
+                              K.pair_pot_ref(sys64, Rp.double(), True),
+                              BB.pot_scale(sys64, Rp.double(), True)))
+          if bf else
+          (lambda: (pot_check(system, sys64, Rp, f"{label} timed")[0],
+                    None)))
+    R1 = paths[:, :1]
+    xo = R1[:, :, 5]
+    xn = (xo + 0.05).contiguous()
+    wf = dense_wf(system, True)
+    ib0 = system.arange(0, 1)
+    b64 = (R1.double(), xn.double(), xo.double(), 5)
+    timed("pair_delta",
+          lambda: K.pair_delta(system, R1, xn, xo, 5, True, tab, ib0, wf),
+          lambda: K.pair_delta_ref(system, R1, xn, xo, 5, True, tab, ib0, wf),
+          _bound(_nbytes(R1, ib0, tab) + 2 * W * D * es + W * es,
+                 2 * W * (N - 1) * (_ops("delta_force", D)
+                                    + _ops("u_fused", D))),
+          f"action end row [{W}, 1, {N}, {D}]",
+          (lambda: _bf16_held(
+              label, "pair_delta",
+              (K.pair_delta(system, R1, xn, xo, 5, True, tab, ib0, wf),),
+              (K.pair_delta_ref(sys64, *b64, True, tab64, ib0, wf),),
+              (BB.dense_scale(sys64, *b64, True, tab64, ib0, wf),)))
+          if bf else
+          (lambda: (action_check(system, sys64, R1, xn, xo, 5, ib0, True,
+                                 f"{label} timed")[0], None)))
+    sysc, p, slots, rg, ru, act = _cascade_inputs(cfg, W, dtype, "ends", 81)
+    L = 2 ** cfg.Nlev
+    acc = K.cascade(sysc, "ends", p.clone(), slots, rg, ru, act, cfg.Nlev)
+    n_acc = int(acc.sum())
+    nrows = n_acc * L + int((act & ~acc).sum())
+
+    def cascade_held():
+        if not bf:
+            return cascade_check(cfg, W, dtype, "ends", seed=81,
+                                 outcomes="any")[1], None
+        got, ref = p.clone(), p.double()
+        acc = K.cascade(sysc, "ends", got, slots, rg, ru, act, cfg.Nlev)
+        acc64 = cascade_ref(sys64, "ends", ref, slots, rg.double(),
+                            ru.double(), act, cfg.Nlev, K.pair_rows_ref)
+        agree = acc == acc64
+        share = float(agree.double().mean())
+        if share <= 0.9:
+            raise AssertionError(f"[{label}] cascade ends: decisions agree "
+                                 f"with float64 truth on {share:.4f}")
+        sig = math.sqrt(L * cfg.dt) * float(rg.double().abs().max())
+        out, tru, sc = [], [], []
+        for s, (b0, step, ip) in enumerate(slots):
+            beads = torch.arange(L + 1, device=dev) * step + b0
+            both = agree[:, s] & acc[:, s]
+            tru.append(ref[both][:, beads, ip])
+            out.append(tru[-1] + _wrap(got[both][:, beads, ip].double()
+                                       - tru[-1], sys64.geo.Lbox[0]))
+            sc.append(tru[-1].abs() + p[both][:, beads, ip].double().abs()
+                      + sig)
+        print(f"[{label}] cascade ends: decisions agree with float64 truth "
+              f"on {share:.4f} of the slots")
+        return _bf16_held(label, "cascade", out, tru, sc)
+
+    # both forms move p in place where a slot accepts, as cascade_parity's
+    # timings do: each launch's input is still a valid path
+    timed("cascade",
+          lambda: K.cascade(sysc, "ends", p, slots, rg, ru, act, cfg.Nlev),
+          lambda: cascade_ref(sysc, "ends", p, slots, rg, ru, act, cfg.Nlev,
+                              K.pair_rows_ref),
+          _bound(nrows * N * D * es + _nbytes(rg, ru, act)
+                 + W * len(slots) * (L + 1) * D * es + n_acc * L * D * es,
+                 2 * nrows * N * _ops("delta_force", D)),
+          f"ends S=2 [{W}, 2, {L + 1}, {N}, {D}]", cascade_held)
+    return times, errs, ratios
+
+
+def wide_paths(cfg, card, label):
+    """The flagship, fused + cascade and reference-order forms of cfg as
+    main paths (main_path: 3 timed steps after a warm-up, exact launch
+    counts, 0 host syncs): all five kernels run.  Returns {form: (launches,
+    ms/step, bead-updates/s)}."""
+    fused = cfg.replace(fused_sweep=True, cascade=True)
+    ref_order = cfg.replace(bis_monoshot=False, bis_end_random_depth=True)
+    return {"flagship": main_path(cfg, card, f"{label} flagship"),
+            "fused+cascade": main_path(fused, card, f"{label} fused+cascade"),
+            "reference order": main_path(ref_order, card,
+                                         f"{label} reference order")}
+
+
+def wide_entry(entry, label, name, src, rep, dims_cases, times, errs,
+               ratios, paths, parity):
+    """The kernels line's entry of kernel `name` on the [bf16] or [wide
+    D=4] path: launches on that path's main runs (kernels A and B on the
+    flagship, 5 on fused + cascade, 3 with 4 inside on the reference
+    order), its timing and max abs err from wide_timing (pair_u: the
+    action launch of pair_delta that carries it), and the parity cases
+    behind it: [bf16]'s (D = 1-4) with their worst bound ratio, or
+    [dims]' (D = 1, 2, 4, 5, float32 and float64)."""
+    from pathintegralgroundstate_torch.utils import bf16 as BB
+
+    form = {"cascade": "fused+cascade", "pair_delta": "reference order",
+            "pair_u": "reference order"}.get(name, "flagship")
+    key = "pair_delta" if name == "pair_u" else name
+    launches = paths[form][0]
+    e = dict(entry(f"{name} [{label}]", src, rep, launches[key], errs[key],
+                   times[key][0], times[key][1], times[key][2], key=name),
+             main_path=f"{label} {form}",
+             ms_per_step={f: paths[f][1] * 1e3 for f in paths},
+             exact_f2_launches=None, exact_f2_brute_launches=None,
+             windows_launches=None, sp_launches=None, bench_launches=None)
+    if name == "pair_u":
+        e.update(shares_launch_with="pair_delta",
+                 ms_is="the pair_delta action launch that carries u",
+                 separate_launches=launches["pair_u"])
+    worst, cases = parity
+    if ratios[key] is not None:
+        e.update(bound_ratio=ratios[key], bound_ratio_parity=worst.get(key),
+                 bound_C=BB.C, parity_cases=cases, parity_dims=[1, 2, 3, 4],
+                 max_abs_err_is="against float64 truth on the same "
+                                "bfloat16 inputs")
+    else:
+        e.update(parity_cases=dims_cases, parity_dims=[1, 2, 4, 5])
+    return e
+
+
+def wide_phase(cfg, card):
+    """[bf16]: bf16_parity, then the flagship in bfloat16 at W=1024
+    (wide_timing, wide_paths); [wide]: the flagship at D = 4 in float32,
+    density unchanged (wide_timing, wide_paths).  Returns {label: (times,
+    errs, bound ratios, paths, ([bf16]'s worst ratios, its cases))}."""
+    worst, cases = bf16_parity(cfg)
+    out = {}
+    for label, c in (("bf16", cfg.replace(dtype="bfloat16")),
+                     ("wide D=4", cfg.replace(dim=4))):
+        times, errs, ratios = wide_timing(c, card, label)
+        out[label] = (times, errs, ratios, wide_paths(c, card, label),
+                      (worst, cases))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3628,7 +4040,7 @@ def main():
     clock("dense")
     dense_err, dense_times = dense_parity(cfg, card)
     clock("dims")
-    dims_parity(cfg)
+    dims_cases = dims_parity(cfg)
     clock("variants")
     var_errs = variants_parity(card)
     dipolar_path_parity()
@@ -3706,6 +4118,8 @@ def main():
     sp_launches, _ = sp_phase(card)
     clock("bench")
     bench_launches = bench_phase(card)
+    clock("bf16")
+    wide = wide_phase(cfg, card)
     clock("end")
 
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -3732,6 +4146,8 @@ def main():
                 "sp_launches": sp_launches[key],
                 "bench_launches": bench_launches[key]}
 
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s "
+          f"before its last two lines")
     rows_ms, rows_plain = shapes["pair_rows B=16 end move"]
     pot_ms, pot_plain = shapes["pair_pot [1024,32,64,3] force=True"]
     ends = cas_times["ends"]
@@ -3775,7 +4191,15 @@ def main():
             ("pair_u", "pair_u", "pair_u", "pair_delta.cu",
              "pallas_kernels.py:413", dip_launches["pair_u"]),
             ("cascade ends", "cascade", "cascade ends", "cascade.cu",
-             "cascade_kernels.py:322", dcas_launches["cascade"]))]}))
+             "cascade_kernels.py:322", dcas_launches["cascade"]))] + [
+        wide_entry(entry, label, name, src, rep, dims_cases, *wide[label])
+        for label in wide
+        for name, src, rep in (
+            ("pair_rows", "pair_rows.cu", "pallas_kernels.py:300"),
+            ("pair_pot", "pair_pot.cu", "pallas_kernels.py:437"),
+            ("pair_delta", "pair_delta.cu", "pallas_kernels.py:392"),
+            ("pair_u", "pair_delta.cu", "pallas_kernels.py:413"),
+            ("cascade", "cascade.cu", "cascade_kernels.py:322"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

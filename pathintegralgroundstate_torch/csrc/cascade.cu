@@ -65,6 +65,14 @@
 // block-wide gates.  Wider blocks shorten the chain but leave lanes idle at
 // the one-row levels and hold fewer slots per SM: slower.  Bytes do not
 // bound it (13 KB per slot).
+//
+// Dimensions and dtypes (pigs_pair.cuh): the moved particle's positions
+// and gaussians are kept with DV components per window position, DV = 3
+// for dim <= 3 (DP = 3) and DV = dim above (DP = 0, whose threads keep a
+// proposal and two force sums in shared memory after the row sums).  A
+// bfloat16 window is staged as stored and read as float32; each proposal
+// is rounded to bfloat16 when it is made, so that later levels, the gates
+// and the write-back all see the position the tensor will hold.
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
@@ -74,21 +82,28 @@ namespace {
 constexpr int kMaxSlots = 64;
 constexpr int kThreads = 64;  // a block's threads (ops/kernels.CASCADE_BLOCK)
 
-// Row-sum entries of one gate: a level's rows (at most L/2), or the 8
-// partial sums of each warp chunk of the rows of a gate whose rows span
-// several warps (kThreads/32 chunks).  ops/kernels.cascade_smem mirrors
-// this.
-__host__ __device__ constexpr int cascade_buf(int L) {
-  return L / 2 > kThreads / 4 ? L / 2 : kThreads / 4;
+// Row-sum entries of one gate: a level's rows (at most L/2), or the
+// 2 + 2 DV partial sums of each warp chunk of the rows of a gate whose rows
+// span several warps (kThreads/32 chunks).  ops/kernels.cascade_smem
+// mirrors this.
+__host__ __device__ constexpr int cascade_buf(int L, int DV) {
+  return L / 2 > (kThreads / 32) * (2 + 2 * DV) ? L / 2
+                                                : (kThreads / 32) *
+                                                      (2 + 2 * DV);
 }
 
-// Shared-memory elements of one block: the window's L+1 partner rows, the
-// moved particle's old and proposed positions and the slot's gaussians
-// (3 each per position), its gate uniforms, two sets of row sums.
-__host__ __device__ constexpr long long cascade_smem_elems(int L, int N,
-                                                           int D, int ngate) {
-  return (long long)(L + 1) * N * D + 3LL * (L + 1) * 3 + ngate +
-         2LL * cascade_buf(L);
+// Shared memory of one block: the window's L+1 partner rows (as stored),
+// then in the arithmetic type the moved particle's old and proposed
+// positions and the slot's gaussians (DV each per position), its gate
+// uniforms, two sets of row sums and (DP = 0) three vectors per thread.
+template <typename S, int DP>
+size_t cascade_smem_bytes(int L, int N, int D, int ngate) {
+  const int DV = vdims<DP>(D);
+  return round_up((size_t)(L + 1) * N * D * sizeof(S),
+                  sizeof(compute_t<S>)) +
+         (3 * (size_t)(L + 1) * DV + ngate + 2 * (size_t)cascade_buf(L, DV) +
+          scratch_elems(DP, D, 3, kThreads)) *
+             sizeof(compute_t<S>);
 }
 
 }  // namespace
@@ -152,18 +167,20 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
 // stores it in segn, which no row of this level reads.  With d2 == 0 the
 // row is the end gate and its proposal is already in segn.  Row groups of
 // G of the kThreads threads; a group of up to 32 lanes leaves its row's dS
-// in buf[q], a row of more lanes (cpr warp chunks of 32) its 8 partial
-// sums per chunk.  Every thread returns the same sum, the rows added in
-// order.
-template <int PK, int JK, typename T>
-__device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
+// in buf[q], a row of more lanes (cpr warp chunks of 32) its 2 + 2 DV
+// partial sums per chunk.  Every thread returns the same sum, the rows
+// added in order.  scr: the DP = 0 threads' vectors.
+template <int PK, int JK, int DP, typename S, typename T>
+__device__ __forceinline__ T gate_ds(const Consts<T>& c, const S* slab,
                                      int N, int L, int dir, int ip,
                                      const T* seg, T* segn, const T* rgs,
                                      T* buf, int m, int p0, int dp, int d2,
                                      T sigma, T wv, T wf, T wpsi,
-                                     bool need_f2, bool need_wf, int gmax) {
+                                     bool need_f2, bool need_wf, int gmax,
+                                     T* scr) {
   const int t = threadIdx.x;
   const int D = c.dim;
+  const int DV = vdims<DP>(D), ES = 2 + 2 * DV;
   const int G = max(4, min(kThreads / m, gmax));
   const int width = min(G, 32);
   const int cpr = max(1, G / 32);  // warp chunks per row
@@ -171,47 +188,89 @@ __device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
   const unsigned mask = group_mask(t & 31, width);
   for (int q0 = 0; q0 < m; q0 += kThreads / G) {
     const int q = q0 + t / G;
-    RowPart<T> r = {};
-    if (q < m) {
+    if constexpr (DP > 0) {
+      RowPart<T> r = {};
+      if (q < m) {
+        const int p = p0 + q * dp;
+        T xo[3], xn[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          xo[k] = seg[p * 3 + k];
+          xn[k] = d2 ? T(0) : segn[p * 3 + k];
+        }
+        if (d2) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const T xp = xo[k] + wrap1(segn[(p - d2) * 3 + k] - xo[k],
+                                       c.L[k], c.half[k]);
+            const T xq = xo[k] - wrap1(xo[k] - segn[(p + d2) * 3 + k],
+                                       c.L[k], c.half[k]);
+            xn[k] = k < D ? round_s<S>(wrap1(T(0.5) * (xp + xq) +
+                                                 sigma * rgs[p * 3 + k],
+                                             c.L[k], c.half[k]))
+                          : T(0);
+          }
+          if (l == 0) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) segn[p * 3 + k] = xn[k];
+          }
+        }
+        const int row = dir > 0 ? p : L - p;
+        r = row_part<PK, JK>(c, slab + row * N * D, N, ip, xn, xo, need_f2,
+                             need_wf, l, G);
+      }
+      group_sum(r, width, mask, need_f2, need_wf);
+      if (q < m && (l & (width - 1)) == 0) {
+        if (cpr == 1) {
+          buf[q] = row_ds(r, wv, wf, wpsi, need_f2, need_wf);
+        } else {
+          T* e = buf + (q * cpr + l / 32) * 8;
+          e[0] = r.dpot;
+          e[1] = r.du;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            e[2 + k] = r.Fn[k];
+            e[5 + k] = r.Fo[k];
+          }
+        }
+      }
+    } else {  // the proposal and the forces in the thread's vectors
       const int p = p0 + q * dp;
-      T xo[3], xn[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        xo[k] = seg[p * 3 + k];
-        xn[k] = d2 ? T(0) : segn[p * 3 + k];
-      }
-      if (d2) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const T xp =
-              xo[k] + wrap1(segn[(p - d2) * 3 + k] - xo[k], c.L[k], c.half[k]);
-          const T xq =
-              xo[k] - wrap1(xo[k] - segn[(p + d2) * 3 + k], c.L[k], c.half[k]);
-          xn[k] = k < D ? wrap1(T(0.5) * (xp + xq) + sigma * rgs[p * 3 + k],
-                                c.L[k], c.half[k])
-                        : T(0);
-        }
-        if (l == 0) {
-#pragma unroll
-          for (int k = 0; k < 3; ++k) segn[p * 3 + k] = xn[k];
-        }
-      }
       const int row = dir > 0 ? p : L - p;
-      r = row_part<PK, JK>(c, slab + row * N * D, N, ip, xn, xo, need_f2,
-                           need_wf, l, G);
-    }
-    group_sum(r, width, mask, need_f2, need_wf);
-    if (q < m && (l & (width - 1)) == 0) {
-      if (cpr == 1) {
-        buf[q] = row_ds(r, wv, wf, wpsi, need_f2, need_wf);
-      } else {
-        T* e = buf + (q * cpr + l / 32) * 8;
-        e[0] = r.dpot;
-        e[1] = r.du;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          e[2 + k] = r.Fn[k];
-          e[5 + k] = r.Fo[k];
+      const Vec<T, 0> xn = vec_at<T, 0>(scr, 2, D, kThreads, t);
+      const Pt<T, T, 0> xo(c, seg + p * D);
+      if (q < m) {
+        for (int k = 0; k < D; ++k) {
+          const T Lk = box_L<0>(c, k), hk = box_h<0>(c, k);
+          if (d2) {
+            const T xp = xo[k] + wrap1(segn[(p - d2) * D + k] - xo[k], Lk, hk);
+            const T xq = xo[k] - wrap1(xo[k] - segn[(p + d2) * D + k], Lk, hk);
+            xn[k] = round_s<S>(
+                wrap1(T(0.5) * (xp + xq) + sigma * rgs[p * D + k], Lk, hk));
+          } else {
+            xn[k] = segn[p * D + k];
+          }
+        }
+        if (d2 && l == 0)
+          for (int k = 0; k < D; ++k) segn[p * D + k] = xn[k];
+      }
+      // rows past m sum nothing (N = 0) but join the group's shuffles
+      RowPartN<T> r = row_part_n<PK, JK>(
+          c, slab + (q < m ? row : 0) * N * D, q < m ? N : 0, ip, xn, xo,
+          need_f2, need_wf, l, G, scr, 0, kThreads, t);
+      group_sum_n(c, r, width, mask, need_f2, need_wf);
+      if (q < m && (l & (width - 1)) == 0) {
+        if (cpr == 1) {
+          buf[q] = row_ds_n(D, r.dpot, r.du, r.Fn, r.Fo, wv, wf, wpsi,
+                            need_f2, need_wf);
+        } else {
+          T* e = buf + (q * cpr + l / 32) * ES;
+          e[0] = r.dpot;
+          e[1] = r.du;
+          for (int k = 0; k < D; ++k) {
+            e[2 + k] = r.Fn[k];
+            e[2 + DV + k] = r.Fo[k];
+          }
         }
       }
     }
@@ -223,108 +282,144 @@ __device__ __forceinline__ T gate_ds(const Consts<T>& c, const T* slab,
     return dS;
   }
   for (int q = 0; q < m; ++q) {
-    RowPart<T> r = {};
-    for (int i = 0; i < cpr; ++i) {
-      const T* e = buf + (q * cpr + i) * 8;
-      r.dpot += e[0];
-      r.du += e[1];
+    if constexpr (DP > 0) {
+      RowPart<T> r = {};
+      for (int i = 0; i < cpr; ++i) {
+        const T* e = buf + (q * cpr + i) * 8;
+        r.dpot += e[0];
+        r.du += e[1];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        r.Fn[k] += e[2 + k];
-        r.Fo[k] += e[5 + k];
+        for (int k = 0; k < 3; ++k) {
+          r.Fn[k] += e[2 + k];
+          r.Fo[k] += e[5 + k];
+        }
       }
+      dS += row_ds(r, wv, wf, wpsi, need_f2, need_wf);
+    } else {  // the same sums, component by component
+      T dpot = T(0), du = T(0), f2n = T(0), f2o = T(0);
+      for (int i = 0; i < cpr; ++i) {
+        dpot += buf[(q * cpr + i) * ES];
+        du += buf[(q * cpr + i) * ES + 1];
+      }
+      for (int k = 0; k < D; ++k) {
+        T fn = T(0), fo = T(0);
+        for (int i = 0; i < cpr; ++i) {
+          fn += buf[(q * cpr + i) * ES + 2 + k];
+          fo += buf[(q * cpr + i) * ES + 2 + DV + k];
+        }
+        f2n += fn * fn;
+        f2o += fo * fo;
+      }
+      T d = wv * dpot;
+      if (need_f2) d = d + wf * (f2n - f2o);
+      if (need_wf) d = d - wpsi * du;
+      dS += d;
     }
-    dS += row_ds(r, wv, wf, wpsi, need_f2, need_wf);
   }
   return dS;
 }
 
 // paths [W, M, N, D] with strides sW, sM, sN (elements; the coordinate
 // axis contiguous); bulk: the window is one aligned contiguous slab.
-template <typename T, int PK, int JK>
+template <typename S, int PK, int JK, int DP>
 __global__ void __launch_bounds__(kThreads)
-cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
+cascade_kernel(Consts<compute_t<S>> c, CascadeArgs a, S* __restrict__ paths,
                long long sW, long long sM, long long sN,
-               const T* __restrict__ rg, const T* __restrict__ ru,
+               const S* __restrict__ rg, const S* __restrict__ ru,
                const bool* __restrict__ act, long long sAw, long long sAs,
-               bool* __restrict__ acc, int S, int N, int L, int nlev,
+               bool* __restrict__ acc, int S_, int N, int L, int nlev,
                int ends, int bulk, int gmax) {
+  using T = compute_t<S>;
   __shared__ __align__(8) unsigned long long bar;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int w = blockIdx.x, s = blockIdx.y;
-  const long long task = (long long)w * S + s;
+  const long long task = (long long)w * S_ + s;
   const int t = threadIdx.x;
   if (!act[w * sAw + s * sAs]) {
     if (t == 0) acc[task] = false;
     return;
   }
   const int D = c.dim;
+  const int DV = vdims<DP>(D);
   const int ND = N * D;
   const int ip = a.ip[s];
   const int dir = a.dir[s];
   const long long b0 = a.bead0[s];
   const long long lo = dir > 0 ? b0 : b0 - L;  // the window's first bead
   const int ngate = nlev + ends;
-  const int E = cascade_buf(L);
-  T* slab = reinterpret_cast<T*>(smem_raw);  // [L+1][N][D], forward beads
-  T* seg = slab + (L + 1) * ND;              // [L+1][3] old positions
-  T* segn = seg + (L + 1) * 3;               // [L+1][3] proposed positions
-  T* rgs = segn + (L + 1) * 3;               // [L+1][3] the slot's gaussians
-  T* rus = rgs + (L + 1) * 3;                // [ngate] its gate uniforms
+  const int E = cascade_buf(L, DV);
+  S* slab = reinterpret_cast<S*>(smem_raw);  // [L+1][N][D], forward beads
+  T* seg = reinterpret_cast<T*>(             // [L+1][DV] old positions
+      smem_raw + round_up((size_t)(L + 1) * ND * sizeof(S), sizeof(T)));
+  T* segn = seg + (L + 1) * DV;              // [L+1][DV] proposed positions
+  T* rgs = segn + (L + 1) * DV;              // [L+1][DV] the slot's gaussians
+  T* rus = rgs + (L + 1) * DV;               // [ngate] its gate uniforms
   T* buf = rus + ngate;                      // [2][E] row sums
-  T* walker = paths + w * sW;
-  const T* rgw = rg + task * (L + 1) * D;
-  const T* ruw = ru + task * ngate;
+  T* scr = buf + 2 * E;                      // DP = 0: threads' vectors
+  S* walker = paths + w * sW;
+  const S* rgw = rg + task * (L + 1) * D;
+  const S* ruw = ru + task * ngate;
 
   const unsigned bar_s = smem_u32(&bar);
   if (bulk) {
     if (t == 0) {
       mbar_init(bar_s, 1);
       bulk_load(smem_u32(slab), walker + lo * ND,
-                (unsigned)((L + 1) * ND * sizeof(T)), bar_s);
+                (unsigned)((L + 1) * ND * sizeof(S)), bar_s);
     }
   } else {
     for (int i = t; i < (L + 1) * N; i += kThreads) {
       const int j = i / N, n = i - j * N;
-      const T* src = walker + (lo + j) * sM + n * sN;
+      const S* src = walker + (lo + j) * sM + n * sN;
       for (int k = 0; k < D; ++k) slab[i * D + k] = src[k];
     }
   }
   // while the window is in flight: the slot's draws into shared memory,
   // and the end guess
-  for (int i = t; i < (L + 1) * 3; i += kThreads) {
-    const int p = i / 3, k = i - 3 * p;
-    rgs[i] = k < D ? rgw[p * D + k] : T(0);
+  for (int i = t; i < (L + 1) * DV; i += kThreads) {
+    const int p = i / DV, k = i - DV * p;
+    rgs[i] = k < D ? to_c<T>(rgw[p * D + k]) : T(0);
   }
-  if (t < ngate) rus[t] = ruw[t];
-  T xn0[3] = {T(0), T(0), T(0)};
-  if (ends) {
-    const T* x0 = walker + b0 * sM + ip * sN;
-    const T* xL = walker + (b0 + dir * L) * sM + ip * sN;
-    const T sig = sqrt(T(double(L) * a.dt));
+  if (t < ngate) rus[t] = to_c<T>(ruw[t]);
+  const S* x0 = walker + b0 * sM + ip * sN;
+  const S* xL = walker + (b0 + dir * L) * sM + ip * sN;
+  const T sig = sqrt(T(double(L) * a.dt));
+  // component k of the free-gaussian end guess
+  const auto guess = [&](int k) {
+    const T xmid = to_c<T>(x0[k]) -
+                   wrap1(to_c<T>(x0[k]) - to_c<T>(xL[k]), box_L<DP>(c, k),
+                         box_h<DP>(c, k));
+    return round_s<S>(wrap1(xmid + sig * to_c<T>(rgw[k]), box_L<DP>(c, k),
+                            box_h<DP>(c, k)));
+  };
+  T xn0[DP > 0 ? DP : 1] = {};
+  if constexpr (DP > 0) {
+    if (ends) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      if (k < D) {
-        const T xmid = x0[k] - wrap1(x0[k] - xL[k], c.L[k], c.half[k]);
-        xn0[k] = wrap1(xmid + sig * rgw[k], c.L[k], c.half[k]);
+      for (int k = 0; k < DP; ++k) {
+        if (k < D) xn0[k] = guess(k);
       }
     }
   }
   __syncthreads();  // the barrier's initialisation (or the copy) is visible
   if (bulk) mbar_wait(bar_s, 0);
-  for (int i = t; i < (L + 1) * 3; i += kThreads) {
-    const int p = i / 3, k = i - 3 * p;
-    const T v = k < D ? slab[(dir > 0 ? p : L - p) * ND + ip * D + k] : T(0);
+  for (int i = t; i < (L + 1) * DV; i += kThreads) {
+    const int p = i / DV, k = i - DV * p;
+    const T v =
+        k < D ? to_c<T>(slab[(dir > 0 ? p : L - p) * ND + ip * D + k]) : T(0);
     seg[i] = v;
-    segn[i] = ends && p == 0 ? xn0[k] : v;
+    if constexpr (DP > 0)
+      segn[i] = ends && p == 0 ? xn0[k] : v;
+    else
+      segn[i] = ends && p == 0 ? guess(k) : v;
   }
   __syncthreads();
 
   int gate = 0;
   if (ends) {
-    const T dS0 = gate_ds<PK, JK, T>(c, slab, N, L, dir, ip, seg, segn, rgs, buf, 1,
-                             0, 1, 0, T(0), T(a.wv_end), T(0), T(1), false,
-                             true, gmax);
+    const T dS0 = gate_ds<PK, JK, DP, S, T>(
+        c, slab, N, L, dir, ip, seg, segn, rgs, buf, 1, 0, 1, 0, T(0),
+        T(a.wv_end), T(0), T(1), false, true, gmax, scr);
     if (!(rus[0] < exp_t(-dS0))) {
       if (t == 0) acc[task] = false;
       return;
@@ -335,11 +430,11 @@ cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
     const int delta = 1 << (nlev - ilev + 1);
     const int d2 = delta >> 1;
     const bool odd = d2 & 1;
-    const T dS = gate_ds<PK, JK, T>(
+    const T dS = gate_ds<PK, JK, DP, S, T>(
         c, slab, N, L, dir, ip, seg, segn, rgs, buf + (ilev & 1) * E,
         1 << (ilev - 1), d2, delta, d2, sqrt(T(0.25 * delta * a.dt)),
         T(odd ? a.wv_odd : a.wv_even), odd ? T(a.wf_odd) : T(0), T(0), odd,
-        false, gmax);
+        false, gmax, scr);
     if (!(rus[gate + ilev - 1] < exp_t(-dS))) {
       if (t == 0) acc[task] = false;
       return;
@@ -347,40 +442,44 @@ cascade_kernel(Consts<T> c, CascadeArgs a, T* __restrict__ paths,
   }
 
   if (t == 0) acc[task] = true;
-  T* mine = walker + ip * sN;  // the moved particle's column
+  S* mine = walker + ip * sN;  // the moved particle's column
   const int p_lo = ends ? 0 : 1;
   for (int i = t; i < (L - p_lo) * D; i += kThreads) {
     const int p = p_lo + i / D, k = i - (i / D) * D;
-    mine[(b0 + p * dir) * sM + k] = segn[p * 3 + k];
+    mine[(b0 + p * dir) * sM + k] = to_s<S>(segn[p * DV + k]);
   }
 }
 
-template <typename T>
+template <typename S>
 int launch(const PairParams* p, const CascadeArgs* a, void* paths,
            long long sW, long long sM, long long sN, const void* rg,
            const void* ru, const void* act, long long sAw, long long sAs,
-           void* acc, int W, int S, int N, int L, int nlev, int ends,
+           void* acc, int W, int S_, int N, int L, int nlev, int ends,
            int bulk, void* stream) {
-  if ((long long)W * S == 0) return 0;
-  if (S > kMaxSlots || S > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      cascade_smem_elems(L, N, p->dim, nlev + ends) * sizeof(T);
+  using T = compute_t<S>;
+  if ((long long)W * S_ == 0) return 0;
+  if (S_ > kMaxSlots || S_ > 65535) return (int)cudaErrorInvalidValue;
   int gmax = 4;
   while (gmax < N && gmax < kThreads) gmax <<= 1;
-  return with_pair_model(*p, [&](auto pk, auto jk) {
-    constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          cascade_kernel<T, PK, JK>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    cascade_kernel<T, PK, JK>
-        <<<dim3(W, S), kThreads, smem, (cudaStream_t)stream>>>(
-            make_consts<T>(*p), *a, (T*)paths, sW, sM, sN, (const T*)rg,
-            (const T*)ru, (const bool*)act, sAw, sAs, (bool*)acc, S, N, L,
-            nlev, ends, bulk, gmax);
-    return (int)cudaGetLastError();
+  return with_dims(p->dim, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    const size_t smem =
+        cascade_smem_bytes<S, DP>(L, N, p->dim, nlev + ends);
+    return with_pair_model(*p, [&](auto pk, auto jk) {
+      constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+      if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            cascade_kernel<S, PK, JK, DP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+      }
+      cascade_kernel<S, PK, JK, DP>
+          <<<dim3(W, S_), kThreads, smem, (cudaStream_t)stream>>>(
+              make_consts<T>(*p), *a, (S*)paths, sW, sM, sN, (const S*)rg,
+              (const S*)ru, (const bool*)act, sAw, sAs, (bool*)acc, S_, N, L,
+              nlev, ends, bulk, gmax);
+      return (int)cudaGetLastError();
+    });
   });
 }
 
@@ -397,5 +496,12 @@ int launch(const PairParams* p, const CascadeArgs* a, void* paths,
                      S, N, L, nlev, ends, bulk, stream);                      \
   }
 
+#if PIGS_HAS(0)
 PIGS_CASCADE_ENTRY(pigs_cascade_f32, float)
+#endif
+#if PIGS_HAS(1)
 PIGS_CASCADE_ENTRY(pigs_cascade_f64, double)
+#endif
+#if PIGS_HAS(2)
+PIGS_CASCADE_ENTRY(pigs_cascade_bf16, __nv_bfloat16)
+#endif

@@ -37,7 +37,10 @@
 // load; warp shuffles reduce.  (16- and 64-lane teams were timed at the end
 // gate's shape and were no faster: PERF.md.)  R is read in place through
 // its W/B/N strides.  Float uses expf through the overloaded exp, with no
-// fast-math flag, as kernels A, B and 5 do.
+// fast-math flag, as kernels A, B and 5 do.  For dim >= 4 (DP = 0,
+// pigs_pair.cuh) the positions and partners are read in place and a warp's
+// two force sums per lane live in dynamic shared memory; bfloat16 is read
+// as float32 and each row's result rounded to bfloat16 once.
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
@@ -60,24 +63,21 @@ namespace {
 constexpr int kRowsPerBlock = 8;  // 8 warps = 256 threads
 enum Mode { kRaw = 0, kU = 1, kAction = 2 };
 
-template <typename T>
-__device__ __forceinline__ void load3(const Consts<T>& c, const T* x, T* v) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) v[k] = k < c.dim ? x[k] : T(0);
-}
-
 // One Metropolis side against one partner rj: V (kPot) with its force
 // (kForce) and u (with_u), all from one minimum image dx and r^2.
-template <typename T, bool kPot, bool kForce, int PK, int JK>
-__device__ __forceinline__ void side(const Consts<T>& c, const T* x,
-                                     const T* rj, bool notself, bool with_u,
-                                     T& pot, T* F, T& u) {
-  T dx[3];
+template <typename T, bool kPot, bool kForce, int PK, int JK, int DP,
+          typename X, typename RJ, typename FV>
+__device__ __forceinline__ void side(const Consts<T>& c, const X& x,
+                                     const RJ& rj, bool notself, bool with_u,
+                                     T& pot, FV& F, T& u) {
+  T dx[DP > 0 ? DP : 1];
   T r2 = T(0);
+  const int nd = vdims<DP>(c.dim);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    dx[k] = wrap1(x[k] - rj[k], c.L[k], c.half[k]);
-    r2 += dx[k] * dx[k];
+  for (int k = 0; k < nd; ++k) {
+    const T d = wrap1(x[k] - rj[k], box_L<DP>(c, k), box_h<DP>(c, k));
+    if constexpr (DP > 0) dx[k] = d;
+    r2 += d * d;
   }
   const T r2s = notself ? r2 : T(1);
   const T r = sqrt(r2s);
@@ -90,7 +90,12 @@ __device__ __forceinline__ void side(const Consts<T>& c, const T* x,
       pot += v;
       const T fr = dv * rinv;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) F[k] += fr * dx[k];
+      for (int k = 0; k < nd; ++k) {
+        if constexpr (DP > 0)
+          F[k] += fr * dx[k];
+        else
+          F[k] += fr * wrap1(x[k] - rj[k], box_L<DP>(c, k), box_h<DP>(c, k));
+      }
     }
     if (with_u && m) u += jastrow_u_q<JK>(c, r, c.Rm * rinv);
   } else {
@@ -105,14 +110,16 @@ __device__ __forceinline__ void side(const Consts<T>& c, const T* x,
   }
 }
 
-template <typename T, int kMode, bool kForce, int PK, int JK>
+template <typename S, int kMode, bool kForce, int PK, int JK, int DP>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
-pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
-                  const T* __restrict__ xn, const T* __restrict__ xo,
+pair_delta_kernel(Consts<compute_t<S>> c, RowArgs a, const S* __restrict__ R,
+                  const S* __restrict__ xn, const S* __restrict__ xo,
                   const long long* __restrict__ ip,
                   const long long* __restrict__ ib,
-                  const T* __restrict__ tab, T* __restrict__ out0,
-                  T* __restrict__ out1) {
+                  const S* __restrict__ tab, S* __restrict__ out0,
+                  S* __restrict__ out1) {
+  using T = compute_t<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kPot = kMode != kU;
   const int lane = threadIdx.x & 31;
   const long long row =
@@ -128,31 +135,34 @@ pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
   long long jb = 0;
   if (kMode == kAction) {
     jb = a.ib_mode ? ib[row] : ib[b];
-    with_u = tab[2 * a.M + jb] > T(0);  // one value for the whole warp
+    with_u = to_c<T>(tab[2 * a.M + jb]) > T(0);  // one value for the warp
   }
-  T xnv[3], xov[3];
-  load3(c, xn + w * a.sNw + b * a.sNb, xnv);
-  load3(c, xo + w * a.sOw + b * a.sOb, xov);
-  const T* Rrow = R + w * a.sRw + b * a.sRb;
+  const int nd = vdims<DP>(c.dim);
+  const Pt<T, S, DP> xnv(c, xn + w * a.sNw + b * a.sNb);
+  const Pt<T, S, DP> xov(c, xo + w * a.sOw + b * a.sOb);
+  const S* Rrow = R + w * a.sRw + b * a.sRb;
   T pot_n = T(0), pot_o = T(0), u_n = T(0), u_o = T(0);
-  T Fn[3] = {T(0), T(0), T(0)}, Fo[3] = {T(0), T(0), T(0)};
+  T* scr = reinterpret_cast<T*>(smem_raw);
+  Vec<T, DP> Fn = vec_at<T, DP>(scr, 0, c.dim, blockDim.x, threadIdx.x);
+  Vec<T, DP> Fo = vec_at<T, DP>(scr, 1, c.dim, blockDim.x, threadIdx.x);
+#pragma unroll
+  for (int k = 0; k < nd; ++k) Fn[k] = Fo[k] = T(0);
   for (int j = lane; j < a.N; j += 32) {
-    T rj[3];
-    load3(c, Rrow + j * a.sRn, rj);
+    const Pt<T, S, DP> rj(c, Rrow + j * a.sRn);
     const bool notself = j != p;
-    side<T, kPot, kForce, PK, JK>(c, xnv, rj, notself, with_u, pot_n, Fn,
-                                  u_n);
-    side<T, kPot, kForce, PK, JK>(c, xov, rj, notself, with_u, pot_o, Fo,
-                                  u_o);
+    side<T, kPot, kForce, PK, JK, DP>(c, xnv, rj, notself, with_u, pot_n,
+                                      Fn, u_n);
+    side<T, kPot, kForce, PK, JK, DP>(c, xov, rj, notself, with_u, pot_o,
+                                      Fo, u_o);
   }
   T dp = T(0), d2 = T(0), du = T(0);
   if (kPot) dp = warp_sum(pot_n) - warp_sum(pot_o);
   if (kPot && kForce) {
     T f2n = T(0), f2o = T(0);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const T fn = warp_sum(Fn[k]);
-      const T fo = warp_sum(Fo[k]);
+    for (int k = 0; k < nd; ++k) {
+      const T fn = warp_sum(T(Fn[k]));
+      const T fo = warp_sum(T(Fo[k]));
       f2n += fn * fn;
       f2o += fo * fo;
     }
@@ -164,62 +174,73 @@ pair_delta_kernel(Consts<T> c, RowArgs a, const T* __restrict__ R,
   if (kMode != kRaw) du = warp_sum(u_n - u_o);
   if (lane != 0) return;
   if (kMode == kRaw) {
-    out0[row] = dp;
-    out1[row] = d2;
+    out0[row] = to_s<S>(dp);
+    out1[row] = to_s<S>(d2);
   } else if (kMode == kU) {
-    out0[row] = du;
+    out0[row] = to_s<S>(du);
   } else {
-    const T wfb = tab[a.M + jb] > T(0) ? T(a.wf) : T(0);
-    T dS = tab[jb] * dp + wfb * d2;
+    const T wfb = to_c<T>(tab[a.M + jb]) > T(0) ? T(a.wf) : T(0);
+    T dS = to_c<T>(tab[jb]) * dp + wfb * d2;
     if (with_u) dS = dS - du;
-    out0[row] = dS;
+    out0[row] = to_s<S>(dS);
   }
 }
 
-template <typename T, int kMode, bool kForce, int PK, int JK>
-int launch(const Consts<T>& c, const RowArgs& a, const void* R,
+template <typename S, int kMode, bool kForce, int PK, int JK, int DP>
+int launch(const Consts<compute_t<S>>& c, const RowArgs& a, const void* R,
            const void* xn, const void* xo, const void* ip, const void* ib,
            const void* tab, void* out0, void* out1, cudaStream_t s) {
   const long long rows = (long long)a.W * a.B;
-  pair_delta_kernel<T, kMode, kForce, PK, JK>
+  const size_t smem = scratch_elems(DP, c.dim, 2, 32 * kRowsPerBlock) *
+                      sizeof(compute_t<S>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pair_delta_kernel<S, kMode, kForce, PK, JK, DP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pair_delta_kernel<S, kMode, kForce, PK, JK, DP>
       <<<(unsigned)((rows + kRowsPerBlock - 1) / kRowsPerBlock),
-         32 * kRowsPerBlock, 0, s>>>(
-          c, a, (const T*)R, (const T*)xn, (const T*)xo,
-          (const long long*)ip, (const long long*)ib, (const T*)tab,
-          (T*)out0, (T*)out1);
+         32 * kRowsPerBlock, smem, s>>>(
+          c, a, (const S*)R, (const S*)xn, (const S*)xo,
+          (const long long*)ip, (const long long*)ib, (const S*)tab,
+          (S*)out0, (S*)out1);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int launch_delta(const PairParams* p, const RowArgs* a, const void* R,
                  const void* xn, const void* xo, const void* ip, int mode,
                  int with_force, const void* ib, const void* tab, void* out0,
                  void* out1, void* stream) {
   if ((long long)a->W * a->B == 0) return 0;
-  const Consts<T> c = make_consts<T>(*p);
+  const Consts<compute_t<S>> c = make_consts<compute_t<S>>(*p);
   auto s = (cudaStream_t)stream;
   const auto args = [&](auto fn) {
     return fn(c, *a, R, xn, xo, ip, ib, tab, out0, out1, s);
   };
-  // the raw mode evaluates no Jastrow, kernel 4's u mode no potential:
-  // one instantiation of the other kind serves each
-  if (mode == kU)
-    return with_jas_kind(p->jas_kind, [&](auto jk) {
-      return args(launch<T, kU, false, kAziz, decltype(jk)::value>);
-    });
-  if (mode == kRaw)
-    return with_pot_kind(p->pot_kind, [&](auto pk) {
-      constexpr int PK = decltype(pk)::value;
-      return with_force ? args(launch<T, kRaw, true, PK, kMcMillan>)
-                        : args(launch<T, kRaw, false, PK, kMcMillan>);
-    });
-  if (mode == kAction)
-    return with_pair_model(*p, [&](auto pk, auto jk) {
-      constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
-      return with_force ? args(launch<T, kAction, true, PK, JK>)
-                        : args(launch<T, kAction, false, PK, JK>);
-    });
-  return (int)cudaErrorInvalidValue;
+  return with_dims(p->dim, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    // the raw mode evaluates no Jastrow, kernel 4's u mode no potential:
+    // one instantiation of the other kind serves each
+    if (mode == kU)
+      return with_jas_kind(p->jas_kind, [&](auto jk) {
+        return args(launch<S, kU, false, kAziz, decltype(jk)::value, DP>);
+      });
+    if (mode == kRaw)
+      return with_pot_kind(p->pot_kind, [&](auto pk) {
+        constexpr int PK = decltype(pk)::value;
+        return with_force ? args(launch<S, kRaw, true, PK, kMcMillan, DP>)
+                          : args(launch<S, kRaw, false, PK, kMcMillan, DP>);
+      });
+    if (mode == kAction)
+      return with_pair_model(*p, [&](auto pk, auto jk) {
+        constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+        return with_force ? args(launch<S, kAction, true, PK, JK, DP>)
+                          : args(launch<S, kAction, false, PK, JK, DP>);
+      });
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace
@@ -233,5 +254,12 @@ int launch_delta(const PairParams* p, const RowArgs* a, const void* R,
                            out0, out1, stream);                                 \
   }
 
+#if PIGS_HAS(0)
 PIGS_PAIR_DELTA_ENTRY(pigs_pair_delta_f32, float)
+#endif
+#if PIGS_HAS(1)
 PIGS_PAIR_DELTA_ENTRY(pigs_pair_delta_f64, double)
+#endif
+#if PIGS_HAS(2)
+PIGS_PAIR_DELTA_ENTRY(pigs_pair_delta_bf16, __nv_bfloat16)
+#endif

@@ -44,7 +44,13 @@
 // a block of about 256 threads.  Each row is staged with 16-byte cp.async
 // copies where the wrapper has seen that every row is one aligned slab of
 // 16-byte multiples (kernels.slabs16), else element by element through the
-// strides; the strided bead slices are read in place.
+// strides; the strided bead slices are read in place.  For dim >= 4 (DP =
+// 0, pigs_pair.cuh) a lane reads its particle and its partners in place in
+// the staged row, recomputes a pair's displacement for its force, and keeps
+// its three force vectors (the pair's, its own sum and the round's
+// reactions) in shared memory after the per-warp sums; the reaction buffer
+// holds dim values per particle.  bfloat16 rows are staged as stored and
+// read as float32.
 #include <stdint.h>
 
 #include "pigs_pair.cuh"
@@ -72,16 +78,19 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // One unordered pair (i, j): adds V(r_ij) to pot and, with force, sets f to
 // the pair's force on i (-f on j), both only where valid & r^2 <= rc^2.
-template <typename T, bool kForce, int PK>
-__device__ __forceinline__ void pot_pair(const Consts<T>& c, const T* xi,
-                                         const T* xj, bool valid, T& pot,
-                                         T* f) {
-  T dx[3];
+template <typename T, bool kForce, int PK, int DP, typename XI, typename XJ,
+          typename FV>
+__device__ __forceinline__ void pot_pair(const Consts<T>& c, const XI& xi,
+                                         const XJ& xj, bool valid, T& pot,
+                                         FV& f) {
+  T dx[DP > 0 ? DP : 1];
   T r2 = T(0);
+  const int nd = vdims<DP>(c.dim);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    dx[k] = wrap1(xi[k] - xj[k], c.L[k], c.half[k]);
-    r2 += dx[k] * dx[k];
+  for (int k = 0; k < nd; ++k) {
+    const T d = wrap1(xi[k] - xj[k], box_L<DP>(c, k), box_h<DP>(c, k));
+    if constexpr (DP > 0) dx[k] = d;
+    r2 += d * d;
   }
   const bool m = valid && r2 <= c.rcut2;
   if (kForce) {
@@ -91,33 +100,66 @@ __device__ __forceinline__ void pot_pair(const Consts<T>& c, const T* xi,
     pot += m ? v : T(0);
     const T fr = dv * rinv;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) f[k] = m ? fr * dx[k] : T(0);
+    for (int k = 0; k < nd; ++k) {
+      if constexpr (DP > 0)
+        f[k] = m ? fr * dx[k] : T(0);
+      else
+        f[k] = m ? fr * wrap1(xi[k] - xj[k], box_L<DP>(c, k),
+                              box_h<DP>(c, k))
+                 : T(0);
+    }
   } else {
     const T v = pot_v<PK>(c, sqrt(r2));
     pot += m ? v : T(0);
   }
 }
 
-template <typename T, int kMaxThreads, bool kForce, int PK>
+// Lane particle i of the staged row xs: DP > 0 in registers, zero past dim
+// and for a lane without a particle (vi false); DP = 0 read in place.
+template <int DP, typename T, typename S>
+__device__ __forceinline__ auto lane_point(const Consts<T>& c, const S* xs,
+                                           int i, bool vi) {
+  if constexpr (DP > 0) {
+    Vec<T, DP> x;
+#pragma unroll
+    for (int k = 0; k < DP; ++k)
+      x[k] = vi && k < c.dim ? to_c<T>(xs[i * c.dim + k]) : T(0);
+    return x;
+  } else {
+    return Pt<T, S, 0>(c, xs + i * c.dim);
+  }
+}
+
+// Bytes of the staged rows of a block, rounded up to the alignment of the
+// sums that follow them.
+template <typename S>
+__host__ __device__ inline size_t xs_bytes(const PotArgs& a, int D) {
+  return round_up((size_t)a.rpb * 32 * a.C * D * sizeof(S),
+                  sizeof(compute_t<S>));
+}
+
+template <typename S, int kMaxThreads, bool kForce, int PK, int DP>
 __global__ void __launch_bounds__(kMaxThreads)
-pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
-                T* __restrict__ pot, T* __restrict__ f2) {
+pair_pot_kernel(Consts<compute_t<S>> c, PotArgs a, const S* __restrict__ R,
+                S* __restrict__ pot, S* __restrict__ f2) {
+  using T = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kVec = 16 / sizeof(T);
-  const int C = a.C, D = c.dim, npad = 32 * C;
+  constexpr int kVec = 16 / sizeof(S);
+  const int C = a.C, D = c.dim, npad = 32 * C, DB = vdims<DP>(D);
   const int lane = threadIdx.x & 31, I = threadIdx.x >> 5;
   const int team = threadIdx.y;
   const int nteam = blockDim.y;
   const long long row = (long long)blockIdx.x * a.rpb + team;
   const bool live = row < (long long)a.W * a.B;
-  T* base = reinterpret_cast<T*>(smem_raw);
-  T* xs = base + team * npad * D;                          // [npad][D]
-  T* buf = base + nteam * npad * D + team * npad * 3;      // [npad][3]
-  T* red = base + nteam * npad * (D + (kForce ? 3 : 0)) + team * 2 * C;
+  S* xs = reinterpret_cast<S*>(smem_raw) + team * npad * D;  // [npad][D]
+  T* base = reinterpret_cast<T*>(smem_raw + xs_bytes<S>(a, D));
+  T* buf = base + team * npad * DB;                          // [npad][DB]
+  T* red = base + nteam * npad * (kForce ? DB : 0) + team * 2 * C;
+  T* scr = base + nteam * (npad * (kForce ? DB : 0) + 2 * C);
 
   if (live) {
     const long long w = row / a.B;
-    const T* Rrow = R + w * a.sRw + (row - w * a.B) * a.sRb;
+    const S* Rrow = R + w * a.sRw + (row - w * a.B) * a.sRb;
     if (a.vec16) {
       const int nvec = a.N * D / kVec;
       for (int i = threadIdx.x; i < nvec; i += blockDim.x)
@@ -132,26 +174,30 @@ pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
 
   const int i = 32 * I + lane;
   const bool vi = live && i < a.N;
-  T xi[3], xj[3], f[3], F[3], G[3];
+  const int nthr = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nd = vdims<DP>(c.dim);
+  const auto xi = lane_point<DP>(c, xs, i, vi);
+  Vec<T, DP> f = vec_at<T, DP>(scr, 0, D, nthr, tid);
+  Vec<T, DP> F = vec_at<T, DP>(scr, 1, D, nthr, tid);
+  Vec<T, DP> G = vec_at<T, DP>(scr, 2, D, nthr, tid);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    xi[k] = vi && k < D ? xs[i * D + k] : T(0);
-    f[k] = F[k] = T(0);
-  }
+  for (int k = 0; k < nd; ++k) f[k] = F[k] = T(0);
   T p = T(0);
 
   // round 0: the tile (I, I), each pair once
 #pragma unroll 4
   for (int s = 1; s <= 16; ++s) {
     const int j = 32 * I + ((lane + s) & 31);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) xj[k] = k < D ? xs[j * D + k] : T(0);
-    pot_pair<T, kForce, PK>(c, xi, xj,
-                            vi && j < a.N && (s < 16 || lane < 16), p, f);
+    const Pt<T, S, DP> xj(c, xs + j * D);
+    pot_pair<T, kForce, PK, DP>(c, xi, xj,
+                                vi && j < a.N && (s < 16 || lane < 16), p, f);
     if (kForce) {
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
-        F[k] += f[k] - __shfl_sync(0xffffffffu, f[k], (lane - s) & 31);
+      for (int k = 0; k < nd; ++k) {
+        const T fk = f[k];
+        F[k] += fk - __shfl_sync(0xffffffffu, fk, (lane - s) & 31);
+      }
     }
   }
 
@@ -162,33 +208,39 @@ pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
     const int s0 = half && I >= k ? 1 : 0;
     const int s1 = half ? s0 + 16 : 32;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) G[q] = T(0);
+    for (int q = 0; q < nd; ++q) G[q] = T(0);
 #pragma unroll 4
     for (int s = s0; s < s1; ++s) {
       const int j = 32 * J + ((lane + s) & 31);
-#pragma unroll
-      for (int q = 0; q < 3; ++q) xj[q] = q < D ? xs[j * D + q] : T(0);
-      pot_pair<T, kForce, PK>(c, xi, xj, vi && j < a.N, p, f);
+      const Pt<T, S, DP> xj(c, xs + j * D);
+      pot_pair<T, kForce, PK, DP>(c, xi, xj, vi && j < a.N, p, f);
       if (kForce) {
 #pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          F[q] += f[q];
-          G[q] -= __shfl_sync(0xffffffffu, f[q], (lane - s) & 31);
+        for (int q = 0; q < nd; ++q) {
+          const T fq = f[q];
+          F[q] += fq;
+          G[q] -= __shfl_sync(0xffffffffu, fq, (lane - s) & 31);
         }
       }
     }
     if (kForce) {  // the reactions on chunk J to warp J
 #pragma unroll
-      for (int q = 0; q < 3; ++q) buf[(32 * J + lane) * 3 + q] = G[q];
+      for (int q = 0; q < nd; ++q) buf[(32 * J + lane) * DB + q] = G[q];
       __syncthreads();
 #pragma unroll
-      for (int q = 0; q < 3; ++q) F[q] += buf[i * 3 + q];
+      for (int q = 0; q < nd; ++q) F[q] += buf[i * DB + q];
       __syncthreads();
     }
   }
 
   T f2i = T(0);
-  if (kForce) f2i = F[0] * F[0] + F[1] * F[1] + F[2] * F[2];
+  if (kForce) {
+    if constexpr (DP == 3) {
+      f2i = F[0] * F[0] + F[1] * F[1] + F[2] * F[2];
+    } else {
+      for (int k = 0; k < nd; ++k) f2i += F[k] * F[k];
+    }
+  }
   p = warp_sum(p);
   f2i = warp_sum(f2i);
   if (lane == 0) {
@@ -202,41 +254,45 @@ pair_pot_kernel(Consts<T> c, PotArgs a, const T* __restrict__ R,
       sp += red[q];
       sf += red[C + q];
     }
-    pot[row] = sp;
-    f2[row] = sf;
+    pot[row] = to_s<S>(sp);
+    f2[row] = to_s<S>(sf);
   }
 }
 
 // Dynamic shared memory of one block: the rows' partners, with force the
-// reaction buffers, and the per-warp sums.
-template <typename T>
+// reaction buffers, the per-warp sums and (DP = 0) the lanes' three force
+// vectors.
+template <typename S, int DP>
 size_t pot_smem(const PotArgs& a, int D, bool force) {
   const size_t npad = 32 * (size_t)a.C;
-  return (size_t)a.rpb * (npad * (D + (force ? 3 : 0)) + 2 * a.C) *
-         sizeof(T);
+  return xs_bytes<S>(a, D) +
+         ((size_t)a.rpb * (npad * (force ? vdims<DP>(D) : 0) + 2 * a.C) +
+          scratch_elems(DP, D, 3, (int)(npad * a.rpb))) *
+             sizeof(compute_t<S>);
 }
 
-template <typename T, int kMaxThreads, bool kForce, int PK>
-int launch_k(const Consts<T>& c, const PotArgs& a, const T* R, T* pot, T* f2,
-             cudaStream_t stream) {
-  const size_t smem = pot_smem<T>(a, c.dim, kForce);
+template <typename S, int kMaxThreads, bool kForce, int PK, int DP>
+int launch_k(const Consts<compute_t<S>>& c, const PotArgs& a, const S* R,
+             S* pot, S* f2, cudaStream_t stream) {
+  const size_t smem = pot_smem<S, DP>(a, c.dim, kForce);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pair_pot_kernel<T, kMaxThreads, kForce, PK>,
+        pair_pot_kernel<S, kMaxThreads, kForce, PK, DP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const long long rows = (long long)a.W * a.B;
   const dim3 block(32 * a.C, a.rpb);
   const unsigned grid = (unsigned)((rows + a.rpb - 1) / a.rpb);
-  pair_pot_kernel<T, kMaxThreads, kForce, PK>
+  pair_pot_kernel<S, kMaxThreads, kForce, PK, DP>
       <<<grid, block, smem, stream>>>(c, a, R, pot, f2);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int launch(const PairParams* p, const PotArgs* args, const void* R,
            int with_force, void* pot, void* f2, void* stream) {
+  using T = compute_t<S>;
   PotArgs a = *args;
   if ((long long)a.W * a.B == 0) return 0;
   if (a.N > 1024) return (int)cudaErrorInvalidValue;
@@ -244,15 +300,20 @@ int launch(const PairParams* p, const PotArgs* args, const void* R,
   a.rpb = 32 * a.C >= kBlock ? 1 : kBlock / (32 * a.C);
   const Consts<T> c = make_consts<T>(*p);
   auto s = (cudaStream_t)stream;
-  auto Rp = (const T*)R;
-  auto po = (T*)pot, fo = (T*)f2;
-  return with_pot_kind(p->pot_kind, [&](auto pk) {
-    constexpr int PK = decltype(pk)::value;
-    if (32 * a.C * a.rpb <= kBlock)
-      return with_force ? launch_k<T, kBlock, true, PK>(c, a, Rp, po, fo, s)
-                        : launch_k<T, kBlock, false, PK>(c, a, Rp, po, fo, s);
-    return with_force ? launch_k<T, 1024, true, PK>(c, a, Rp, po, fo, s)
-                      : launch_k<T, 1024, false, PK>(c, a, Rp, po, fo, s);
+  auto Rp = (const S*)R;
+  auto po = (S*)pot, fo = (S*)f2;
+  return with_dims(p->dim, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return with_pot_kind(p->pot_kind, [&](auto pk) {
+      constexpr int PK = decltype(pk)::value;
+      if (32 * a.C * a.rpb <= kBlock)
+        return with_force
+                   ? launch_k<S, kBlock, true, PK, DP>(c, a, Rp, po, fo, s)
+                   : launch_k<S, kBlock, false, PK, DP>(c, a, Rp, po, fo, s);
+      return with_force
+                 ? launch_k<S, 1024, true, PK, DP>(c, a, Rp, po, fo, s)
+                 : launch_k<S, 1024, false, PK, DP>(c, a, Rp, po, fo, s);
+    });
   });
 }
 
@@ -264,5 +325,12 @@ int launch(const PairParams* p, const PotArgs* args, const void* R,
     return launch<T>(p, a, R, with_force, pot, f2, stream);                \
   }
 
+#if PIGS_HAS(0)
 PIGS_PAIR_POT_ENTRY(pigs_pair_pot_f32, float)
+#endif
+#if PIGS_HAS(1)
 PIGS_PAIR_POT_ENTRY(pigs_pair_pot_f64, double)
+#endif
+#if PIGS_HAS(2)
+PIGS_PAIR_POT_ENTRY(pigs_pair_pot_bf16, __nv_bfloat16)
+#endif

@@ -42,6 +42,13 @@
 // dS, or sums the walker's rows in shared memory and writes one value per
 // walker.
 //
+// Dimensions and dtypes (pigs_pair.cuh): DP = 3 for dim <= 3, DP = 0 for
+// dim >= 4, whose moved particle's two positions are read in place from
+// xn / xo and whose lanes keep their two force sums in shared memory after
+// the walkers' row sums (2 dim values per thread); a bfloat16 window is
+// staged as it is stored (half the bytes of float32, so the 16-byte rule
+// holds at other N) and converted to float32 as it is read.
+//
 // What bounds it now: the pair arithmetic, not the bytes.  Each partner
 // and row costs a long dependent chain per side (minimum image, rsqrt, two
 // exps, the force and u terms) at about 86 registers a thread in float32
@@ -82,31 +89,44 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <typename T, int G, int PK, int JK>
+// Bytes of the staged rows of a block, rounded up to the alignment of the
+// row sums that follow them (ops/kernels.rows_layout mirrors this layout).
+template <typename S>
+__host__ __device__ inline size_t slab_bytes(const RowsArgs& a) {
+  return round_up((size_t)a.wpb * a.spw * a.slab * sizeof(S),
+                  sizeof(compute_t<S>));
+}
+
+template <typename S, int G, int PK, int JK, int DP>
 __global__ void __launch_bounds__(kMaxThreads)
-pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
-                 const T* __restrict__ xn, const T* __restrict__ xo,
+pair_rows_kernel(Consts<compute_t<S>> c, RowsArgs a, const S* __restrict__ R,
+                 const S* __restrict__ xn, const S* __restrict__ xo,
                  const long long* __restrict__ ip,
                  const long long* __restrict__ ib,
-                 const T* __restrict__ tab, const T* __restrict__ rw,
-                 T* __restrict__ out) {
+                 const S* __restrict__ tab, const S* __restrict__ rw,
+                 S* __restrict__ out) {
+  using T = compute_t<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(S);
   const int l = threadIdx.x & (G - 1);
   const int slot = threadIdx.x / G;
   const int wl = threadIdx.y;
   const int w = blockIdx.x * a.wpb + wl;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const unsigned mask = group_mask(tid & 31, G);
-  T* slab = reinterpret_cast<T*>(smem_raw) + (wl * a.spw + slot) * a.slab;
-  T* part = reinterpret_cast<T*>(smem_raw) + a.wpb * a.spw * a.slab;
+  S* slab = reinterpret_cast<S*>(smem_raw) + (wl * a.spw + slot) * a.slab;
+  T* part;
+  if constexpr (sizeof(S) == sizeof(T))
+    part = reinterpret_cast<T*>(smem_raw) + a.wpb * a.spw * a.slab;
+  else
+    part = reinterpret_cast<T*>(smem_raw + slab_bytes<S>(a));
   const int D = c.dim;
   const int nvec = a.N * D / kVec;
   const bool need_f2 = a.need_f2, need_wf = a.need_wf;
   T acc = T(0);
   if (w < a.W) {
     for (int b = slot; b < a.B; b += a.spw) {
-      const T* row = R + w * a.sRw + b * a.sRb;
+      const S* row = R + w * a.sRw + b * a.sRb;
       if (a.vec16) {
         for (int i = l; i < nvec; i += G)
           cp_async16(slab + i * kVec, row + i * kVec);
@@ -120,20 +140,33 @@ pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
                           : a.ip_mode == 1 ? ip[w]
                           : a.ip_mode == 2 ? ip[w * a.B + b]
                                            : ip[b];
-      T xnv[3], xov[3];
+      T dS;
+      if constexpr (DP > 0) {
+        T xnv[3], xov[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        xnv[k] = k < c.dim ? xn[w * a.sNw + b * a.sNb + k] : T(0);
-        xov[k] = k < c.dim ? xo[w * a.sOw + b * a.sOb + k] : T(0);
+        for (int k = 0; k < 3; ++k) {
+          xnv[k] = k < c.dim ? to_c<T>(xn[w * a.sNw + b * a.sNb + k]) : T(0);
+          xov[k] = k < c.dim ? to_c<T>(xo[w * a.sOw + b * a.sOb + k]) : T(0);
+        }
+        RowPart<T> r = row_part<PK, JK>(c, slab, a.N, p, xnv, xov, need_f2,
+                                        need_wf, l, G);
+        group_sum(r, G, mask, need_f2, need_wf);
+        const long long jb = a.ib_mode ? ib[w * a.B + b] : ib[b];
+        dS = row_ds(r, to_c<T>(tab[jb]), to_c<T>(tab[a.M + jb]),
+                    to_c<T>(tab[2 * a.M + jb]), need_f2, need_wf);
+      } else {  // positions read in place, forces in the thread's scratch
+        RowPartN<T> r = row_part_n<PK, JK>(
+            c, slab, a.N, p, Pt<T, S, 0>(c, xn + w * a.sNw + b * a.sNb),
+            Pt<T, S, 0>(c, xo + w * a.sOw + b * a.sOb), need_f2, need_wf, l,
+            G, part + a.wpb * a.spw, 0, blockDim.x * blockDim.y, tid);
+        group_sum_n(c, r, G, mask, need_f2, need_wf);
+        const long long jb = a.ib_mode ? ib[w * a.B + b] : ib[b];
+        dS = row_ds_n(D, r.dpot, r.du, r.Fn, r.Fo, to_c<T>(tab[jb]),
+                      to_c<T>(tab[a.M + jb]), to_c<T>(tab[2 * a.M + jb]),
+                      need_f2, need_wf);
       }
-      RowPart<T> r =
-          row_part<PK, JK>(c, slab, a.N, p, xnv, xov, need_f2, need_wf, l, G);
-      group_sum(r, G, mask, need_f2, need_wf);
-      const long long jb = a.ib_mode ? ib[w * a.B + b] : ib[b];
-      T dS = row_ds(r, tab[jb], tab[a.M + jb], tab[2 * a.M + jb], need_f2,
-                    need_wf);
-      if (rw != nullptr) dS = dS * rw[b];
-      if (!a.reduce && l == 0) out[w * a.B + b] = dS;
+      if (rw != nullptr) dS = dS * to_c<T>(rw[b]);
+      if (!a.reduce && l == 0) out[w * a.B + b] = to_s<S>(dS);
       acc += dS;
       __syncwarp(mask);  // the slab is read before the next row overwrites it
     }
@@ -145,57 +178,65 @@ pair_rows_kernel(Consts<T> c, RowsArgs a, const T* __restrict__ R,
       T s = T(0);
       const int n = min(a.spw, a.B);
       for (int i = 0; i < n; ++i) s += part[wl * a.spw + i];
-      out[w] = s;
+      out[w] = to_s<S>(s);
     }
   }
 }
 
-template <typename T, int G, int PK, int JK>
+template <typename S, int G, int PK, int JK, int DP>
 int launch_g(const PairParams* p, const RowsArgs* a, const void* R,
              const void* xn, const void* xo, const void* ip, const void* ib,
              const void* tab, const void* rw, void* out, void* stream) {
-  const size_t smem = (size_t)a->wpb * a->spw * (a->slab + 1) * sizeof(T);
+  using T = compute_t<S>;
+  const int nthr = G * a->spw * a->wpb;
+  const size_t smem =
+      slab_bytes<S>(*a) +
+      ((size_t)a->wpb * a->spw + scratch_elems(DP, p->dim, 2, nthr)) *
+          sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pair_rows_kernel<T, G, PK, JK>,
+        pair_rows_kernel<S, G, PK, JK, DP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 block(G * a->spw, a->wpb);
   const dim3 grid((a->W + a->wpb - 1) / a->wpb);
-  pair_rows_kernel<T, G, PK, JK>
+  pair_rows_kernel<S, G, PK, JK, DP>
       <<<grid, block, smem, (cudaStream_t)stream>>>(
-      make_consts<T>(*p), *a, (const T*)R, (const T*)xn, (const T*)xo,
-      (const long long*)ip, (const long long*)ib, (const T*)tab,
-      (const T*)rw, (T*)out);
+      make_consts<T>(*p), *a, (const S*)R, (const S*)xn, (const S*)xo,
+      (const long long*)ip, (const long long*)ib, (const S*)tab,
+      (const S*)rw, (S*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename S>
 int launch(const PairParams* p, const RowsArgs* a, const void* R,
            const void* xn, const void* xo, const void* ip, const void* ib,
            const void* tab, const void* rw, void* out, void* stream) {
   if (a->W == 0 || a->B == 0) return 0;
   if (a->G * a->spw * a->wpb > kMaxThreads) return (int)cudaErrorInvalidValue;
-  return with_pair_model(*p, [&](auto pk, auto jk) {
-    constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
-    switch (a->G) {
-      case 4:
-        return launch_g<T, 4, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
-                                      stream);
-      case 8:
-        return launch_g<T, 8, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
-                                      stream);
-      case 16:
-        return launch_g<T, 16, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
-                                       stream);
-      case 32:
-        return launch_g<T, 32, PK, JK>(p, a, R, xn, xo, ip, ib, tab, rw, out,
-                                       stream);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+  return with_dims(p->dim, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return with_pair_model(*p, [&](auto pk, auto jk) {
+      constexpr int PK = decltype(pk)::value, JK = decltype(jk)::value;
+      switch (a->G) {
+        case 4:
+          return launch_g<S, 4, PK, JK, DP>(p, a, R, xn, xo, ip, ib, tab, rw,
+                                            out, stream);
+        case 8:
+          return launch_g<S, 8, PK, JK, DP>(p, a, R, xn, xo, ip, ib, tab, rw,
+                                            out, stream);
+        case 16:
+          return launch_g<S, 16, PK, JK, DP>(p, a, R, xn, xo, ip, ib, tab,
+                                             rw, out, stream);
+        case 32:
+          return launch_g<S, 32, PK, JK, DP>(p, a, R, xn, xo, ip, ib, tab,
+                                             rw, out, stream);
+        default:
+          return (int)cudaErrorInvalidValue;
+      }
+    });
   });
 }
 
@@ -209,5 +250,12 @@ int launch(const PairParams* p, const RowsArgs* a, const void* R,
     return launch<T>(p, a, R, xn, xo, ip, ib, tab, rw, out, stream);          \
   }
 
+#if PIGS_HAS(0)
 PIGS_PAIR_ROWS_ENTRY(pigs_pair_rows_f32, float)
+#endif
+#if PIGS_HAS(1)
 PIGS_PAIR_ROWS_ENTRY(pigs_pair_rows_f64, double)
+#endif
+#if PIGS_HAS(2)
+PIGS_PAIR_ROWS_ENTRY(pigs_pair_rows_bf16, __nv_bfloat16)
+#endif

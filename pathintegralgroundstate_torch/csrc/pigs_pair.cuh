@@ -17,8 +17,34 @@
 // ::jas_kind (with_pair_model), so the Aziz + McMillan instantiation is the
 // code it was before the selector: a runtime Jastrow switch measured 14 %
 // slower on kernel A at the flagship's shape (PERF.md).
+//
+// The dimension.  Every kernel takes it as one more template parameter DP,
+// picked the same way (with_dims): DP = 3 serves dim 1, 2 and 3 with
+// per-dimension vectors of three registers whose components k >= dim are
+// zero (the code of the D <= 3 kernels as they were), and DP = 0 serves
+// every dim >= 4 with the dimension read at run time: a point is read where
+// it lies (shared or global memory, `Pt`), a displacement is recomputed
+// where it is needed again, and the per-thread sums (forces) live in the
+// block's dynamic shared memory, dim values per thread with the threads
+// interleaved (`Vec`), so no dim is refused short of the shared memory.
+// The box lengths then come from PairParams::box, a device array [2, dim]
+// (L, then L/2) in the arithmetic type.
+//
+// The storage type.  A kernel reads and writes its tensors in their dtype S
+// (float, double or __nv_bfloat16) and computes in T = compute_t<S>: S
+// itself, float for bfloat16 (Consts<float>), as the reference's kernels
+// write in R's dtype.
 #pragma once
 
+// Each source is compiled once per storage type, in parallel
+// (utils/build.py passes -DPIGS_STORAGE=0 float, 1 double, 2 bfloat16):
+// that compilation instantiates the entry points of its type alone.
+#ifndef PIGS_STORAGE
+#define PIGS_STORAGE -1  // every type
+#endif
+#define PIGS_HAS(n) (PIGS_STORAGE < 0 || PIGS_STORAGE == (n))
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -40,6 +66,7 @@ struct PairParams {
   int dim;
   int pot_kind;  // enum PotKind
   int jas_kind;  // enum JasKind
+  const void* box;  // dim >= 4: device [2, dim] (L, L/2) in compute_t<S>
 };
 
 // The same constants in the kernel's working type.
@@ -51,7 +78,124 @@ struct Consts {
   T Rm, rc, u_rc, du_rc;
   T soft_V0, Cdd;
   int c1, dim;
+  const T* box;
 };
+
+// The arithmetic type of a storage type.
+template <typename S>
+struct ComputeOf {
+  using type = S;
+};
+template <>
+struct ComputeOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using compute_t = typename ComputeOf<S>::type;
+
+// A stored value in the arithmetic type T, and back (round to nearest).
+template <typename T, typename E>
+__device__ __forceinline__ T to_c(E x) {
+  if constexpr (std::is_same<E, __nv_bfloat16>::value)
+    return T(__bfloat162float(x));
+  else
+    return T(x);
+}
+template <typename S, typename T>
+__device__ __forceinline__ S to_s(T x) {
+  if constexpr (std::is_same<S, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(float(x));
+  else
+    return S(x);
+}
+// A value rounded to the storage type S and read back: a position as the
+// tensor will hold it.
+template <typename S, typename T>
+__device__ __forceinline__ T round_s(T x) {
+  return to_c<T>(to_s<S>(x));
+}
+
+// Components of a per-dimension vector, and the dimensions a loop runs
+// over: DP, or dim at run time (DP = 0).
+template <int DP>
+__host__ __device__ constexpr int vdims(int dim) {
+  return DP > 0 ? DP : dim;
+}
+
+// Box length and half length of axis k.
+template <int DP, typename T>
+__device__ __forceinline__ T box_L(const Consts<T>& c, int k) {
+  if constexpr (DP > 0)
+    return c.L[k];
+  else
+    return c.box[k];
+}
+template <int DP, typename T>
+__device__ __forceinline__ T box_h(const Consts<T>& c, int k) {
+  if constexpr (DP > 0)
+    return c.half[k];
+  else
+    return c.box[c.dim + k];
+}
+
+// One point (dim coordinates at p, element type E) in T: DP > 0 loads it
+// into DP registers, zero past dim; DP = 0 reads it in place.
+template <typename T, typename E, int DP>
+struct Pt {
+  T v[DP];
+  __device__ __forceinline__ Pt(const Consts<T>& c, const E* p) {
+#pragma unroll
+    for (int k = 0; k < DP; ++k) v[k] = k < c.dim ? to_c<T>(p[k]) : T(0);
+  }
+  __device__ __forceinline__ T operator[](int k) const { return v[k]; }
+};
+template <typename T, typename E>
+struct Pt<T, E, 0> {
+  const E* p;
+  __device__ __forceinline__ Pt(const Consts<T>&, const E* q) : p(q) {}
+  __device__ __forceinline__ T operator[](int k) const {
+    return to_c<T>(p[k]);
+  }
+};
+
+// One thread's per-dimension sums: DP registers, or (DP = 0) dim values in
+// shared memory at stride s (the block's threads interleaved).
+template <typename T, int DP>
+struct Vec {
+  T v[DP];
+  __device__ __forceinline__ T& operator[](int k) { return v[k]; }
+  __device__ __forceinline__ const T& operator[](int k) const { return v[k]; }
+};
+template <typename T>
+struct Vec<T, 0> {
+  T* p;
+  int s;
+  __device__ __forceinline__ T& operator[](int k) const { return p[k * s]; }
+};
+
+// Vector i of thread t of the nthr threads of a block in the scratch scr
+// ([i][k][t]); DP > 0 needs no scratch.
+template <typename T, int DP>
+__device__ __forceinline__ Vec<T, DP> vec_at(T* scr, int i, int dim,
+                                            int nthr, int t) {
+  if constexpr (DP > 0) {
+    return Vec<T, DP>{};
+  } else {
+    return Vec<T, 0>{scr + (long long)i * dim * nthr + t, nthr};
+  }
+}
+
+// Shared-memory elements (of T) of the per-thread vectors of a DP = 0
+// block: nvec vectors of dim values for each of nthr threads.
+__host__ __device__ inline long long scratch_elems(int DP, int dim, int nvec,
+                                                   int nthr) {
+  return DP > 0 ? 0 : (long long)nvec * dim * nthr;
+}
+
+// Bytes rounded up to a multiple of a (a power of two).
+__host__ __device__ constexpr size_t round_up(size_t n, size_t a) {
+  return (n + a - 1) & ~(a - 1);
+}
 
 // fn(std::integral_constant<int, PK>) for the PotKind `kind`: the host
 // side of the selector.
@@ -94,9 +238,19 @@ inline int with_pair_model(const PairParams& p, Fn&& fn) {
   });
 }
 
+// fn(std::integral_constant<int, DP>) for dim: DP = 3 up to three
+// dimensions, DP = 0 (dim at run time) above.
+template <typename Fn>
+inline int with_dims(int dim, Fn&& fn) {
+  if (dim < 1) return (int)cudaErrorInvalidValue;
+  if (dim <= 3) return fn(std::integral_constant<int, 3>{});
+  return fn(std::integral_constant<int, 0>{});
+}
+
 template <typename T>
 inline Consts<T> make_consts(const PairParams& p) {
   Consts<T> c;
+  c.box = (const T*)p.box;
   for (int k = 0; k < 3; ++k) {
     c.L[k] = T(p.L[k]);
     c.half[k] = T(p.half[k]);
@@ -227,6 +381,13 @@ __device__ __forceinline__ T jastrow_u(const Consts<T>& c, T r) {
 // the one reciprocal square root (r = r^2 rsqrt(r^2)) in place of a precise
 // sqrt and a precise division, which cost the pass more instructions; the
 // results stay within a few ulp of the plain form's.
+//
+// The row passes below come in two sets: these, for dim <= 3 (DP = 3), in
+// three registers per vector, and the `_n` set for dim >= 4 (DP = 0).  A
+// single set with the dimension as a template parameter computed the same
+// values, but ptxas then held kernel A's Aziz instantiations to 64
+// registers with 40 bytes of spills, against 86 and none for this code
+// (tools/torch_kernel_regs.py; PERF.md, PR 13).
 template <int PK, int JK, typename T>
 __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
                                           const T* rj, bool notself,
@@ -255,6 +416,35 @@ __device__ __forceinline__ void pair_side(const Consts<T>& c, const T* x,
   if (need_wf && mf) u += jastrow_u_q<JK>(c, r, c.Rm * rinv);
 }
 
+// The same for dim >= 4: x and rj read in place (Pt), the displacement
+// recomputed for the force, F a thread's vector (Vec<T, 0>).
+template <int PK, int JK, typename T, typename X, typename RJ>
+__device__ __forceinline__ void pair_side_n(const Consts<T>& c, const X& x,
+                                            const RJ& rj, bool notself,
+                                            bool need_f2, bool need_wf,
+                                            T& pot, const Vec<T, 0>& F,
+                                            T& u) {
+  T r2 = T(0);
+  for (int k = 0; k < c.dim; ++k) {
+    const T d = wrap1(x[k] - rj[k], box_L<0>(c, k), box_h<0>(c, k));
+    r2 += d * d;
+  }
+  T r2s = notself ? r2 : T(1);
+  T rinv = rsqrt(r2s);
+  T r = r2s * rinv;
+  bool m = notself && r2 <= c.rcut2;
+  bool mf = m && r2 > T(0);
+  T v, dv;
+  pot_v_dv<PK>(c, r, rinv, v, dv);
+  if (m) pot += v;
+  if (need_f2 && mf) {
+    T fr = dv * rinv;
+    for (int k = 0; k < c.dim; ++k)
+      F[k] += fr * wrap1(x[k] - rj[k], box_L<0>(c, k), box_h<0>(c, k));
+  }
+  if (need_wf && mf) u += jastrow_u_q<JK>(c, r, c.Rm * rinv);
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
@@ -269,19 +459,26 @@ __device__ __forceinline__ T warp_sum(T v) {
 // ---------------------------------------------------------------------------
 
 // One row's sums: the potential and u differences (new - old) and the
-// moved particle's force on both sides.
+// moved particle's force on both sides (dim <= 3).
 template <typename T>
 struct RowPart {
   T dpot, du;
   T Fn[3], Fo[3];
 };
 
+// The same for dim >= 4, the forces a thread's two vectors.
+template <typename T>
+struct RowPartN {
+  T dpot, du;
+  Vec<T, 0> Fn, Fo;
+};
+
 // Lane l's partial sums over the partners j = l, l + G, ... < N of the row
-// P (partner j's coordinates at P[j * D], D = c.dim), for the positions
-// xn (new) and xo (old) of particle ip.
-template <int PK, int JK, typename T>
+// P (partner j's coordinates at P[j * D], D = c.dim, element type E), for
+// the positions xn (new) and xo (old) of particle ip.
+template <int PK, int JK, typename T, typename E>
 __device__ __forceinline__ RowPart<T> row_part(const Consts<T>& c,
-                                               const T* P, int N,
+                                               const E* P, int N,
                                                long long ip, const T* xn,
                                                const T* xo, bool need_f2,
                                                bool need_wf, int l, int G) {
@@ -292,10 +489,34 @@ __device__ __forceinline__ RowPart<T> row_part(const Consts<T>& c,
   for (int j = l; j < N; j += G) {
     T rj[3];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) rj[k] = k < c.dim ? P[j * c.dim + k] : T(0);
+    for (int k = 0; k < 3; ++k)
+      rj[k] = k < c.dim ? to_c<T>(P[j * c.dim + k]) : T(0);
     const bool notself = j != ip;
     pair_side<PK, JK>(c, xn, rj, notself, need_f2, need_wf, pn, r.Fn, un);
     pair_side<PK, JK>(c, xo, rj, notself, need_f2, need_wf, po, r.Fo, uo);
+  }
+  r.dpot = pn - po;
+  r.du = un - uo;
+  return r;
+}
+
+// The same for dim >= 4, its forces in the thread's vectors 2 i and 2 i + 1
+// of the scratch scr ([i][k][t] of nthr threads).
+template <int PK, int JK, typename T, typename E, typename XN, typename XO>
+__device__ __forceinline__ RowPartN<T> row_part_n(
+    const Consts<T>& c, const E* P, int N, long long ip, const XN& xn,
+    const XO& xo, bool need_f2, bool need_wf, int l, int G, T* scr, int i,
+    int nthr, int t) {
+  T pn = T(0), po = T(0), un = T(0), uo = T(0);
+  RowPartN<T> r;
+  r.Fn = vec_at<T, 0>(scr, 2 * i, c.dim, nthr, t);
+  r.Fo = vec_at<T, 0>(scr, 2 * i + 1, c.dim, nthr, t);
+  for (int k = 0; k < c.dim; ++k) r.Fn[k] = r.Fo[k] = T(0);
+  for (int j = l; j < N; j += G) {
+    const Pt<T, E, 0> rj(c, P + j * c.dim);
+    const bool notself = j != ip;
+    pair_side_n<PK, JK>(c, xn, rj, notself, need_f2, need_wf, pn, r.Fn, un);
+    pair_side_n<PK, JK>(c, xo, rj, notself, need_f2, need_wf, po, r.Fo, uo);
   }
   r.dpot = pn - po;
   r.du = un - uo;
@@ -326,6 +547,21 @@ __device__ __forceinline__ void group_sum(RowPart<T>& r, int width,
   if (need_wf) r.du = group_sum(r.du, width, mask);
 }
 
+template <typename T>
+__device__ __forceinline__ void group_sum_n(const Consts<T>& c,
+                                            RowPartN<T>& r, int width,
+                                            unsigned mask, bool need_f2,
+                                            bool need_wf) {
+  r.dpot = group_sum(r.dpot, width, mask);
+  if (need_f2) {
+    for (int k = 0; k < c.dim; ++k) {
+      r.Fn[k] = group_sum(T(r.Fn[k]), width, mask);
+      r.Fo[k] = group_sum(T(r.Fo[k]), width, mask);
+    }
+  }
+  if (need_wf) r.du = group_sum(r.du, width, mask);
+}
+
 // Lanes of the aligned group of `width` lanes that holds lane `lane` of
 // its warp.
 __device__ __forceinline__ unsigned group_mask(int lane, int width) {
@@ -350,6 +586,26 @@ __device__ __forceinline__ T row_ds(const RowPart<T>& r, T wv, T wf, T wpsi,
     dS = dS + wf * (f2n - f2o);
   }
   if (need_wf) dS = dS - wpsi * r.du;
+  return dS;
+}
+
+// The same from the row's sums for dim >= 4: dpot, du and the force
+// components at stride s of F2n / F2o (a RowPartN's vectors, or a row's
+// entries in shared memory).
+template <typename T, typename FV>
+__device__ __forceinline__ T row_ds_n(int dim, T dpot, T du, const FV& Fn,
+                                      const FV& Fo, T wv, T wf, T wpsi,
+                                      bool need_f2, bool need_wf) {
+  T dS = wv * dpot;
+  if (need_f2) {
+    T f2n = T(0), f2o = T(0);
+    for (int k = 0; k < dim; ++k) {
+      f2n += Fn[k] * Fn[k];
+      f2o += Fo[k] * Fo[k];
+    }
+    dS = dS + wf * (f2n - f2o);
+  }
+  if (need_wf) dS = dS - wpsi * du;
   return dS;
 }
 

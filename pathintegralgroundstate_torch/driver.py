@@ -49,7 +49,7 @@ from .parallel.beadshard import check_sp_config
 from .parallel.mesh import gather_state, init_from_env, local_device, \
     make_mesh, reduce_stats
 from .state import MCState, generator_states, init_state, \
-    set_generator_states, state_from_numpy, state_to_numpy
+    set_generator_states, state_from_numpy, state_to_numpy, to_numpy
 from .sweep import _CIDX, StepStats, Sweeper, bead_updates_per_step, \
     run_block, stats_to_numpy, zero_stats
 from .system import System, make_system
@@ -220,13 +220,12 @@ class Driver:
         n = min(self.cfg.Nmax, 10000)
         r = (np.arange(1, n + 1) - 1) * dr
         if tables.logwf is not None:
-            wf = tables.logwf[1:n + 1].cpu().numpy()
+            wf = to_numpy(tables.logwf[1:n + 1])
             np.savetxt(os.path.join(self.out_dir, "jastrow.out"),
                        np.column_stack([r, np.exp(wf), wf]))
         if tables.vtab is not None:
             np.savetxt(os.path.join(self.out_dir, "potential.out"),
-                       np.column_stack([r, tables.vtab[1:n + 1].cpu()
-                                        .numpy()]))
+                       np.column_stack([r, to_numpy(tables.vtab[1:n + 1])]))
 
     # ------------------------------------------------------------------
 

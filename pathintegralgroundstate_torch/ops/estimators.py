@@ -67,13 +67,15 @@ def therm_energy(system, paths):
 def pair_correlation(system, R, weight):
     """g(r) histogram (PairCorrelation, sample_mod.f90:392-431): weight 2
     per pair within rcut (the full N x N matrix), walker w's pairs
-    scaled by weight[w].  R [W, N, D]; returns gr[Nbin]."""
+    scaled by weight[w].  R [W, N, D]; returns gr[Nbin], summed in
+    system.stat_dtype."""
     cfg = system.cfg
     m, r, _ = all_pairs(system, R)
     ibin = torch.clamp((r / system.geo.rbin).long(), 0, cfg.Nbin - 1)
     w = m.to(R.dtype) * weight[:, None, None]
-    return torch.zeros(cfg.Nbin, dtype=R.dtype, device=R.device).index_add_(
-        0, ibin.flatten(), w.flatten())
+    acc = system.stat_dtype
+    return torch.zeros(cfg.Nbin, dtype=acc, device=R.device).index_add_(
+        0, ibin.flatten(), w.flatten().to(acc))
 
 
 def structure_factor(system, Nk: int, R):
@@ -104,5 +106,6 @@ def density_map(system, R, weight):
     ok = (ix >= 0) & (ix < nb) & (iy >= 0) & (iy < nb)
     idx = torch.where(ok, ix * nb + iy, 0)
     w = torch.where(ok, weight[:, None], 0.0)
-    return torch.zeros(nb * nb, dtype=R.dtype, device=R.device).index_add_(
-        0, idx.flatten(), w.flatten()).view(nb, nb)
+    acc = system.stat_dtype
+    return torch.zeros(nb * nb, dtype=acc, device=R.device).index_add_(
+        0, idx.flatten(), w.flatten().to(acc)).view(nb, nb)

@@ -27,6 +27,10 @@ them).  Otherwise, on a CUDA tensor, it launches the kernel or raises;
 there is no fallback.  Each wrapper's `.launches` counts
 its kernel's launches, and nothing else.
 
+Every kernel takes float32, float64 and bfloat16 tensors (bfloat16 stored
+and written as such, its arithmetic in float32) and every dim >= 1 (dim
+above 3 with the box lengths from a small device array, `_params`).
+
 Under a tp mesh (System.tp, parallel/mesh.py) the plain forms are the
 partner seam: each rank evaluates its N/tp partners (pair_terms_ref,
 pair_delta_ref, pair_u_ref) or its N/tp particles' rows (pair_pot_ref)
@@ -369,22 +373,44 @@ class _PairParams(ctypes.Structure):
             "two_beta", "C6", "C8", "C10", "Dcore", "d_min", "d_min_inv",
             "two_C8", "four_C10", "Rm", "rc", "u_rc", "du_rc", "soft_V0",
             "Cdd")] + [
-        (n, ctypes.c_int) for n in ("c1", "dim", "pot_kind", "jas_kind")]
+        (n, ctypes.c_int) for n in ("c1", "dim", "pot_kind", "jas_kind")] + [
+        ("box", ctypes.c_void_p)]
 
 
-def _params(system) -> _PairParams:
-    p = system._consts.get("kernel_params")
+KERNEL_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+def compute_dtype(dtype):
+    """The kernels' arithmetic type for tensors of dtype: float32 for
+    bfloat16 (compute_t in csrc/pigs_pair.cuh), else dtype."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _params(system, R) -> _PairParams:
+    """The pair parameters of the kernels on R (one block per arithmetic
+    type and device).  L and half hold the first three box lengths; for
+    dim > 3 `box` points at a device array [2, dim] of the lengths and half
+    lengths in the arithmetic type, kept with the block."""
+    ct = compute_dtype(R.dtype)
+    key = ("kernel_params", ct, R.device)
+    p = system._consts.get(key)
     if p is None:
         geo, cfg = system.geo, system.cfg
-        L = list(geo.Lbox) + [0.0] * (3 - cfg.dim)
+        L = (list(geo.Lbox) + [0.0] * 3)[:3]
+        box = None
+        if cfg.dim > 3:
+            box = torch.tensor(list(geo.Lbox) + [0.5 * x for x in geo.Lbox],
+                               dtype=ct, device=R.device)
         p = _PairParams(
             L=(ctypes.c_double * 3)(*L),
             half=(ctypes.c_double * 3)(*[0.5 * x for x in L]),
             rcut2=geo.rcut2, Rm=cfg.Rm, rc=geo.rcut, u_rc=system.u_rc,
             du_rc=system.du_rc, c1=int(system.c1), dim=cfg.dim,
             pot_kind=system.potential.kind, jas_kind=system.jas_kind,
+            box=box.data_ptr() if box is not None else None,
             **system.potential.consts)
-        system._consts["kernel_params"] = p
+        system._consts[key] = p
+        system._consts[key + ("box",)] = box
     return p
 
 
@@ -392,11 +418,12 @@ def _check(name, system, R, *xs):
     if R.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
                          f"device, got {R.device}")
-    if R.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: float32 or float64 only, got {R.dtype}")
-    if R.dim() != 4 or R.shape[-1] != system.cfg.dim or R.shape[-1] > 3:
-        raise ValueError(f"{name}: R must be [W, B, N, D<=3], got "
-                         f"{tuple(R.shape)}")
+    if R.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: float32, float64 or bfloat16, got "
+                        f"{R.dtype}")
+    if R.dim() != 4 or R.shape[-1] != system.cfg.dim:
+        raise ValueError(f"{name}: R must be [W, B, N, D={system.cfg.dim}], "
+                         f"got {tuple(R.shape)}")
     for t in (R,) + xs:
         if t.device != R.device or t.dtype != R.dtype:
             raise ValueError(f"{name}: all tensors on {R.device} in {R.dtype}")
@@ -430,7 +457,8 @@ def _ip_args(name, R, ip):
 
 
 def _suffix(dtype):
-    return "f32" if dtype == torch.float32 else "f64"
+    return {torch.float32: "f32", torch.float64: "f64",
+            torch.bfloat16: "bf16"}[dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +492,8 @@ def rows_lanes(W: int, B: int, N: int) -> int:
     return ROWS_LANES[-1]
 
 
-def rows_layout(W: int, B: int, N: int, D: int, esize: int, G: int):
+def rows_layout(W: int, B: int, N: int, D: int, esize: int, G: int,
+                tsize: int = None):
     """(spw, wpb, slab, smem bytes) of one kernel-A launch: row slots per
     walker (all B rows at once up to 512 threads a walker, else balanced
     passes), walkers per block (up to ROWS_BLOCK threads), the shared-memory
@@ -472,17 +501,26 @@ def rows_layout(W: int, B: int, N: int, D: int, esize: int, G: int):
     N*D partners, padded so that slot g's start falls D*G elements (G lanes
     of one partner each) after slot g-1's modulo the 32 banks: the lanes of
     a warp then read distinct banks.  Fewer slots when the block would
-    exceed SMEM_MAX; raises ValueError when one slot does."""
+    exceed SMEM_MAX; raises ValueError when one slot does.  esize: the
+    bytes of a stored element; tsize: of the arithmetic type (esize when
+    None), whose row sums follow the rows, with D > 3 also each lane's two
+    force vectors (csrc/pair_rows.cu)."""
+    tsize = tsize or esize
     bank = 32 * 4 // esize
     slab = N * D + (D * G - N * D) % bank
-    per = (slab + 1) * esize          # a slot's partners and its sum
-    most = SMEM_MAX // per
+    if esize == 2:   # keep every slot 16-byte aligned for the copies
+        slab += -slab % 8
+    # a slot's partners, its sum and (D > 3) its lanes' force sums; the
+    # rows' bytes are rounded up to tsize once per block (below)
+    per = slab * esize + tsize + (2 * D * G * tsize if D > 3 else 0)
+    most = (SMEM_MAX - (tsize - esize)) // per
     if most == 0:
         raise ValueError(f"pair_rows: a row of {N} partners needs {per} "
                          f"bytes of shared memory, more than {SMEM_MAX}")
     spw = -(-B // max(-(-B * G // 512), -(-B // most)))
     wpb = max(1, min(W, ROWS_BLOCK // (G * spw), most // spw))
-    return spw, wpb, slab, wpb * spw * per
+    rows = -(-wpb * spw * slab * esize // tsize) * tsize
+    return spw, wpb, slab, rows + wpb * spw * (per - slab * esize)
 
 
 def slabs16(t) -> bool:
@@ -532,7 +570,9 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
         raise ValueError(f"pair_rows: row_weights must be a contiguous "
                          f"[B] tensor on {R.device} in {R.dtype}")
     G = rows_lanes(W * (system.mesh.dp if system.mesh else 1), B, N)
-    spw, wpb, slab, _ = rows_layout(W, B, N, D, R.element_size(), G)
+    spw, wpb, slab, _ = rows_layout(
+        W, B, N, D, R.element_size(), G,
+        torch.finfo(compute_dtype(R.dtype)).bits // 8)
     out = torch.empty((W,) if reduce else (W, B), dtype=R.dtype,
                       device=R.device)
     sW, sB, sN, _ = R.stride()
@@ -548,7 +588,7 @@ def pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf=True, need_f2=True,
                   reduce=int(reduce), G=G, spw=spw, wpb=wpb, slab=slab,
                   vec16=int(slabs16(R)))
     fn = getattr(kernels(), "pigs_pair_rows_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), base,
+    err = fn(ctypes.byref(_params(system, R)), ctypes.byref(a), base,
              xnew.data_ptr(), xold.data_ptr(),
              ip_t.data_ptr() if ip_t is not None else None, ib.data_ptr(),
              tab.data_ptr(),
@@ -590,7 +630,7 @@ def pair_pot(system, R, with_force=False):
     a = _PotArgs(sRw=sW, sRb=sB, sRn=sN, W=W, B=B, N=N,
                  vec16=int(slabs16(R)))
     fn = getattr(kernels(), "pigs_pair_pot_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
+    err = fn(ctypes.byref(_params(system, R)), ctypes.byref(a), R.data_ptr(),
              int(with_force), out[0].data_ptr(), out[1].data_ptr(),
              torch.cuda.current_stream(R.device).cuda_stream)
     if err:
@@ -642,7 +682,7 @@ def _dense(name, system, R, xnew, xold, ip, mode, with_force, tab=None,
     out = torch.empty((2 if mode == _RAW else 1, W, B), dtype=R.dtype,
                       device=R.device)
     fn = getattr(kernels(), "pigs_pair_delta_" + _suffix(R.dtype))
-    err = fn(ctypes.byref(_params(system)), ctypes.byref(a), R.data_ptr(),
+    err = fn(ctypes.byref(_params(system, R)), ctypes.byref(a), R.data_ptr(),
              xnew.data_ptr(), xold.data_ptr(),
              ip_t.data_ptr() if ip_t is not None else None, mode,
              int(with_force),
@@ -696,13 +736,21 @@ MAX_SLOTS = 64          # kMaxSlots in csrc/cascade.cu
 CASCADE_BLOCK = 64      # kThreads in csrc/cascade.cu: threads per slot
 
 
-def cascade_smem(L: int, N: int, D: int, esize: int, ngate: int = 5) -> int:
-    """Kernel 5's shared memory per block (cascade_smem_elems in
-    csrc/cascade.cu): the window's L+1 partner rows, the moved particle's
-    old and proposed positions and the slot's gaussians, its ngate gate
-    uniforms, and two sets of a gate's row sums."""
-    buf = max(L // 2, CASCADE_BLOCK // 4)
-    return ((L + 1) * N * D + 9 * (L + 1) + ngate + 2 * buf) * esize
+def cascade_smem(L: int, N: int, D: int, esize: int, ngate: int = 5,
+                 tsize: int = None) -> int:
+    """Kernel 5's shared memory per block (cascade_smem_bytes in
+    csrc/cascade.cu): the window's L+1 partner rows (esize bytes an
+    element), then in the arithmetic type (tsize bytes, esize when None)
+    the moved particle's old and proposed positions and the slot's
+    gaussians (DV = 3 components for D <= 3, else D), its ngate gate
+    uniforms, two sets of a gate's row sums and, for D > 3, three vectors
+    of D per thread."""
+    tsize = tsize or esize
+    DV = 3 if D <= 3 else D
+    buf = max(L // 2, (CASCADE_BLOCK // 32) * (2 + 2 * DV))
+    scratch = 3 * D * CASCADE_BLOCK if D > 3 else 0
+    rows = -(-(L + 1) * N * D * esize // tsize) * tsize
+    return rows + (3 * (L + 1) * DV + ngate + 2 * buf + scratch) * tsize
 
 
 class _CascadeArgs(ctypes.Structure):
@@ -757,7 +805,8 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
             or act.device != paths.device:
         raise ValueError(f"cascade: act must be a bool tensor {(W, S)} on "
                          f"{paths.device}")
-    smem = cascade_smem(L, N, D, paths.element_size(), G)
+    smem = cascade_smem(L, N, D, paths.element_size(), G,
+                        torch.finfo(compute_dtype(paths.dtype)).bits // 8)
     if smem > SMEM_MAX:
         raise ValueError(f"cascade: a window of {L} links of {N} particles "
                          f"needs {smem} bytes of shared memory, more than "
@@ -777,7 +826,7 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
     # one bulk copy per window where a window is one aligned contiguous slab
     bulk = slabs16(paths) and sM == N * D
     fn = getattr(kernels(), "pigs_cascade_" + _suffix(paths.dtype))
-    err = fn(ctypes.byref(_params(system)), ctypes.byref(a),
+    err = fn(ctypes.byref(_params(system, paths)), ctypes.byref(a),
              paths.data_ptr(), sW, sM, sN, rg.data_ptr(), ru.data_ptr(),
              act.data_ptr(), act.stride(0), act.stride(1), acc.data_ptr(),
              W, S, N, L, nlev, int(mode == "ends"), int(bulk),

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .parallel.mesh import shard_state
+from .utils.draws import uniform
 
 _FIELDS = ("paths", "xend", "isopen", "iworm", "in_cycle", "iperm")
 
@@ -64,8 +65,7 @@ def init_state(system, seed=None, init_positions=None) -> MCState:
     cfg = system.cfg
     W, M, N, D = cfg.n_walkers, cfg.M, cfg.Np, cfg.dim
     gen, host = _generators(system, cfg.seed if seed is None else seed)
-    u = torch.rand((W, N, D), generator=gen, device=system.device,
-                   dtype=system.dtype) - 0.5
+    u = uniform((W, N, D), gen, system.device, system.dtype) - 0.5
     if init_positions is not None:
         R = torch.as_tensor(np.asarray(init_positions), dtype=system.dtype,
                             device=system.device).expand(W, N, D)
@@ -84,14 +84,30 @@ def init_state(system, seed=None, init_positions=None) -> MCState:
     return shard_state(system, state)
 
 
+def host_array(x) -> np.ndarray:
+    """x as a numpy array torch can take: a bfloat16 array (JAX's
+    ml_dtypes.bfloat16, which torch.from_numpy refuses) as float32, which
+    holds every bfloat16 value exactly."""
+    a = np.array(x)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of t as numpy; bfloat16 (which numpy lacks) as float32,
+    exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
 def state_from_numpy(system, d: dict, seed=None) -> MCState:
     """MCState from the reference state's fields ({name: array}); the key
     is not carried: the generators are seeded from `seed` (cfg.seed)."""
     kw = dict(device=system.device)
     gen, host = _generators(system, system.cfg.seed if seed is None else seed)
     return shard_state(system, MCState(
-        paths=torch.as_tensor(np.array(d["paths"]), dtype=system.dtype, **kw),
-        xend=torch.as_tensor(np.array(d["xend"]), dtype=system.dtype, **kw),
+        paths=torch.as_tensor(host_array(d["paths"]), dtype=system.dtype,
+                              **kw),
+        xend=torch.as_tensor(host_array(d["xend"]), dtype=system.dtype, **kw),
         isopen=torch.as_tensor(np.array(d["isopen"]), dtype=torch.bool, **kw),
         iworm=torch.as_tensor(np.array(d["iworm"]), dtype=torch.long, **kw),
         in_cycle=torch.as_tensor(np.array(d["in_cycle"]), dtype=torch.bool,
@@ -119,8 +135,7 @@ def set_generator_states(state: MCState, gen_state, host_gen_state) -> None:
 
 def state_to_numpy(state: MCState) -> dict:
     """{field: numpy array} of the state, copied (the generators are not
-    carried)."""
-    out = {k: getattr(state, k).detach().cpu().numpy().copy()
-           for k in _FIELDS}
+    carried); bfloat16 positions as float32, exactly."""
+    out = {k: to_numpy(getattr(state, k)) for k in _FIELDS}
     out["step"] = np.int32(state.step)
     return out

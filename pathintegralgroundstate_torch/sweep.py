@@ -104,8 +104,11 @@ BATCH_RAND_MAX_W = 1024
 
 
 def zero_stats(system) -> StepStats:
+    """Zero statistics in system.stat_dtype (float32 but in float64, as the
+    reference's zero_stats, sweep.py:87): a bfloat16 run counts and sums
+    in float32."""
     cfg = system.cfg
-    kw = dict(dtype=system.dtype, device=system.device)
+    kw = dict(dtype=system.stat_dtype, device=system.device)
     z = lambda *shape: torch.zeros(shape, **kw)  # noqa: E731
     return StepStats(
         n_diag=z(), n_diag_all=z(), sumE=z(), sumK=z(), sumV=z(), sumE2=z(),
@@ -123,7 +126,7 @@ def stats_from_numpy(system, d: dict) -> StepStats:
     return StepStats(**{
         k: torch.as_tensor(np.array(d[k]), device=system.device,
                            dtype=torch.int32 if k == "counters"
-                           else system.dtype)
+                           else system.stat_dtype)
         for k in StepStats._fields})
 
 
@@ -254,7 +257,7 @@ class Sweeper:
                 system, paths, xend, iworm, do_close, Lstag,
                 src.worm(1, W, Lstag), fodd)
             perm_hist.index_add_(0, (iperm - 1).clamp(0, Np - 1),
-                                 closed.to(dtype))
+                                 closed.to(perm_hist.dtype))
             isopen = isopen & ~closed
             do_open = ~isopen & ~closed & (iupdate == 1)
             cand = src.cand(W, Np)
@@ -350,7 +353,7 @@ class Sweeper:
                 # OBDM in both geometries (obdm_terms)
                 ibin, wpw, valid = wm.obdm_terms(system, xend)
                 contrib = wpw * (act & valid)[:, None].to(dtype)
-                nrho.index_add_(1, ibin, contrib.T)
+                nrho.index_add_(1, ibin, contrib.T.to(nrho.dtype))
             ctr[_CIDX["try_cm_half"]] += 2 * cfg.Nobdm * nact
             ctr[_CIDX["try_stag_half"]] += 2 * cfg.Nobdm * nact
             count("acc_cm_half", acc6[0])

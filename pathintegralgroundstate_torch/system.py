@@ -17,8 +17,12 @@ A System may carry its rank's place in a dp x tp mesh or an sp ring
 partner axis, and every kernel route (ops/kernels.py) is then off, as the
 reference routes its kernels off under a tp mesh.
 
-The constructor refuses only what no slice ports (a dtype other than
-float32 and float64, dim > 3) with NotImplementedError.
+The constructor takes every dim >= 1 and the dtypes float32, float64 and
+bfloat16 (the TPU's own: state and pair arithmetic in bfloat16, the
+statistics in float32, as the reference keeps them, `stat_dtype`).  It
+refuses float16 with NotImplementedError: the reference's Aziz constant
+A = 1.8443101e5 is beyond float16's largest value, 65504, so its Aziz
+potential is inf or NaN at every r and there is nothing to port.
 """
 
 from __future__ import annotations
@@ -41,17 +45,21 @@ _JASTROWS = {"mcmillan": JAS_MCMILLAN, "mcmillan_c1": JAS_MCMILLAN,
              "dipolar2d": JAS_DIPOLAR, "none": JAS_NONE}
 
 
+DTYPES = ("float32", "float64", "bfloat16")
+
+
 def check_supported(cfg: SimConfig) -> None:
-    """Raise NotImplementedError for options the port does not run yet."""
-    waits = [
-        (cfg.dtype not in ("float32", "float64"), f"dtype={cfg.dtype!r}",
-         "no slice (float32 and float64 only)"),
-        (cfg.dim > 3, f"dim={cfg.dim}", "no slice (the kernels take D <= 3)"),
-    ]
-    for bad, what, item in waits:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to torch yet: ROADMAP queue 1, {item}")
+    """Raise NotImplementedError for float16, ValueError for a dtype that
+    neither package runs, an unknown Jastrow or potential."""
+    if cfg.dtype == "float16":
+        raise NotImplementedError(
+            "dtype='float16' is not run: the reference's Aziz constant "
+            "A = 1.8443101e5 exceeds float16's largest value 65504, so its "
+            "Aziz potential is inf or NaN at every r (ROADMAP, not faults)")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"unknown dtype {cfg.dtype!r}; known: {DTYPES}")
+    if cfg.dim < 1:
+        raise ValueError(f"dim must be >= 1, got {cfg.dim}")
     if cfg.jastrow not in _JASTROWS:
         raise ValueError(f"unknown jastrow {cfg.jastrow!r}; known: "
                          f"{sorted(_JASTROWS)}")
@@ -100,6 +108,12 @@ class System:
     @property
     def M(self) -> int:
         return self.cfg.M
+
+    @property
+    def stat_dtype(self) -> torch.dtype:
+        """The statistics' dtype: float64 in float64, else float32 (the
+        reference's zero_stats, sweep.py:87)."""
+        return torch.float64 if self.dtype == torch.float64 else torch.float32
 
     @property
     def pbc(self) -> bool:

@@ -1,7 +1,9 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu).
 
-`nvcc` compiles every source under pathintegralgroundstate_torch/csrc, one
-process per source, all started together, and links the objects into one
+`nvcc` compiles every source under pathintegralgroundstate_torch/csrc once
+per storage type (float32, float64, bfloat16: -DPIGS_STORAGE=0, 1, 2, each
+compilation instantiating that type's entry points), one process per
+source and type, all started together, and links the objects into one
 shared library with a plain C interface, at first use, into
 build/pigs_torch_kernels/<hash>/ beside the package (the hash covers the
 sources and the flags, so an edited source rebuilds).  The library is bound
@@ -26,6 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pigs_torch_kernels
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libpigs_kernels.so"
+STORAGE = ("f32", "f64", "bf16")   # -DPIGS_STORAGE=0, 1, 2 (pigs_pair.cuh)
 
 
 def _nvcc() -> str:
@@ -59,12 +62,15 @@ def build() -> tuple[Path, float, str]:
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs = [out_dir / f"{f.stem}.{os.getpid()}.o" for f in cu]
+    units = [(f, t) for f in cu for t in range(len(STORAGE))]
+    objs = [out_dir / f"{f.stem}.{STORAGE[t]}.{os.getpid()}.o"
+            for f, t in units]
     try:
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(f)], stdout=subprocess.PIPE,
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-DPIGS_STORAGE={t}",
+                                   "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for f, o in zip(cu, objs)]
+                 for (f, t), o in zip(units, objs)]
         text = "".join(pr.communicate()[0] for pr in procs)
         if any(pr.returncode for pr in procs):
             raise RuntimeError(f"nvcc failed:\n{text}")
@@ -86,15 +92,16 @@ def build() -> tuple[Path, float, str]:
 
 def ptxas_summary(log: str) -> list:
     """One line per kernel of nvcc's -Xptxas -v log: its name with its
-    template arguments (type, then its int and bool arguments: lanes,
-    block size, mode, force, pair model), registers and spills."""
+    template arguments (storage type, then its int and bool arguments:
+    lanes, block size, mode, force, pair model, and last the dimension
+    variant DP: 3 for dim <= 3, 0 for dim >= 4), registers and spills."""
     name, spill, out = "?", "", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
-                      r"pair_delta|pair_u|cascade)_kernel)I([fd])"
-                      r"((?:L[ib]\d+E)*)", line)
+                      r"pair_delta|pair_u|cascade)_kernel)"
+                      r"I(f|d|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
         if m:
-            args = ["float" if m.group(2) == "f" else "double"] + [
+            args = [{"f": "float", "d": "double"}.get(m.group(2), "bf16")] + [
                 v if t == "i" else ("true" if v == "1" else "false")
                 for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
             name = f"{m.group(1)}<{', '.join(args)}>"
@@ -121,15 +128,11 @@ def kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first call, once per process)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    for name, args in (("pigs_pair_rows_f32", _ROWS_ARGS),
-                       ("pigs_pair_rows_f64", _ROWS_ARGS),
-                       ("pigs_pair_pot_f32", _POT_ARGS),
-                       ("pigs_pair_pot_f64", _POT_ARGS),
-                       ("pigs_pair_delta_f32", _DELTA_ARGS),
-                       ("pigs_pair_delta_f64", _DELTA_ARGS),
-                       ("pigs_cascade_f32", _CASCADE_ARGS),
-                       ("pigs_cascade_f64", _CASCADE_ARGS)):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = ctypes.c_int
+    for kernel, args in (("pair_rows", _ROWS_ARGS), ("pair_pot", _POT_ARGS),
+                         ("pair_delta", _DELTA_ARGS),
+                         ("cascade", _CASCADE_ARGS)):
+        for suffix in STORAGE:
+            fn = getattr(lib, f"pigs_{kernel}_{suffix}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib

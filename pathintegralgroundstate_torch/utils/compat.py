@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..state import MCState, _generators
+from ..state import MCState, _generators, to_numpy
 
 
 def _parse_logical(tok: str) -> bool:
@@ -73,8 +73,8 @@ def write_reference_checkpoint(system, state: MCState, path: str,
     (CheckPoint, vpi_mod.f90:273-304), so the Fortran code can resume from
     it."""
     cfg = system.cfg
-    p = state.paths[walker].detach().cpu().numpy()        # [M, N, D]
-    xend = state.xend[walker].detach().cpu().numpy()
+    p = to_numpy(state.paths[walker])                     # [M, N, D]
+    xend = to_numpy(state.xend[walker])
     isopen = bool(state.isopen[walker])
     iworm = int(state.iworm[walker]) + 1
     with open(path, "w") as f:

@@ -32,6 +32,14 @@ generator is seeded alike on every rank: a sharded run then draws exactly
 the numbers of the unsharded run of the same seed, at dp times the random
 number work per rank (parallel/mesh.py).  Under bead sharding (sp) every
 rank draws every shard's window in the same way (`sp_staging`).
+
+In bfloat16 the draws follow the reference's law, not torch's: its
+uniform is k/128 with k uniform on {0, ..., 127} (jax.random.uniform keeps
+the top 7 of 16 random bits as the mantissa of a number in [1, 2)), and
+its Gaussian sqrt(2) erfinv(u) of that uniform scaled to (nextafter(-1,
+0), 1) in bfloat16, so it too takes 128 values (`uniform`, `normal`,
+`bf16_normal_table`).  Both are drawn on the device as an integer k and
+need no host sync; float32 and float64 draw with torch.rand / randn.
 """
 
 from __future__ import annotations
@@ -40,6 +48,41 @@ import torch
 
 from ..ops.moves import _rand_ls
 from ..ops.worm import SwapDraws, WormDraws, _rand_even_ls
+
+BF16_LEVELS = 128   # 2**7: the values of a bfloat16 uniform (7 mantissa bits)
+
+
+def bf16_normal_table(device) -> torch.Tensor:
+    """The 128 values of the reference's bfloat16 Gaussian, by k: sqrt(2)
+    erfinv(u_k) with u_k = max(lo, (k/128) (1 - lo) + lo), lo =
+    nextafter(-1, 0), every operation in bfloat16 as jax.random.normal
+    does it (_normal_real)."""
+    bf = dict(dtype=torch.bfloat16, device=device)
+    lo = torch.tensor(-1.0 + 2.0 ** -8, **bf)     # nextafter(-1, 0)
+    f = torch.arange(BF16_LEVELS, device=device).to(torch.bfloat16) \
+        / BF16_LEVELS
+    u = torch.maximum(lo, f * (torch.tensor(1.0, **bf) - lo) + lo)
+    return torch.erfinv(u) * torch.tensor(2.0 ** 0.5, **bf)
+
+
+def uniform(shape, gen, device, dtype) -> torch.Tensor:
+    """Uniforms on [0, 1): torch.rand, or in bfloat16 the reference's
+    k/128."""
+    if dtype != torch.bfloat16:
+        return torch.rand(shape, generator=gen, device=device, dtype=dtype)
+    k = torch.randint(0, BF16_LEVELS, shape, generator=gen, device=device)
+    return k.to(dtype) / BF16_LEVELS
+
+
+def normal(shape, gen, device, dtype, table=None) -> torch.Tensor:
+    """Standard Gaussians: torch.randn, or in bfloat16 the reference's
+    128-value law (table: bf16_normal_table on device, made if None)."""
+    if dtype != torch.bfloat16:
+        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    if table is None:
+        table = bf16_normal_table(device)
+    return table[torch.randint(0, BF16_LEVELS, shape, generator=gen,
+                               device=device)]
 
 
 class DeviceDraws:
@@ -51,6 +94,8 @@ class DeviceDraws:
         self.shared = system.cfg.shared_windows
         mesh = system.mesh
         self.dp, self.dp_rank = (mesh.dp, mesh.dp_rank) if mesh else (1, 0)
+        self.table = (bf16_normal_table(self.device)
+                      if self.dtype == torch.bfloat16 else None)
 
     def begin_step(self) -> None:
         """Start of a step (the bridge splits its step key here)."""
@@ -76,15 +121,17 @@ class DeviceDraws:
 
     def _u(self, *shape, axis=0):
         """Uniforms of `shape`, walkers (this rank's) on `axis`."""
-        return self._keep(torch.rand(self._global(shape, axis),
-                                     generator=self.gen, device=self.device,
-                                     dtype=self.dtype), axis)
+        return self._keep(self._rand(self._global(shape, axis)), axis)
 
     def _g(self, *shape, axis=0):
         """Gaussians of `shape`, walkers on `axis`."""
-        return self._keep(torch.randn(self._global(shape, axis),
-                                      generator=self.gen, device=self.device,
-                                      dtype=self.dtype), axis)
+        return self._keep(self._randn(self._global(shape, axis)), axis)
+
+    def _rand(self, shape):
+        return uniform(shape, self.gen, self.device, self.dtype)
+
+    def _randn(self, shape):
+        return normal(shape, self.gen, self.device, self.dtype, self.table)
 
     def _int(self, hi: int, W: int):
         return self._keep(torch.randint(0, hi, (W * self.dp,),
@@ -200,14 +247,12 @@ class DeviceDraws:
     def _regrow(self, W: int, Lmax: int, blocks: int = 1):
         """(Ls [W], g0 [W, D], gs [Lmax-1, W, D], u_acc [W]) of W walkers
         made of `blocks` runs of walkers (the fused ends' head and tail)."""
-        Wg, kw = W * self.dp, dict(generator=self.gen, device=self.device)
-        fl = dict(kw, dtype=self.dtype)
+        Wg = W * self.dp
         return (self._keep(_rand_ls(self.gen, Wg, Lmax, self.device), 0,
                            blocks),
-                self._keep(torch.randn((Wg, self.D), **fl), 0, blocks),
-                self._keep(torch.randn((Lmax - 1, Wg, self.D), **fl), 1,
-                           blocks),
-                self._keep(torch.rand((Wg,), **fl), 0, blocks))
+                self._keep(self._randn((Wg, self.D)), 0, blocks),
+                self._keep(self._randn((Lmax - 1, Wg, self.D)), 1, blocks),
+                self._keep(self._rand((Wg,)), 0, blocks))
 
     def staging_half(self, tag: int, it: int, W: int, n_opts: int, L: int):
         """staging_half_chain (tags 45, 46) and staging_move (tag 22):

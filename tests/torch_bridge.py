@@ -26,8 +26,13 @@ split, fold_in = jax.random.split, jax.random.fold_in
 
 
 def tt(x):
-    """jax array -> torch tensor (a copy, same dtype)."""
-    return torch.from_numpy(np.array(x))
+    """jax array -> torch tensor (a copy, same dtype); bfloat16 (numpy's
+    ml_dtypes.bfloat16, which torch.from_numpy refuses) through float32,
+    which holds every bfloat16 value exactly."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def ti(x):

@@ -6,8 +6,9 @@ Each ROOT is a checkout of the repo (e.g. an earlier commit unpacked with
 `git archive <commit> | tar -x -C build/parent`, and `.`).  Each turn is a
 process of its own that imports ROOT's package and ROOT's chip_smoke.py
 and times, with CUDA events on the Aziz flagship's inputs (W=1024,
-float32): kernel A on an end move's window (B=16, f2 and u, weighted
-rows), kernel B's two ThermEnergy calls (with and without force), the
+float32): kernel A on an end move's window (B=1, 4, 8 and 16: lanes per
+row G = 32, 16, 8 and 4; f2 and u, weighted rows), kernel B's two
+ThermEnergy calls (with and without force), the
 dense delta_action (kernels 3 and 4 in one launch) at the end gate's row,
 and kernel 5 'ends'.  The turns run A, B, B, A for each round, so that
 drift of the card's clocks between turns shows in both.  It prints one
@@ -33,10 +34,11 @@ build.kernels()
 dev = torch.device("cuda")
 cfg = flagship_cfg(1024)
 out = {}
-system, case, cold, ib = cs.rows_case(cfg, 1024, 16)
-tab = chin_table(system)
-out["pair_rows B=16"] = cs._events_ms(
-    lambda: K.pair_rows(system, *case, 5, tab, ib, True, True), reps=200)
+for B in (1, 4, 8, 16):
+    system, case, cold, ib = cs.rows_case(cfg, 1024, B)
+    tab = chin_table(system)
+    out[f"pair_rows B={B}"] = cs._events_ms(
+        lambda: K.pair_rows(system, *case, 5, tab, ib, True, True), reps=200)
 paths = cs._flagship_paths(cfg, 1024, torch.float32, dev, 35)
 M = cfg.M
 for wf in (True, False):

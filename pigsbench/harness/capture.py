@@ -1,0 +1,261 @@
+"""What the timed window produced, kept for the comparison after it.
+
+Pass-through taps on the program's move functions, its step and its OBDM
+terms, installed for set-up and window alike:
+
+  moves      per window block, one call of each kind of move that the
+             configuration runs (`expected_kinds`; which call of the block
+             is drawn from the seed, among as many as the warm-up block
+             made): for a sample of walkers drawn from the seed, the
+             positions (and the worm's open ends) before the call, its
+             arguments (particle, active mask, depth, uniforms and
+             gaussians), every output of the window pair pass
+             (`ops.kernels.pair_rows`, kernel A) inside the call, the
+             decisions it returned and the positions after it.  Copied to
+             host memory (pinned on the card) as the window runs.
+  last step  the last step of each block (the window's last step is kept):
+             the statistics before and after it, the open masks and
+             permutation counts before and after it, the open ends that
+             each OBDM round histogrammed, and the sums of the decisions
+             that every tapped move returned in that step.
+
+A call that is not captured costs a Python call and a comparison; in a
+block's last step, also the sums of its decisions."""
+
+from __future__ import annotations
+
+import inspect
+
+import numpy as np
+import torch
+
+# walkers compared per captured move
+SAMPLE_WALKERS = 128
+
+# kind: (module of the program, function); the kinds before "head_half"
+# are captured and held against reference/moves.py, all are counted
+TAPS = {
+    "cm": ("moves", "translate_chain"),
+    "worm_cm": ("moves", "translate_half_chain"),
+    "bis": ("bisection", "bisection"),
+    "bis_head": ("bisection", "move_head_bisection"),
+    "bis_tail": ("bisection", "move_tail_bisection"),
+    "bis_ends": ("bisection", "fused_end_bisections"),
+    "bis_multi": ("bisection", "bisection_multi"),
+    "head_half": ("moves", "move_head_half_chain"),
+    "tail_half": ("moves", "move_tail_half_chain"),
+    "sta_half": ("moves", "staging_half_chain"),
+    "swap": ("worm", "swap_move"),
+}
+CAPTURED = ("cm", "worm_cm", "bis", "bis_head", "bis_tail", "bis_ends",
+            "bis_multi")
+# the step's acceptance counters each kind's outputs add to:
+# (counter, index of the decision in the call's outputs)
+COUNTS = {
+    "cm": [("acc_cm", 1)], "worm_cm": [("acc_cm_half", 2)],
+    "bis": [("acc_bd", 1)], "bis_head": [("acc_head", 1)],
+    "bis_tail": [("acc_tail", 1)],
+    "bis_ends": [("acc_head", 1), ("acc_tail", 2)],
+    "bis_multi": [("acc_bd", 1)],
+    "head_half": [("acc_head_half", 2)], "tail_half": [("acc_tail_half", 2)],
+    "sta_half": [("acc_bd_half", 2)], "swap": [("acc_swap", 2)],
+}
+_SKIP = ("system", "paths", "xend", "fodd")
+
+
+def expected_kinds(f: dict) -> list:
+    """The captured kinds of move that a step of configuration fields f
+    runs (the sweep's schedule, sweep.Sweeper.step)."""
+    cache = f["exact_f2"] and f["f2_cache"]
+    cascade = f["cascade"] and not cache
+    kinds = []
+    if f["CMFreq"] > 0 and not cascade:
+        kinds.append("cm")
+    if f["Nstag"] > 0 and f["sampling"] == "bis":
+        L, M = 2 ** f["Nlev"], 2 * f["Nb"] + 1
+        if (f["fused_sweep"] and not f["bis_end_random_depth"]
+                and 2 * L < M - 1):
+            if f["end_regrow"] != "sta" and not cascade:
+                kinds.append("bis_ends")
+            if not cascade:
+                kinds.append("bis_multi")
+        else:
+            paired = (f["paired_ends"] and f["bis_monoshot"] and not cache
+                      and 2 ** (max(f["Nlev"], 2) + 1) < M - 1)
+            if not paired:
+                kinds += ["bis_head", "bis_tail"]
+            kinds.append("bis")
+    if f["CWorm"] > 0.0 and f["Nobdm"] > 0:
+        kinds.append("worm_cm")
+    return kinds
+
+
+def _host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
+    """An asynchronous copy of t into fresh host memory (pinned on the
+    card, so the copy is stream-ordered and does not wait)."""
+    if not pinned:
+        return t.detach().cpu().clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class Capture:
+    """The taps of one run.  `rng` is the run's numpy generator (from the
+    seed); SAMPLE_WALKERS walkers are compared per captured move."""
+
+    def __init__(self, port, sweeper, walkers: int, rng, device):
+        self.port = port
+        self.sweeper = sweeper
+        self.rng = rng
+        self.W = walkers
+        self.pinned = torch.device(device).type == "cuda"
+        n = min(walkers, SAMPLE_WALKERS)
+        idx = np.sort(rng.choice(walkers, size=n, replace=False))
+        self.sample = torch.as_tensor(idx, dtype=torch.long, device=device)
+        self.moves = []           # the captured calls
+        self.blocks = 0           # window blocks begun
+        self.warm = {}            # calls per kind in the warm-up block
+        self.calls = {}
+        self.target = {}
+        self.nsteps = 0
+        self.k = 0
+        self.on = False
+        self.counting = False
+        self.acc = {}
+        self.obdm = []
+        self.last = None          # the window's last step
+        self.rows = None          # kernel A's outputs inside a captured call
+        self._saved = []
+
+    def _get(self, v):
+        """v's sampled walkers on the host (tensors over the walkers),
+        recursively through tuples; anything else as it is."""
+        if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == self.W:
+            return _host(v.index_select(0, self.sample), self.pinned)
+        if isinstance(v, tuple):
+            return tuple(self._get(x) for x in v)
+        return v
+
+    # -- the taps -----------------------------------------------------------
+
+    def _tap(self, kind, orig):
+        sig = inspect.signature(orig)
+
+        def tapped(*a, **k):
+            n = self.calls.get(kind, 0)
+            self.calls[kind] = n + 1
+            rec = args = None
+            if self.counting or (self.on and self.target.get(kind) == n):
+                bound = sig.bind(*a, **k)
+                bound.apply_defaults()
+                args = bound.arguments
+            if self.on and self.target.get(kind) == n:
+                rec = {"kind": kind, "block": self.blocks,
+                       "before": self._get(args["paths"]),
+                       "xend": self._get(args.get("xend")),
+                       "args": {k_: self._get(v) for k_, v in args.items()
+                                if k_ not in _SKIP}}
+                self.rows = []
+            try:
+                out = orig(*a, **k)
+            finally:
+                rows, self.rows = self.rows, None
+            if rec is not None:
+                rec["rows"] = [self._get(r) for r in rows]
+                rec["after"] = self._get(out[0])
+                rec["xend_after"] = (self._get(out[1]) if kind == "worm_cm"
+                                     else None)
+                acc = [self._get(out[i]) for _, i in COUNTS[kind]]
+                rec["accept"] = list(acc[0].unbind(1)) if acc[0].dim() == 2 \
+                    else acc
+                self.moves.append(rec)
+            if self.counting:
+                for name, i in COUNTS[kind]:
+                    self._add(name, out[i].sum())
+                if kind == "bis_multi":
+                    act = args["active"]
+                    self._add("try_int", act.sum() * (
+                        len(args["ips"]) if act.dim() == 1 else 1))
+            return out
+        return tapped
+
+    def _add(self, name, x):
+        self.acc[name] = self.acc[name] + x if name in self.acc else x
+
+    def _rows_tap(self, orig):
+        def rows(*a, **k):
+            out = orig(*a, **k)
+            if self.rows is not None:
+                self.rows.append(out)
+            return out
+        # the program counts its launches on the attribute of the function
+        # its module's name holds: the tap carries the count meanwhile
+        rows.launches = orig.launches
+        return rows
+
+    def _obdm_tap(self, orig):
+        def obdm(system, xend):
+            if self.counting:
+                self.obdm.append(xend.clone())
+            return orig(system, xend)
+        return obdm
+
+    def _step_tap(self, orig):
+        def step(state, stats, draws=None):
+            last = self.on and self.k == self.nsteps - 1
+            self.k += 1
+            if last:
+                self.counting, self.acc, self.obdm = True, {}, []
+            try:
+                out = orig(state, stats, draws)
+            finally:
+                self.counting = False
+            if last:
+                self.last = {"stats_in": stats, "stats_out": out[1],
+                             "isopen_in": state.isopen,
+                             "iperm_in": state.iperm,
+                             "isopen_out": out[0].isopen,
+                             "step": out[0].step, "acc": self.acc,
+                             "obdm": self.obdm}
+            return out
+        return step
+
+    # -- lifetime -----------------------------------------------------------
+
+    def _patch(self, obj, name, value):
+        self._saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def install(self):
+        p = self.port
+        for kind, (mod, fn) in TAPS.items():
+            obj = getattr(p, mod)
+            self._patch(obj, fn, self._tap(kind, getattr(obj, fn)))
+        self._patch(p.kernels, "pair_rows", self._rows_tap(p.kernels.pair_rows))
+        self._patch(p.worm, "obdm_terms", self._obdm_tap(p.worm.obdm_terms))
+        self._patch(self.sweeper, "step", self._step_tap(self.sweeper.step))
+
+    def uninstall(self):
+        saved, self._saved = self._saved, []
+        for obj, name, value in reversed(saved):
+            if name == "pair_rows":
+                value.launches = getattr(obj, name).launches
+            if obj is self.sweeper:
+                del obj.step
+            else:
+                setattr(obj, name, value)
+
+    def end_warmup(self):
+        """The warm-up block's calls per kind: the range the window's
+        captured calls are drawn from."""
+        self.warm = dict(self.calls)
+
+    def begin_block(self, nsteps: int):
+        """Arm the capture of one call of each kind in the next block of
+        nsteps steps, drawn from the seed."""
+        self.on = True
+        self.blocks += 1
+        self.nsteps, self.k, self.calls = nsteps, 0, {}
+        self.target = {kind: int(self.rng.integers(0, self.warm[kind]))
+                       for kind in CAPTURED if self.warm.get(kind)}

@@ -1,0 +1,78 @@
+"""The table of peaks and the bytes and operations of each pair kernel's
+launch, counted from the launch's own shapes.
+
+Peaks: one NVIDIA H100 SXM by its data sheet (dense, 700 W): 3.35 TB/s of
+HBM3, 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the tensor
+cores.  bfloat16 storage is computed in float32.
+
+Bytes: each input byte read once and each output byte written once,
+whatever the kernel reads again.  Operations: per pair and side, what the
+pair model's formulas need (an FMA counts two; exp, sqrt, rsqrt and a
+division one each), counted from the program's stated formulas
+(the minimum image and r^2 4 per dimension, r and 1/r 2, V or (V, dV/dr)
+by potential, the force 1 + 2 per dimension, u by Jastrow, one per masked
+accumulate).  A launch's least time is the larger of bytes over the
+memory rate and operations over the compute rate."""
+
+from __future__ import annotations
+
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 67e12, "f64": 34e12}
+ESIZE = {"f32": 4, "bf16": 2, "f64": 8}
+
+# the program's pair-model selectors (its kernels' PotKind and JasKind)
+POT_KINDS = {0: "aziz", 1: "soft", 2: "dipolar", 3: "none"}
+JAS_KINDS = {0: "mcmillan", 1: "dipolar", 2: "none"}
+
+OPS_V = {"aziz": 25, "soft": 8, "dipolar": 3, "none": 0}
+OPS_V_DV = {"aziz": 45, "soft": 10, "dipolar": 5, "none": 0}
+OPS_U = {"mcmillan": 8, "dipolar": 6, "none": 0}
+
+
+def _pair_ops(D: int, pot: str, jas: str, force: bool, wf: bool) -> int:
+    ops = 4 * D + 2 + 1 + (OPS_V_DV[pot] if force else OPS_V[pot])
+    if force:
+        ops += 1 + 2 * D
+    if wf:
+        ops += OPS_U[jas] + 1
+    return ops
+
+
+def window_pairs(rec: dict) -> tuple:
+    """(bytes, operations) of one launch of the window pair pass: W x B
+    displaced rows, both Metropolis sides against N - 1 partners each,
+    the Chin-weighted row sums (or walker sums) written out."""
+    W, B, N, D, M = rec["W"], rec["B"], rec["N"], rec["D"], rec["M"]
+    es = ESIZE[rec["dtype"]]
+    ib = B if rec["ib_mode"] == 0 else W * B
+    ip = {0: 0, 1: W, 2: W * B, 3: B}[rec["ip_mode"]]
+    nbytes = (es * (W * B * N * D + 2 * W * B * D + 3 * M
+                    + (B if rec["row_weights"] else 0)
+                    + (W if rec["reduce"] else W * B))
+              + 8 * (ib + ip))
+    per_pair = _pair_ops(D, POT_KINDS[rec["pot_kind"]],
+                         JAS_KINDS[rec["jas_kind"]], bool(rec["need_f2"]),
+                         bool(rec["need_wf"]))
+    per_row = 2 * (2 * D if rec["need_f2"] else 0) + 6
+    ops = W * B * (2 * (N - 1) * per_pair + per_row)
+    return nbytes, ops
+
+
+def all_pairs(rec: dict) -> tuple:
+    """(bytes, operations) of one launch of the all-pairs pass: W x B
+    configurations of N particles, each unordered pair once, the potential
+    and (with force) both particles' force sums and sum |F|^2."""
+    W, B, N, D = rec["W"], rec["B"], rec["N"], rec["D"]
+    es = ESIZE[rec["dtype"]]
+    force = bool(rec["force"])
+    nbytes = es * (W * B * N * D + 2 * W * B)
+    pot = POT_KINDS[rec["pot_kind"]]
+    per_pair = 4 * D + 2 + 1 + (OPS_V_DV[pot] if force else OPS_V[pot])
+    if force:
+        per_pair += 1 + 4 * D
+    ops = W * B * (N * (N - 1) // 2 * per_pair + (2 * D * N if force else 0))
+    return nbytes, ops
+
+
+def least_seconds(nbytes: float, ops: float, dtype: str) -> float:
+    return max(nbytes / PEAK_BYTES, ops / PEAK_OPS[dtype])

@@ -1,0 +1,188 @@
+"""The comparison that decides `correct`, driven through the rest of a run
+on the CPU at a tiny size (the program's plain forms in place of its
+kernels): sound runs pass each cell's limits; the control (the reference
+in the next lower precision in the program's place) and each fault
+planted in the timed path fail them."""
+
+from __future__ import annotations
+
+import functools
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+from pigsbench.harness import capture, judge, manifest, window  # noqa: E402
+
+# tiny shapes of each configuration, the same pair model and schedule
+# (He-4's worm weight raised so that most walkers' worms are open, and the
+# worm's moves are compared, in one block of two steps)
+TINY = {"he4_n64": dict(Np=8, Nb=8, Nlev=2, Lstag=4, Nstag=1, Nobdm=2,
+                        CWorm=50.0),
+        "dipolar2d_n256": dict(Np=16)}
+CELLS = [w["name"] for w in manifest.manifest()["workloads"]]
+
+
+def _tiny_run(cell, seed=2 ** 31 + 77, port=None):
+    wl = manifest.workload(cell)
+    conf = manifest.config(wl["config"])
+    conf = {**conf, "fields": {**conf["fields"], **TINY[wl["config"]]}}
+    wl = {**wl, "walkers": 6, "steps_per_block": 2}
+    run = window.run_cell(cell, seed, 0.0, False, "cpu", workload=wl,
+                          config=conf, port=port)
+    return run, wl["check"]["limits"]
+
+
+def _verdict(run, limits, answers=None):
+    answers = answers or judge.program_answers(run)
+    vals, attempted, failed = judge.judge(run, answers, limits)
+    return judge.correct(vals, limits), vals, failed
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_run_is_correct(cell):
+    run, limits = _tiny_run(cell)
+    ok, vals, failed = _verdict(run, limits)
+    kinds = capture.expected_kinds(run.fields)
+    assert run.blocks >= 1 and len(run.capture.moves) == run.blocks * len(
+        kinds)
+    assert ok and failed == 0, vals
+    print(cell, vals)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_in_lower_precision_fails(cell):
+    run, limits = _tiny_run(cell)
+    lower = judge.LOWER[run.fields["dtype"]]
+    ok, vals, failed = _verdict(run, limits,
+                                judge.control_answers(run, lower))
+    assert not ok and failed > 0, vals
+
+
+class _Faulty:
+    """The program's modules with one fault planted in the timed path."""
+
+    def __init__(self, fault):
+        self.port = window.port_modules()
+        self.fault = fault
+        self.saved = []
+
+    def _patch(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        p, f = self.port, self.fault
+        sweeper_cls = p.sweep.Sweeper
+        if f == "state_unchanged":
+            self._patch(sweeper_cls, "step",
+                        lambda self, state, stats, draws=None: (state, stats))
+        elif f == "half_batch":
+            orig = sweeper_cls._measure
+
+            def half(self, paths, isopen, st):
+                # half of the walkers measured, the sums scaled to the whole
+                W = paths.shape[0]
+                h = max(1, W // 2)
+                out = orig(self, paths[:h], isopen[:h], st)
+                return out._replace(**{
+                    k: getattr(st, k) + (getattr(out, k) - getattr(st, k))
+                    * (W / h) for k in ("sumE", "sumK", "sumV", "sumEt",
+                                        "sumKt", "sumVt", "n_diag", "ngr",
+                                        "gr", "sk")})
+            self._patch(sweeper_cls, "_measure", half)
+            # and every move of the CM and bisection sweeps on half of them
+            for mod, fn in ((p.moves, "translate_chain"),
+                            (p.bisection, "bisection"),
+                            (p.bisection, "bisection_multi")):
+                self._patch(mod, fn, self._half_moves(getattr(mod, fn)))
+        elif f == "answer_altered":
+            orig = p.kernels.pair_rows
+
+            def altered(*a, **k):
+                out = orig(*a, **k)
+                return out + 0.1 * out.abs().clamp(min=1.0)
+            altered.launches = orig.launches
+            self._patch(p.kernels, "pair_rows", altered)
+        elif f == "bisection_skipped":
+            # the sweep's interior bisections return without moving
+            def skipped(orig):
+                @functools.wraps(orig)
+                def skip(system, paths, ips, active, *a):
+                    W = paths.shape[0]
+                    shape = (W, len(ips)) if isinstance(ips, list) else (W,)
+                    return paths, torch.zeros(shape, dtype=torch.bool)
+                return skip
+            for fn in ("bisection", "bisection_multi"):
+                self._patch(p.bisection, fn, skipped(getattr(p.bisection, fn)))
+        elif f == "bisection_accept_ignored":
+            # every bisection's proposal written back, whatever its dS
+            self._patch(p.bisection, "_monoshot_accept",
+                        lambda system, active, *a, **k: active)
+        elif f == "worm_answer_altered":
+            orig = p.moves.translate_half_chain
+
+            @functools.wraps(orig)
+            def worm(*a, **k):
+                paths, xend, acc = orig(*a, **k)
+                return paths, xend + 0.01, acc
+            self._patch(p.moves, "translate_half_chain", worm)
+        elif f == "counter_altered":
+            # one CM acceptance too many in each step's counters
+            orig = sweeper_cls.step
+            i = p.sweep.COUNTER_NAMES.index("acc_cm")
+
+            def step(self, state, stats, draws=None):
+                state, st = orig(self, state, stats, draws)
+                ctr = st.counters.clone()
+                ctr[i] += 1
+                return state, st._replace(counters=ctr)
+            self._patch(sweeper_cls, "step", step)
+        elif f == "estimator_altered":
+            orig = p.sweep.est.therm_energy
+
+            def therm(system, paths):
+                E, K, Ep = orig(system, paths)
+                return E * 1.01, K, Ep
+            self._patch(p.sweep.est, "therm_energy", therm)
+        return self.port
+
+    @staticmethod
+    def _half_moves(orig):
+        @functools.wraps(orig)
+        def half(system, paths, ip, active, *a):
+            keep = torch.arange(paths.shape[0]) < max(1, paths.shape[0] // 2)
+            if active.dim() == 2:
+                keep = keep[:, None]
+            return orig(system, paths, ip, active & keep, *a)
+        return half
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+
+
+FAULTS = ["state_unchanged", "half_batch", "answer_altered",
+          "estimator_altered", "bisection_skipped", "counter_altered"]
+
+
+# two faults in the cells whose configuration runs the worm (He-4): an
+# altered worm move, and bisections accepted whatever their dS, which
+# changes nothing where every proposal is accepted, as the dipolar gas's
+# are at dt = 1e-3
+WORM_CELLS = [c for c in CELLS if manifest.config(
+    manifest.workload(c)["config"])["fields"]["CWorm"] > 0.0]
+WORM_FAULTS = ["bisection_accept_ignored", "worm_answer_altered"]
+
+
+@pytest.mark.parametrize("cell, fault", [(c, f) for f in FAULTS for c in CELLS]
+                         + [(c, f) for f in WORM_FAULTS for c in WORM_CELLS])
+def test_fault_in_the_timed_path_is_not_correct(cell, fault):
+    with _Faulty(fault) as port:
+        run, limits = _tiny_run(cell, port=port)
+        ok, vals, failed = _verdict(run, limits)
+    assert not ok and failed > 0, (fault, vals)

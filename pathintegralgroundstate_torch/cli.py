@@ -33,6 +33,7 @@ import sys
 from .config import SimConfig, echo_namelists, load_namelist_config, \
     read_crystal_file
 from .driver import Driver
+from .utils import spans
 
 
 def _parse_scalar(val: str):
@@ -69,7 +70,8 @@ def _device():
 
 def _profile_block(drv: Driver, out_dir: str) -> None:
     """One warm block under torch.profiler (CPU and, on the card, CUDA
-    activities), written as a Chrome trace into out_dir."""
+    activities), written as a Chrome trace into out_dir; the program's
+    `pigs::` spans (utils/spans.py) are in it as annotations."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -79,6 +81,9 @@ def _profile_block(drv: Driver, out_dir: str) -> None:
     with profile(activities=acts) as prof:
         drv.run(1)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    # the trace holds the spans; the block's read-back waited for their
+    # events, so the in-memory copy can be released
+    spans.take()
 
 
 def main(argv=None):

@@ -11,10 +11,14 @@ geometries), `density_vpi.out` (density_map) with identical columns
 checkpoint/resume.
 
 A block is `sweep.run_block`: Nstep steps issued with no host sync, then
-one read-back of the block's statistics (`stats_to_numpy`).  The blocks run
-one after the other: `Sweeper.step` updates `state.paths` in place, so the
-reference's pipelining (block k+1 dispatched before block k's checkpoint
-reads its state) would checkpoint block k+1's half-written paths here.
+one read-back of the block's statistics (`stats_to_numpy`).  Under
+torch.profiler (the CLI's `--profile DIR`) the block's consumption runs in
+a `report` span and the checkpoint in a `checkpoint` span
+(utils/spans.py), beside the sweep's block, step, stage and move spans.
+The blocks run one after the other: `Sweeper.step` updates `state.paths`
+in place, so the reference's pipelining (block k+1 dispatched before block
+k's checkpoint reads its state) would checkpoint block k+1's half-written
+paths here.
 
 The checkpoint is the reference's npz archive with the threefry key
 replaced by the two torch generators' states (`gen_state`, `host_gen_state`).
@@ -53,6 +57,7 @@ from .state import MCState, generator_states, init_state, \
 from .sweep import _CIDX, StepStats, Sweeper, bead_updates_per_step, \
     run_block, stats_to_numpy, zero_stats
 from .system import System, make_system
+from .utils.spans import span
 
 
 def var(nitem, s, s2):
@@ -277,7 +282,8 @@ class Driver:
             for _ in range(nblocks):
                 t0 = time.time()
                 self.state, stats = self._block()
-                self._consume_block(stats, t0, fe, fet, fjl)
+                with span("report"):
+                    self._consume_block(stats, t0, fe, fet, fjl)
         self.finalize()
         return self.acc
 
@@ -525,18 +531,20 @@ class Driver:
         Written to a temporary file, then moved into place.  Under walker
         sharding the walker slices are first gathered (every rank takes
         part), and rank 0 alone writes the unsharded layout."""
-        st = gather_state(self.system, self.state)
-        if not self.is_main:
-            return
-        gen, host = generator_states(st)
-        arrs = dict(state_to_numpy(st), gen_state=gen, host_gen_state=host)
-        scalars = {k: v for k, v in self.acc.items() if np.isscalar(v)}
-        arrays = {f"acc_{k}": np.asarray(v) for k, v in self.acc.items()
-                  if not np.isscalar(v)}
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, __config__=json.dumps(dataclasses.asdict(self.cfg)),
-                 __scalars__=json.dumps(scalars), **arrs, **arrays)
-        os.replace(tmp, path)
+        with span("checkpoint"):
+            st = gather_state(self.system, self.state)
+            if not self.is_main:
+                return
+            gen, host = generator_states(st)
+            arrs = dict(state_to_numpy(st), gen_state=gen,
+                        host_gen_state=host)
+            scalars = {k: v for k, v in self.acc.items() if np.isscalar(v)}
+            arrays = {f"acc_{k}": np.asarray(v) for k, v in self.acc.items()
+                      if not np.isscalar(v)}
+            tmp = path + ".tmp.npz"
+            np.savez(tmp, __config__=json.dumps(dataclasses.asdict(self.cfg)),
+                     __scalars__=json.dumps(scalars), **arrs, **arrays)
+            os.replace(tmp, path)
 
     def load_checkpoint(self, path):
         """(state, accumulators) of a checkpoint written by save_checkpoint;

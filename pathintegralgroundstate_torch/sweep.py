@@ -27,6 +27,12 @@ updates it) or by brute force:
   5. the estimators of the diagonal walkers (g(r) and S(k) under PBC
      only, the density map with cfg.density_map).
 
+While a torch.profiler session records, each stage runs in a span of
+utils/spans.py (`open_close`, `cm`, `mala`, `diag`, `worm`, `measure`,
+timed on the stream by CUDA events on the card), each move call in a
+host span `move.<kind>`, each step in `step` and `run_block` in `block`;
+otherwise a span costs one attribute read.
+
 Every random number comes from a draw source (utils/draws.py) at the
 address of the reference's key tree, so tests can replay the reference's
 own draws; as in the reference, the bisections take batched randoms up to
@@ -61,6 +67,7 @@ from .parallel import beadshard as bs
 from .parallel.mesh import reduce_stats
 from .state import MCState
 from .utils.draws import DeviceDraws
+from .utils.spans import span
 
 
 class StepStats(NamedTuple):
@@ -132,8 +139,9 @@ def stats_from_numpy(system, d: dict) -> StepStats:
 
 def stats_to_numpy(stats: StepStats) -> dict:
     """{field: numpy array} of the statistics, copied."""
-    return {k: v.detach().cpu().numpy().copy()
-            for k, v in stats._asdict().items()}
+    with span("readback"):
+        return {k: v.detach().cpu().numpy().copy()
+                for k, v in stats._asdict().items()}
 
 
 def bead_updates_per_step(cfg) -> int:
@@ -184,6 +192,8 @@ class Sweeper:
                 "exact Chin action; the reference-parity partial-dF2 moves "
                 "(exact_f2=False) sample a different measure")
         self.system = system
+        # the stage spans time the stream with CUDA events on the card
+        self.on_card = system.device.type == "cuda"
         self.Lstag, self.Nlev = cfg.Lstag, cfg.Nlev
         self.delta = system.geo.delta_cm
         L = 2 ** cfg.Nlev
@@ -251,29 +261,32 @@ class Sweeper:
 
         # ---- 1. open/close attempts (vpi.f90:302-323) ----
         if cfg.CWorm > 0.0:
-            iupdate = src.iupdate(W)
-            do_close = isopen & (iupdate == 0)
-            paths, xend, closed = wm.close_chain(
-                system, paths, xend, iworm, do_close, Lstag,
-                src.worm(1, W, Lstag), fodd)
-            perm_hist.index_add_(0, (iperm - 1).clamp(0, Np - 1),
-                                 closed.to(perm_hist.dtype))
-            isopen = isopen & ~closed
-            do_open = ~isopen & ~closed & (iupdate == 1)
-            cand = src.cand(W, Np)
-            paths, xend_o, opened = wm.open_chain(
-                system, paths, xend, cand, do_open, Lstag,
-                src.worm(3, W, Lstag), fodd)
-            xend = mv._where(do_open, xend_o, xend)
-            iworm = torch.where(opened, cand, iworm)
-            isopen = isopen | opened
-            in_cycle = torch.where(opened[:, None], cand[:, None] == parts,
-                                   in_cycle)
-            iperm = torch.where(opened, 1, iperm)
-            count("try_close", do_close)
-            count("acc_close", closed)
-            count("try_open", do_open)
-            count("acc_open", opened)
+            with span("open_close", self.on_card):
+                iupdate = src.iupdate(W)
+                do_close = isopen & (iupdate == 0)
+                with span("move.close"):
+                    paths, xend, closed = wm.close_chain(
+                        system, paths, xend, iworm, do_close, Lstag,
+                        src.worm(1, W, Lstag), fodd)
+                perm_hist.index_add_(0, (iperm - 1).clamp(0, Np - 1),
+                                     closed.to(perm_hist.dtype))
+                isopen = isopen & ~closed
+                do_open = ~isopen & ~closed & (iupdate == 1)
+                cand = src.cand(W, Np)
+                with span("move.open"):
+                    paths, xend_o, opened = wm.open_chain(
+                        system, paths, xend, cand, do_open, Lstag,
+                        src.worm(3, W, Lstag), fodd)
+                xend = mv._where(do_open, xend_o, xend)
+                iworm = torch.where(opened, cand, iworm)
+                isopen = isopen | opened
+                in_cycle = torch.where(opened[:, None],
+                                       cand[:, None] == parts, in_cycle)
+                iperm = torch.where(opened, 1, iperm)
+                count("try_close", do_close)
+                count("acc_close", closed)
+                count("try_open", do_open)
+                count("acc_open", opened)
 
         # per-particle activity of the diagonal sweeps: the worm particle
         # of an open walker stays put
@@ -281,100 +294,129 @@ class Sweeper:
 
         # ---- 2. CM translations (vpi.f90:329-342 / 412-419) ----
         if cfg.CMFreq > 0 and step_no % max(cfg.CMFreq, 1) == 0:
-            acc_cm = torch.zeros(W, dtype=torch.int32, device=system.device)
-            for ip in range(Np):
-                u_dx, u_acc = src.translate(10, ip, W)
-                if cfg.cascade and fodd is None:
-                    paths, acc = cas.rigid_cascade(
-                        system, paths, ip, active_all[:, ip], self.delta,
-                        u_dx, u_acc)
-                else:
-                    paths, acc = mv.translate_chain(
-                        system, paths, ip, active_all[:, ip], self.delta,
-                        u_dx, u_acc, fodd)
-                acc_cm += acc
-            count("try_cm", active_all)
-            count("acc_cm", acc_cm)
+            with span("cm", self.on_card):
+                acc_cm = torch.zeros(W, dtype=torch.int32,
+                                     device=system.device)
+                for ip in range(Np):
+                    u_dx, u_acc = src.translate(10, ip, W)
+                    if cfg.cascade and fodd is None:
+                        with span("move.cm_cascade"):
+                            paths, acc = cas.rigid_cascade(
+                                system, paths, ip, active_all[:, ip],
+                                self.delta, u_dx, u_acc)
+                    else:
+                        with span("move.cm"):
+                            paths, acc = mv.translate_chain(
+                                system, paths, ip, active_all[:, ip],
+                                self.delta, u_dx, u_acc, fodd)
+                    acc_cm += acc
+                count("try_cm", active_all)
+                count("acc_cm", acc_cm)
 
         # ---- 2b. MALA whole-path move of the diagonal walkers ----
         if cfg.smart_mc > 0.0:
-            diag = ~isopen
-            paths, acc_m = mala_move(system, paths, diag, cfg.smart_mc,
-                                     *src.mala(paths.shape), fodd)
-            count("try_mala", diag)
-            count("acc_mala", acc_m)
+            with span("mala", self.on_card):
+                diag = ~isopen
+                with span("move.mala"):
+                    paths, acc_m = mala_move(system, paths, diag,
+                                             cfg.smart_mc,
+                                             *src.mala(paths.shape), fodd)
+                count("try_mala", diag)
+                count("acc_mala", acc_m)
 
         # ---- 3. staging/bisection sweeps (vpi.f90:344-366 / 421-439) ----
         use_rand = self.batch_rand and W <= BATCH_RAND_MAX_W
-        if cfg.Nstag > 0 and self.fused_diag:
-            self._fused_sweep(src, paths, active_all, ctr, use_rand, fodd)
-        elif cfg.Nstag > 0:
-            self._unfused_sweep(src, paths, active_all, ctr, use_rand, fodd)
+        if cfg.Nstag > 0:
+            with span("diag", self.on_card):
+                sweep = (self._fused_sweep if self.fused_diag
+                         else self._unfused_sweep)
+                sweep(src, paths, active_all, ctr, use_rand, fodd)
 
         # ---- 4. worm updates + OBDM (vpi.f90:370-404) ----
         nrho = stats.nrho.clone()
         if cfg.CWorm > 0.0 and cfg.Nobdm > 0:
-            act = isopen
-            nact = act.sum()
-            n_opts = (cfg.Nb - Lstag) // 2 + 1
-            acc6 = torch.zeros((6, W), dtype=torch.int32, device=system.device)
-            for iobdm in range(cfg.Nobdm):
-                for h in (1, 2):
-                    u_dx, u_acc = src.translate(30 + h, iobdm, W)
-                    paths, xend, acc = mv.translate_half_chain(
-                        system, paths, xend, iworm, h, act, self.delta, u_dx,
-                        u_acc, fodd)
-                    acc6[0] += acc
-                for h in (1, 2):
-                    paths, xend, acc_h = mv.move_head_half_chain(
-                        system, paths, xend, iworm, h, act, Lstag,
-                        *src.regrow_half(40 + h, iobdm, W, Lstag), fodd)
-                    paths, xend, acc_t = mv.move_tail_half_chain(
-                        system, paths, xend, iworm, h, act, Lstag,
-                        *src.regrow_half(42 + h, iobdm, W, Lstag), fodd)
-                    paths, xend, acc_s = mv.staging_half_chain(
-                        system, paths, xend, iworm, h, act, Lstag,
-                        *src.staging_half(44 + h, iobdm, W, n_opts, Lstag),
-                        fodd)
-                    acc6[1] += acc_h
-                    acc6[2] += acc_t
-                    acc6[3] += acc_s
-                if cfg.swapping:
-                    paths, xend, acc_sw, partner = wm.swap_move(
-                        system, paths, xend, iworm, act, Lstag,
-                        src.swap(iobdm, W, Np, Lstag), fodd)
-                    acc6[4] += acc_sw
-                    # permutation-cycle bookkeeping (sample_mod.f90:556-581)
-                    rows = system.arange(W)
-                    already = in_cycle[rows, partner]
-                    iperm = iperm + (acc_sw & ~already)
-                    in_cycle = in_cycle.clone()
-                    in_cycle[rows, partner] = already | acc_sw
-                # OBDM in both geometries (obdm_terms)
-                ibin, wpw, valid = wm.obdm_terms(system, xend)
-                contrib = wpw * (act & valid)[:, None].to(dtype)
-                nrho.index_add_(1, ibin, contrib.T.to(nrho.dtype))
-            ctr[_CIDX["try_cm_half"]] += 2 * cfg.Nobdm * nact
-            ctr[_CIDX["try_stag_half"]] += 2 * cfg.Nobdm * nact
-            count("acc_cm_half", acc6[0])
-            count("acc_head_half", acc6[1])
-            count("acc_tail_half", acc6[2])
-            count("acc_bd_half", acc6[3])
-            if cfg.swapping:
-                ctr[_CIDX["try_swap"]] += cfg.Nobdm * nact
-                count("acc_swap", acc6[4])
+            with span("worm", self.on_card):
+                paths, xend, in_cycle, iperm = self._worm_rounds(
+                    src, paths, xend, iworm, isopen, in_cycle, iperm, nrho,
+                    ctr, fodd)
 
         # ---- 5. estimators for diagonal walkers (vpi.f90:441-469) ----
         state = dataclasses.replace(state, paths=paths, xend=xend,
                                     isopen=isopen, iworm=iworm,
                                     in_cycle=in_cycle, iperm=iperm,
                                     step=step_no)
-        base = stats._replace(
-            nrho=nrho, perm_hist=perm_hist, counters=ctr,
-            n_diag_all=stats.n_diag_all + (~isopen).to(dtype).sum())
-        if cfg.measure_every <= 0 or step_no % cfg.measure_every != 0:
-            return state, base
-        return state, self._measure(paths, isopen, base)
+        with span("measure", self.on_card):
+            base = stats._replace(
+                nrho=nrho, perm_hist=perm_hist, counters=ctr,
+                n_diag_all=stats.n_diag_all + (~isopen).to(dtype).sum())
+            if cfg.measure_every <= 0 or step_no % cfg.measure_every != 0:
+                return state, base
+            return state, self._measure(paths, isopen, base)
+
+    def _worm_rounds(self, src, paths, xend, iworm, isopen, in_cycle, iperm,
+                     nrho, ctr, fodd=None):
+        """The Nobdm worm rounds of the open walkers (vpi.f90:370-404): half
+        translations, half head/tail/staging, swap with its permutation
+        bookkeeping, and the OBDM histogram, in place on nrho and the
+        counters ctr; returns (paths, xend, in_cycle, iperm)."""
+        system = self.system
+        cfg = system.cfg
+        W, Np, Lstag = paths.shape[0], cfg.Np, self.Lstag
+        act = isopen
+        nact = act.sum()
+        n_opts = (cfg.Nb - Lstag) // 2 + 1
+        acc6 = torch.zeros((6, W), dtype=torch.int32, device=system.device)
+        for iobdm in range(cfg.Nobdm):
+            for h in (1, 2):
+                u_dx, u_acc = src.translate(30 + h, iobdm, W)
+                with span("move.worm_cm"):
+                    paths, xend, acc = mv.translate_half_chain(
+                        system, paths, xend, iworm, h, act, self.delta, u_dx,
+                        u_acc, fodd)
+                acc6[0] += acc
+            for h in (1, 2):
+                with span("move.head_half"):
+                    paths, xend, acc_h = mv.move_head_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.regrow_half(40 + h, iobdm, W, Lstag), fodd)
+                with span("move.tail_half"):
+                    paths, xend, acc_t = mv.move_tail_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.regrow_half(42 + h, iobdm, W, Lstag), fodd)
+                with span("move.sta_half"):
+                    paths, xend, acc_s = mv.staging_half_chain(
+                        system, paths, xend, iworm, h, act, Lstag,
+                        *src.staging_half(44 + h, iobdm, W, n_opts, Lstag),
+                        fodd)
+                acc6[1] += acc_h
+                acc6[2] += acc_t
+                acc6[3] += acc_s
+            if cfg.swapping:
+                with span("move.swap"):
+                    paths, xend, acc_sw, partner = wm.swap_move(
+                        system, paths, xend, iworm, act, Lstag,
+                        src.swap(iobdm, W, Np, Lstag), fodd)
+                acc6[4] += acc_sw
+                # permutation-cycle bookkeeping (sample_mod.f90:556-581)
+                rows = system.arange(W)
+                already = in_cycle[rows, partner]
+                iperm = iperm + (acc_sw & ~already)
+                in_cycle = in_cycle.clone()
+                in_cycle[rows, partner] = already | acc_sw
+            # OBDM in both geometries (obdm_terms)
+            with span("move.obdm"):
+                ibin, wpw, valid = wm.obdm_terms(system, xend)
+                contrib = wpw * (act & valid)[:, None].to(system.dtype)
+                nrho.index_add_(1, ibin, contrib.T.to(nrho.dtype))
+        ctr[_CIDX["try_cm_half"]] += 2 * cfg.Nobdm * nact
+        ctr[_CIDX["try_stag_half"]] += 2 * cfg.Nobdm * nact
+        for i, name in enumerate(("acc_cm_half", "acc_head_half",
+                                  "acc_tail_half", "acc_bd_half")):
+            ctr[_CIDX[name]] += acc6[i].sum()
+        if cfg.swapping:
+            ctr[_CIDX["try_swap"]] += cfg.Nobdm * nact
+            ctr[_CIDX["acc_swap"]] += acc6[4].sum()
+        return paths, xend, in_cycle, iperm
 
     def _unfused_sweep(self, src, paths, active_all, ctr, use_rand,
                        fodd=None):
@@ -396,27 +438,31 @@ class Sweeper:
             ip = it % Np
             active = active_all[:, ip]
             if cfg.sampling != "bis":
-                paths, acc_h = mv.move_head(system, paths, ip, active, Lstag,
-                                            *src.regrow_half(20, it, W, Lstag),
-                                            fodd)
-                paths, acc_t = mv.move_tail(system, paths, ip, active, Lstag,
-                                            *src.regrow_half(21, it, W, Lstag),
-                                            fodd)
+                with span("move.sta_head"):
+                    paths, acc_h = mv.move_head(
+                        system, paths, ip, active, Lstag,
+                        *src.regrow_half(20, it, W, Lstag), fodd)
+                with span("move.sta_tail"):
+                    paths, acc_t = mv.move_tail(
+                        system, paths, ip, active, Lstag,
+                        *src.regrow_half(21, it, W, Lstag), fodd)
                 if self.sp > 1:
                     # one window per bead shard, every shard's accepts
                     # counted (sweep.py:492-500; diagonal-only, so every
                     # walker is active)
                     draws = src.sp_staging(it, W, self.sp, n_sp, Lstag)
-                    acc_b = (bs.sp_staging_sweep(system, paths, ip, Lstag,
-                                                 draws)
-                             if self.sp_sharded else
-                             bs.sp_staging_sweep_ref(system, paths, ip,
-                                                     self.sp, Lstag, draws)
-                             ).sum(0)
+                    with span("move.sp"):
+                        acc_b = (bs.sp_staging_sweep(system, paths, ip, Lstag,
+                                                     draws)
+                                 if self.sp_sharded else
+                                 bs.sp_staging_sweep_ref(system, paths, ip,
+                                                         self.sp, Lstag,
+                                                         draws)).sum(0)
                 else:
-                    paths, acc_b = mv.staging_move(
-                        system, paths, ip, active, Lstag,
-                        *src.staging_half(22, it, W, n_sta, Lstag), fodd)
+                    with span("move.sta"):
+                        paths, acc_b = mv.staging_move(
+                            system, paths, ip, active, Lstag,
+                            *src.staging_half(22, it, W, n_sta, Lstag), fodd)
             else:
                 if use_rand:
                     d_h = d_t = max(nlev, 2)
@@ -430,17 +476,21 @@ class Sweeper:
                     d_t, r_t = src.end_bisect(21, it, W, nlev, per_level, rd)
                     r_b = src.bisect_keyed(22, it, W, nlev, n_bis, per_level)
                 if paired:
-                    paths, acc_h, acc_t = bis.paired_end_bisections(
-                        system, paths, ip, active, nlev, r_h, r_t)
+                    with span("move.bis_paired"):
+                        paths, acc_h, acc_t = bis.paired_end_bisections(
+                            system, paths, ip, active, nlev, r_h, r_t)
                 else:
-                    paths, acc_h = bis.move_head_bisection(
-                        system, paths, ip, active, d_h, r_h, not use_rand,
-                        fodd)
-                    paths, acc_t = bis.move_tail_bisection(
-                        system, paths, ip, active, d_t, r_t, not use_rand,
-                        fodd)
-                paths, acc_b = bis.bisection(system, paths, ip, active, nlev,
-                                             r_b, fodd)
+                    with span("move.bis_head"):
+                        paths, acc_h = bis.move_head_bisection(
+                            system, paths, ip, active, d_h, r_h, not use_rand,
+                            fodd)
+                    with span("move.bis_tail"):
+                        paths, acc_t = bis.move_tail_bisection(
+                            system, paths, ip, active, d_t, r_t, not use_rand,
+                            fodd)
+                with span("move.bis"):
+                    paths, acc_b = bis.bisection(system, paths, ip, active,
+                                                 nlev, r_b, fodd)
             acc3[0] += acc_h
             acc3[1] += acc_t
             acc3[2] += acc_b
@@ -463,18 +513,21 @@ class Sweeper:
             ip = it % Np
             active = active_all[:, ip]
             if cfg.end_regrow == "sta":
-                _, acc_h, acc_t = mv.fused_end_stagings(
-                    system, paths, ip, active, L, *src.end_stagings(it, W, L),
-                    fodd)
+                with span("move.sta_ends"):
+                    _, acc_h, acc_t = mv.fused_end_stagings(
+                        system, paths, ip, active, L,
+                        *src.end_stagings(it, W, L), fodd)
             elif cfg.cascade and fodd is None:
-                _, acc_h, acc_t = cas.fused_ends_cascade(
-                    system, paths, ip, active, nlev,
-                    *src.cascade_ends(it, W, nlev))
+                with span("move.cascade_ends"):
+                    _, acc_h, acc_t = cas.fused_ends_cascade(
+                        system, paths, ip, active, nlev,
+                        *src.cascade_ends(it, W, nlev))
             else:
                 rand = (src.fused_ends(it, W, nlev) if use_rand else
                         src.fused_ends_keyed(it, W, nlev, per_level))
-                _, acc_h, acc_t = bis.fused_end_bisections(
-                    system, paths, ip, active, nlev, rand, fodd)
+                with span("move.bis_ends"):
+                    _, acc_h, acc_t = bis.fused_end_bisections(
+                        system, paths, ip, active, nlev, rand, fodd)
             acc2[0] += acc_h
             acc2[1] += acc_t
         ctr[_CIDX["try_stag"]] += cfg.Nstag * active_all.sum()
@@ -490,9 +543,10 @@ class Sweeper:
             ips = [(it * K + k + off) % Np for k in range(K)]
             act = torch.stack([active_all[:, p] for p in ips], 1)
             if cfg.cascade and fodd is None:
-                _, acc = cas.interior_cascade(
-                    system, paths, ips, act, nlev,
-                    *src.cascade_interior(it, W, K, nlev, n_shift))
+                with span("move.cascade_int"):
+                    _, acc = cas.interior_cascade(
+                        system, paths, ips, act, nlev,
+                        *src.cascade_interior(it, W, K, nlev, n_shift))
             else:
                 # batched randoms as sweep.py:589-599 takes them: not when
                 # the cascade is configured
@@ -500,8 +554,9 @@ class Sweeper:
                         if use_rand and not cfg.cascade
                         else src.bisect_multi_keyed(it, W, K, nlev, n_shift,
                                                     per_level))
-                _, acc = bis.bisection_multi(system, paths, ips, act, nlev,
-                                             rand, fodd)
+                with span("move.bis_multi"):
+                    _, acc = bis.bisection_multi(system, paths, ips, act,
+                                                 nlev, rand, fodd)
             int2[0] += act
             int2[1] += acc
         ctr[_CIDX["try_int"]] += int2[0].sum()
@@ -552,7 +607,9 @@ def run_block(sweeper: Sweeper, state: MCState, nstep: int, draws=None):
     Under walker sharding the statistics are this rank's walkers' until the
     block's end, then summed over the dp group (parallel/mesh.reduce_stats),
     as the reference's sharded block all-reduces them."""
-    stats = zero_stats(sweeper.system)
-    for _ in range(nstep):
-        state, stats = sweeper.step(state, stats, draws)
-    return state, reduce_stats(sweeper.system, stats)
+    with span("block", sweeper.on_card):
+        stats = zero_stats(sweeper.system)
+        for _ in range(nstep):
+            with span("step"):
+                state, stats = sweeper.step(state, stats, draws)
+        return state, reduce_stats(sweeper.system, stats)

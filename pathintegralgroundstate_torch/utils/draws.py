@@ -48,6 +48,7 @@ import torch
 
 from ..ops.moves import _rand_ls
 from ..ops.worm import SwapDraws, WormDraws, _rand_even_ls
+from .spans import count
 
 BF16_LEVELS = 128   # 2**7: the values of a bfloat16 uniform (7 mantissa bits)
 
@@ -194,6 +195,7 @@ class DeviceDraws:
         return depth, self.bisect(tag, it, W, depth)
 
     def _host_int(self, hi: int) -> int:
+        count("host_int")
         return int(torch.randint(0, hi, (), generator=self.host))
 
     def fused_ends(self, it: int, W: int, nlev: int):

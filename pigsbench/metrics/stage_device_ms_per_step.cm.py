@@ -1,0 +1,9 @@
+"""Milliseconds per traced step between the two CUDA events of the
+program's `cm` span (Sweeper.step's CM translations: Np rigid moves),
+summed over the block's steps: the stage's stretch of the stream."""
+
+from pigsbench.harness.stages import device_ms_per_step
+
+
+def read(run):
+    return device_ms_per_step(run, "cm")

@@ -1,0 +1,9 @@
+"""Host launch calls per traced step whose start lies in the program's `cm`
+span (Sweeper.step's CM translations: Np rigid moves), counted as
+host_launches_per_step counts them (a call nested in another once)."""
+
+from pigsbench.harness.stages import launches_per_step
+
+
+def read(run):
+    return launches_per_step(run, "cm")

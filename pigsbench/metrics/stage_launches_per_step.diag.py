@@ -1,0 +1,10 @@
+"""Host launch calls per traced step whose start lies in the program's
+`diag` span (Sweeper.step's diagonal sweep: the head, tail and interior
+bisections or their composites), counted as host_launches_per_step
+counts them (a call nested in another once)."""
+
+from pigsbench.harness.stages import launches_per_step
+
+
+def read(run):
+    return launches_per_step(run, "diag")

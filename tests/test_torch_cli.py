@@ -137,6 +137,10 @@ def test_profile_writes_a_trace(runs, tmp_path, monkeypatch):
     assert cli.main([runs[0], "-o", str(tmp_path / "out"), "--profile",
                      str(prof), "--blocks", "2"]) == 0
     assert (prof / "trace.json").stat().st_size > 0
+    with open(prof / "trace.json") as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    assert {"pigs::block", "pigs::step", "pigs::diag", "pigs::move.bis",
+            "pigs::report", "pigs::readback", "pigs::checkpoint"} <= names
     e = np.loadtxt(tmp_path / "out" / "e_vpi.out", ndmin=2)
     np.testing.assert_array_equal(e[:, 0], [1, 2])
 

@@ -120,7 +120,8 @@ def timed_blocks(cfg, device=None, nstep=NSTEP, nreps=NREPS) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
             "pair_delta": K.pair_delta, "pair_u": K.pair_u,
-            "cascade": K.cascade}
+            "cascade": K.cascade, "bis_propose": K.bis_propose,
+            "bis_accept": K.bis_accept}
     for fn in kern.values():
         fn.launches = 0
     reps = []

@@ -42,6 +42,13 @@ run exits non-zero):
                interior row (kernel 3 alone) in alternating turns, u's
                marginal time between them, the raw and u modes and the
                whole delta_action timed.
+ 6b. glue    : the monoshot bisection glue kernels (csrc/bis_glue.cu)
+               against their plain forms at the flagship's shapes (W=1024,
+               Nlev 4, float32) and the dipolar gas's (N=256, D=2, Nlev 2,
+               float64), interior, head and tail: bis_propose within 8 ulp
+               of the half box, bis_accept's decisions and write-back exact
+               on rows at the gates' edges, inactive walkers among them;
+               both timed beside their plain forms and bounds.
   7. dims    : every kernel at D = 1, 2, 4 and 5 under PBC (a 1-D chain,
                a 2-D He-4 film, D = 4 at the flagship's density, D = 5 at
                0.1), float32 and float64, N = 30, 31 and 64,
@@ -124,7 +131,8 @@ run exits non-zero):
  12. tables  : the three RefRNG goldens replayed on the card in float64
                (atol 1e-12, no kernel launch); BASELINE #2, the flagship's
                He-4 at Np=16 with v_table = wf_table = T, W=1024 float32,
-               through cli.main (2 blocks, every launch count 0); v_table
+               through cli.main (2 blocks, every pair kernel's launch
+               count 0, the glue kernels' equal); v_table
                alone in the reference order, where only kernel 4 launches.
  13. dipolar : BASELINE #5, the 2-D dipolar gas at N=256 float64
                (flagship.dipolar_cfg): W=16 card == CPU replays without and
@@ -183,8 +191,9 @@ run exits non-zero):
                runs it (the flagship at W=1024 float32, one warm-up block
                and 3 timed blocks of 5 steps): its last line holds
                bench.py's keys and the port's, pallas true, n_walkers
-               1024, kernels A and B launched in the timed blocks and no
-               other kernel, and value == W * bead_updates_per_step * 5 /
+               1024, kernels A and B and the glue kernels (three moves a
+               particle visit) launched in the timed blocks and no other
+               kernel, and value == W * bead_updates_per_step * 5 /
                median(reps_s) within 1e-9 relative; the rate printed
                beside the card's name and power limit.
  21. bf16    : every kernel in bfloat16 at D = 1, 2, 3 and 4, N = 30, 31
@@ -219,7 +228,11 @@ kernels at the dipolar gas's shapes, with their launches on the dipolar
 path; the entries '[bf16]' and '[wide D=4]' the kernels on those paths
 (launches on their main paths, ms and plain_ms at the flagship's shapes in
 that dtype or dimension; bfloat16 entries also carry bound_ratio, the
-worst over [bf16]'s parity cases bound_ratio_parity, and bound_C).
+worst over [bf16]'s parity cases bound_ratio_parity, and bound_C).  The
+entries bis_propose and bis_accept are the glue kernels: launches on the
+flagship's 3 timed steps, ms, plain_ms and bound_ms from [glue]'s
+interior move at the flagship's shapes, the same at the dipolar gas's in
+float64_dipolar; they replace no TPU kernel (replaces null).
 """
 
 import functools
@@ -1277,13 +1290,147 @@ def dense_timing(cfg, card, W=1024, rounds=10, reps=200):
     return times
 
 
+def glue_phase(cfg, card, W=1024):
+    """The [glue] phase: the monoshot bisection glue kernels
+    (csrc/bis_glue.cu) against their plain forms on the card, at the
+    flagship's shapes (W=1024, Nlev 4, float32) and the dipolar gas's
+    (N=256, D=2, Nlev 2, float64), for the interior, the head and the tail:
+    bis_propose's window within 8 ulp of the half box (through the minimum
+    image: the kernel sums the tables' products in another order), and
+    bis_accept's decisions and write-back exactly equal on rows that are
+    multiples of 1/8 (every group sum exact in any order), with u equal to
+    exp(-sum) (rejected) on a quarter of the walkers, one ulp below it
+    (accepted) on another quarter, and a third of the walkers inactive;
+    then each kernel timed beside its plain form and its bound (each input
+    read once, each output written once).  Returns ({kernel: max abs err},
+    {label: {kernel: (ms, plain ms, (bound ms, by))}})."""
+    from pathintegralgroundstate_torch.flagship import dipolar_cfg
+    from pathintegralgroundstate_torch.ops import bisection as bis
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_torch.utils.pbc import wrap
+
+    dev = torch.device("cuda")
+    errs, times = {"bis_propose": 0.0, "bis_accept": 0.0}, {}
+    for label, c, dtype in (("flagship", cfg, torch.float32),
+                            ("dipolar N=256", dipolar_cfg(W), torch.float64)):
+        system = make_system(c.replace(n_walkers=W), dev, dtype)
+        if not K.bis_route(system):
+            raise AssertionError(f"[glue] {label}: bis_route is off")
+        nlev, M, D = c.Nlev, c.M, c.dim
+        L = 2 ** nlev
+        es = torch.finfo(dtype).eps
+        half = float(system.half.max())
+        paths = _flagship_paths(c, W, dtype, dev, seed=71)
+        gen = torch.Generator(device=dev).manual_seed(72)
+        g = torch.randn((W, L, D), generator=gen, device=dev, dtype=dtype)
+        active = torch.rand(W, generator=gen, device=dev) > 1 / 3
+        start = min(10, M - 1 - L) // 2 * 2
+        times[label] = {}
+        for kind, (bead0, step, gate) in (("interior", (start, 1, False)),
+                                          ("head", (0, 1, True)),
+                                          ("tail", (M - 1, -1, True))):
+            ip = 5
+            args = (system, paths, ip, nlev, g, bead0, step, gate)
+            n = K.bis_propose.launches, K.bis_accept.launches
+            seg = K.bis_propose(*args)
+            ref = K.bis_propose_ref(*args)
+            d = wrap(seg - ref, system.L, system.half).abs()
+            ulps = float(d.max()) / (es * half)
+            if not ulps <= 8:
+                raise AssertionError(f"[glue] {label} {kind}: bis_propose "
+                                     f"{ulps:.1f} ulp of the half box from "
+                                     f"its plain form")
+            errs["bis_propose"] = max(errs["bis_propose"], float(d.max()))
+            B = L if gate else L - 1
+            rows = (torch.randint(-4, 5, (W, B), generator=gen, device=dev)
+                    / 8).to(dtype)
+            A = torch.as_tensor(bis._level_assign(nlev, gate)[::-1].copy()
+                                if step < 0 else bis._level_assign(nlev, gate),
+                                dtype=dtype, device=dev)
+            edge = torch.exp(-(rows @ A))
+            u = torch.rand((W, nlev + 1), generator=gen, device=dev,
+                           dtype=dtype)
+            cols = slice(0, nlev + 1) if gate else slice(1, nlev + 1)
+            u[0::4, cols] = edge[0::4]
+            u[1::4, cols] = torch.nextafter(edge[1::4],
+                                            torch.zeros_like(edge[1::4]))
+            p_k, p_r = paths.clone(), paths.clone()
+            alive = K.bis_accept(system, p_k, ip, nlev, rows, u, active, seg,
+                                 bead0, step, gate)
+            a_ref = K.bis_accept_ref(system, p_r, ip, nlev, rows, u, active,
+                                     seg, bead0, step, gate)
+            if not (torch.equal(alive, a_ref) and torch.equal(p_k, p_r)):
+                raise AssertionError(f"[glue] {label} {kind}: bis_accept's "
+                                     f"decisions or write-back differ from "
+                                     f"its plain form")
+            if alive[0::4].any() or not torch.equal(alive[1::4],
+                                                    active[1::4]):
+                raise AssertionError(f"[glue] {label} {kind}: a gate-edge "
+                                     f"walker decided the wrong way")
+            if (K.bis_propose.launches - n[0],
+                    K.bis_accept.launches - n[1]) != (1, 1):
+                raise AssertionError(f"[glue] {label} {kind}: not one launch "
+                                     f"of each kernel")
+            print(f"[glue] {label} {kind} W={W} D={D} Nlev {nlev} "
+                  f"{str(dtype)[6:]}: bis_propose within {ulps:.2f} ulp of "
+                  f"the half box ({float(d.max()):.3e}), bis_accept equal "
+                  f"({int(alive.sum())} of {int(active.sum())} active "
+                  f"accepted)", flush=True)
+            if kind != "interior":
+                continue
+            bound = _bound if dtype == torch.float32 else _bound64
+            npos = B
+            by_p = _nbytes(g, seg) + 2 * W * D * paths.element_size()
+            by_a = (_nbytes(rows, u, active) + 2 * W * npos * D
+                    * paths.element_size() + W)
+            p_t = paths.clone()
+            for name, fn, plain, bnd in (
+                    ("bis_propose", lambda: K.bis_propose(*args),
+                     lambda: K.bis_propose_ref(*args),
+                     bound(by_p, W * (L + 1) * D * (2 * (L - 1) + 8))),
+                    ("bis_accept",
+                     lambda: K.bis_accept(system, p_t, ip, nlev, rows, u,
+                                          active, seg, bead0, step, gate),
+                     lambda: K.bis_accept_ref(system, p_t, ip, nlev, rows, u,
+                                              active, seg, bead0, step, gate),
+                     bound(by_a, 2 * W * B * (nlev + 1)))):
+                t = (_events_ms(fn), _events_ms(plain), bnd)
+                times[label][name] = t
+                print(f"[time] glue {label} {name} interior W={W} "
+                      f"{str(dtype)[6:]}: kernel {t[0]:.4f} ms, plain "
+                      f"{t[1]:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}; "
+                      f"{card})", flush=True)
+    return errs, times
+
+
+# the kernels that replace the JAX package's Pallas kernels, as the
+# reference routes them; the glue kernels (bis_propose, bis_accept) have
+# a route of their own (kernels.bis_route)
+PAIR_KERNELS = ("pair_rows", "pair_pot", "cascade", "pair_delta", "pair_u")
+
+
 def _kernel_fns():
-    """{name: wrapper} of the five kernels; each wrapper's .launches counts
-    its kernel's launches."""
+    """{name: wrapper} of the seven kernels (PAIR_KERNELS and the glue
+    kernels bis_propose, bis_accept); each wrapper's .launches counts its
+    kernel's launches."""
     from pathintegralgroundstate_torch.ops import kernels as K
     return {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
             "cascade": K.cascade, "pair_delta": K.pair_delta,
-            "pair_u": K.pair_u}
+            "pair_u": K.pair_u, "bis_propose": K.bis_propose,
+            "bis_accept": K.bis_accept}
+
+
+def _glue_launches(cfg, sweeper, visits):
+    """Launches of each glue kernel over `visits` particle visits of the
+    unfused monoshot sweep without the cache: the head and the tail unless
+    paired (paired ends defer their write), the interior with a shared
+    window start; none off bis_route."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    if not K.bis_route(sweeper.system):
+        return 0
+    return visits * ((0 if sweeper.paired_ends else 2)
+                     + (1 if cfg.shared_windows else 0))
 
 
 class _Recorder:
@@ -1399,11 +1546,13 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
     randoms (without them the gate is the dense delta_action, one launch of
     kernel 3 that also runs kernel 4's pass, and no separate kernel-4
     launch).  Per-walker windows (shared_windows=False) launch as shared
-    ones: the gathered window is one kernel-A pass like the view."""
+    ones: the gathered window is one kernel-A pass like the view.  The
+    glue kernels: one launch each per move of the unfused monoshot sweep
+    that bis_route and the move's window let them run (_glue_launches)."""
     Np, Ns = cfg.Np, cfg.Nstag
     rows = (Np * (cfg.CMFreq > 0)
             + ((4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0))
-    rows, casc, dense = nstep * rows, 0, 0
+    rows, casc, dense, glue = nstep * rows, 0, 0, 0
     visits = nstep * Ns * Np
     if cfg.exact_f2:
         return exact_launches(cfg, sweeper, nstep, use_rand, rows, visits)
@@ -1423,6 +1572,7 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
         rows += (2 + (1 if sweeper.sp_sharded else sweeper.sp)) * visits
     elif cfg.bis_monoshot:
         rows += 3 * visits
+        glue = _glue_launches(cfg, sweeper, visits)
     else:
         nlev = cfg.Nlev
         rows += visits * nlev
@@ -1437,7 +1587,8 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
     return {"pair_rows": (rows, True),
             "pair_pot": (2 * nstep, True),
             "cascade": (casc, True), "pair_delta": (dense, True),
-            "pair_u": (0, True)}
+            "pair_u": (0, True), "bis_propose": (glue, True),
+            "bis_accept": (glue, True)}
 
 
 def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
@@ -1446,15 +1597,18 @@ def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
     never (the reference's routing), kernel B twice per step for
     ThermEnergy and, without the cache, twice per F^2-carrying window call
     (every call of the monoshot sweep; the field difference of R' and R),
-    kernels 3 and 4 never (batched randoms: no dense gate)."""
+    kernels 3 and 4 never (batched randoms: no dense gate); the glue
+    kernels never with the cache, else as without exact F^2."""
     if sweeper.fused_diag or cfg.sampling != "bis" or not cfg.bis_monoshot \
             or not use_rand:
         raise ValueError("exact_launches models the unfused monoshot sweep "
                          "with batched randoms only")
     brute = 0 if cfg.f2_cache else 2 * (calls + 3 * visits)
+    glue = 0 if cfg.f2_cache else _glue_launches(cfg, sweeper, visits)
     return {"pair_rows": (0, True), "pair_pot": (2 * nstep + brute, True),
             "cascade": (0, True), "pair_delta": (0, True),
-            "pair_u": (0, True)}
+            "pair_u": (0, True), "bis_propose": (glue, True),
+            "bis_accept": (glue, True)}
 
 
 def main_path(cfg, card, label="main"):
@@ -2148,7 +2302,7 @@ def exact_cli_phase(cfg, card, eps, W=256):
     launches, log = cli_run(nml, "exact F^2 + MALA", d, "--set",
                             f"Nstep={nstep}", "--blocks", str(nblk))
     want = dict(pair_rows=0, pair_pot=2 * nstep * nblk, cascade=0,
-                pair_delta=0, pair_u=0)
+                pair_delta=0, pair_u=0, bis_propose=0, bis_accept=0)
     if launches != want or log.count("> MALA movements") != nblk:
         raise AssertionError(f"cli exact F^2 + MALA: launches {launches}, "
                              f"MALA lines {log.count('> MALA movements')}")
@@ -2320,7 +2474,7 @@ def variants_parity(card):
                       f"{n} cases pass{what} "
                       f"({time.perf_counter() - t0:.1f} s)", flush=True)
     ran = {k: fn.launches - before[k] for k, fn in kern.items()}
-    if not all(ran.values()):
+    if not all(ran[k] for k in PAIR_KERNELS):
         raise AssertionError(f"[variants] a kernel never launched: {ran}")
     print(f"[variants] {total} cases of kernels A, B, 3, 4 and 5 pass "
           f"against their plain forms for {len(VARIANTS)} pair models "
@@ -2548,11 +2702,12 @@ def tables_phase(card):
       1. the three RefRNG goldens (tests/golden/refrng_replay*.json)
          replayed through utils/replay on the card in float64, every
          Delta-S the port's delta_action with both tables, at atol 1e-12
-         (tests/test_refrng.py's), with no kernel launch (the tables route
-         every kernel away);
+         (tests/test_refrng.py's), with no pair kernel launch (the tables
+         route every pair kernel away);
       2. BASELINE configuration #2, the flagship's He-4 at Np=16 with
          v_table = wf_table = T, W=1024 float32, through cli.main, Nstep=2,
-         2 blocks: every kernel's launch count 0, finite e_vpi.out, each
+         2 blocks: every pair kernel's launch count 0 (the glue kernels
+         run, one launch each per monoshot move), finite e_vpi.out, each
          block's bead-updates/s;
       3. v_table alone in the reference order (bis_monoshot=F,
          bis_end_random_depth=T), Np=16, Nstep=2, 1 block: only kernel 4
@@ -2598,11 +2753,11 @@ def tables_phase(card):
         print(f"[tables] golden {name} replayed on the card (float64, both "
               f"tables): max abs err {err:.1e} (atol 1e-12)")
     launches = {k: fn.launches for k, fn in kern.items()}
-    if any(launches.values()):
+    if any(launches[k] for k in PAIR_KERNELS):
         raise AssertionError(f"[tables] the goldens launched kernels: "
                              f"{launches}")
     print(f"[tables] the three goldens in {time.perf_counter() - t0:.1f} s, "
-          f"no kernel launched: {launches}")
+          f"no pair kernel launched: {launches}")
 
     root = os.path.join(repo, "build", "chip_smoke_tables")
     shutil.rmtree(root, ignore_errors=True)
@@ -2615,7 +2770,10 @@ def tables_phase(card):
     launches, _ = cli_run(nml, "BASELINE #2 He-4 N=16 v_table=wf_table=T "
                           "W=1024 float32", d, "--set", "Nstep=2",
                           "--blocks", "2", tag="tables")
-    if any(launches.values()):
+    # the tables take every pair kernel off; the glue kernels stay on
+    # (bis_route), one launch each per monoshot move
+    if any(launches[k] for k in PAIR_KERNELS) or not (
+            launches["bis_propose"] == launches["bis_accept"] > 0):
         raise AssertionError(f"[tables] table mode launched kernels: "
                              f"{launches}")
     rows, _ = _finite_total(os.path.join(d, "e_vpi.out"), 1)
@@ -2638,7 +2796,7 @@ def tables_phase(card):
                           f"Nstep={nstep}", "--blocks", "1", tag="tables")
     gates = 2 * vt.Nstag * vt.Np * nstep
     want = {"pair_rows": 0, "pair_pot": 0, "cascade": 0, "pair_delta": 0,
-            "pair_u": gates}
+            "pair_u": gates, "bis_propose": 0, "bis_accept": 0}
     if launches != want:
         raise AssertionError(f"[tables] v_table reference order: launches "
                              f"{launches}, expected {want}")
@@ -2752,7 +2910,8 @@ def windows_phase(cfg, card, shared):
     shared_windows=False at W=1024 float32 as a main path (exact launch
     counts, peak memory, 0 host syncs), read beside the shared-window
     flagship of [main] (`shared`: its (launches, s/step, bead-updates/s))
-    in this call.  Returns the per-walker path's launches."""
+    in this call, the pair kernels' launches equal to it.  Returns the
+    per-walker path's launches."""
     from pathintegralgroundstate_torch.ops import moves as mv
     from pathintegralgroundstate_torch.system import make_system
 
@@ -2805,7 +2964,9 @@ def windows_phase(cfg, card, shared):
           f"bead-updates/s, launches {launches}; shared windows ([main], "
           f"this call) {dt0 * 1e3:.1f} ms/step, {bups0:.4e} bead-updates/s, "
           f"launches {l0} ({card})")
-    if launches != l0:
+    # the pair kernels launch alike; the per-walker interior move runs the
+    # plain glue (main_path held each glue count to _glue_launches)
+    if any(launches[k] != l0[k] for k in PAIR_KERNELS):
         raise AssertionError("windows: the per-walker flagship's launches "
                              "differ from the shared-window flagship's")
     turns = _paired_steps((cfg, per))
@@ -3596,8 +3757,11 @@ def bench_phase(card, W=1024):
         raise AssertionError(f"bench_torch.py value {line['value']!r}, "
                              f"reps {line['reps_s']}: expected {want!r}")
     n = line["launches"]
+    cfg = flagship_cfg(W)
+    glue = 3 * cfg.Nstag * cfg.Np * nstep * bench_torch.NREPS
     if (n["pair_rows"] <= 0 or n["pair_pot"] != 2 * nstep * bench_torch.NREPS
-            or n["pair_delta"] or n["pair_u"] or n["cascade"]):
+            or n["pair_delta"] or n["pair_u"] or n["cascade"]
+            or n["bis_propose"] != glue or n["bis_accept"] != glue):
         raise AssertionError(f"bench_torch.py's launches {n}")
     print(f"[bench] bench_torch.py: {line['value']:.6e} bead-updates/s at "
           f"W={W}, {line['ms_per_step']:.1f} ms/step, reps {line['reps_s']} "
@@ -4039,6 +4203,8 @@ def main():
     errs["pair_pot"] = max(errs["pair_pot"], pot_parity(cfg))
     clock("dense")
     dense_err, dense_times = dense_parity(cfg, card)
+    clock("glue")
+    glue_errs, glue_times = glue_phase(cfg, card)
     clock("dims")
     dims_cases = dims_parity(cfg)
     clock("variants")
@@ -4199,7 +4365,18 @@ def main():
             ("pair_pot", "pair_pot.cu", "pallas_kernels.py:437"),
             ("pair_delta", "pair_delta.cu", "pallas_kernels.py:392"),
             ("pair_u", "pair_delta.cu", "pallas_kernels.py:413"),
-            ("cascade", "cascade.cu", "cascade_kernels.py:322"))]}))
+            ("cascade", "cascade.cu", "cascade_kernels.py:322"))] + [
+        dict(entry(name, "bis_glue.cu", "", launches[name], glue_errs[name],
+                   *glue_times["flagship"][name]),
+             replaces=None, main_path="flagship",
+             max_abs_err_is="bis_propose: through the minimum image, float32 "
+                            "and float64; bis_accept: decisions and "
+                            "positions, exact",
+             float64_dipolar=dict(zip(
+                 ("ms", "plain_ms", "bound_ms", "bound_by"),
+                 glue_times["dipolar N=256"][name][:2]
+                 + glue_times["dipolar N=256"][name][2])))
+        for name in ("bis_propose", "bis_accept")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,10 @@ its two forms (cfg.bis_monoshot):
       function of (window, gaussians), so ONE pair pass evaluates every
       displaced row and the per-level accepts factorize,
           alive = active AND_k [ u_k < exp(-sum_{rows of level k} dS) ];
+      the unfused moves run the construction and the accepts with their
+      write-back as one launch each around the pair pass
+      (kernels.bis_propose, bis_accept) where the window start is shared
+      and there is no cache;
   per level (bis_monoshot=False, the Fortran's own order): one pair pass
       per level on the level's midpoints, each built on the previous
       levels' beads, the accept chain cut short by the first rejection.
@@ -42,6 +46,7 @@ import math
 import numpy as np
 import torch
 
+from . import kernels
 from .moves import (_cache_win_write, _codd_window, _codd_window_rev, _mi,
                     _slice_beads, _where, _win_write, _wrap_pos, bead_index,
                     metropolis_u)
@@ -95,15 +100,22 @@ def _level_assign(level: int, gate: bool):
     return A
 
 
+def dyadic_tables(system, level: int, dtype):
+    """(T [L-1, L-1], c [L-1]) of _dyadic_tables on the System's device in
+    dtype, built once."""
+    return (system.const(("dyadic_T", level, dtype),
+                         lambda: _dyadic_tables(level, system.cfg.dt)[0],
+                         dtype),
+            system.const(("dyadic_c", level, dtype),
+                         lambda: _dyadic_tables(level, system.cfg.dt)[1],
+                         dtype))
+
+
 def _construct_levels(system, seg, level: int, L: int, g_rows):
     """All levels' midpoints as one bridge matmul in displacement space
     (unwrap the far anchor, matmul, wrap once).  seg [..., L+1, D]; g_rows
     indexed by window position.  Returns a new segment."""
-    dtype = seg.dtype
-    T = system.const(("dyadic_T", level, dtype),
-                     lambda: _dyadic_tables(level, system.cfg.dt)[0], dtype)
-    c = system.const(("dyadic_c", level, dtype),
-                     lambda: _dyadic_tables(level, system.cfg.dt)[1], dtype)
+    T, c = dyadic_tables(system, level, seg.dtype)
     x0 = seg[..., 0, :]
     uL = -_mi(system, x0 - seg[..., L, :])
     y = (c[:, None] * uL[..., None, :]
@@ -169,9 +181,21 @@ def _split(out, fodd):
 def _bisection_monoshot(system, paths, ip: int, active, level: int, rand,
                         fodd=None):
     """Interior bisection over an even-aligned window of 2**level links,
-    one pair pass for all levels.  Returns (paths, alive)."""
+    one pair pass for all levels.  With a shared window start and without
+    the cache, the proposal and the accept with its write-back are one
+    launch each around kernel A (kernels.bis_propose, bis_accept).
+    Returns (paths, alive)."""
     L = 2 ** level
     ii, g_rows, u_acc = rand
+    if fodd is None and isinstance(ii, int):
+        seg = kernels.bis_propose(system, paths, ip, level, g_rows, ii, 1,
+                                  False)
+        R_seg = paths[:, ii:ii + L + 1]
+        rows = delta_action_rows(system, R_seg[:, 1:L], seg[:, 1:L],
+                                 R_seg[:, 1:L, ip], ip,
+                                 bead_index(system, ii, 1, L), need_wf=False)
+        return paths, kernels.bis_accept(system, paths, ip, level, rows,
+                                         u_acc, active, seg, ii, 1, False)
     R_seg = _slice_beads(paths, ii, L + 1)
     seg0 = R_seg[:, :, ip]
     seg = _construct_levels(system, seg0, level, L, g_rows)
@@ -247,6 +271,16 @@ def _end_guess(system, seg0, nlev: int, g0):
     return _wrap_pos(system, xmid + math.sqrt(2 ** nlev * system.cfg.dt) * g0)
 
 
+def _end_proposal(system, seg0, nlev: int, g_rows):
+    """All levels' proposal of an end window seg0 [..., L+1, D] (head
+    orientation): the terminal guess from g row 0, then the midpoints built
+    on it (_construct_levels).  Returns a new segment."""
+    xnew0 = _end_guess(system, seg0, nlev, g_rows[..., 0, :])
+    return _construct_levels(system, torch.cat([xnew0[..., None, :],
+                                                seg0[..., 1:, :]], -2),
+                             nlev, 2 ** nlev, g_rows)
+
+
 def _end_write(system, paths, ip: int, nlev: int, tail: bool, seg_fin):
     """Write an end window (head orientation) back into paths."""
     if tail:
@@ -273,16 +307,27 @@ def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
     accept group 0) and all levels in one pair pass.  The tail's partner
     block is read in FORWARD bead order; only the moved particle's small
     segment is reversed.  Returns (paths, alive), or (the window as it
-    would be written, alive) with defer_write.  With the cache the tail's
-    rows are taken in head orientation (a reversed read), as the reference
-    takes them on its cache path (bisection.py:363-372)."""
+    would be written, alive) with defer_write.  Without either, the
+    proposal and the accept with its write-back are one launch each around
+    kernel A (kernels.bis_propose, bis_accept; the tail's window built in
+    forward bead order).  With the cache the tail's rows are taken in head
+    orientation (a reversed read), as the reference takes them on its cache
+    path (bisection.py:363-372)."""
     M = system.M
     L = 2 ** nlev
     _, g_rows, u_acc = rand
+    if fodd is None and not defer_write:
+        b0, step, r0 = (M - 1, -1, M - L) if tail else (0, 1, 0)
+        seg = kernels.bis_propose(system, paths, ip, nlev, g_rows, b0, step,
+                                  True)
+        rows = delta_action_rows(system, paths[:, r0:r0 + L],
+                                 seg[:, 1:] if tail else seg[:, :L],
+                                 paths[:, r0:r0 + L, ip], ip,
+                                 system.arange(r0, r0 + L))
+        return paths, kernels.bis_accept(system, paths, ip, nlev, rows,
+                                         u_acc, active, seg, b0, step, True)
     seg0, _, _ = _end_window(system, paths, ip, nlev, tail)
-    xnew0 = _end_guess(system, seg0, nlev, g_rows[:, 0])
-    seg = _construct_levels(system, torch.cat([xnew0[:, None], seg0[:, 1:]],
-                                              1), nlev, L, g_rows)
+    seg = _end_proposal(system, seg0, nlev, g_rows)
     if fodd is not None:
         f_seg, k = _end_cache(system, fodd, nlev, tail)
         rows, df = delta_action_rows(
@@ -303,11 +348,7 @@ def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
                                  seg0[:, :L], ip, system.arange(L))
     alive = _monoshot_accept(system, active, rows, u_acc, nlev, True,
                              flip=tail)
-    seg_fin = _where(alive, seg, seg0)
-    if defer_write:
-        return seg_fin, alive
-    _end_write(system, paths, ip, nlev, tail, seg_fin)
-    return paths, alive
+    return _where(alive, seg, seg0), alive
 
 
 def _end_bisection_per_level(system, paths, ip: int, active, nlev: int,
@@ -428,10 +469,7 @@ def _fused_ends_monoshot(system, paths, ip: int, active, level: int, rand,
     R_head = paths[:, :L + 1]
     R_tail = paths[:, M - 1 - L:]                         # forward order
     seg0 = torch.stack([R_head[:, :, ip], R_tail[:, :, ip].flip(1)], 1)
-    xnew0 = _end_guess(system, seg0, level, g2[:, :, 0])
-    seg = _construct_levels(system, torch.cat([xnew0[:, :, None],
-                                               seg0[:, :, 1:]], 2),
-                            level, L, g2)
+    seg = _end_proposal(system, seg0, level, g2)
     caches = [_end_cache(system, fodd, level, t) if fodd is not None
               else (None, None) for t in (False, True)]
     rows_h, df_h = _split(delta_action_rows(

@@ -16,6 +16,11 @@ of the kernel half of ops/cascade_kernels.py.
              UpdateWf of the dense delta_action, du per row.
   cascade    kernel 5 (csrc/cascade.cu), replaces cascade_pallas: one whole
              composite bisection move (modes 'ends' and 'interior').
+  bis_propose, bis_accept
+             the glue of the unfused monoshot bisection moves around kernel
+             A (csrc/bis_glue.cu): every level's proposal in one launch, the
+             accepts and the write-back in another.  They replace no TPU
+             kernel (XLA fuses that glue); route bis_route.
 
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
 pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
@@ -28,8 +33,9 @@ there is no fallback.  Each wrapper's `.launches` counts
 its kernel's launches, and nothing else.
 
 Every kernel takes float32, float64 and bfloat16 tensors (bfloat16 stored
-and written as such, its arithmetic in float32) and every dim >= 1 (dim
-above 3 with the box lengths from a small device array, `_params`).
+and written as such, its arithmetic in float32; the glue kernels float32
+and float64 only) and every dim >= 1 (dim above 3 with the box lengths
+from a small device array, `_params`).
 
 Under a tp mesh (System.tp, parallel/mesh.py) the plain forms are the
 partner seam: each rank evaluates its N/tp partners (pair_terms_ref,
@@ -838,3 +844,179 @@ def cascade(system, mode: str, paths, slots, rg, ru, act, nlev: int):
 
 
 cascade.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The monoshot bisection glue (csrc/bis_glue.cu)
+# ---------------------------------------------------------------------------
+
+GLUE_DTYPES = (torch.float32, torch.float64)
+
+
+def bis_route(system) -> bool:
+    """Whether the unfused monoshot bisection moves' glue runs in the two
+    glue kernels (bis_propose, bis_accept): with the kernels on
+    (_kernels_on, which asks for PBC) in float32 or float64.  bfloat16
+    takes the plain forms, whose per-operation bfloat16 rounding the
+    kernels do not repeat.  The moves call the wrappers only where a kernel
+    can run the move at all: an int window start, no exact-F^2 cache, no
+    deferred write."""
+    return _kernels_on(system) and system.dtype in GLUE_DTYPES
+
+
+def _window_lo(bead0: int, step: int, L: int) -> int:
+    """The first bead, in forward order, of the window bead0 + step p,
+    p = 0..L."""
+    return bead0 if step > 0 else bead0 - L
+
+
+def bis_propose_ref(system, paths, ip: int, nlev: int, g, bead0: int,
+                    step: int, gate: bool):
+    """Plain form of bis_propose: ops/bisection._construct_levels, for an
+    end move on the terminal guess (_end_proposal)."""
+    from .bisection import _construct_levels, _end_proposal
+    L = 2 ** nlev
+    lo = _window_lo(bead0, step, L)
+    seg0 = paths[:, lo:lo + L + 1, ip]
+    if step < 0:
+        seg0 = seg0.flip(1)
+    seg = (_end_proposal(system, seg0, nlev, g) if gate
+           else _construct_levels(system, seg0, nlev, L, g))
+    return seg.flip(1) if step < 0 else seg
+
+
+def bis_accept_ref(system, paths, ip: int, nlev: int, rows, u, active, seg,
+                   bead0: int, step: int, gate: bool):
+    """Plain form of bis_accept (ops/bisection._monoshot_accept, then the
+    accepted windows written back)."""
+    from .bisection import _monoshot_accept
+    from .moves import _where, _win_write
+    L = 2 ** nlev
+    lo = _window_lo(bead0, step, L)
+    alive = _monoshot_accept(system, active, rows, u if gate else u[:, 1:],
+                             nlev, gate, flip=step < 0)
+    _win_write(paths, lo, ip, _where(alive, seg, paths[:, lo:lo + L + 1, ip]))
+    return alive
+
+
+class _GlueArgs(ctypes.Structure):
+    """Mirror of struct GlueArgs in csrc/bis_glue.cu."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "sPw", "sPm", "sPn", "sA", "bead0", "rbead0")] + [
+        ("sig", ctypes.c_double)] + [
+        (n, ctypes.c_int) for n in ("dir", "ip", "W", "nlev", "D", "B",
+                                    "gate")]
+
+
+def _glue_args(system, paths, nlev: int, gate: bool) -> _GlueArgs:
+    """The argument block of one kind of move (window depth, end or
+    interior, paths' layout), built once and kept with the System.  The
+    caller sets the window (bead0, rbead0, dir), ip and active's stride."""
+    key = ("glue_args", nlev, gate, paths.shape, paths.stride())
+    a = system._consts.get(key)
+    if a is None:
+        W, _, _, D = paths.shape
+        L = 2 ** nlev
+        sPw, sPm, sPn, _ = paths.stride()
+        a = _GlueArgs(sPw=sPw, sPm=sPm, sPn=sPn,
+                      sig=(2 ** nlev * system.cfg.dt) ** 0.5, W=W, nlev=nlev,
+                      D=D, B=L if gate else L - 1, gate=int(gate))
+        system._consts[key] = a
+    return a
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def bis_propose(system, paths, ip: int, nlev: int, g, bead0: int, step: int,
+                gate: bool):
+    """Every level's proposal of one monoshot bisection move, in one
+    launch: the window of L = 2**nlev links of particle ip at beads
+    bead0 + step p, p = 0..L (step +1: the interior window or the head,
+    step -1 with bead0 = M-1: the tail), from the gaussians g [W, L, D] by
+    window position (an end move's terminal guess takes row 0, gate=True).
+    paths [W, M, N, D] is read in place.  Returns the new window [W, L+1,
+    D] in forward bead order (bead lo + r at row r), the order in which
+    kernel A is called with it."""
+    if paths.device.type == "cpu" or not bis_route(system):
+        return bis_propose_ref(system, paths, ip, nlev, g, bead0, step, gate)
+    W, M, N, D = paths.shape
+    L = 2 ** nlev
+    lo = _window_lo(bead0, step, L)
+    if (paths.dtype != system.dtype or g.dtype != paths.dtype
+            or g.device != paths.device or g.shape != (W, L, D)
+            or paths.stride(-1) != 1 or not g.is_contiguous()
+            or not (0 <= lo and lo + L < M and 0 <= ip < N)):
+        raise ValueError(f"bis_propose: paths [W, M, N, D] in "
+                         f"{system.dtype}, a contiguous g {(W, L, D)} beside "
+                         f"it and a window inside paths; got "
+                         f"{tuple(paths.shape)}, {tuple(g.shape)} {g.dtype}, "
+                         f"bead0 {bead0}, step {step}, ip {ip}")
+    from .bisection import dyadic_tables
+    tab_T, tab_c = dyadic_tables(system, nlev, paths.dtype)
+    a = _glue_args(system, paths, nlev, gate)
+    a.bead0, a.dir, a.ip = bead0, step, ip
+    out = torch.empty((W, L + 1, D), dtype=paths.dtype, device=paths.device)
+    err = getattr(kernels(), "pigs_bis_propose_" + _suffix(paths.dtype))(
+        ctypes.byref(a), paths.data_ptr(), g.data_ptr(), tab_T.data_ptr(),
+        tab_c.data_ptr(), system.L.data_ptr(), system.half.data_ptr(),
+        out.data_ptr(), _stream(paths))
+    if err:
+        raise RuntimeError(f"bis_propose: kernel launch failed, cudaError "
+                           f"{err}")
+    bis_propose.launches += 1
+    return out
+
+
+bis_propose.launches = 0
+
+
+def bis_accept(system, paths, ip: int, nlev: int, rows, u, active, seg,
+               bead0: int, step: int, gate: bool):
+    """The accepts and the write-back of one monoshot bisection move, in
+    one launch: from kernel A's rows [W, B] (the window's displaced beads
+    in forward order: the interior's positions 1..L-1, an end's 0..L-1),
+    each accept group's row sum (level ilev; an end move's terminal gate
+    first), alive = active AND_k u[:, k] < exp(-sum_k) with u [W, nlev+1]
+    by group (the interior leaves column 0 unread), and the accepted
+    walkers' displaced positions of seg (bis_propose's window) written into
+    paths in place.  Returns alive [W]."""
+    if paths.device.type == "cpu" or not bis_route(system):
+        return bis_accept_ref(system, paths, ip, nlev, rows, u, active, seg,
+                              bead0, step, gate)
+    W, M, N, D = paths.shape
+    L = 2 ** nlev
+    B = L if gate else L - 1
+    lo = _window_lo(bead0, step, L)
+    if (paths.dtype != system.dtype or paths.stride(-1) != 1
+            or not (0 <= lo and lo + L < M and 0 <= ip < N)
+            or rows.shape != (W, B) or u.shape != (W, nlev + 1)
+            or active.shape != (W,) or active.dtype != torch.bool
+            or seg.shape != (W, L + 1, D)
+            or not (seg.is_contiguous() and rows.is_contiguous()
+                    and u.is_contiguous())
+            or any(t.dtype != paths.dtype or t.device != paths.device
+                   for t in (rows, u, seg))
+            or active.device != paths.device):
+        raise ValueError(f"bis_accept: contiguous rows {(W, B)}, u "
+                         f"{(W, nlev + 1)} and seg {(W, L + 1, D)}, and "
+                         f"active [W] bool, beside paths [W, M, N, D] in "
+                         f"{system.dtype}, and a window inside paths; got "
+                         f"bead0 {bead0}, step {step}, ip {ip}")
+    a = _glue_args(system, paths, nlev, gate)
+    a.bead0, a.dir, a.ip, a.sA = bead0, step, ip, active.stride(0)
+    # kernel A's row 0: the first displaced bead in forward order
+    a.rbead0 = bead0 + (0 if gate else 1) if step > 0 else bead0 - L + 1
+    alive = torch.empty(W, dtype=torch.bool, device=paths.device)
+    err = getattr(kernels(), "pigs_bis_accept_" + _suffix(paths.dtype))(
+        ctypes.byref(a), rows.data_ptr(), u.data_ptr(), active.data_ptr(),
+        seg.data_ptr(), paths.data_ptr(), alive.data_ptr(), _stream(paths))
+    if err:
+        raise RuntimeError(f"bis_accept: kernel launch failed, cudaError "
+                           f"{err}")
+    bis_accept.launches += 1
+    return alive
+
+
+bis_accept.launches = 0

@@ -98,7 +98,8 @@ def ptxas_summary(log: str) -> list:
     name, spill, out = "?", "", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
-                      r"pair_delta|pair_u|cascade)_kernel)"
+                      r"pair_delta|pair_u|cascade|bis_propose|bis_accept)"
+                      r"_kernel)"
                       r"I(f|d|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
         if m:
             args = [{"f": "float", "d": "double"}.get(m.group(2), "bf16")] + [
@@ -121,6 +122,9 @@ _POT_ARGS = [_P, _P, _P, _I, _P, _P, _P]
 _DELTA_ARGS = [_P] * 6 + [_I] * 2 + [_P] * 5
 _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _I, _P]
+_PROPOSE_ARGS = [_P] * 9
+_ACCEPT_ARGS = [_P] * 8
+GLUE_STORAGE = ("f32", "f64")      # csrc/bis_glue.cu: no bfloat16 entries
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,10 +132,14 @@ def kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first call, once per process)."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    for kernel, args in (("pair_rows", _ROWS_ARGS), ("pair_pot", _POT_ARGS),
-                         ("pair_delta", _DELTA_ARGS),
-                         ("cascade", _CASCADE_ARGS)):
-        for suffix in STORAGE:
+    for kernel, args, types in (
+            ("pair_rows", _ROWS_ARGS, STORAGE),
+            ("pair_pot", _POT_ARGS, STORAGE),
+            ("pair_delta", _DELTA_ARGS, STORAGE),
+            ("cascade", _CASCADE_ARGS, STORAGE),
+            ("bis_propose", _PROPOSE_ARGS, GLUE_STORAGE),
+            ("bis_accept", _ACCEPT_ARGS, GLUE_STORAGE)):
+        for suffix in types:
             fn = getattr(lib, f"pigs_{kernel}_{suffix}")
             fn.argtypes = args
             fn.restype = ctypes.c_int

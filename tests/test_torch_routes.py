@@ -10,7 +10,15 @@ core gives the built-in soft's block bit for bit through the plain forms,
 and the JAX package's block with the same potential registered there, on
 the reference's draws (rtol 1e-10 on the paths, exact counters).  The
 card's side (0 launches) is chip_smoke.py's [routes] phase.
+
+The monoshot bisection glue (kernels.bis_propose, bis_accept) runs its
+kernels only on bis_route and only from the moves that a kernel can run:
+bfloat16 and use_pallas=False turn the route off; per-walker windows (the
+interior move), the exact-F^2 cache, the per-level forms and paired ends
+never reach the wrappers.
 """
+
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -117,3 +125,45 @@ def test_registered_potential_matches_jax(plugin):
     for k in ("sumE", "sumEt", "sumV"):
         np.testing.assert_allclose(got[k], np.asarray(getattr(jstats, k)),
                                    rtol=1e-9, err_msg=k)
+
+
+GLUE_CASES = {
+    "routed": ({}, True, {False: 1, True: 2}),
+    "bfloat16": (dict(dtype="bfloat16"), False, {False: 1, True: 2}),
+    "use_pallas=False": (dict(use_pallas=False), False, {False: 1, True: 2}),
+    "per-walker windows": (dict(shared_windows=False), True, {True: 2}),
+    "exact F2 cache": (dict(exact_f2=True, f2_cache=True), True, {}),
+    "per level": (dict(bis_monoshot=False), True, {}),
+    "paired ends": (dict(paired_ends=True), True, {False: 1}),
+}
+
+
+@pytest.mark.parametrize("case", list(GLUE_CASES))
+def test_bis_glue_route_and_its_callers(case, monkeypatch):
+    """One unfused step on the CPU: bis_route, and the glue wrappers'
+    calls per particle visit by kind (gate False: the interior move, True:
+    the head and the tail), each call of bis_propose followed by one of
+    bis_accept; no glue launch on the CPU."""
+    overrides, route, per_visit = GLUE_CASES[case]
+    cfg = flagship_cfg(4).replace(Np=8, Nb=8, Lstag=4, Nlev=2, Nstag=1,
+                                  Nobdm=2, **overrides)
+    system = make_system(cfg, "cpu")
+    assert kernels.bis_route(system) is route
+    calls = Counter()
+
+    def spy(name, fn, gate_at):
+        def call(*a):
+            calls[name, a[gate_at]] += 1
+            return fn(*a)
+        return call
+
+    glue = kernels.bis_propose, kernels.bis_accept
+    n = [fn.launches for fn in glue]
+    monkeypatch.setattr(kernels, "bis_propose", spy("propose", glue[0], 7))
+    monkeypatch.setattr(kernels, "bis_accept", spy("accept", glue[1], 10))
+    run_block(Sweeper(system), init_state(system), 1)
+    visits = cfg.Nstag * cfg.Np
+    want = Counter({(name, gate): k * visits for gate, k in per_visit.items()
+                    for name in ("propose", "accept")})
+    assert calls == want
+    assert [fn.launches for fn in glue] == n

@@ -12,7 +12,11 @@ terms, installed for set-up and window alike:
              gaussians), every output of the window pair pass
              (`ops.kernels.pair_rows`, kernel A) inside the call, the
              decisions it returned and the positions after it.  Copied to
-             host memory (pinned on the card) as the window runs.
+             host memory (pinned on the card) as the window runs.  The
+             whole-move cascades (`ops.cascade`: the rigid one, whose pair
+             pass is kernel A, the ends and the interior, kernel 5) are
+             kinds of their own; kernel 5 exposes no rows, so only its
+             arguments, decisions and write-back are kept.
   last step  the last step of each block (the window's last step is kept):
              the statistics before and after it, the open masks and
              permutation counts before and after it, the open ends that
@@ -42,13 +46,16 @@ TAPS = {
     "bis_tail": ("bisection", "move_tail_bisection"),
     "bis_ends": ("bisection", "fused_end_bisections"),
     "bis_multi": ("bisection", "bisection_multi"),
+    "cm_cascade": ("cascade", "rigid_cascade"),
+    "cascade_ends": ("cascade", "fused_ends_cascade"),
+    "cascade_int": ("cascade", "interior_cascade"),
     "head_half": ("moves", "move_head_half_chain"),
     "tail_half": ("moves", "move_tail_half_chain"),
     "sta_half": ("moves", "staging_half_chain"),
     "swap": ("worm", "swap_move"),
 }
 CAPTURED = ("cm", "worm_cm", "bis", "bis_head", "bis_tail", "bis_ends",
-            "bis_multi")
+            "bis_multi", "cm_cascade", "cascade_ends", "cascade_int")
 # the step's acceptance counters each kind's outputs add to:
 # (counter, index of the decision in the call's outputs)
 COUNTS = {
@@ -56,7 +63,9 @@ COUNTS = {
     "bis": [("acc_bd", 1)], "bis_head": [("acc_head", 1)],
     "bis_tail": [("acc_tail", 1)],
     "bis_ends": [("acc_head", 1), ("acc_tail", 2)],
-    "bis_multi": [("acc_bd", 1)],
+    "bis_multi": [("acc_bd", 1)], "cm_cascade": [("acc_cm", 1)],
+    "cascade_ends": [("acc_head", 1), ("acc_tail", 2)],
+    "cascade_int": [("acc_bd", 1)],
     "head_half": [("acc_head_half", 2)], "tail_half": [("acc_tail_half", 2)],
     "sta_half": [("acc_bd_half", 2)], "swap": [("acc_swap", 2)],
 }
@@ -65,20 +74,21 @@ _SKIP = ("system", "paths", "xend", "fodd")
 
 def expected_kinds(f: dict) -> list:
     """The captured kinds of move that a step of configuration fields f
-    runs (the sweep's schedule, sweep.Sweeper.step)."""
+    runs (the sweep's schedule, sweep.Sweeper.step): with `cascade` and
+    the F^2 cache off, the CM move and the fused sweep's composites are
+    cascades."""
     cache = f["exact_f2"] and f["f2_cache"]
     cascade = f["cascade"] and not cache
     kinds = []
-    if f["CMFreq"] > 0 and not cascade:
-        kinds.append("cm")
+    if f["CMFreq"] > 0:
+        kinds.append("cm_cascade" if cascade else "cm")
     if f["Nstag"] > 0 and f["sampling"] == "bis":
         L, M = 2 ** f["Nlev"], 2 * f["Nb"] + 1
         if (f["fused_sweep"] and not f["bis_end_random_depth"]
                 and 2 * L < M - 1):
-            if f["end_regrow"] != "sta" and not cascade:
-                kinds.append("bis_ends")
-            if not cascade:
-                kinds.append("bis_multi")
+            if f["end_regrow"] != "sta":
+                kinds.append("cascade_ends" if cascade else "bis_ends")
+            kinds.append("cascade_int" if cascade else "bis_multi")
         else:
             paired = (f["paired_ends"] and f["bis_monoshot"] and not cache
                       and 2 ** (max(f["Nlev"], 2) + 1) < M - 1)
@@ -173,7 +183,7 @@ class Capture:
             if self.counting:
                 for name, i in COUNTS[kind]:
                     self._add(name, out[i].sum())
-                if kind == "bis_multi":
+                if kind in ("bis_multi", "cascade_int"):
                     act = args["active"]
                     self._add("try_int", act.sum() * (
                         len(args["ips"]) if act.dim() == 1 else 1))
@@ -233,6 +243,10 @@ class Capture:
             obj = getattr(p, mod)
             self._patch(obj, fn, self._tap(kind, getattr(obj, fn)))
         self._patch(p.kernels, "pair_rows", self._rows_tap(p.kernels.pair_rows))
+        # the cascades' plain form binds kernel A as its default pair pass
+        # (the rigid cascade's): the same tap there
+        self._patch(p.cascade.cascade_ref, "__defaults__",
+                    (p.kernels.pair_rows,))
         self._patch(p.worm, "obdm_terms", self._obdm_tap(p.worm.obdm_terms))
         self._patch(self.sweeper, "step", self._step_tap(self.sweeper.step))
 

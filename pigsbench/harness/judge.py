@@ -5,7 +5,8 @@ Numbers compared, each against its limit in the cell's file
 (`check.limits`; a cell compares the numbers it names there):
 
   <f>_dS_gap     the window pair pass (kernel A) inside the captured moves
-                 of family f (cm: the rigid CM move; bis: the bisections,
+                 of family f (cm: the rigid CM move, also as the rigid
+                 cascade; bis: the bisections,
                  head, tail, interior and their composites; worm: the worm
                  half's rigid move): per compared row of each sampled
                  walker whose particle is active, |dS - dS_ref| / max(1,
@@ -17,6 +18,21 @@ Numbers compared, each against its limit in the cell's file
                  exp(-S_ref) for some accept group, either decision
                  stands), the largest minimum-image distance over the box
                  length; a decision returned otherwise than written reads 1;
+  cascade_flip_gap
+                 kernel 5's whole-move cascades (the ends and the interior),
+                 which expose no rows: over each slot whose decision differs
+                 from the float64 reference's, the least relative error of
+                 its gates' summed dS that explains the decision (the
+                 margin |sum dS_g + ln u_g| / max(1, |sum dS_g|), of the
+                 reference's sums: the largest over the gates the reference
+                 fails where the program accepts, the smallest over every
+                 gate where it rejects), the worst; 0 where no decision
+                 differs, inf for an inactive slot accepted;
+  cascade_state_gap
+                 those moves' write-backs: the positions after the move
+                 against the reference's proposals written back under the
+                 program's decisions, the largest minimum-image distance over
+                 the box length;
   energy_gap     the mixed estimator's statistics of the window's last
                  measurement (n_diag, sumE, sumK, sumV and their squares),
                  |delta - ref| / sum|terms|, the worst field;
@@ -53,10 +69,13 @@ from ..reference.physics import geometry, wrap
 from .capture import expected_kinds
 from .counting import COUNTER_NAMES
 
-FAMILY = {"cm": "cm", "worm_cm": "worm"}     # else "bis"
+FAMILY = {"cm": "cm", "cm_cascade": "cm", "worm_cm": "worm"}  # else "bis"
+# kernel 5's kinds, judged by their decisions and write-backs alone
+CASCADES = ("cascade_ends", "cascade_int")
 NUMBERS = ("cm_dS_gap", "cm_state_gap", "bis_dS_gap", "bis_state_gap",
-           "worm_dS_gap", "worm_state_gap", "energy_gap", "therm_gap",
-           "structure_gap", "obdm_gap", "count_gap", "missing")
+           "worm_dS_gap", "worm_state_gap", "cascade_flip_gap",
+           "cascade_state_gap", "energy_gap", "therm_gap", "structure_gap",
+           "obdm_gap", "count_gap", "missing")
 LOWER = {"float32": torch.bfloat16, "float64": torch.float32}
 
 
@@ -80,10 +99,12 @@ def _slot_rows(rec) -> list:
     rows in the reference's order (reference/moves.py), or None where they
     are not of the form expected (a per-level form, a missing pass)."""
     kind, outs, a = rec["kind"], rec["rows"], rec["args"]
+    if kind in CASCADES:    # kernel 5 exposes none
+        return None
     n = 2 if kind == "bis_ends" else 1
     if len(outs) != n:
         return None
-    if kind in ("cm", "worm_cm"):
+    if kind in ("cm", "cm_cascade", "worm_cm"):
         return [outs[0][:, None]] if outs[0].dim() == 1 else None
     if outs[0].dim() != 2:
         return None
@@ -128,14 +149,15 @@ def _reference_book(run, last) -> dict:
     c = {}
     if f["CMFreq"] > 0 and last["step"] % f["CMFreq"] == 0:
         c["try_cm"] = act_all
-        if "cm" in kinds:
-            c["acc_cm"] = acc.get("acc_cm", 0.0)
+        c["acc_cm"] = acc.get("acc_cm", 0.0)
     if f["Nstag"] > 0 and f["sampling"] == "bis":
         c["try_stag"] = f["Nstag"] * act_all
         for k, names in (("bis_head", ("acc_head",)),
                          ("bis_tail", ("acc_tail",)), ("bis", ("acc_bd",)),
                          ("bis_ends", ("acc_head", "acc_tail")),
-                         ("bis_multi", ("acc_bd", "try_int"))):
+                         ("bis_multi", ("acc_bd", "try_int")),
+                         ("cascade_ends", ("acc_head", "acc_tail")),
+                         ("cascade_int", ("acc_bd", "try_int"))):
             if k in kinds:
                 c.update({n: acc.get(n, 0.0) for n in names})
     worm = f["CWorm"] > 0.0
@@ -245,6 +267,47 @@ def _judge_move(run, rec, geo, dev):
     return FAMILY.get(rec["kind"], "bis"), gap, dist
 
 
+def _flip_gap(slot, acc):
+    """[s]: the least relative error of the reference's gate sums that
+    explains the decisions acc [s] bool where they differ from the
+    reference's (see cascade_flip_gap)."""
+    sums = ref_mv.group_sums(slot, slot["dS"])
+    used = torch.zeros(sums.shape[1], dtype=torch.bool, device=sums.device)
+    used[slot["group"].to(sums.device)] = True
+    margin = (sums + torch.log(slot["u"].to(sums.dtype))).abs() \
+        / sums.abs().clamp(min=1.0)
+    margin = torch.where(torch.isnan(margin), torch.full_like(margin,
+                                                              math.inf),
+                         margin)
+    fails = ~ref_mv.passes(slot, slot["dS"]) & used
+    ref = ref_mv.decide(slot, slot["dS"])
+    # accepted where the reference rejects: every gate it fails flipped
+    up = torch.where(fails, margin, torch.zeros_like(margin)).amax(-1)
+    # rejected where the reference accepts: one gate at least flipped
+    down = torch.where(used, margin, torch.full_like(margin,
+                                                     math.inf)).amin(-1)
+    gap = torch.where(acc & ~ref, up, torch.where(~acc & ref, down,
+                                                   torch.zeros_like(up)))
+    return torch.where(acc & ~slot["active"], torch.full_like(gap, math.inf),
+                       gap)
+
+
+def _judge_cascade(run, rec, geo, dev):
+    """(flip gap, state gap) per sampled walker of one captured call of
+    kernel 5's cascades."""
+    f64 = torch.float64
+    R = rec["before"].to(dev, f64)
+    slots = ref_mv.move(run.fields, rec["kind"], R, _dev(rec["args"], dev))
+    acc = [a.to(dev) for a in rec["accept"]]
+    flip = torch.stack([_flip_gap(sl, a) for sl, a in zip(slots, acc)])
+    exp_R, _ = ref_mv.apply(slots, R, None, acc)
+    dist = wrap(rec["after"].to(dev, f64) - exp_R, geo.L).abs()
+    dist = dist.amax((1, 2, 3)) / geo.L
+    dist = torch.where(torch.isfinite(dist), dist,
+                       torch.full_like(dist, math.inf))
+    return flip.amax(0), dist
+
+
 def judge(run, answers: dict, limits: dict) -> tuple:
     """({number: value}, attempted, failed) of the answers against the
     float64 reference."""
@@ -259,6 +322,14 @@ def judge(run, answers: dict, limits: dict) -> tuple:
     missing = sum((b, k) not in seen for b in range(1, run.blocks + 1)
                   for k in kinds)
     for rec in answers["moves"]:
+        if rec["kind"] in CASCADES:
+            flip, dist = _judge_cascade(run, rec, geo, dev)
+            g, s = "cascade_flip_gap", "cascade_state_gap"
+            vals[g] = max(vals[g], float(flip.max()))
+            vals[s] = max(vals[s], float(dist.max()))
+            attempted += flip.numel()
+            failed += int(((flip > lim[g]) | (dist > lim[s])).sum())
+            continue
         out = _judge_move(run, rec, geo, dev)
         if out is None:
             missing += 1

@@ -1,5 +1,6 @@
-"""The table of peaks and the bytes and operations of each pair kernel's
-launch, counted from the launch's own shapes.
+"""The table of peaks and the bytes and operations of each launch of the
+pair kernels and of the whole-move cascade, counted from the launch's own
+shapes.
 
 Peaks: one NVIDIA H100 SXM by its data sheet (dense, 700 W): 3.35 TB/s of
 HBM3, 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the tensor
@@ -72,6 +73,47 @@ def all_pairs(rec: dict) -> tuple:
         per_pair += 1 + 4 * D
     ops = W * B * (N * (N - 1) // 2 * per_pair + (2 * D * N if force else 0))
     return nbytes, ops
+
+
+# a proposal's arithmetic per dimension: a bisection midpoint (the minimum
+# images of both anchors 3 each, the mean 2, the gaussian step 2, the wrap
+# 2) and the free-gaussian end guess (the minimum image 3, the midpoint 1,
+# the step 2, the wrap 2)
+OPS_MIDPOINT = 12
+OPS_END_GUESS = 8
+
+
+def cascade_move(rec: dict) -> tuple:
+    """(bytes, operations) of one launch of the whole-move cascade (kernel
+    5): W x S slots, each the whole move of one window of L + 1 beads.
+    Bytes: the slots' windows of all N particles (each distinct bead of
+    the launch's windows once per walker), the gaussians rg [L+1, D] and
+    the gate uniforms ru [G] of each slot and its active flag read; each
+    slot's displaced rows (ends 0..L-1, interior 1..L-1) and its decision
+    written.  Operations: every gate of every slot, as if it passed each
+    one: for the ends the end guess and its row (V and u; the Chin weight
+    of F^2 at a chain end is 0), then level ilev's 2**(ilev-1) midpoints
+    and rows (V; V and the force at the last level, whose rows are odd
+    beads), both sides against N - 1 partners each."""
+    W, S, N, D, L, nlev = (rec[k] for k in ("W", "S", "N", "D", "L", "nlev"))
+    es = ESIZE[rec["dtype"]]
+    ends = rec["mode"] == "ends"
+    gates = nlev + ends
+    written = L if ends else L - 1
+    nbytes = (es * W * (rec["beads"] * N * D
+                        + S * ((L + 1) * D + gates + written * D))
+              + 2 * W * S)
+    pot, jas = POT_KINDS[rec["pot_kind"]], JAS_KINDS[rec["jas_kind"]]
+
+    def row(force, wf):
+        return (2 * (N - 1) * _pair_ops(D, pot, jas, force, wf)
+                + 2 * (2 * D if force else 0) + 6)
+
+    per_slot = (OPS_END_GUESS * D + row(False, True)) if ends else 0
+    for ilev in range(1, nlev + 1):
+        per_slot += 2 ** (ilev - 1) * (OPS_MIDPOINT * D
+                                       + row(ilev == nlev, False))
+    return nbytes, W * S * per_slot
 
 
 def least_seconds(nbytes: float, ops: float, dtype: str) -> float:

@@ -1,7 +1,8 @@
 """The traced run's readings: one window block under `torch.profiler`
 (CPU and CUDA activities, kept in memory), and the shapes of each launch
-of the program's pair kernels, read at the benchmark's own span around
-the call into the kernels' library.
+of the program's pair kernels and of its whole-move cascade (kernel 5),
+read at the benchmark's own span around the call into the kernels'
+library.
 
 From the trace: the device intervals (kernels, memcpy, memset) and their
 union (busy seconds), the host's launch calls (kernel launches, memcpy,
@@ -152,7 +153,8 @@ def breakdown(td: TraceData, top: int = 10) -> dict:
 class LaunchTap:
     """Records each launch's shapes from the argument structs the program
     hands its kernels' library: pass-through wrappers on the library's
-    entry points for the window pair pass and the all-pairs pass."""
+    entry points for the window pair pass, the all-pairs pass and the
+    whole-move cascade."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -178,13 +180,27 @@ class LaunchTap:
                              force=int(args[3]), pot_kind=p.pot_kind))
             return fn(*args)
 
+        def cascade(*args):
+            # (params, move, paths, 3 strides, rg, ru, act, 2 strides, acc,
+            #  W, S, N, L, nlev, ends, bulk, stream)
+            p, a = args[0]._obj, args[1]._obj
+            W, S, N, L, nlev, ends = args[12:18]
+            beads = {a.bead0[s] + a.dir[s] * q for s in range(S)
+                     for q in range(L + 1)}
+            recs.append(dict(dtype=dtype, mode="ends" if ends else
+                             "interior", W=W, S=S, N=N, D=p.dim, L=L,
+                             nlev=nlev, beads=len(beads),
+                             pot_kind=p.pot_kind, jas_kind=p.jas_kind))
+            return fn(*args)
+
         self._saved[name] = fn
-        setattr(self.lib, name, rows if kind == "pair_rows" else pot)
+        setattr(self.lib, name, {"pair_rows": rows, "pair_pot": pot,
+                                 "cascade": cascade}[kind])
 
     def install(self):
         for dtype in ("f32", "f64", "bf16"):
-            self._wrap(f"pigs_pair_rows_{dtype}", "pair_rows", dtype)
-            self._wrap(f"pigs_pair_pot_{dtype}", "pair_pot", dtype)
+            for kind in ("pair_rows", "pair_pot", "cascade"):
+                self._wrap(f"pigs_{kind}_{dtype}", kind, dtype)
 
     def uninstall(self):
         for name, fn in self._saved.items():

@@ -43,7 +43,7 @@ def port_modules() -> SimpleNamespace:
         state=imp(f"{PORT}.state"), sweep=imp(f"{PORT}.sweep"),
         moves=imp(f"{PORT}.ops.moves"), kernels=imp(f"{PORT}.ops.kernels"),
         bisection=imp(f"{PORT}.ops.bisection"), worm=imp(f"{PORT}.ops.worm"),
-        build=imp(f"{PORT}.utils.build"))
+        cascade=imp(f"{PORT}.ops.cascade"), build=imp(f"{PORT}.utils.build"))
 
 
 def sim_fields(workload: dict, config: dict) -> dict:

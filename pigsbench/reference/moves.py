@@ -18,7 +18,9 @@ and the move's own random numbers:
              (both proposed from the same positions);
   bis_multi  K interior bisections of K particles in the slots of 2**level
              links from the even bead s (all proposed from the same
-             positions).
+             positions);
+  cm_cascade, cascade_ends, cascade_int
+             the whole-move cascades, in cascade.py.
 
 Each displaced bead b of the moved particle p changes the action by
 
@@ -256,6 +258,7 @@ KINDS = {"cm": cm, "worm_cm": worm_cm, "bis": bis, "bis_head": bis_head,
 def move(cfg, kind, R, a, xend=None):
     """The slots of one move of `kind` on positions R [s, M, N, D] (the
     arithmetic in R's type) with its arguments a."""
+    from .cascade import KINDS as CASCADES
     if kind == "worm_cm":
         return worm_cm(cfg, R, a, xend)
-    return KINDS[kind](cfg, R, a)
+    return (CASCADES.get(kind) or KINDS[kind])(cfg, R, a)

@@ -89,6 +89,32 @@ def test_all_pairs_bytes_and_operations():
         4 * (72 + 12), 6 * 6 * 40)
 
 
+def test_cascade_move_bytes_and_operations():
+    ends = dict(dtype="f32", mode="ends", W=2, S=2, N=4, D=3, L=4, nlev=2,
+                beads=10, pot_kind=0, jas_kind=0)
+    # bytes: 4 x 2 walkers x (10 beads x 12 + 2 slots x (15 rg + 3 ru + 12
+    # rows written)) + 2 x 4 flags (active, acc)
+    # ops per slot: the end guess 8 x 3 and its row 2 x 3 x 49 (V, u) + 6;
+    # level 1: a midpoint 12 x 3 and its row 2 x 3 x 40 (V) + 6; level 2:
+    # two of them at 2 x 3 x 67 (V, dV, force) + 2 x 6 (|F|^2) + 6
+    assert roofline.cascade_move(ends) == (
+        4 * 2 * (120 + 2 * 30) + 8,
+        2 * 2 * ((24 + 300) + (36 + 246) + 2 * (36 + 420)))
+    interior = {**ends, "mode": "interior", "S": 3, "beads": 13}
+    # 3 slots of 4 links from one shift: 13 beads; 2 gates, 3 rows written;
+    # no end guess or end row
+    assert roofline.cascade_move(interior) == (
+        4 * 2 * (13 * 12 + 3 * (15 + 2 + 9)) + 12,
+        2 * 3 * ((36 + 246) + 2 * (36 + 420)))
+    dip = {**interior, "dtype": "f64", "D": 2, "pot_kind": 2, "jas_kind": 1}
+    # 8 bytes an element, 8 per dimension; dipolar V 3, (V, dV) 5:
+    # level 1 2 x 3 x (8 + 2 + 1 + 3) + 6, level 2 2 x 3 x (14 + 2 + 5) + 8
+    # + 6 beside 12 x 2 per midpoint
+    assert roofline.cascade_move(dip) == (
+        8 * 2 * (13 * 8 + 3 * (10 + 2 + 6)) + 12,
+        2 * 3 * ((24 + 90) + 2 * (24 + 140)))
+
+
 def test_least_time_is_the_larger_bound():
     assert roofline.least_seconds(540, 2844, "f32") == pytest.approx(
         540 / 3.35e12)
@@ -139,6 +165,54 @@ def test_metric_readers_on_a_trace():
     td.launches["pair_rows"].append(td.launches["pair_rows"][0])
     assert read("roofline_pct.window_pairs")(run) is None
     assert read("device_idle_pct")(SimpleNamespace(trace=None)) is None
+
+
+def test_cascade_metrics_on_a_trace():
+    rec = dict(dtype="f32", mode="ends", W=2, S=2, N=4, D=3, L=4, nlev=2,
+               beads=10, pot_kind=0, jas_kind=0)
+    td = trace.TraceData(
+        steps=2, window_s=1.0,
+        kernels=[("void (anonymous namespace)::cascade_kernel<float, 0, 0, "
+                  "3>(Consts<float>, CascadeArgs)", 0, 500),
+                 ("void (anonymous namespace)::cascade_kernel<float, 0, 0, "
+                  "3>(Consts<float>, CascadeArgs)", 600, 1100),
+                 ("void pair_rows_kernel<float, 4>", 2000, 3000)],
+        launches={"cascade": [rec, rec]})
+    run = SimpleNamespace(trace=td)
+    read = manifest.metric_reader
+    assert read("cascade_launches_per_step")(run) == 1.0
+    assert read("roofline_pct.cascade_move")(run) == pytest.approx(
+        100 * 2 * (1448 / 3.35e12) / 1000e-9)
+    td.launches["cascade"].pop()
+    assert read("roofline_pct.cascade_move")(run) is None
+    td.kernels = td.kernels[2:]
+    assert read("cascade_launches_per_step")(run) == 0.0
+    assert read("cascade_launches_per_step")(
+        SimpleNamespace(trace=None)) is None
+
+
+def test_launch_tap_reads_a_cascade_launch():
+    import ctypes
+
+    from pathintegralgroundstate_torch.ops import kernels
+    seen = []
+    lib = SimpleNamespace(**{f"pigs_{k}_{d}": (lambda *a: seen.append(a) or 0)
+                             for k in ("pair_rows", "pair_pot", "cascade")
+                             for d in ("f32", "f64", "bf16")})
+    p = kernels._PairParams(dim=3, pot_kind=0, jas_kind=0)
+    a = kernels._CascadeArgs()
+    for s_, (b0, d) in enumerate([(0, 1), (16, -1)]):   # ends, M = 17
+        a.bead0[s_], a.dir[s_], a.ip[s_] = b0, d, 5
+    orig = lib.pigs_cascade_f32
+    tap = trace.LaunchTap(lib)
+    tap.install()
+    lib.pigs_cascade_f32(ctypes.byref(p), ctypes.byref(a), 0, 1, 2, 3, 0, 0,
+                         0, 2, 1, 0, 1024, 2, 64, 8, 3, 1, 1, None)
+    tap.uninstall()
+    assert len(seen) == 1 and tap.records["cascade"] == [dict(
+        dtype="f32", mode="ends", W=1024, S=2, N=64, D=3, L=8, nlev=3,
+        beads=17, pot_kind=0, jas_kind=0)]
+    assert lib.pigs_cascade_f32 is orig
 
 
 def test_start_positions_are_the_seeds():

@@ -22,7 +22,7 @@ from pigsbench.harness import capture, judge, manifest, window  # noqa: E402
 # (He-4's worm weight raised so that most walkers' worms are open, and the
 # worm's moves are compared, in one block of two steps)
 TINY = {"he4_n64": dict(Np=8, Nb=8, Nlev=2, Lstag=4, Nstag=1, Nobdm=2,
-                        CWorm=50.0),
+                        CWorm=50.0),   # fused + cascade: L = 4, K = 3
         "dipolar2d_n256": dict(Np=16)}
 CELLS = [w["name"] for w in manifest.manifest()["workloads"]]
 
@@ -109,7 +109,8 @@ class _Faulty:
             altered.launches = orig.launches
             self._patch(p.kernels, "pair_rows", altered)
         elif f == "bisection_skipped":
-            # the sweep's interior bisections return without moving
+            # the sweep's interior bisections (or interior cascades) return
+            # without moving
             def skipped(orig):
                 @functools.wraps(orig)
                 def skip(system, paths, ips, active, *a):
@@ -117,12 +118,56 @@ class _Faulty:
                     shape = (W, len(ips)) if isinstance(ips, list) else (W,)
                     return paths, torch.zeros(shape, dtype=torch.bool)
                 return skip
-            for fn in ("bisection", "bisection_multi"):
-                self._patch(p.bisection, fn, skipped(getattr(p.bisection, fn)))
+            for mod, fn in ((p.bisection, "bisection"),
+                            (p.bisection, "bisection_multi"),
+                            (p.cascade, "interior_cascade")):
+                self._patch(mod, fn, skipped(getattr(mod, fn)))
         elif f == "bisection_accept_ignored":
-            # every bisection's proposal written back, whatever its dS
+            # every bisection's proposal written back, whatever its dS (the
+            # cascades' gates given uniforms of 0)
             self._patch(p.bisection, "_monoshot_accept",
                         lambda system, active, *a, **k: active)
+            self._cascade(lambda orig, system, mode, paths, slots, rg, ru,
+                          *a: orig(system, mode, paths, slots, rg,
+                                   ru if mode == "rigid"
+                                   else torch.zeros_like(ru), *a))
+        elif f == "cascade_state_unchanged":
+            # the cascades return their decisions and write nothing back
+            self._cascade(lambda orig, system, mode, paths, *a: orig(
+                system, mode, paths.clone(), *a))
+        elif f == "cascade_half_batch":
+            # the cascades move half of the walkers
+            def half(orig, system, mode, paths, slots, rg, ru, act, *a):
+                keep = torch.arange(paths.shape[0]) < max(
+                    1, paths.shape[0] // 2)
+                return orig(system, mode, paths, slots, rg, ru,
+                            act & keep[:, None], *a)
+            self._cascade(half)
+        elif f == "cascade_answer_altered":
+            # each position a cascade writes back, off by 1e-3
+            def altered(orig, system, mode, paths, *a):
+                before = paths.clone()
+                acc = orig(system, mode, paths, *a)
+                moved = paths != before
+                paths[moved] += 1e-3
+                return acc
+            self._cascade(altered)
+        elif f == "cascade_accept_ignored":
+            # every cascade's proposal written back, whatever its gates
+            self._cascade(lambda orig, system, mode, paths, slots, rg, ru,
+                          *a: orig(system, mode, paths, slots, rg,
+                                   torch.zeros_like(ru), *a))
+        elif f.startswith("cascade_counter_altered."):
+            # one too many of a cascade's counters in each step's counters
+            orig = sweeper_cls.step
+            i = p.sweep.COUNTER_NAMES.index(f.split(".")[1])
+
+            def step(self, state, stats, draws=None):
+                state, st = orig(self, state, stats, draws)
+                ctr = st.counters.clone()
+                ctr[i] += 1
+                return state, st._replace(counters=ctr)
+            self._patch(sweeper_cls, "step", step)
         elif f == "worm_answer_altered":
             orig = p.moves.translate_half_chain
 
@@ -150,6 +195,14 @@ class _Faulty:
                 return E * 1.01, K, Ep
             self._patch(p.sweep.est, "therm_energy", therm)
         return self.port
+
+    def _cascade(self, fault):
+        """Every cascade (ops.cascade._dispatch: kernel 5's ends and
+        interior through kernels.cascade, the rigid one's plain form) as
+        fault(orig, *args)."""
+        orig = self.port.cascade._dispatch
+        self._patch(self.port.cascade, "_dispatch",
+                    functools.wraps(orig)(lambda *a: fault(orig, *a)))
 
     @staticmethod
     def _half_moves(orig):
@@ -179,10 +232,28 @@ WORM_CELLS = [c for c in CELLS if manifest.config(
 WORM_FAULTS = ["bisection_accept_ignored", "worm_answer_altered"]
 
 
+# the cells whose moves run as whole-move cascades, and each fault of the
+# cascade route with the number that has to catch it
+CASCADE_CELLS = [c for c in CELLS
+                 if manifest.workload(c).get("overrides", {}).get("cascade")]
+CASCADE_FAULTS = {
+    "cascade_state_unchanged": "cascade_state_gap",
+    "cascade_half_batch": "cascade_flip_gap",
+    "cascade_answer_altered": "cascade_state_gap",
+    "cascade_accept_ignored": "cascade_flip_gap",
+    **{f"cascade_counter_altered.{n}": "count_gap"
+       for n in ("acc_cm", "acc_head", "acc_tail", "acc_bd", "try_int")},
+}
+
+
 @pytest.mark.parametrize("cell, fault", [(c, f) for f in FAULTS for c in CELLS]
-                         + [(c, f) for f in WORM_FAULTS for c in WORM_CELLS])
+                         + [(c, f) for f in WORM_FAULTS for c in WORM_CELLS]
+                         + [(c, f) for f in CASCADE_FAULTS
+                            for c in CASCADE_CELLS])
 def test_fault_in_the_timed_path_is_not_correct(cell, fault):
     with _Faulty(fault) as port:
         run, limits = _tiny_run(cell, port=port)
         ok, vals, failed = _verdict(run, limits)
     assert not ok and failed > 0, (fault, vals)
+    number = CASCADE_FAULTS.get(fault)
+    assert number is None or vals[number] > limits[number], (fault, vals)

@@ -9,9 +9,11 @@ its numbers against the float64 reference (the lower readings: the
 program's sound runs), and for the first k seeds the control's: the
 reference in the next lower precision than the configuration states
 (bfloat16 for float32, float32 for float64) in the program's place, on
-the same captured inputs and final state (the upper readings).  One JSON
+the same captured inputs and final state (the upper readings).  Under
+exact F^2, the first k seeds also read each fault of judge.F2_FAULTS
+planted in the float64 reference put in the program's place.  One JSON
 line per seed, then one with the largest program reading and the
-smallest control reading of each number."""
+smallest control reading of each number, and each fault's smallest."""
 
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def main(argv=None) -> int:
     limits = wl["check"]["limits"]
     port = window.port_modules()
     lower = high = None
+    faults = {}
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
         run = window.run_cell(args.workload, seed, args.seconds, False,
                               "cuda", workload=wl, port=port)
@@ -61,11 +64,18 @@ def main(argv=None) -> int:
             line["control"] = ctl
             high = ctl if high is None else {
                 k: min(high[k], ctl[k]) for k in ctl}
+            for f in (judge.F2_FAULTS if judge.carries_cache(run.fields)
+                      else ()):
+                fv = judge.judge(run, judge.control_answers(
+                    run, torch.float64, fault=f), limits)[0]
+                line[f] = fv
+                faults[f] = {k: min(faults[f][k], fv[k]) for k in fv} \
+                    if f in faults else fv
         print(json.dumps(line), flush=True)
         del run
         torch.cuda.empty_cache()
     print(json.dumps({"workload": args.workload, "lower": lower,
-                      "upper": high}), flush=True)
+                      "upper": high, **faults}), flush=True)
     return 0
 
 

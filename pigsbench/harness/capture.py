@@ -11,7 +11,15 @@ terms, installed for set-up and window alike:
              arguments (particle, active mask, depth, uniforms and
              gaussians), every output of the window pair pass
              (`ops.kernels.pair_rows`, kernel A) inside the call, the
-             decisions it returned and the positions after it.  Copied to
+             decisions it returned and the positions after it.  Under
+             exact F^2 with the cache, each call inside it that carries
+             the cache's rows (`fold`) is read where every route enters
+             the pass, `ops.pairwise.delta_action_rows` and
+             `delta_action_sum` (under whatever name a module of the
+             program binds them): its rows or their sum, its field
+             increments `dfield`, its bead indices and its `fold_sub`;
+             the pair passes nested inside such a call are not read
+             again.  Copied to
              host memory (pinned on the card) as the window runs.  The
              whole-move cascades (`ops.cascade`: the rigid one, whose pair
              pass is kernel A, the ends and the interior, kernel 5) are
@@ -20,8 +28,10 @@ terms, installed for set-up and window alike:
   last step  the last step of each block (the window's last step is kept):
              the statistics before and after it, the open masks and
              permutation counts before and after it, the open ends that
-             each OBDM round histogrammed, and the sums of the decisions
-             that every tapped move returned in that step.
+             each OBDM round histogrammed, the sums of the decisions
+             that every tapped move returned in that step, and under
+             exact F^2 the force-field cache (`fodd`) that the step's
+             tapped moves were handed, as it stands after the step.
 
 A call that is not captured costs a Python call and a comparison; in a
 block's last step, also the sums of its decisions."""
@@ -29,6 +39,7 @@ block's last step, also the sums of its decisions."""
 from __future__ import annotations
 
 import inspect
+import sys
 
 import numpy as np
 import torch
@@ -70,6 +81,9 @@ COUNTS = {
     "sta_half": [("acc_bd_half", 2)], "swap": [("acc_swap", 2)],
 }
 _SKIP = ("system", "paths", "xend", "fodd")
+# the window pair pass's entry points (ops.pairwise), read where a call
+# carries the exact-F^2 cache's rows
+ENTRIES = ("delta_action_rows", "delta_action_sum")
 
 
 def expected_kinds(f: dict) -> list:
@@ -136,6 +150,9 @@ class Capture:
         self.obdm = []
         self.last = None          # the window's last step
         self.rows = None          # kernel A's outputs inside a captured call
+        self.folds = None         # the fold calls inside a captured call
+        self.inside = False       # inside a fold call being read
+        self.fodd = None          # the cache handed to the last step's moves
         self._saved = []
 
     def _get(self, v):
@@ -166,13 +183,17 @@ class Capture:
                        "xend": self._get(args.get("xend")),
                        "args": {k_: self._get(v) for k_, v in args.items()
                                 if k_ not in _SKIP}}
-                self.rows = []
+                self.rows, self.folds = [], []
+            if self.counting and args.get("fodd") is not None:
+                self.fodd = args["fodd"]
             try:
                 out = orig(*a, **k)
             finally:
                 rows, self.rows = self.rows, None
+                folds, self.folds = self.folds, None
             if rec is not None:
                 rec["rows"] = [self._get(r) for r in rows]
+                rec["folds"] = folds
                 rec["after"] = self._get(out[0])
                 rec["xend_after"] = (self._get(out[1]) if kind == "worm_cm"
                                      else None)
@@ -196,13 +217,36 @@ class Capture:
     def _rows_tap(self, orig):
         def rows(*a, **k):
             out = orig(*a, **k)
-            if self.rows is not None:
+            if self.rows is not None and not self.inside:
                 self.rows.append(out)
             return out
         # the program counts its launches on the attribute of the function
         # its module's name holds: the tap carries the count meanwhile
         rows.launches = orig.launches
         return rows
+
+    def _entry_tap(self, orig):
+        sig = inspect.signature(orig)
+
+        def entry(*a, **k):
+            if self.folds is None or self.inside:
+                return orig(*a, **k)
+            bound = sig.bind(*a, **k)
+            bound.apply_defaults()
+            args = bound.arguments
+            if args["fold"] is None:
+                return orig(*a, **k)
+            self.inside = True
+            try:
+                out = orig(*a, **k)
+            finally:
+                self.inside = False
+            self.folds.append({
+                "dS": self._get(out[0]), "dfield": self._get(out[1]),
+                "ib": _host(args["ib"], self.pinned),
+                "sub": tuple(args["fold_sub"])})
+            return out
+        return entry
 
     def _obdm_tap(self, orig):
         def obdm(system, xend):
@@ -217,17 +261,21 @@ class Capture:
             self.k += 1
             if last:
                 self.counting, self.acc, self.obdm = True, {}, []
+                self.fodd = None
             try:
                 out = orig(state, stats, draws)
             finally:
                 self.counting = False
+            fodd, self.fodd = self.fodd, None
             if last:
                 self.last = {"stats_in": stats, "stats_out": out[1],
                              "isopen_in": state.isopen,
                              "iperm_in": state.iperm,
                              "isopen_out": out[0].isopen,
                              "step": out[0].step, "acc": self.acc,
-                             "obdm": self.obdm}
+                             "obdm": self.obdm,
+                             "fcache": None if fodd is None
+                             else self._get(fodd)}
             return out
         return step
 
@@ -243,6 +291,18 @@ class Capture:
             obj = getattr(p, mod)
             self._patch(obj, fn, self._tap(kind, getattr(obj, fn)))
         self._patch(p.kernels, "pair_rows", self._rows_tap(p.kernels.pair_rows))
+        # the pass's entry points, under each name that a module of the
+        # program binds them to (`from .pairwise import ...`)
+        top = p.pairwise.__name__.split(".")[0]
+        mods = [m for n, m in list(sys.modules.items())
+                if m is not None and (n == top or n.startswith(top + "."))]
+        for name in ENTRIES:
+            orig = getattr(p.pairwise, name)
+            tap = self._entry_tap(orig)
+            for mod in mods:
+                for attr, v in list(vars(mod).items()):
+                    if v is orig:
+                        self._patch(mod, attr, tap)
         # the cascades' plain form binds kernel A as its default pair pass
         # (the rigid cascade's): the same tap there
         self._patch(p.cascade.cascade_ref, "__defaults__",

@@ -33,6 +33,21 @@ Numbers compared, each against its limit in the cell's file
                  against the reference's proposals written back under the
                  program's decisions, the largest minimum-image distance over
                  the box length;
+  dfield_gap     under exact F^2 with the cache: the field increments
+                 (`dfield`) of each captured move's calls that carry the
+                 cache's rows, against the reference's F(R') - F(R) of every
+                 particle at each displaced bead with a Chin F^2 weight
+                 (reference/exact_f2.py), as the dS gaps are normalised but
+                 per particle's vector: |dF - dF_ref| / max(1, |dF_ref|)
+                 (Euclidean norms over the dimensions), the worst over the
+                 rows and particles of each sampled walker whose particle is
+                 active; there the dS gaps hold the rows against the exact
+                 F^2, and a move without such calls reads `missing`;
+  fcache_gap     the cache after the window's last step, as the step's
+                 moves left it, against the float64 field of that step's
+                 final positions at the odd beads, for the sampled walkers:
+                 |F - F_ref| / max(1, |F_ref|) per particle's vector, the
+                 worst; a cache not seen reads `missing`;
   energy_gap     the mixed estimator's statistics of the window's last
                  measurement (n_diag, sumE, sumK, sumV and their squares),
                  |delta - ref| / sum|terms|, the worst field;
@@ -64,8 +79,9 @@ import numpy as np
 import torch
 
 from ..reference import estimators as ref_est
+from ..reference import exact_f2 as ref_f2
 from ..reference import moves as ref_mv
-from ..reference.physics import geometry, wrap
+from ..reference.physics import PairModel, geometry, wrap
 from .capture import expected_kinds
 from .counting import COUNTER_NAMES
 
@@ -74,8 +90,8 @@ FAMILY = {"cm": "cm", "cm_cascade": "cm", "worm_cm": "worm"}  # else "bis"
 CASCADES = ("cascade_ends", "cascade_int")
 NUMBERS = ("cm_dS_gap", "cm_state_gap", "bis_dS_gap", "bis_state_gap",
            "worm_dS_gap", "worm_state_gap", "cascade_flip_gap",
-           "cascade_state_gap", "energy_gap", "therm_gap", "structure_gap",
-           "obdm_gap", "count_gap", "missing")
+           "cascade_state_gap", "dfield_gap", "fcache_gap", "energy_gap",
+           "therm_gap", "structure_gap", "obdm_gap", "count_gap", "missing")
 LOWER = {"float32": torch.bfloat16, "float64": torch.float32}
 
 
@@ -88,6 +104,56 @@ def _dev(v, dev):
     if isinstance(v, tuple):
         return tuple(_dev(x, dev) for x in v)
     return v
+
+
+def carries_cache(fields) -> bool:
+    """Whether the configuration's moves carry the exact-F^2 cache."""
+    return bool(fields["exact_f2"] and fields["f2_cache"])
+
+
+def _vec_gap(x, ref):
+    """[..., N]: |x - ref| / max(1, |ref|) over the last axis, inf where
+    not finite."""
+    d = (x - ref).norm(dim=-1) / ref.norm(dim=-1).clamp(min=1.0)
+    return torch.where(torch.isfinite(d), d, torch.full_like(d, math.inf))
+
+
+def _worst(x):
+    """[s]: the largest of x [s, ...] per walker (0 where x has none)."""
+    x = x.flatten(1)
+    return x.amax(-1) if x.shape[1] else x.new_zeros(x.shape[0])
+
+
+def _fold_slots(folds, slots):
+    """The program's rows and field increments of a captured move's calls
+    that carry the cache, as each slot's (the reference's order), matched
+    by bead: (rows, dfield) lists, or (None, None) where a slot's bead is
+    in no call.  A rigid move's call returns its rows' sum, its one row."""
+    calls = []
+    for f in folds:
+        if f["ib"].dim() != 1:
+            return None, None
+        beads = f["ib"].tolist()
+        r0, step = f["sub"]
+        calls.append((f, {b: i for i, b in enumerate(beads)},
+                      {b: i for i, b in enumerate(beads[r0::step])}))
+    rows, dfield = [], []
+    for sl in slots:
+        want = sl["beads"].tolist()
+        f2 = [b for b, on in zip(want, sl["f2"].tolist()) if on]
+        hit = next(((f, rm, dm) for f, rm, dm in calls
+                    if all(b in rm for b in want)
+                    and all(b in dm for b in f2)), None)
+        if hit is None:
+            return None, None
+        f, rm, dm = hit
+        dS = f["dS"]
+        if dS.dim() == 1:           # a rigid move's call returns its sum
+            rows.append(dS[:, None])
+        else:
+            rows.append(dS[:, [rm[b] for b in want]])
+        dfield.append(f["dfield"][:, [dm[b] for b in f2]])
+    return rows, dfield
 
 
 def _f64(st) -> dict:
@@ -124,9 +190,10 @@ def program_answers(run) -> dict:
     last step, and that step's bookkeeping."""
     cap = run.capture
     moves = [{**rec, "rows": _slot_rows(rec)} for rec in cap.moves]
-    ans = {"moves": moves, "stats": None, "book": None}
+    ans = {"moves": moves, "stats": None, "book": None, "fcache": None}
     last = cap.last
     if last is not None:
+        ans["fcache"] = last.get("fcache")
         a, b = _f64(last["stats_in"]), _f64(last["stats_out"])
         ans["stats"] = {k: b[k] - a[k] for k in
                         ref_est.ENERGY + ref_est.THERM + ref_est.STRUCTURE
@@ -194,26 +261,60 @@ def _count_gap(book, ref) -> int:
     return bad
 
 
-def control_answers(run, dtype) -> dict:
+# faults of the exact-F^2 path that control_answers can plant in the
+# reference put in the program's place
+F2_FAULTS = ("partial_f2", "dg_flipped", "bis_cache_skipped")
+
+
+def control_answers(run, dtype, fault: str = None) -> dict:
     """The reference in `dtype` in the program's place, on the same
     captured inputs, the same final state and the same OBDM rounds; the
     bookkeeping, integer counts that no precision changes, is the
-    program's."""
+    program's.  fault, under exact F^2 (one of F2_FAULTS): planted in the
+    reference so put in the program's place --
+      partial_f2         the moves' rows and decisions with the reference
+                         code's partial dF^2 in place of the exact one;
+      dg_flipped         the partners' field increments with the wrong
+                         sign (the moved particle's kept);
+      bis_cache_skipped  the cache without the increments that the last
+                         block's captured interior bisection made for its
+                         accepted walkers (increments add, so the moves
+                         after it leave them missing)."""
     fields = run.fields
     dev = run.final_paths.device
     prog = program_answers(run)
-    moves = []
+    moves, skipped = [], None
     for rec in run.capture.moves:
         R = rec["before"].to(dev, dtype)
         xend = None if rec["xend"] is None else rec["xend"].to(dev, dtype)
         slots = ref_mv.move(fields, rec["kind"], R, _dev(rec["args"], dev),
                             xend)
+        if fault == "partial_f2":
+            part = ref_mv.move({**fields, "exact_f2": False}, rec["kind"], R,
+                               _dev(rec["args"], dev), xend)
+            slots = [{**sl, "dS": q["dS"]} for sl, q in zip(slots, part)]
         dec = [ref_mv.decide(sl, sl["dS"]) for sl in slots]
         after, xa = ref_mv.apply(slots, R, xend, dec)
+        dfield = [_dfield(sl, fault) if "dfield" in sl else None
+                  for sl in slots]
         moves.append({**rec, "rows": [sl["dS"] for sl in slots],
+                      "folds": None, "dfield": dfield,
                       "after": after, "xend_after": xa, "accept": dec})
-    stats = None
+        if rec["kind"] == "bis" and rec["block"] == run.blocks:
+            skipped = (slots[0], dec[0])
+    stats = fcache = None
     last = run.capture.last
+    if last is not None and carries_cache(fields):
+        fcache = _field_odd(run, dtype)
+        if fault == "bis_cache_skipped":
+            if skipped is None:
+                raise ValueError("no interior bisection captured in the "
+                                 "last block")
+            sl, dec = skipped
+            rows = (sl["beads"][sl["f2"]] - 1) // 2
+            fcache[:, rows.to(dev)] -= torch.where(
+                dec[:, None, None, None], sl["dfield"][:, sl["f2"]],
+                torch.zeros((), dtype=fcache.dtype, device=dev))
     if last is not None:
         sums, _ = ref_est.measure(fields, run.final_paths,
                                   run.final_isopen, dtype)
@@ -221,23 +322,58 @@ def control_answers(run, dtype) -> dict:
                  for k, v in sums.items()}
         stats["nrho"] = ref_est.obdm(fields, last["obdm"],
                                      last["isopen_out"], dtype)[0]
-    return {"moves": moves, "stats": stats, "book": prog["book"]}
+    return {"moves": moves, "stats": stats, "book": prog["book"],
+            "fcache": fcache}
+
+
+def _dfield(slot, fault):
+    """The reference's field increments of a slot's F^2 rows (the
+    partners' negated under the fault dg_flipped)."""
+    d = slot["dfield"][:, slot["f2"]]
+    if fault != "dg_flipped":
+        return d
+    moved = torch.arange(d.shape[2], device=d.device) == slot["p"].to(
+        d.device)[:, None]
+    return torch.where(moved[:, None, :, None], d, -d)
+
+
+def _field_odd(run, dtype):
+    """[s, Nb, N, D]: the reference's field, in dtype, of the window's
+    final positions at the odd beads, for the sampled walkers."""
+    fields, dev = run.fields, run.final_paths.device
+    X = run.final_paths.index_select(0, run.capture.sample.to(dev))
+    return ref_f2.field(geometry(fields), PairModel(fields),
+                        X[:, 1::2].to(dtype))
 
 
 def _judge_move(run, rec, geo, dev):
-    """(family, dS gap, state gap, walkers over limits' test inputs) of one
-    captured move, or None where its rows are missing."""
+    """(family, dS gap, state gap, dfield gap or None) per sampled walker
+    of one captured move, or None where its rows are missing."""
     f64 = torch.float64
-    rows = rec["rows"]
-    if rows is None:
+    rows, dfield = rec["rows"], rec.get("dfield")
+    cache = carries_cache(run.fields) and rec.get("folds") is not None
+    if rows is None and not cache:
         return None
     R = rec["before"].to(dev, f64)
     xend = None if rec["xend"] is None else rec["xend"].to(dev, f64)
     slots = ref_mv.move(run.fields, rec["kind"], R, _dev(rec["args"], dev),
                         xend)
-    if len(rows) != len(slots) or any(
+    if cache:
+        rows, dfield = _fold_slots(rec["folds"], slots)
+    if rows is None or len(rows) != len(slots) or any(
             r.shape != sl["dS"].shape for r, sl in zip(rows, slots)):
         return None
+    dfgap = None
+    if carries_cache(run.fields):
+        if dfield is None or any(
+                d is None or d.shape != sl["dfield"][:, sl["f2"]].shape
+                for d, sl in zip(dfield, slots)):
+            return None
+        dfgap = torch.stack([_worst(torch.where(
+            sl["active"][:, None, None],
+            _vec_gap(d.to(dev, f64), sl["dfield"][:, sl["f2"]]),
+            torch.zeros((), dtype=f64, device=dev)))
+            for d, sl in zip(dfield, slots)]).amax(0)
     gaps, decisions, wrong = [], [], torch.zeros(R.shape[0], dtype=torch.bool,
                                                  device=dev)
     for sl, r, acc in zip(slots, rows, rec["accept"]):
@@ -264,7 +400,7 @@ def _judge_move(run, rec, geo, dev):
                        torch.where(wrong, torch.ones_like(dist),
                                    torch.full_like(dist, math.inf)))
     gap = torch.stack(gaps).amax(0)
-    return FAMILY.get(rec["kind"], "bis"), gap, dist
+    return FAMILY.get(rec["kind"], "bis"), gap, dist, dfgap
 
 
 def _flip_gap(slot, acc):
@@ -334,12 +470,16 @@ def judge(run, answers: dict, limits: dict) -> tuple:
         if out is None:
             missing += 1
             continue
-        fam, gap, dist = out
+        fam, gap, dist, dfgap = out
         g, s = f"{fam}_dS_gap", f"{fam}_state_gap"
         vals[g] = max(vals[g], float(gap.max()))
         vals[s] = max(vals[s], float(dist.max()))
         attempted += gap.numel()
-        failed += int(((gap > lim[g]) | (dist > lim[s])).sum())
+        bad = (gap > lim[g]) | (dist > lim[s])
+        if dfgap is not None:
+            vals["dfield_gap"] = max(vals["dfield_gap"], float(dfgap.max()))
+            bad |= dfgap > lim["dfield_gap"]
+        failed += int(bad.sum())
     stats, last = answers["stats"], run.capture.last
     if stats is None or last is None:
         missing += 1
@@ -370,6 +510,16 @@ def judge(run, answers: dict, limits: dict) -> tuple:
         bad = _count_gap(answers["book"], _reference_book(run, last))
         vals["count_gap"] = float(bad)
         failed += int(bad > lim["count_gap"])
+        if carries_cache(fields):
+            fc = answers.get("fcache")
+            if fc is None:
+                missing += 1
+            else:
+                ref = _field_odd(run, torch.float64)
+                g = float(_vec_gap(fc.to(dev, torch.float64), ref).max())
+                vals["fcache_gap"] = g
+                attempted += ref.shape[0]
+                failed += int(g > lim["fcache_gap"])
     vals["missing"] = float(missing)
     failed += missing
     return vals, attempted, failed

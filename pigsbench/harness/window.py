@@ -42,6 +42,7 @@ def port_modules() -> SimpleNamespace:
         config=imp(f"{PORT}.config"), system=imp(f"{PORT}.system"),
         state=imp(f"{PORT}.state"), sweep=imp(f"{PORT}.sweep"),
         moves=imp(f"{PORT}.ops.moves"), kernels=imp(f"{PORT}.ops.kernels"),
+        pairwise=imp(f"{PORT}.ops.pairwise"),
         bisection=imp(f"{PORT}.ops.bisection"), worm=imp(f"{PORT}.ops.worm"),
         cascade=imp(f"{PORT}.ops.cascade"), build=imp(f"{PORT}.utils.build"))
 

@@ -27,7 +27,10 @@ Each displaced bead b of the moved particle p changes the action by
     dS_b = wv_b dPot_b + wf_b dF2_b - wpsi_b dU_b
 
 against the other N - 1 particles at bead b (pairs within rcut; the force
-on p and u over partners at r^2 > 0).  A move's rows fall into accept
+on p and u over partners at r^2 > 0).  dF2_b is the change of |F_p|^2,
+the moved particle's own (the reference code's partial term), or with
+the configuration's `exact_f2` the change of every particle's |F_i|^2
+(exact_f2.py), whatever its `f2_cache`.  A move's rows fall into accept
 groups (the end gate, then level by level; one group for a rigid move),
 and it is accepted where the walker is active and u_g < exp(-sum of its
 group's dS) for every group g.
@@ -42,7 +45,10 @@ A move is returned as its slots (one per particle moved), each a dict:
   group   [R] long: each row's accept group, its column of u;
   u       [s, G]: the accept uniforms;
   active  [s] bool;
-  xend    for the worm move: (half - 1, the row of bead Nb).
+  xend    for the worm move: (half - 1, the row of bead Nb);
+  f2      [B] bool: the rows with a Chin F^2 weight (exact F^2 only);
+  dfield  [s, B, N, D]: every particle's field increment at each row,
+          F(R') - F(R) (exact F^2 only; 0 on the rows without weight).
 """
 
 from __future__ import annotations
@@ -51,12 +57,14 @@ import math
 
 import torch
 
+from . import exact_f2
 from .physics import PairModel, chin_weights, geometry, wrap
 
 
 def _rows_dS(cfg, geo, model, R, xnew, xold, p, beads):
     """[s, B]: dS of particle p [s] moved from xold to xnew [s, B, D] at
-    beads [B], against the other particles of R [s, M, N, D]."""
+    beads [B], against the other particles of R [s, M, N, D]; with
+    exact F^2, (dS, the F^2 rows [B] bool, dfield [s, B, N, D])."""
     Rb = R[:, beads]                                    # [s, B, N, D]
     N = Rb.shape[2]
     self_ = (torch.arange(N, device=R.device)[None, :] == p[:, None])
@@ -76,7 +84,19 @@ def _rows_dS(cfg, geo, model, R, xnew, xold, p, beads):
     pn, fn, un = side(xnew)
     po, fo, uo = side(xold)
     w = chin_weights(R.shape[1], cfg["dt"], R.dtype, R.device)[:, beads]
-    return w[0] * (pn - po) + w[1] * (fn - fo) - w[2] * (un - uo)
+    if not cfg.get("exact_f2"):
+        return w[0] * (pn - po) + w[1] * (fn - fo) - w[2] * (un - uo)
+    df2, dfield = exact_f2.rows(geo, model, R, p, beads, xnew, xold, w[1])
+    return (w[0] * (pn - po) + w[1] * df2 - w[2] * (un - uo), w[1] != 0,
+            dfield)
+
+
+def _exact(slot, out):
+    """The slot with dS from _rows_dS's output out (and with exact F^2
+    its F^2 rows and field increments)."""
+    if torch.is_tensor(out):
+        return {**slot, "dS": out}
+    return {**slot, "dS": out[0], "f2": out[1], "dfield": out[2]}
 
 
 def _chain(R, p, beads):
@@ -89,10 +109,13 @@ def _chain(R, p, beads):
 def _rigid(cfg, R, p, beads, xold, u_dx, u_acc, active, extra=None):
     geo, model = geometry(cfg), PairModel(cfg)
     xnew = wrap(xold + geo.delta_cm * (2.0 * u_dx.to(R.dtype) - 1.0), geo.L)
-    dS = _rows_dS(cfg, geo, model, R, xnew, xold, p, beads).sum(-1)
+    out = _rows_dS(cfg, geo, model, R, xnew, xold, p, beads)
+    rows = out if torch.is_tensor(out) else out[0]
     slot = {"p": p, "beads": beads, "xold": xold, "xnew": xnew,
-            "dS": dS[:, None], "group": torch.zeros(1, dtype=torch.long),
+            "group": torch.zeros(1, dtype=torch.long),
             "u": u_acc.to(R.dtype)[:, None], "active": active}
+    slot = _exact(slot, out)
+    slot["dS"] = rows.sum(-1)[:, None]
     return [{**slot, **(extra or {})}]
 
 
@@ -151,12 +174,12 @@ def _window(cfg, R, p, beads, level, g, u, active, gate):
             0.25 * delta * dt) * g[:, d2::delta], geo.L)
     pos = list(range(0 if gate else 1, L))
     rows = beads[pos]
-    dS = _rows_dS(cfg, geo, model, R, seg[:, pos], seg0[:, pos], p, rows)
+    out = _rows_dS(cfg, geo, model, R, seg[:, pos], seg0[:, pos], p, rows)
     group = torch.tensor([0 if q == 0 else _level_of(q, level) for q in pos],
                          dtype=torch.long)
-    return {"p": p, "beads": rows, "xold": seg0[:, pos],
-            "xnew": seg[:, pos], "dS": dS, "group": group,
-            "u": u.to(R.dtype), "active": active}
+    return _exact({"p": p, "beads": rows, "xold": seg0[:, pos],
+                   "xnew": seg[:, pos], "group": group,
+                   "u": u.to(R.dtype), "active": active}, out)
 
 
 def _end(cfg, R, p, level, g, u, active, tail):

@@ -49,6 +49,14 @@ def test_flagship_count():
     assert counting.bead_updates_per_step(fields) == 22100
 
 
+def test_exact_f2_count():
+    # the exact F^2 changes the action, not the work: the flagship's count
+    wl = manifest.workload("he4_exact_f2.w1024")
+    fields = window.sim_fields(wl, manifest.config(wl["config"]))
+    assert fields["exact_f2"] and fields["f2_cache"]
+    assert counting.bead_updates_per_step(fields) == 22100
+
+
 def test_rate_is_all_the_work_over_all_the_time():
     # three 5-step blocks of 0.5, 0.5 and 2.0 s: the window's rate is the
     # work over 3 s, not the median block's rate

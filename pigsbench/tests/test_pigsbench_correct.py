@@ -24,6 +24,7 @@ from pigsbench.harness import capture, judge, manifest, window  # noqa: E402
 TINY = {"he4_n64": dict(Np=8, Nb=8, Nlev=2, Lstag=4, Nstag=1, Nobdm=2,
                         CWorm=50.0),   # fused + cascade: L = 4, K = 3
         "dipolar2d_n256": dict(Np=16)}
+TINY["he4_exact_f2_n64"] = TINY["he4_n64"]
 CELLS = [w["name"] for w in manifest.manifest()["workloads"]]
 
 
@@ -108,6 +109,13 @@ class _Faulty:
                 return out + 0.1 * out.abs().clamp(min=1.0)
             altered.launches = orig.launches
             self._patch(p.kernels, "pair_rows", altered)
+            # and the rows of the exact-F^2 cache's pass (the fold)
+            fold_rows = p.pairwise._fold_rows
+
+            def altered_fold(*a, **k):
+                dS, dfield = fold_rows(*a, **k)
+                return dS + 0.1 * dS.abs().clamp(min=1.0), dfield
+            self._patch(p.pairwise, "_fold_rows", altered_fold)
         elif f == "bisection_skipped":
             # the sweep's interior bisections (or interior cascades) return
             # without moving
@@ -168,6 +176,49 @@ class _Faulty:
                 ctr[i] += 1
                 return state, st._replace(counters=ctr)
             self._patch(sweeper_cls, "step", step)
+        elif f == "partial_f2":
+            # the fold's dF^2 without the partners' term: the moved
+            # particle's own |F|^2 change, the reference code's partial one
+            fold = p.pairwise._fold
+
+            def partial(F_n, F_o, fp_n, fp_o, fold_, notself, system=None):
+                _, dfield = fold(F_n, F_o, fp_n, fp_o, fold_, notself, system)
+                return (F_n * F_n).sum(-1) - (F_o * F_o).sum(-1), dfield
+            self._patch(p.pairwise, "_fold", partial)
+        elif f == "dg_sign_flipped":
+            # each partner's field increment dg_j with the wrong sign
+            fold = p.pairwise._fold
+            self._patch(p.pairwise, "_fold",
+                        lambda F_n, F_o, fp_n, fp_o, *a: fold(F_n, F_o, fp_o,
+                                                              fp_n, *a))
+        elif f == "bis_cache_write_skipped":
+            # the bisections leave the cache as it was
+            self._patch(p.bisection, "_cache_win_write",
+                        lambda *a, **k: None)
+        elif f == "dfield_for_rejected":
+            # the windows' cache increments written for every walker
+            for mod in (p.moves, p.bisection):
+                write = mod._cache_win_write
+                self._patch(mod, "_cache_win_write", functools.partial(
+                    lambda write, codd, f_seg, dfield, acc, *a, **k: write(
+                        codd, f_seg, dfield, torch.ones_like(acc), *a, **k),
+                    write))
+        elif f == "fold_not_captured":
+            # the moves reach the fold around the pass's entry points
+            for mod in (p.moves, p.bisection):
+                for name in ("delta_action_rows", "delta_action_sum"):
+                    if hasattr(mod, name):
+                        self._patch(mod, name, self._around(
+                            getattr(mod, name), name == "delta_action_sum"))
+        elif f == "fold_rerouted":
+            # not a fault: the fold's rows by another code path (on copies)
+            fold_rows = p.pairwise._fold_rows
+
+            def rerouted(system, R, xnew, xold, ip, ib, fold, *a):
+                return fold_rows(system, R.clone(), xnew.clone(),
+                                 xold.clone(), ip, ib.clone(), fold.clone(),
+                                 *a)
+            self._patch(p.pairwise, "_fold_rows", rerouted)
         elif f == "worm_answer_altered":
             orig = p.moves.translate_half_chain
 
@@ -203,6 +254,29 @@ class _Faulty:
         orig = self.port.cascade._dispatch
         self._patch(self.port.cascade, "_dispatch",
                     functools.wraps(orig)(lambda *a: fault(orig, *a)))
+
+    def _around(self, orig, summed):
+        """orig, with the calls that carry the cache's rows made straight
+        to the fold (pairwise._fold_rows), past the pass's entry points."""
+        fold_rows = self.port.pairwise._fold_rows
+
+        def around(system, R, xnew, xold, ip, ib, need_wf=True, *a, **k):
+            names = (("row_weights", "rev", "need_f2", "fold", "fold_sub")
+                     if summed else ("need_f2", "rev", "fold", "fold_sub"))
+            kw = {"row_weights": None, "rev": False, "fold": None,
+                  "fold_sub": (0, 1), **dict(zip(names, a)), **k}
+            if kw["fold"] is None:
+                return orig(system, R, xnew, xold, ip, ib, need_wf, *a, **k)
+            if kw["rev"]:
+                R = R.flip(1)
+            dS, dfield = fold_rows(system, R, xnew, xold, ip, ib, kw["fold"],
+                                   kw["fold_sub"], need_wf)
+            if not summed:
+                return dS, dfield
+            if kw["row_weights"] is not None:
+                dS = dS * kw["row_weights"]
+            return dS.sum(-1), dfield
+        return around
 
     @staticmethod
     def _half_moves(orig):
@@ -246,14 +320,54 @@ CASCADE_FAULTS = {
 }
 
 
+# the cells whose configuration carries the exact-F^2 cache, and each
+# fault of the cache's path with the number that has to catch it
+CACHE_CELLS = [c for c in CELLS if judge.carries_cache(window.sim_fields(
+    manifest.workload(c), manifest.config(manifest.workload(c)["config"])))]
+CACHE_FAULTS = {
+    "partial_f2": "bis_dS_gap",
+    "bis_cache_write_skipped": "fcache_gap",
+    "dfield_for_rejected": "fcache_gap",
+    "dg_sign_flipped": "dfield_gap",
+    "fold_not_captured": "missing",
+}
+
+
 @pytest.mark.parametrize("cell, fault", [(c, f) for f in FAULTS for c in CELLS]
                          + [(c, f) for f in WORM_FAULTS for c in WORM_CELLS]
                          + [(c, f) for f in CASCADE_FAULTS
-                            for c in CASCADE_CELLS])
+                            for c in CASCADE_CELLS]
+                         + [(c, f) for f in CACHE_FAULTS
+                            for c in CACHE_CELLS])
 def test_fault_in_the_timed_path_is_not_correct(cell, fault):
     with _Faulty(fault) as port:
         run, limits = _tiny_run(cell, port=port)
         ok, vals, failed = _verdict(run, limits)
     assert not ok and failed > 0, (fault, vals)
-    number = CASCADE_FAULTS.get(fault)
+    number = CASCADE_FAULTS.get(fault) or CACHE_FAULTS.get(fault)
     assert number is None or vals[number] > limits[number], (fault, vals)
+
+
+@pytest.mark.parametrize("fault", judge.F2_FAULTS)
+@pytest.mark.parametrize("cell", CACHE_CELLS)
+def test_fault_planted_in_the_reference_is_not_correct(cell, fault):
+    # control.py reads these on the card (the float64 reference in the
+    # program's place, with the fault): each fails its own number
+    number = {"partial_f2": "bis_dS_gap", "dg_flipped": "dfield_gap",
+              "bis_cache_skipped": "fcache_gap"}[fault]
+    run, limits = _tiny_run(cell)
+    ok, vals, failed = _verdict(run, limits, judge.control_answers(
+        run, torch.float64, fault=fault))
+    assert not ok and vals[number] > limits[number], vals
+
+
+@pytest.mark.parametrize("cell", CACHE_CELLS)
+def test_the_fold_read_on_another_route_is_correct(cell):
+    # the same rows and increments by another code path beneath the pass's
+    # entry points are still read there, and judged correct
+    with _Faulty("fold_rerouted") as port:
+        run, limits = _tiny_run(cell, port=port)
+        ok, vals, failed = _verdict(run, limits)
+    assert ok and failed == 0, vals
+    assert all(rec["folds"] for rec in run.capture.moves), vals
+    assert run.capture.last["fcache"] is not None

@@ -99,6 +99,42 @@ def test_configs_and_cells():
     assert len(json.dumps(BENCH)) <= 64 * 1024
 
 
+EXACT_CELL = "he4_exact_f2.w1024"
+# the per-layer metrics that read something in the exact-F^2 cell: kernel A,
+# the bisection glue and kernel 5 do not run there
+EXACT_METRICS = {"device_idle_pct", "host_launches_per_step",
+                 "torch_ops_device_ms_per_step", "roofline_pct.all_pairs",
+                 "host_ints_per_step"} | {
+    f"stage_{q}_per_step.{s}" for q in ("launches", "idle_ms", "device_ms")
+    for s in ("cm", "diag", "worm", "measure")}
+
+
+def test_the_exact_f2_cell_is_in_the_metrics_that_read_it():
+    assert len(EXACT_METRICS) == 17
+    for m in BENCH["per_layer"]:
+        assert (EXACT_CELL in m.get("workloads", [])) == (
+            m["name"] in EXACT_METRICS), m["name"]
+
+
+def test_the_exact_f2_configuration_and_cell():
+    he4 = manifest.config("he4_n64")
+    ex = manifest.config("he4_exact_f2_n64")
+    assert set(ex) == set(he4) and ex["reduced"] == []
+    assert ex["fields"] == {**he4["fields"], "exact_f2": True,
+                            "f2_cache": True}
+    entry = next(c for c in BENCH["configs"]
+                 if c["name"] == "he4_exact_f2_n64")
+    assert entry["source"] == ex["source"] and "204109" in ex["source"]
+    wl = manifest.workload(EXACT_CELL)
+    assert {k: v for k, v in wl.items() if k != "check"} == {
+        "config": "he4_exact_f2_n64", "walkers": 1024, "steps_per_block": 1,
+        "overrides": {}}
+    assert {"dfield_gap", "fcache_gap", "missing"} <= set(
+        wl["check"]["limits"])
+    cell = next(w for w in BENCH["workloads"] if w["name"] == EXACT_CELL)
+    assert cell["chips"] == 1 and cell["config"] == "he4_exact_f2_n64"
+
+
 def test_every_part_is_found_by_name():
     assert manifest.names("workloads", ".json") == sorted(CELLS)
     assert set(manifest.names("configs", ".json")) == {
@@ -138,10 +174,10 @@ _IMPORTS = """
 import sys
 sys.path.insert(0, {repo!r})
 import pigsbench.reference.physics, pigsbench.reference.moves
-import pigsbench.reference.estimators
+import pigsbench.reference.estimators, pigsbench.reference.exact_f2
 from pigsbench.reference.physics import PairModel
 import json
-for name in ("he4_n64", "dipolar2d_n256"):
+for name in ("he4_n64", "dipolar2d_n256", "he4_exact_f2_n64"):
     cfg = json.load(open({repo!r} + "/pigsbench/configs/" + name + ".json"))
     PairModel(cfg["fields"])
 ref = sorted({{m.split(".")[0] for m in sys.modules}})

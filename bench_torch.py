@@ -121,7 +121,7 @@ def timed_blocks(cfg, device=None, nstep=NSTEP, nreps=NREPS) -> dict:
     kern = {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
             "pair_delta": K.pair_delta, "pair_u": K.pair_u,
             "cascade": K.cascade, "bis_propose": K.bis_propose,
-            "bis_accept": K.bis_accept}
+            "bis_accept": K.bis_accept, "pair_fold": K.pair_fold}
     for fn in kern.values():
         fn.launches = 0
     reps = []

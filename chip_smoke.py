@@ -49,7 +49,15 @@ run exits non-zero):
                of the half box, bis_accept's decisions and write-back exact
                on rows at the gates' edges, inactive walkers among them;
                both timed beside their plain forms and bounds.
-  7. dims    : every kernel at D = 1, 2, 4 and 5 under PBC (a 1-D chain,
+ 6c. fold    : the exact-F^2 fold kernel (csrc/pair_fold.cu) against its
+               plain form (pairwise._fold_rows) at the exact-F^2 cell's
+               shapes: an end window [1024, 16, 64, 3] over 8 cache rows
+               (read backwards), an interior window of 15 rows over 8 and
+               the CM move's chain [1024, 65, 64, 3] over 32 (walker sums),
+               dS and dfield, float32 (to the float64 plain fold) and
+               float64; each timed beside its bound and its plain form,
+               and the wrapper's host time per call.
+ 7. dims    : every kernel at D = 1, 2, 4 and 5 under PBC (a 1-D chain,
                a 2-D He-4 film, D = 4 at the flagship's density, D = 5 at
                0.1), float32 and float64, N = 30, 31 and 64,
                against its plain form: kernel A (windows, ip forms, rev,
@@ -232,7 +240,11 @@ worst over [bf16]'s parity cases bound_ratio_parity, and bound_C).  The
 entries bis_propose and bis_accept are the glue kernels: launches on the
 flagship's 3 timed steps, ms, plain_ms and bound_ms from [glue]'s
 interior move at the flagship's shapes, the same at the dipolar gas's in
-float64_dipolar; they replace no TPU kernel (replaces null).
+float64_dipolar; they replace no TPU kernel (replaces null).  The entry
+pair_fold is the exact-F^2 fold: launches on the exact-F^2 flagship's 3
+timed steps, ms, plain_ms and bound_ms from [fold]'s end window, the
+interior window's and the CM chain's under their names, the wrapper's
+host time per call; it replaces no TPU kernel either.
 """
 
 import functools
@@ -1404,6 +1416,188 @@ def glue_phase(cfg, card, W=1024):
     return errs, times
 
 
+# Operations of the fold on a fold row, per partner and component beyond
+# kernel A's pair terms: the two pair forces 2, their sums 2, dg 2, the
+# fold term 2 fold dg + dg^2 4
+_FOLD_OPS = 10
+
+
+def _fold_near_cut(system, R, xnew, xold, rev):
+    """[W, B] rows (in xnew's order) with a partner whose float64 r^2 lies
+    within 1e-5 of rcut^2 on either Metropolis side: a float32 r^2 may
+    land on the other side of the cutoff in another order of operations
+    (V(rcut) is not 0)."""
+    from pathintegralgroundstate_torch.utils.pbc import wrap
+    R = (R.flip(1) if rev else R).double()
+    L, h, rc2 = system.L.double(), system.half.double(), system.geo.rcut2
+    out = torch.zeros(R.shape[:2], dtype=torch.bool, device=R.device)
+    for x in (xnew, xold):
+        d = wrap(x.double()[:, :, None, :] - R, L, h)
+        out |= ((d * d).sum(-1) / rc2 - 1.0).abs().lt(1e-5).any(-1)
+    return out
+
+
+def _fold_held(name, got, want, truth=None, excuse=None):
+    """(max abs err, values excused) of the fold kernel's output got
+    against the plain fold's want in the same type.  Non-finite values
+    must sit where the plain form has them; the finite ones are compared:
+    float64 within 1e-9 of the largest value; float32 against the float64
+    plain fold of the same inputs (truth), within 8 times the plain
+    float32 form's own largest error plus 1e-6 of the largest value.  The
+    rows in `excuse` (_fold_near_cut) are left out."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise AssertionError(f"[fold] {name}: non-finite values differ")
+    got, want = torch.where(fin, got, 0.0), torch.where(fin, want, 0.0)
+    if truth is not None:
+        truth = torch.where(torch.isfinite(truth), truth, 0.0)
+    n = 0
+    if excuse is not None:
+        n = int(excuse.sum())
+        got, want = got[~excuse], want[~excuse]
+        truth = truth[~excuse] if truth is not None else None
+    if not got.numel():
+        return 0.0, n
+    scale = 1.0 + float(want.abs().max())
+    if got.dtype == torch.float64:
+        err = float((got - want).abs().max())
+        if not err <= 1e-9 * scale:
+            raise AssertionError(f"[fold] {name}: {err:.3e} from the plain "
+                                 f"fold (scale {scale:.3e})")
+        return err, n
+    err = float((got.double() - truth).abs().max())
+    perr = float((want.double() - truth).abs().max())
+    if not err <= 8 * perr + 1e-6 * scale:
+        raise AssertionError(f"[fold] {name}: {err:.3e} from float64, the "
+                             f"plain float32 fold {perr:.3e}")
+    return err, n
+
+
+def fold_phase(cfg, card, W=1024):
+    """The [fold] phase: the exact-F^2 fold kernel (csrc/pair_fold.cu,
+    kernels.pair_fold) against its plain form (pairwise._fold_rows through
+    kernels.pair_fold_ref) at the exact-F^2 cell's shapes, N=64 at W=1024:
+    an end window [1024, 16, 64, 3] over 8 cache rows (fold_sub (1, 2), the
+    tail's read backwards), an interior window of 15 rows over 8 ((0, 2))
+    and the CM move's whole chain [1024, 65, 64, 3] over 32 (walker sums,
+    ip [W]), dS and dfield, in float32 (held to the float64 plain fold of
+    the same inputs) and float64 (to the plain fold); one launch per call.
+    Then, in float32, each case timed alone beside its bound (the window's
+    rows, the cache rows and the positions read once, dfield and dS
+    written once) and the plain form's time, and the host time per call of
+    the wrapper and of the plain fold at W=16 (calls enqueued, no sync).
+    Returns (max abs err in float64, {case: (ms, plain ms, (bound ms,
+    by)), "host_us": the wrapper's host us per call})."""
+    from pathintegralgroundstate_torch.ops import kernels as K
+    from pathintegralgroundstate_torch.ops import pairwise as P
+    from pathintegralgroundstate_torch.system import make_system
+    from pathintegralgroundstate_torch.utils.pbc import wrap
+
+    dev = torch.device("cuda")
+    ex = cfg.replace(n_walkers=W, exact_f2=True, f2_cache=True)
+    M = ex.M
+    err64, times = 0.0, {}
+    sys64 = make_system(ex, dev, torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        system = make_system(ex, dev, dtype)
+        if not K.fold_route(system):
+            raise AssertionError(f"[fold] fold_route is off in {dtype}")
+        paths = _flagship_paths(ex, W, dtype, dev, seed=81)
+        fodd = P.force_field(system, paths[:, 1::2])
+        gen = torch.Generator(device=dev).manual_seed(82)
+        ipw = torch.randint(0, ex.Np, (W,), generator=gen, device=dev)
+        rows = torch.arange(W, device=dev)
+
+        def prop(xo):
+            return wrap(xo + 0.05 * torch.randn(xo.shape, generator=gen,
+                                                device=dev, dtype=dtype),
+                        system.L, system.half)
+
+        cases = {}
+        cases["end window"] = (paths[:, M - 16:], None, 7,
+                               torch.arange(M - 1, M - 17, -1, device=dev),
+                               fodd[:, M // 2 - 8:].flip(1), (1, 2), True,
+                               False)
+        xo = paths[:, 11:26, 7]
+        cases["interior window"] = (paths[:, 11:26], xo, 7,
+                                    torch.arange(11, 26, device=dev),
+                                    fodd[:, 5:13], (0, 2), False, False)
+        cases["cm chain"] = (paths, paths[rows, :, ipw], ipw,
+                             torch.arange(M, device=dev), fodd, (1, 2),
+                             False, True)
+        tab = P.chin_table(system)
+        for label, (R, xo, ip, ib, fold, sub, rev, red) in cases.items():
+            if xo is None:      # the tail: rows in head orientation
+                xo = R[:, :, ip].flip(1)
+            xo = xo.contiguous()
+            xn = prop(xo)
+            args = (system, R, xn, xo, ip, tab, ib, fold, sub, True, rev,
+                    None, red)
+            n = K.pair_fold.launches
+            got = K.pair_fold(*args)
+            if K.pair_fold.launches != n + 1:
+                raise AssertionError(f"[fold] {label}: not one launch")
+            want = K.pair_fold_ref(*args)
+            truth, ex_rows, ex_fold = (None, None), None, None
+            if dtype == torch.float32:
+                d = lambda t: t.double()  # noqa: E731
+                truth = K.pair_fold_ref(sys64, d(R), d(xn), d(xo), ip,
+                                        P.chin_table(sys64), ib, d(fold),
+                                        sub, True, rev, None, red)
+                near = _fold_near_cut(system, R, xn, xo, rev)
+                ex_rows = near.any(-1) if red else near
+                ex_fold = near[:, sub[0]::sub[1]]
+            e1, x1 = _fold_held(f"{label} dS", got[0], want[0], truth[0],
+                                ex_rows)
+            e2, x2 = _fold_held(f"{label} dfield", got[1], want[1],
+                                truth[1], ex_fold)
+            if dtype == torch.float64:
+                err64 = max(err64, e1, e2)
+            B = R.shape[1]
+            print(f"[fold] {label} [{W},{B},{ex.Np},3] over {fold.shape[1]} "
+                  f"cache rows {str(dtype)[6:]}: dS err {e1:.3e}, dfield err "
+                  f"{e2:.3e} ({x1} rows, {x2} cache rows excused near rcut)",
+                  flush=True)
+            if dtype != torch.float32:
+                continue
+            nbytes = _nbytes(R, xn, xo, fold, got[1], got[0])
+            ops = (W * B * ex.Np * 2 * _OPS["rows"]
+                   + fold.numel() * _FOLD_OPS)
+            bnd = _bound(nbytes, ops)
+            t = (_events_ms(lambda: K.pair_fold(*args)),
+                 _events_ms(lambda: K.pair_fold_ref(*args), reps=5), bnd)
+            times[label] = t
+            print(f"[time] fold {label} W={W} float32: kernel {t[0]:.4f} ms, "
+                  f"plain {t[1]:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}; "
+                  f"{card})", flush=True)
+    # the wrapper's host time per call, where the device keeps up
+    small = make_system(ex.replace(n_walkers=16), dev, torch.float32)
+    paths = _flagship_paths(ex, 16, torch.float32, dev, seed=83)
+    fodd = P.force_field(small, paths[:, 1::2])
+    xo = paths[:, :16, 7].contiguous()
+    args = (small, paths[:, :16], xo + 0.01, xo, 7, P.chin_table(small),
+            torch.arange(16, device=dev), fodd[:, :8], (1, 2), True, False,
+            None, False)
+    for _ in range(20):
+        K.pair_fold(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        K.pair_fold(*args)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        K.pair_fold_ref(*args)
+    plain_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    times["host_us"] = host_us
+    print(f"[time] fold wrapper host time {host_us:.1f} us per call, the "
+          f"plain fold's {plain_us:.1f} (W=16 end window, calls enqueued; "
+          f"{card})", flush=True)
+    return err64, times
+
+
 # the kernels that replace the JAX package's Pallas kernels, as the
 # reference routes them; the glue kernels (bis_propose, bis_accept) have
 # a route of their own (kernels.bis_route)
@@ -1411,14 +1605,14 @@ PAIR_KERNELS = ("pair_rows", "pair_pot", "cascade", "pair_delta", "pair_u")
 
 
 def _kernel_fns():
-    """{name: wrapper} of the seven kernels (PAIR_KERNELS and the glue
-    kernels bis_propose, bis_accept); each wrapper's .launches counts its
-    kernel's launches."""
+    """{name: wrapper} of the eight kernels (PAIR_KERNELS, the glue
+    kernels bis_propose, bis_accept and the exact-F^2 fold pair_fold); each
+    wrapper's .launches counts its kernel's launches."""
     from pathintegralgroundstate_torch.ops import kernels as K
     return {"pair_rows": K.pair_rows, "pair_pot": K.pair_pot,
             "cascade": K.cascade, "pair_delta": K.pair_delta,
             "pair_u": K.pair_u, "bis_propose": K.bis_propose,
-            "bis_accept": K.bis_accept}
+            "bis_accept": K.bis_accept, "pair_fold": K.pair_fold}
 
 
 def _glue_launches(cfg, sweeper, visits):
@@ -1588,7 +1782,17 @@ def expected_launches(cfg, sweeper, nstep, use_rand, depths):
             "pair_pot": (2 * nstep, True),
             "cascade": (casc, True), "pair_delta": (dense, True),
             "pair_u": (0, True), "bis_propose": (glue, True),
-            "bis_accept": (glue, True)}
+            "bis_accept": (glue, True), "pair_fold": (0, True)}
+
+
+def _fold_calls(cfg, nstep):
+    """Window calls over nstep steps of the unfused monoshot sweep with
+    the exact-F^2 cache, each one fold: per step one per CM move, with the
+    worm four for open and close and per worm round eight and the swap's
+    one, and a head, a tail and an interior window per particle visit."""
+    worm = (4 + cfg.Nobdm * (8 + cfg.swapping)) if cfg.CWorm > 0 else 0
+    return nstep * (cfg.Np * (cfg.CMFreq > 0) + worm
+                    + 3 * cfg.Nstag * cfg.Np)
 
 
 def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
@@ -1598,17 +1802,22 @@ def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
     ThermEnergy and, without the cache, twice per F^2-carrying window call
     (every call of the monoshot sweep; the field difference of R' and R),
     kernels 3 and 4 never (batched randoms: no dense gate); the glue
-    kernels never with the cache, else as without exact F^2."""
+    kernels never with the cache, else as without exact F^2; the fold
+    kernel once per window call with the cache (the calls that carry F^2
+    without it) on fold_route, else never."""
+    from pathintegralgroundstate_torch.ops import kernels as K
     if sweeper.fused_diag or cfg.sampling != "bis" or not cfg.bis_monoshot \
             or not use_rand:
         raise ValueError("exact_launches models the unfused monoshot sweep "
                          "with batched randoms only")
     brute = 0 if cfg.f2_cache else 2 * (calls + 3 * visits)
     glue = 0 if cfg.f2_cache else _glue_launches(cfg, sweeper, visits)
+    fold = (_fold_calls(cfg, nstep) if cfg.f2_cache
+            and K.fold_route(sweeper.system) else 0)
     return {"pair_rows": (0, True), "pair_pot": (2 * nstep + brute, True),
             "cascade": (0, True), "pair_delta": (0, True),
             "pair_u": (0, True), "bis_propose": (glue, True),
-            "bis_accept": (glue, True)}
+            "bis_accept": (glue, True), "pair_fold": (fold, True)}
 
 
 def main_path(cfg, card, label="main"):
@@ -2285,7 +2494,9 @@ def exact_cli_phase(cfg, card, eps, W=256):
     """cli.main on a namelist of the flagship with exact_f2 = T and
     smart_mc = eps at W float32, 2 blocks of Nstep=2, the launch counts set
     to 0 before and read after: each block prints the MALA line; kernels
-    A, 3, 4 and 5 never launch and kernel B twice per step (ThermEnergy).
+    A, 3, 4 and 5 never launch, kernel B twice per step (ThermEnergy) and
+    the fold kernel once per window call of the cache (_fold_calls; the
+    MALA move itself folds nothing).
     Outputs under build/chip_smoke_cli/exact_mala/."""
     import os
 
@@ -2302,7 +2513,8 @@ def exact_cli_phase(cfg, card, eps, W=256):
     launches, log = cli_run(nml, "exact F^2 + MALA", d, "--set",
                             f"Nstep={nstep}", "--blocks", str(nblk))
     want = dict(pair_rows=0, pair_pot=2 * nstep * nblk, cascade=0,
-                pair_delta=0, pair_u=0, bis_propose=0, bis_accept=0)
+                pair_delta=0, pair_u=0, bis_propose=0, bis_accept=0,
+                pair_fold=_fold_calls(cfg, nstep * nblk))
     if launches != want or log.count("> MALA movements") != nblk:
         raise AssertionError(f"cli exact F^2 + MALA: launches {launches}, "
                              f"MALA lines {log.count('> MALA movements')}")
@@ -2796,7 +3008,8 @@ def tables_phase(card):
                           f"Nstep={nstep}", "--blocks", "1", tag="tables")
     gates = 2 * vt.Nstag * vt.Np * nstep
     want = {"pair_rows": 0, "pair_pot": 0, "cascade": 0, "pair_delta": 0,
-            "pair_u": gates, "bis_propose": 0, "bis_accept": 0}
+            "pair_u": gates, "bis_propose": 0, "bis_accept": 0,
+            "pair_fold": 0}
     if launches != want:
         raise AssertionError(f"[tables] v_table reference order: launches "
                              f"{launches}, expected {want}")
@@ -4205,6 +4418,8 @@ def main():
     dense_err, dense_times = dense_parity(cfg, card)
     clock("glue")
     glue_errs, glue_times = glue_phase(cfg, card)
+    clock("fold")
+    fold_err, fold_times = fold_phase(cfg, card)
     clock("dims")
     dims_cases = dims_parity(cfg)
     clock("variants")
@@ -4376,7 +4591,17 @@ def main():
                  ("ms", "plain_ms", "bound_ms", "bound_by"),
                  glue_times["dipolar N=256"][name][:2]
                  + glue_times["dipolar N=256"][name][2])))
-        for name in ("bis_propose", "bis_accept")]}))
+        for name in ("bis_propose", "bis_accept")] + [
+        dict(entry("pair_fold", "pair_fold.cu", "", ex_launches["pair_fold"],
+                   fold_err, *fold_times["end window"]),
+             replaces=None, main_path="exact_f2",
+             max_abs_err_is="float64 against the plain fold at the cell's "
+                            "shapes",
+             host_us_per_call=fold_times["host_us"],
+             **{label.replace(" ", "_"): dict(zip(
+                 ("ms", "plain_ms", "bound_ms", "bound_by"),
+                 t[:2] + t[2])) for label, t in fold_times.items()
+                if label not in ("end window", "host_us")})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

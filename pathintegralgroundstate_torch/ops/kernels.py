@@ -21,11 +21,17 @@ of the kernel half of ops/cascade_kernels.py.
              A (csrc/bis_glue.cu): every level's proposal in one launch, the
              accepts and the write-back in another.  They replace no TPU
              kernel (XLA fuses that glue); route bis_route.
+  pair_fold  the exact-F^2 fold (csrc/pair_fold.cu): the window pass of
+             every move under exact F^2 with the force-field cache, both
+             sides' pair forces folded with the cache rows, the field
+             increments and the Chin-weighted rows in one launch.  It
+             replaces no TPU kernel (the reference folds in jnp); route
+             fold_route.
 
 Each wrapper takes its plain-PyTorch form (pair_rows_ref, pair_pot_ref,
-pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref) for tensors on the
-CPU, and for a System that its route predicate sends away from the kernel
-(`rows_route`, `cascade_route`, `pair_route`, `u_route`:
+pair_delta_ref, pair_u_ref, ops/cascade.cascade_ref, pair_fold_ref) for
+tensors on the CPU, and for a System that its route predicate sends away
+from the kernel (`rows_route`, `cascade_route`, `pair_route`, `u_route`:
 use_pallas=False, the trap, a plug-in potential, the tables, exact F^2 for
 kernels A and 5, and a tp mesh for all five, as the reference routes
 them).  Otherwise, on a CUDA tensor, it launches the kernel or raises;
@@ -33,9 +39,9 @@ there is no fallback.  Each wrapper's `.launches` counts
 its kernel's launches, and nothing else.
 
 Every kernel takes float32, float64 and bfloat16 tensors (bfloat16 stored
-and written as such, its arithmetic in float32; the glue kernels float32
-and float64 only) and every dim >= 1 (dim above 3 with the box lengths
-from a small device array, `_params`).
+and written as such, its arithmetic in float32; the glue kernels and the
+fold float32 and float64 only) and every dim >= 1 (dim above 3 with the
+box lengths from a small device array, `_params`).
 
 Under a tp mesh (System.tp, parallel/mesh.py) the plain forms are the
 partner seam: each rank evaluates its N/tp partners (pair_terms_ref,
@@ -1020,3 +1026,153 @@ def bis_accept(system, paths, ip: int, nlev: int, rows, u, active, seg,
 
 
 bis_accept.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The exact-F^2 fold (csrc/pair_fold.cu)
+# ---------------------------------------------------------------------------
+
+FOLD_DTYPES = (torch.float32, torch.float64)
+FOLD_SUBS = ((0, 1), (0, 2), (1, 2))
+
+
+def fold_route(system) -> bool:
+    """Whether the exact-F^2 fold (the window pass of every move under
+    cfg.exact_f2 with the force-field cache) runs in the fold kernel
+    (pair_fold): with the kernels on (_kernels_on: use_pallas, PBC, a
+    potential of the kernels' selector, no tp mesh) and without either
+    table, in float32 or float64.  bfloat16 takes the plain fold, whose
+    per-operation bfloat16 rounding of the partners' field increments the
+    kernel does not repeat; so do the trap, the tables, a tp mesh (the
+    fold's all-reduce), use_pallas=False and a plug-in potential, as they
+    take every other kernel's plain form."""
+    return (_kernels_on(system) and not _tables(system)
+            and system.dtype in FOLD_DTYPES)
+
+
+def pair_fold_ref(system, R, xnew, xold, ip, tab, ib, fold, fold_sub=(0, 1),
+                  need_wf=True, rev=False, row_weights=None, reduce=False):
+    """Plain form of pair_fold: pairwise._fold_rows on the window (with rev
+    its bead rows reversed), then the row weights and, with reduce, the
+    walker sums.  _fold_rows reads the Chin weights of the same table tab
+    itself (pairwise.chin_weights)."""
+    from .pairwise import _fold_rows
+    if rev:
+        R = R.flip(1)
+    dS, dfield = _fold_rows(system, R, xnew, xold, ip, ib, fold, fold_sub,
+                            need_wf)
+    if row_weights is not None:
+        dS = dS * row_weights
+    return (dS.sum(-1) if reduce else dS), dfield
+
+
+class _FoldArgs(ctypes.Structure):
+    """Mirror of struct FoldArgs in csrc/pair_fold.cu."""
+    _fields_ = [(n, ctypes.c_longlong) for n in (
+        "sRw", "sRb", "sRn", "sNw", "sNb", "sOw", "sOb", "sFw", "sFk", "sFn",
+        "ip0")] + [(n, ctypes.c_int) for n in (
+            "ip_mode", "ib_mode", "M", "W", "B", "N", "mo", "r0", "s",
+            "need_wf", "reduce", "G", "spw", "wpb", "slab", "vec16")]
+
+
+def _fold_args(system, R, xnew, xold, ip_mode, tab, ib, fold, fold_sub,
+               need_wf, rev, rw, reduce) -> _FoldArgs:
+    """The checked argument block of one kind of fold call (the shapes and
+    strides of its tensors, fold_sub, ip's form and the flags), built once
+    and kept with the System by pair_fold; the caller sets ip0."""
+    name = "pair_fold"
+    if R.dtype not in FOLD_DTYPES:
+        raise TypeError(f"{name}: float32 or float64, got {R.dtype}")
+    _check_rows(name, system, R, xnew, xold)
+    W, B, N, D = R.shape
+    if fold_sub not in FOLD_SUBS:
+        raise ValueError(f"{name}: fold_sub one of {FOLD_SUBS}, got "
+                         f"{fold_sub}")
+    r0, s = fold_sub
+    mo = len(range(r0, B, s))
+    if fold.shape != (W, mo, N, D) or fold.stride(-1) != 1:
+        raise ValueError(f"{name}: fold must be {(W, mo, N, D)} with the "
+                         f"coordinate axis at stride 1, got "
+                         f"{tuple(fold.shape)}, strides {fold.stride()}")
+    if ib.shape not in ((B,), (W, B)):
+        raise ValueError(f"{name}: ib must be [B] or [W, B], got "
+                         f"{tuple(ib.shape)}")
+    if tab.dim() != 2 or tab.shape[0] != 3:
+        raise ValueError(f"{name}: tab must be [3, M], got "
+                         f"{tuple(tab.shape)}")
+    if rw is not None and rw.shape != (B,):
+        raise ValueError(f"{name}: row_weights must be [B], got "
+                         f"{tuple(rw.shape)}")
+    G = rows_lanes(W * (system.mesh.dp if system.mesh else 1), B, N)
+    spw, wpb, slab, _ = rows_layout(W, B, N, D, R.element_size(), G)
+    sW, sB, sN, _ = R.stride()
+    sFw, sFk, sFn, _ = fold.stride()
+    return _FoldArgs(sRw=sW, sRb=-sB if rev else sB, sRn=sN,
+                     sNw=xnew.stride(0), sNb=xnew.stride(1),
+                     sOw=xold.stride(0), sOb=xold.stride(1), sFw=sFw,
+                     sFk=sFk, sFn=sFn, ip_mode=ip_mode, ib_mode=ib.dim() - 1,
+                     M=tab.shape[1], W=W, B=B, N=N, mo=mo, r0=r0, s=s,
+                     need_wf=int(need_wf), reduce=int(reduce), G=G, spw=spw,
+                     wpb=wpb, slab=slab, vec16=int(slabs16(R)))
+
+
+def pair_fold(system, R, xnew, xold, ip, tab, ib, fold, fold_sub=(0, 1),
+              need_wf=True, rev=False, row_weights=None, reduce=False):
+    """The exact-F^2 window pass with the force-field cache in one launch:
+    (dS [W, B], dfield [W, mo, N, D]), or with reduce (dS [W], dfield); see
+    pairwise._fold_rows for the terms and csrc/pair_fold.cu for the kernel.
+
+    R [W, B, N, D] is read in place through its strides (a window view of
+    paths); rev=True reads its bead rows backwards through a negative bead
+    stride (row b of xnew/xold/ib/ip and of the fold rows pairs with R[:,
+    B-1-b]).  ip: int, or a contiguous long tensor [W], [W, B] or [1, B].
+    tab [3, M]: the Chin table (pairwise.chin_table); ib: contiguous long
+    [B] or [W, B]; fold: the cache rows [W, mo, N, D] under the window's
+    rows r0::s of fold_sub, any strides but the last (a view of the cache,
+    a gathered or a reversed copy); row_weights: [B] or None.  dfield is
+    written contiguous.  The argument block is built once per kind of call
+    and kept with the System, so a call allocates only its two outputs."""
+    if R.device.type == "cpu" or not fold_route(system):
+        return pair_fold_ref(system, R, xnew, xold, ip, tab, ib, fold,
+                             fold_sub, need_wf, rev, row_weights, reduce)
+    ip_t, mode, ip0 = _ip_args("pair_fold", R, ip)
+    rw = row_weights
+    dt, dev = R.dtype, R.device
+    if not (xnew.dtype == dt and xold.dtype == dt and fold.dtype == dt
+            and tab.dtype == dt and ib.dtype == torch.long
+            and xnew.device == dev and xold.device == dev
+            and fold.device == dev and tab.device == dev and ib.device == dev
+            and ib.is_contiguous() and tab.is_contiguous()
+            and (rw is None or (rw.dtype == dt and rw.device == dev
+                                and rw.is_contiguous()))):
+        raise ValueError(f"pair_fold: every tensor on {dev} in {dt} (ib a "
+                         f"long tensor), ib, tab and row_weights contiguous")
+    key = ("fold_args", R.shape, R.stride(), xnew.shape, xnew.stride(),
+           xold.shape, xold.stride(), fold.shape, fold.stride(), ib.shape,
+           tab.shape, fold_sub, mode, need_wf, rev, rw is not None, reduce,
+           dt, R.data_ptr() % 16 == 0)
+    a = system._consts.get(key)
+    if a is None:
+        a = _fold_args(system, R, xnew, xold, mode, tab, ib, fold, fold_sub,
+                       need_wf, rev, rw, reduce)
+        system._consts[key] = a
+    a.ip0 = ip0
+    W, B = a.W, a.B
+    out = torch.empty((W,) if reduce else (W, B), dtype=dt, device=dev)
+    dfield = torch.empty((W, a.mo, a.N, R.shape[3]), dtype=dt, device=dev)
+    base = R.data_ptr()
+    if rev:
+        base -= (B - 1) * a.sRb * R.element_size()
+    err = getattr(kernels(), "pigs_pair_fold_" + _suffix(dt))(
+        ctypes.byref(_params(system, R)), ctypes.byref(a), base,
+        xnew.data_ptr(), xold.data_ptr(),
+        ip_t.data_ptr() if ip_t is not None else None, ib.data_ptr(),
+        tab.data_ptr(), rw.data_ptr() if rw is not None else None,
+        fold.data_ptr(), out.data_ptr(), dfield.data_ptr(), _stream(R))
+    if err:
+        raise RuntimeError(f"pair_fold: kernel launch failed, cudaError {err}")
+    pair_fold.launches += 1
+    return out, dfield
+
+
+pair_fold.launches = 0

@@ -19,8 +19,11 @@ the card, its plain form on the CPU); kernel A also applies the Chin
 weights and the row weights and sums the rows, so delta_action_rows and
 delta_action_sum are one launch each.  Under exact F^2 the reference takes
 the window passes off its rows kernel (pairwise.py:415), and the port
-takes them off kernel A (kernels.rows_route): the fold runs in torch, as
-it runs in jnp in the reference.
+takes them off kernel A (kernels.rows_route).  On the card the fold runs
+in a kernel of its own (kernels.pair_fold, csrc/pair_fold.cu, route
+kernels.fold_route: both sides' pair pass, the fold and the Chin weighting
+in one launch); elsewhere it runs in torch (_fold_rows), as it runs in jnp
+in the reference.
 
 Shapes: R [W, B, N, D] partners at the B displaced beads; xnew/xold
 [W, B, D]; ip an int, [W], [W, B] or [1, B]; ib [B] or [W, B] bead indices.
@@ -116,7 +119,8 @@ def _fold(F_n, F_o, fp_n, fp_o, fold, notself, system=None):
 def _fold_rows(system, R, xnew, xold, ip, ib, fold, fold_sub, need_wf):
     """The fold branch of delta_action_rows (pairwise.py:480-499, 514-518):
     (dS [W, B], dfield [W, mo, N, D]) with the exact Chin F^2 of the rows
-    r0::s (fold_sub) from the cache rows fold [W, mo, N, D] beneath them."""
+    r0::s (fold_sub) from the cache rows fold [W, mo, N, D] beneath them.
+    The plain form of the fold kernel (kernels.pair_fold_ref)."""
     wv, wf, wpsi = chin_weights(system, ib, xnew.dtype)
     R, notself = kernels.partners(system, R, ip)
     lo = 0 if system.tp is None else system.tp.tp_rank * R.shape[-2]
@@ -176,16 +180,14 @@ def delta_action_rows(system, R, xnew, xold, ip, ib, need_wf=True,
     need_f2 it is the brute whole-configuration difference.  Otherwise the
     reference's partial moved-particle dF^2 (vpi_mod.f90:2825).
     Returns [W, B]."""
-    exact = system.cfg.exact_f2 and need_f2
-    if fold is not None or exact:
-        if rev:
-            R = R.flip(1)
-        if fold is not None:
-            return _fold_rows(system, R, xnew, xold, ip, ib, fold, fold_sub,
-                              need_wf)
-        return _brute_rows(system, R, xnew, xold, ip, ib, need_wf)
-    return kernels.pair_rows(system, R, xnew, xold, ip,
-                             chin_table(system, xnew.dtype), ib, need_wf,
+    tab = chin_table(system, xnew.dtype)
+    if fold is not None:
+        return kernels.pair_fold(system, R, xnew, xold, ip, tab, ib, fold,
+                                 fold_sub, need_wf, rev)
+    if system.cfg.exact_f2 and need_f2:
+        return _brute_rows(system, R.flip(1) if rev else R, xnew, xold, ip,
+                           ib, need_wf)
+    return kernels.pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf,
                              need_f2, rev)
 
 
@@ -194,18 +196,20 @@ def delta_action_sum(system, R, xnew, xold, ip, ib, need_wf=True,
                      fold_sub=(0, 1)):
     """Summed window action delta [W] (see delta_action_rows), summed in
     the same pass; row_weights [B] scales each row's whole dS (the worm
-    centre's 1/2, vpi_mod.f90:1573-1577).  With fold: (dS [W], dfield)."""
-    if fold is None and not (system.cfg.exact_f2 and need_f2):
-        return kernels.pair_rows(system, R, xnew, xold, ip,
-                                 chin_table(system, xnew.dtype), ib, need_wf,
+    centre's 1/2, vpi_mod.f90:1573-1577).  With fold: (dS [W], dfield),
+    the walker sums of the fold's rows from the same launch."""
+    tab = chin_table(system, xnew.dtype)
+    if fold is not None:
+        return kernels.pair_fold(system, R, xnew, xold, ip, tab, ib, fold,
+                                 fold_sub, need_wf, rev, row_weights,
+                                 reduce=True)
+    if not (system.cfg.exact_f2 and need_f2):
+        return kernels.pair_rows(system, R, xnew, xold, ip, tab, ib, need_wf,
                                  need_f2, rev, row_weights, reduce=True)
-    out = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf, need_f2,
-                            rev, fold, fold_sub)
-    rows = out[0] if fold is not None else out
+    rows = delta_action_rows(system, R, xnew, xold, ip, ib, need_wf, need_f2,
+                             rev)
     if row_weights is not None:
         rows = rows * row_weights
-    if fold is not None:
-        return rows.sum(-1), out[1]
     return rows.sum(-1)
 
 

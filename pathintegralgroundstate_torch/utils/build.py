@@ -98,7 +98,8 @@ def ptxas_summary(log: str) -> list:
     name, spill, out = "?", "", []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?((?:pair_rows|pair_pot|"
-                      r"pair_delta|pair_u|cascade|bis_propose|bis_accept)"
+                      r"pair_delta|pair_u|cascade|bis_propose|bis_accept|"
+                      r"pair_fold)"
                       r"_kernel)"
                       r"I(f|d|13__nv_bfloat16)((?:L[ib]\d+E)*)", line)
         if m:
@@ -124,7 +125,9 @@ _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _I, _P]
 _PROPOSE_ARGS = [_P] * 9
 _ACCEPT_ARGS = [_P] * 8
-GLUE_STORAGE = ("f32", "f64")      # csrc/bis_glue.cu: no bfloat16 entries
+_FOLD_ARGS = [_P] * 13
+# csrc/bis_glue.cu and csrc/pair_fold.cu: no bfloat16 entries
+GLUE_STORAGE = ("f32", "f64")
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,7 +141,8 @@ def kernels() -> ctypes.CDLL:
             ("pair_delta", _DELTA_ARGS, STORAGE),
             ("cascade", _CASCADE_ARGS, STORAGE),
             ("bis_propose", _PROPOSE_ARGS, GLUE_STORAGE),
-            ("bis_accept", _ACCEPT_ARGS, GLUE_STORAGE)):
+            ("bis_accept", _ACCEPT_ARGS, GLUE_STORAGE),
+            ("pair_fold", _FOLD_ARGS, GLUE_STORAGE)):
         for suffix in types:
             fn = getattr(lib, f"pigs_{kernel}_{suffix}")
             fn.argtypes = args

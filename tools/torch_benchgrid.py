@@ -40,7 +40,8 @@ from bench_torch import (CPU_SHAPE, NREPS, NSTEP,  # noqa: E402
 from pathintegralgroundstate_torch.flagship import flagship_cfg  # noqa: E402
 
 SHORT = {"pair_rows": "A", "pair_pot": "B", "pair_delta": "3", "pair_u": "4",
-         "cascade": "5", "bis_propose": "gp", "bis_accept": "ga"}
+         "cascade": "5", "bis_propose": "gp", "bis_accept": "ga",
+         "pair_fold": "F"}
 
 
 def variants(W: int, full: bool, device=None):

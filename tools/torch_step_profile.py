@@ -85,17 +85,18 @@ def move_phases():
 
 def pair_phases():
     """The pair-level functions under the moves, as their callers reach
-    them (through the module attribute): the exact-F^2 fold branch
-    (_fold_rows, with its pair pass pair_side and the fold algebra _fold),
-    the brute rows (_brute_rows: the plain window pass pair_terms_ref and
-    kernel B twice), the cache's field pass, and kernels A, B, 3, 4."""
+    them (through the module attribute): the exact-F^2 fold (pair_fold,
+    the fold kernel on its route, else its plain form _fold_rows with its
+    pair pass pair_side and the fold algebra _fold), the brute rows
+    (_brute_rows: the plain window pass pair_terms_ref and kernel B
+    twice), the cache's field pass, and kernels A, B, 3, 4."""
     from pathintegralgroundstate_torch.ops import kernels as K
     from pathintegralgroundstate_torch.ops import pairwise as PW
     from pathintegralgroundstate_torch import sweep as SW
-    return [(PW, "_fold_rows"), (K, "pair_side"), (PW, "_fold"),
-            (PW, "_brute_rows"), (K, "pair_terms_ref"), (SW, "force_field"),
-            (K, "pair_rows"), (K, "pair_pot"), (K, "pair_delta"),
-            (K, "pair_u")]
+    return [(K, "pair_fold"), (PW, "_fold_rows"), (K, "pair_side"),
+            (PW, "_fold"), (PW, "_brute_rows"), (K, "pair_terms_ref"),
+            (SW, "force_field"), (K, "pair_rows"), (K, "pair_pot"),
+            (K, "pair_delta"), (K, "pair_u")]
 
 
 def phase_times(sweeper, state, sync: bool, PHASES=None, what="phases"):

@@ -19,11 +19,12 @@ carries an error of about 2**-9 s with s = r + max_k (|x_k| + |x'_k|),
 the size of the numbers subtracted, not of r.  C is
 fixed from the reference's jnp forms in bfloat16: their worst ratio on
 tests/test_torch_bf16.py's cases (every pair model, D = 1 to 4) is 2.35,
-and the port's bfloat16 plain forms reach 4.23 on chip_smoke.py's liquid
-paths of [bf16] (D = 1); C = 8 holds both packages' plain forms with a
-margin (the tests hold them to it).  The kernels, which compute in
-float32, are held to the same C on the card (chip_smoke.py [bf16]; worst
-ratio about 1).  A non-finite truth (an exactly
+and the port's bfloat16 plain forms reach 4.23 on liquid paths on the
+card (D = 1); C = 8 holds both packages' plain forms with a margin (the
+tests hold them to it).  The kernels, which compute in float32, are held
+to the same C on the card
+(tests/test_torch_cuda.py::test_kernels_in_bfloat16_within_the_bound;
+worst ratio about 1).  A non-finite truth (an exactly
 coincident pair) must be non-finite in x too.
 """
 

@@ -12,10 +12,11 @@ rounding.  C = 8 is fixed from the reference's own jnp forms in bfloat16
 (delta_action_rows, pair_pot, delta_pot, delta_wf, cascade_jnp) on the
 cases below, whose worst ratio was 2.35 (the dipolar gas at D = 4, raw
 dpot; the port's plain forms: 2.35 too), and from the port's plain forms
-on chip_smoke.py's [bf16] paths (worst 4.23, D = 1); every plain form of
+on the card's liquid paths (worst 4.23, D = 1); every plain form of
 both packages is held to it per pair model at D = 1 to 4.  The kernels on the
 card are held to the same C against their plain forms' float64 truth
-(chip_smoke.py [bf16]: worst ratio about 1).  Kernel 5's positions are held
+(tests/test_torch_cuda.py::test_kernels_in_bfloat16_within_the_bound:
+worst ratio about 1).  Kernel 5's positions are held
 by C 2^-8 (|x64| + |xold| + sqrt(L dt) max|g|) where both accept, its
 decisions agreeing with float64 truth on at least 3/4 of the slots here
 (16 walkers) and more than 90 % on the card.

@@ -328,7 +328,7 @@ def test_flagship_step_glue_kernels_match_plain_glue(cuda, monkeypatch):
     through the minimum image, every counter and decision equal; two glue
     launches per move (a head, a tail and an interior move per particle
     visit)."""
-    import chip_smoke
+    import torch_card
     from pathintegralgroundstate_torch.state import (init_state,
                                                      state_from_numpy,
                                                      state_to_numpy)
@@ -339,7 +339,7 @@ def test_flagship_step_glue_kernels_match_plain_glue(cuda, monkeypatch):
     sweeper = Sweeper(system)
     state = init_state(system)
     start = state_to_numpy(state)
-    rec = chip_smoke._Recorder(sweeper.draws(state))
+    rec = torch_card._Recorder(sweeper.draws(state))
     n = kernels.bis_propose.launches, kernels.bis_accept.launches
     s1, t1 = sweeper.step(state, zero_stats(system), rec)
     visits = cfg.Nstag * cfg.Np
@@ -348,7 +348,7 @@ def test_flagship_step_glue_kernels_match_plain_glue(cuda, monkeypatch):
     monkeypatch.setattr(kernels, "bis_route", lambda s: False)
     m = kernels.bis_propose.launches
     s2, t2 = sweeper.step(state_from_numpy(system, start), zero_stats(system),
-                          chip_smoke._Replayer(rec.log, cuda))
+                          torch_card._Replayer(rec.log, cuda))
     assert kernels.bis_propose.launches == m
     _close(s1.paths, s2.paths, system, "paths")
     a, b = stats_to_numpy(t1), stats_to_numpy(t2)

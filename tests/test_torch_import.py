@@ -56,7 +56,9 @@ MODULES = [
     "pathintegralgroundstate_torch.parallel.dryrun",
     "pathintegralgroundstate_torch.parallel.beadshard",
     "pathintegralgroundstate_torch.utils.special",
-    "chip_smoke",
+    "torch_card",
+    "test_torch_cuda",
+    "test_torch_cuda_runs",
 ]
 
 
@@ -67,7 +69,8 @@ def test_port_imports_without_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'pathintegralgroundstate_tpu'))\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

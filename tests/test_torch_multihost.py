@@ -24,8 +24,8 @@ import os
 import numpy as np
 import pytest
 import torch
-from test_torch_parallel import ENV, REPO, port_cfg, run_worker, torchrun, \
-    unsharded
+from test_torch_parallel import port_cfg, run_worker, unsharded
+from torch_mesh_worker import ENV, REPO, torchrun
 
 from pathintegralgroundstate_torch.config import namelist_text
 from pathintegralgroundstate_torch.driver import Driver

@@ -296,8 +296,8 @@ def _check_case(system, sys64, R, xnew, xold, ip, ib, fold, fold_sub, rev,
     """One call of the kernel (one launch) against the plain fold on the
     same tensors; in float32 also both against the float64 plain fold of
     the same inputs, rows with a partner at rcut's rounding left out
-    (chip_smoke's [fold] checks)."""
-    from chip_smoke import _fold_held, _fold_near_cut
+    (torch_card._fold_held, _fold_near_cut)."""
+    from torch_card import _fold_held, _fold_near_cut
     tab = P.chin_table(system)
     n = kernels.pair_fold.launches
     got = kernels.pair_fold(system, R, xnew, xold, ip, tab, ib, fold,
@@ -486,7 +486,7 @@ def test_exact_f2_step_fold_kernel_matches_plain_fold(cuda, monkeypatch):
     step on the plain fold from the same draws: one launch per fold call,
     every decision and counter equal, the paths and the force-field cache
     after the step within 1e-10."""
-    import chip_smoke
+    import torch_card
     from pathintegralgroundstate_torch import sweep as sw
     from pathintegralgroundstate_torch.state import (init_state,
                                                      state_from_numpy,
@@ -508,7 +508,7 @@ def test_exact_f2_step_fold_kernel_matches_plain_fold(cuda, monkeypatch):
         return fold_rows(*a)
 
     monkeypatch.setattr(sw, "force_field", kept)
-    rec = chip_smoke._Recorder(sweeper.draws(state))
+    rec = torch_card._Recorder(sweeper.draws(state))
     n = kernels.pair_fold.launches
     s1, t1 = sweeper.step(state, sw.zero_stats(system), rec)
     launched = kernels.pair_fold.launches - n
@@ -516,7 +516,7 @@ def test_exact_f2_step_fold_kernel_matches_plain_fold(cuda, monkeypatch):
     monkeypatch.setattr(P, "_fold_rows", counted)
     s2, t2 = sweeper.step(state_from_numpy(system, start),
                           sw.zero_stats(system),
-                          chip_smoke._Replayer(rec.log, cuda))
+                          torch_card._Replayer(rec.log, cuda))
     assert kernels.pair_fold.launches == n + launched
     assert launched == calls[0] > 0
     d = wrap(s1.paths - s2.paths, system.L, system.half)

@@ -388,9 +388,9 @@ def test_slabs16_sees_the_layout(case):
 @pytest.mark.parametrize("B", [1, 2, 16, 65])
 @pytest.mark.parametrize("G", kernels.ROWS_LANES)
 def test_lanes_walkers_reach_every_lane_width(G, B):
-    """The card tests and chip_smoke.py cover each lane-group width of
+    """The card tests (tests/torch_card.py) cover each lane-group width of
     kernel A by the walker count at which the wrapper's rule picks it."""
-    import chip_smoke
-    W = chip_smoke.lanes_walkers(G, B)
+    import torch_card
+    W = torch_card.lanes_walkers(G, B)
     assert kernels.rows_lanes(W, B, 64) == G
     assert W == 1 or kernels.rows_lanes(W - 1, B, 64) != G or G == 32

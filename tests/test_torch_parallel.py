@@ -18,56 +18,20 @@ whole launch under a timeout) running tests/torch_mesh_worker.py:
 """
 
 import dataclasses
-import glob
 import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 import torch
 from torch_bridge import other_cfg, small_cfg
+from torch_mesh_worker import REPO, torchrun
 
 from pathintegralgroundstate_torch.driver import Driver
 
 torch.set_num_threads(1)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_mesh_worker.py")
-TIMEOUT = 240
-ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-
-
-def torchrun(n, argv, logs, env=ENV, timeout=TIMEOUT):
-    """`torchrun --standalone --nproc-per-node n argv...` (argv: a script
-    and its arguments, or -m and a module), each rank's stdout and stderr
-    redirected into the log directory `logs`.  Returns (torchrun's exit
-    code, [stdout by rank], [stderr by rank], torchrun's own stderr).  At
-    the timeout torchrun is sent SIGTERM, on which it stops its ranks."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={n}", "--redirects=3", f"--log-dir={logs}"]
-    proc = subprocess.Popen(cmd + list(argv), cwd=REPO, env=env, text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-    try:
-        _, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.terminate()
-        try:
-            proc.communicate(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-        raise
-
-    def read(rank, stream):
-        (path,) = glob.glob(os.path.join(str(logs), "*", "attempt_0",
-                                         str(rank), f"{stream}.log"))
-        with open(path) as fh:
-            return fh.read()
-
-    return (proc.returncode, [read(r, "stdout") for r in range(n)],
-            [read(r, "stderr") for r in range(n)], err)
 
 
 def run_worker(tmp_path, n, mode, cfg, blocks=1, out=None, **extra):

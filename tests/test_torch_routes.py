@@ -9,7 +9,8 @@ kernel kind: every route is off for it.  A registered copy of the soft
 core gives the built-in soft's block bit for bit through the plain forms,
 and the JAX package's block with the same potential registered there, on
 the reference's draws (rtol 1e-10 on the paths, exact counters).  The
-card's side (0 launches) is chip_smoke.py's [routes] phase.
+card's side (0 launches) is
+tests/test_torch_cuda_runs.py::test_routes_off_launch_nothing_and_equal_the_kernels.
 
 The monoshot bisection glue (kernels.bis_propose, bis_accept) runs its
 kernels only on bis_route and only from the moves that a kernel can run:

@@ -8,6 +8,10 @@ device; the file imports no JAX, so on a machine with a card it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_spans.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -166,13 +170,7 @@ def test_steps_are_bitwise_equal_under_the_profiler(form):
     assert torch.equal(a.host_gen.get_state(), b.host_gen.get_state())
 
 
-@pytest.mark.cuda
-def test_device_span_holds_its_kernel_on_the_trace():
-    """A device span around one kernel launch and a synchronisation holds
-    that kernel's interval on the profiler's trace (within 20 us at
-    either end), and its events' time is no longer than its host span."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _span_holds_its_kernel():
     x = torch.ones(1 << 24, device="cuda")
     y = x * 2.0
     torch.cuda.synchronize()
@@ -190,3 +188,25 @@ def test_device_span_holds_its_kernel_on_the_trace():
     k1 = k0 + kernels[0].duration_ns()
     assert s.t0_ns - 20_000 <= k0 and k1 <= s.t1_ns + 20_000
     assert 0.0 < s.device_ms <= (s.t1_ns - s.t0_ns) * 1e-6
+
+
+@pytest.mark.cuda
+def test_device_span_holds_its_kernel_on_the_trace():
+    """A device span around one kernel launch and a synchronisation holds
+    that kernel's interval on the profiler's trace (within 20 us at
+    either end), and its events' time is no longer than its host span.
+    It runs in a process of its own: once a profiler session has ended
+    and more kernels have run, a later session in the same process
+    records no device activity at all (seen on the card after
+    tests/test_torch_cuda.py::test_dense_delta_action_is_one_launch and
+    the card tests after it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here]))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import test_torch_spans as t; t._span_holds_its_kernel()"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]

@@ -10,7 +10,9 @@ cascade_jnp), one whole step of a small 2-D dipolar gas and of a small ideal
 Bose gas under PBC on the reference's own draws, and a dipolar Driver run
 over 2 blocks.  Elementwise forms: rtol 1e-12 in float64, 2e-6 in float32;
 pair sums: rtol 1e-10, atol 1e-12 (reassociation only).  The kernels
-against these plain forms: chip_smoke.py's [variants] phase, on the card.
+against these plain forms, on the card:
+tests/test_torch_cuda.py::test_pair_models_match_plain and
+test_dipolar_step_kernel_calls_match_plain.
 """
 
 import os

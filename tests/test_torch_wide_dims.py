@@ -16,7 +16,8 @@ One whole D = 4 step, in the flagship form, fused + cascade and the
 reference order, equals the reference's on its own draws from one burned-in
 state: positions within rtol 1e-10, the integer state and the counters
 exactly, the statistics within rtol 1e-9.  The kernels against these plain
-forms at D = 4 and 5: chip_smoke.py's [dims] phase, on the card.
+forms at D = 4 and 5, on the card:
+tests/test_torch_cuda.py::test_kernels_at_dims_4_and_5_match_plain.
 """
 
 import functools

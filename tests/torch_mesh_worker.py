@@ -1,5 +1,7 @@
-"""One rank of a sharded run of the port, for the multi-process CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_multihost.py).
+"""One rank of a sharded run of the port, for the multi-process tests
+(tests/test_torch_parallel.py, tests/test_torch_multihost.py on the CPU,
+tests/test_torch_cuda_runs.py on the card), and torchrun(), which starts
+the ranks.
 
     python tests/torch_mesh_worker.py MODE SPEC.json RESULT_DIR
 
@@ -7,8 +9,9 @@ started by torchrun, one process per rank.  SPEC
 holds the port's SimConfig fields ("cfg"), the output directory ("out"),
 and the blocks to run ("blocks").  Modes:
 
-  run     Driver(distributed=True).run(blocks) on the CPU; each rank saves
-          its accumulators and its gathered final state to
+  run     Driver(distributed=True).run(blocks) on SPEC["device"] (the
+          CPU by default; null: the rank's card); each rank saves its
+          accumulators and its gathered final state to
           RESULT_DIR/rank<R>.npz;
   seam    the tp partner seam: with a tp=world System, every plain pair
           form against the same form without a mesh, on seeded inputs;
@@ -27,11 +30,15 @@ and the blocks to run ("blocks").  Modes:
           DeviceDraws seeded with SPEC["draw_seed"]; SPEC["bridge"] sweeps
           of the free particle (SPEC["free_cfg"]); then a Driver run of
           SPEC["cfg_run"] over "blocks" blocks.  Each rank saves all of it.
+  card_sp the same ring on one card (card_sp below).
 """
 
+import glob
 import json
 import os
+import subprocess
 import sys
+import warnings
 
 import numpy as np
 import torch
@@ -44,6 +51,41 @@ from pathintegralgroundstate_torch.parallel.mesh import (  # noqa: E402
     gather_state, init_from_env, make_mesh)
 from pathintegralgroundstate_torch.utils.draws import DeviceDraws  # noqa: E402
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 240
+ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+
+
+def torchrun(n, argv, logs, env=ENV, timeout=TIMEOUT):
+    """`torchrun --standalone --nproc-per-node n argv...` (argv: a script
+    and its arguments, or -m and a module), each rank's stdout and stderr
+    redirected into the log directory `logs`.  Returns (torchrun's exit
+    code, [stdout by rank], [stderr by rank], torchrun's own stderr).  At
+    the timeout torchrun is sent SIGTERM, on which it stops its ranks."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "--redirects=3", f"--log-dir={logs}"]
+    proc = subprocess.Popen(cmd + list(argv), cwd=REPO, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise
+
+    def read(rank, stream):
+        (path,) = glob.glob(os.path.join(str(logs), "*", "attempt_0",
+                                         str(rank), f"{stream}.log"))
+        with open(path) as fh:
+            return fh.read()
+
+    return (proc.returncode, [read(r, "stdout") for r in range(n)],
+            [read(r, "stderr") for r in range(n)], err)
+
 
 def _cfg(d) -> SimConfig:
     return SimConfig(**{k: tuple(v) if isinstance(v, list) else v
@@ -53,12 +95,12 @@ def _cfg(d) -> SimConfig:
 def run(spec, res, rank):
     drv = Driver(_cfg(spec["cfg"]).replace(distributed=True),
                  out_dir=spec["out"].replace("{rank}", str(rank)),
-                 device="cpu", verbose=False)
+                 device=spec.get("device", "cpu"), verbose=False)
     acc = drv.run(spec["blocks"])
     st = gather_state(drv.system, drv.state)
     np.savez(os.path.join(res, f"rank{rank}.npz"),
-             paths=st.paths.numpy(), iworm=st.iworm.numpy(),
-             isopen=st.isopen.numpy(), backend=drv.backend,
+             paths=st.paths.cpu().numpy(), iworm=st.iworm.cpu().numpy(),
+             isopen=st.isopen.cpu().numpy(), backend=drv.backend,
              collectives=drv.mesh.collectives if drv.mesh else 0,
              **{f"acc_{k}": np.asarray(v) for k, v in acc.items()})
 
@@ -187,7 +229,7 @@ def replay(spec, res, rank):
 
 
 def _draw_source(system, seed):
-    gen = torch.Generator()
+    gen = torch.Generator(device=system.device)
     gen.manual_seed(seed)
     host = torch.Generator()
     host.manual_seed(seed + 1)
@@ -239,12 +281,157 @@ def sp(spec, res, rank):
     np.savez(os.path.join(res, f"rank{rank}.npz"), **out)
 
 
+def step_syncs(sweeper, state, src):
+    """The host syncs of one step (run_block) on the card, as the messages
+    of torch.cuda.set_sync_debug_mode('warn')."""
+    from pathintegralgroundstate_torch.sweep import run_block
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run_block(sweeper, state, 1, src)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def _sp_kernels_match_plain(system, paths, k):
+    """Kernels A and B at the SP path's shapes, float32 against their
+    float64 plain forms on the same inputs (torch_card.rows_parity,
+    pot_check): shard k's two kinds of window as beadshard.shard_window
+    builds them, the view of the shard at local start 0 and the last
+    start's copy joined with the halo (the next shard's first bead; bead
+    M-1 on the last shard), each with its global bead indices and
+    segment_regrow's flags (need_wf=False, need_f2=True), per row and
+    summed; and for k < 2 ThermEnergy's view k of the paths
+    (paths[:, k:M-1:2]) without and with force."""
+    import torch_card
+    from pathintegralgroundstate_torch.parallel.beadshard import \
+        shard_window
+    from pathintegralgroundstate_torch.system import make_system
+
+    cfg = system.cfg
+    sys64 = make_system(cfg, paths.device, torch.float64)
+    M, L, N = paths.shape[1], cfg.Lstag, cfg.Np
+    Mloc = (M - 1) // cfg.mesh_beads
+    lo = k * Mloc
+    paths_l, halo = paths[:, lo:lo + Mloc], paths[:, lo + Mloc]
+    g = torch.Generator(device=paths.device).manual_seed(40 + k)
+    ip = (7 * k + 3) % N
+    for ii in (0, Mloc - L):
+        R = shard_window(paths_l, halo, ii, L)[:, :L]
+        assert (R.data_ptr() == paths_l[:, ii:].data_ptr()) == (
+            ii + L < Mloc), f"shard {k} ii={ii}: not the window expected"
+        ib = torch.arange(lo + ii, lo + ii + L, device=paths.device)
+        xnew, xold = torch_card._window_ip(R, ip, g)
+        for reduce in (False, True):
+            torch_card.rows_parity(system, sys64, R, xnew, xold, ip, ib,
+                                   False, [(False, True)],
+                                   f"sp shard {k} ii={ii}", reduce=reduce)
+    if k < 2:
+        torch_card.pot_check(system, sys64, paths[:, k:M - 1:2],
+                             f"sp ThermEnergy view {k}")
+
+
+def card_sp(spec, res, rank):
+    """The SP bead sharding over the ranks' sp ring on one card (gloo):
+    (1) SPEC["calls"] sharded sweeps of SPEC["small"] against
+    sp_staging_sweep_ref on this process, kernel A in both; on rank 0 the
+    same sweeps on the CPU's plain forms, within the replay tolerance; (2)
+    the path SPEC["full"]: one warm-up step, then SPEC["nstep"] steps'
+    launches and counters, one step's host syncs outside the mesh's
+    exchanges, and kernels A and B at its shapes against their plain
+    forms.  Each rank saves RESULT_DIR/rank<R>.json."""
+    import torch_card
+    from pathintegralgroundstate_torch.parallel import beadshard as bs
+    from pathintegralgroundstate_torch.state import init_state
+    from pathintegralgroundstate_torch.sweep import Sweeper, run_block
+    from pathintegralgroundstate_torch.system import make_system
+    backend = init_from_env()
+    S = torch.distributed.get_world_size()
+    mesh = make_mesh(1, 1, S)
+    cuda = torch.device("cuda")
+    kern = torch_card._kernel_fns()
+    out = dict(backend=backend)
+
+    cfg = _cfg(spec["small"])
+    ssys, rsys = make_system(cfg, cuda, mesh=mesh), make_system(cfg, cuda)
+    paths = init_state(ssys).paths
+    start, ref = paths.clone(), paths.clone()
+    W, M = paths.shape[:2]
+    Mloc, L = (M - 1) // S, cfg.Lstag
+    src_s, src_r = _draw_source(ssys, 5), _draw_source(rsys, 5)
+    halo = mesh.ring_next(paths[:, mesh.sp_rank * Mloc])
+    out["halo_equal"] = bool(torch.equal(
+        halo, paths[:, (mesh.sp_rank + 1) % S * Mloc]))
+    n_a, logged, accs, same = [0, 0], [], [], True
+    for it in range(spec["calls"]):
+        ip = (7 * it + 3) % cfg.Np
+        ds = src_s.sp_staging(it, W, S, bs.n_starts(Mloc, L), L)
+        dr = src_r.sp_staging(it, W, S, bs.n_starts(Mloc, L), L)
+        logged.append((ip, dr))
+        a0 = kern["pair_rows"].launches
+        acc_s = bs.sp_staging_sweep(ssys, paths, ip, L, ds)
+        a1 = kern["pair_rows"].launches
+        acc_r = bs.sp_staging_sweep_ref(rsys, ref, ip, S, L, dr)
+        n_a[0] += a1 - a0
+        n_a[1] += kern["pair_rows"].launches - a1
+        same = same and bool(torch.equal(acc_s, acc_r))
+        accs.append(int(acc_s.sum()))
+    out.update(accepts_equal=same, paths_equal=bool(torch.equal(paths, ref)),
+               small_launches=n_a, small_accepted=accs)
+    if rank == 0:
+        csys, cpaths = make_system(cfg, "cpu"), start.cpu()
+        for ip, dr in logged:
+            bs.sp_staging_sweep_ref(csys, cpaths, ip, S, L, [
+                (ii, g.cpu(), u.cpu()) for ii, g, u in dr])
+        np.testing.assert_allclose(paths.cpu().numpy(), cpaths.numpy(),
+                                   rtol=1e-9, atol=1e-11,
+                                   err_msg="sp: card vs CPU plain forms")
+    torch.distributed.barrier()
+
+    cfg = _cfg(spec["full"])
+    system = make_system(cfg, cuda, mesh=mesh)
+    sweeper = Sweeper(system)
+    state, warm = run_block(sweeper, init_state(system), 1)
+    for fn in kern.values():
+        fn.launches = 0
+    state, stats = run_block(sweeper, state, spec["nstep"])
+    torch.cuda.synchronize()
+    out.update(launches={k: fn.launches for k, fn in kern.items()},
+               counters=(stats.counters + warm.counters).tolist(),
+               E=float(stats.sumE / stats.n_diag) / cfg.Np)
+
+    # the exchanges run outside the sync check: a host sync there is the
+    # exchange's own
+    def quiet(fn):
+        def call(*a, **k):
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("warn")
+        return call
+    mesh.ring_next = quiet(mesh.ring_next)
+    mesh.all_reduce = quiet(mesh.all_reduce)
+    try:
+        out["syncs"] = step_syncs(sweeper, state, None)
+    finally:
+        del mesh.ring_next, mesh.all_reduce
+    _sp_kernels_match_plain(system, state.paths, mesh.sp_rank)
+    with open(os.path.join(res, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
 if __name__ == "__main__":
     mode, spec_path, res = sys.argv[1:4]
     with open(spec_path) as fh:
         spec = json.load(fh)
     {"run": run, "seam": seam, "errors": errors, "replay": replay,
-     "sp": sp}[mode](
+     "sp": sp, "card_sp": card_sp}[mode](
         spec, res, int(os.environ["RANK"]))
     # leave the group together: a rank that exits while a peer still
     # holds the connection can abort in gloo's teardown

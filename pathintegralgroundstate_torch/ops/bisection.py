@@ -10,8 +10,9 @@ its two forms (cfg.bis_monoshot):
           alive = active AND_k [ u_k < exp(-sum_{rows of level k} dS) ];
       the unfused moves run the construction and the accepts with their
       write-back as one launch each around the pair pass
-      (kernels.bis_propose, bis_accept) where the window start is shared
-      and there is no cache;
+      (kernels.bis_propose, bis_accept) where the window start is shared,
+      and with the cache where the fold kernel runs the pass on the card
+      (_glue_cache), bis_accept then writing the cache back too;
   per level (bis_monoshot=False, the Fortran's own order): one pair pass
       per level on the level's midpoints, each built on the previous
       levels' beads, the accept chain cut short by the first rejection.
@@ -178,24 +179,41 @@ def _split(out, fodd):
     return out if fodd is not None else (out, None)
 
 
+def _glue_cache(system, paths) -> bool:
+    """Whether a move carrying the exact-F^2 cache runs on the glue route:
+    only where every kernel of it runs, the paths on the card, the glue
+    kernels (kernels.bis_route) and the fold kernel (kernels.fold_route).
+    Elsewhere (the CPU, bfloat16, the tables, the trap) the cached moves
+    keep their PyTorch glue."""
+    return (paths.device.type != "cpu" and kernels.bis_route(system)
+            and kernels.fold_route(system))
+
+
 def _bisection_monoshot(system, paths, ip: int, active, level: int, rand,
                         fodd=None):
     """Interior bisection over an even-aligned window of 2**level links,
-    one pair pass for all levels.  With a shared window start and without
-    the cache, the proposal and the accept with its write-back are one
-    launch each around kernel A (kernels.bis_propose, bis_accept).
+    one pair pass for all levels.  With a shared window start, and with the
+    cache only on the glue route (_glue_cache), the proposal and the
+    accept with its write-back are one launch each around the pair pass
+    (kernels.bis_propose, bis_accept): kernel A, or with the cache the fold
+    kernel, whose field increments bis_accept adds to the cache rows under
+    the window's odd beads for the accepted walkers.
     Returns (paths, alive)."""
     L = 2 ** level
     ii, g_rows, u_acc = rand
-    if fodd is None and isinstance(ii, int):
+    if isinstance(ii, int) and (fodd is None or _glue_cache(system, paths)):
         seg = kernels.bis_propose(system, paths, ip, level, g_rows, ii, 1,
                                   False)
         R_seg = paths[:, ii:ii + L + 1]
-        rows = delta_action_rows(system, R_seg[:, 1:L], seg[:, 1:L],
-                                 R_seg[:, 1:L, ip], ip,
-                                 bead_index(system, ii, 1, L), need_wf=False)
+        f_seg, _, k0 = _codd_window(fodd, ii, L, 0) if fodd is not None \
+            else (None, None, None)
+        rows, df = _split(delta_action_rows(
+            system, R_seg[:, 1:L], seg[:, 1:L], R_seg[:, 1:L, ip], ip,
+            bead_index(system, ii, 1, L), need_wf=False,
+            **_fold_kw(fodd, f_seg, (0, 2))), fodd)
         return paths, kernels.bis_accept(system, paths, ip, level, rows,
-                                         u_acc, active, seg, ii, 1, False)
+                                         u_acc, active, seg, ii, 1, False,
+                                         fodd, df, k0)
     R_seg = _slice_beads(paths, ii, L + 1)
     seg0 = R_seg[:, :, ip]
     seg = _construct_levels(system, seg0, level, L, g_rows)
@@ -307,25 +325,31 @@ def _end_bisection_monoshot(system, paths, ip: int, active, nlev: int,
     accept group 0) and all levels in one pair pass.  The tail's partner
     block is read in FORWARD bead order; only the moved particle's small
     segment is reversed.  Returns (paths, alive), or (the window as it
-    would be written, alive) with defer_write.  Without either, the
-    proposal and the accept with its write-back are one launch each around
-    kernel A (kernels.bis_propose, bis_accept; the tail's window built in
-    forward bead order).  With the cache the tail's rows are taken in head
-    orientation (a reversed read), as the reference takes them on its cache
-    path (bisection.py:363-372)."""
+    would be written, alive) with defer_write.  Without it, and with the
+    cache only on the glue route (_glue_cache), the proposal and the
+    accept with its write-back are one launch each around the pair pass
+    (kernels.bis_propose, bis_accept; the tail's window built and its rows
+    taken in forward bead order, so its cache rows under beads M-L, M-L+2,
+    .., M-2 are a forward view, _codd_window, that bis_accept writes back
+    in place with the accepted walkers' increments).  Off that route the
+    cached tail's rows are taken in head orientation (a reversed read), as
+    the reference takes them on its cache path (bisection.py:363-372)."""
     M = system.M
     L = 2 ** nlev
     _, g_rows, u_acc = rand
-    if fodd is None and not defer_write:
+    if not defer_write and (fodd is None or _glue_cache(system, paths)):
         b0, step, r0 = (M - 1, -1, M - L) if tail else (0, 1, 0)
         seg = kernels.bis_propose(system, paths, ip, nlev, g_rows, b0, step,
                                   True)
-        rows = delta_action_rows(system, paths[:, r0:r0 + L],
-                                 seg[:, 1:] if tail else seg[:, :L],
-                                 paths[:, r0:r0 + L, ip], ip,
-                                 system.arange(r0, r0 + L))
+        f_seg, sub, k0 = _codd_window(fodd, r0, L) if fodd is not None \
+            else (None, None, None)
+        rows, df = _split(delta_action_rows(
+            system, paths[:, r0:r0 + L], seg[:, 1:] if tail else seg[:, :L],
+            paths[:, r0:r0 + L, ip], ip, system.arange(r0, r0 + L),
+            **_fold_kw(fodd, f_seg, sub)), fodd)
         return paths, kernels.bis_accept(system, paths, ip, nlev, rows,
-                                         u_acc, active, seg, b0, step, True)
+                                         u_acc, active, seg, b0, step, True,
+                                         fodd, df, k0)
     seg0, _, _ = _end_window(system, paths, ip, nlev, tail)
     seg = _end_proposal(system, seg0, nlev, g_rows)
     if fodd is not None:

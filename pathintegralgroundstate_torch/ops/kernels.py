@@ -865,8 +865,10 @@ def bis_route(system) -> bool:
     (_kernels_on, which asks for PBC) in float32 or float64.  bfloat16
     takes the plain forms, whose per-operation bfloat16 rounding the
     kernels do not repeat.  The moves call the wrappers only where a kernel
-    can run the move at all: an int window start, no exact-F^2 cache, no
-    deferred write."""
+    can run the move at all: an int window start and no deferred write;
+    with the exact-F^2 cache also only where the fold kernel runs the
+    window pass (fold_route) on paths on the card, and bis_accept then
+    writes the cache back in its launch."""
     return _kernels_on(system) and system.dtype in GLUE_DTYPES
 
 
@@ -892,32 +894,39 @@ def bis_propose_ref(system, paths, ip: int, nlev: int, g, bead0: int,
 
 
 def bis_accept_ref(system, paths, ip: int, nlev: int, rows, u, active, seg,
-                   bead0: int, step: int, gate: bool):
+                   bead0: int, step: int, gate: bool, codd=None, dfield=None,
+                   k0: int = None):
     """Plain form of bis_accept (ops/bisection._monoshot_accept, then the
-    accepted windows written back)."""
+    accepted windows written back, and with the cache codd its rows k0..
+    written back with the accepted walkers' increments dfield added,
+    ops/moves._cache_win_write)."""
     from .bisection import _monoshot_accept
-    from .moves import _where, _win_write
+    from .moves import _cache_win_write, _where, _win_write
     L = 2 ** nlev
     lo = _window_lo(bead0, step, L)
     alive = _monoshot_accept(system, active, rows, u if gate else u[:, 1:],
                              nlev, gate, flip=step < 0)
     _win_write(paths, lo, ip, _where(alive, seg, paths[:, lo:lo + L + 1, ip]))
+    if codd is not None:
+        _cache_win_write(codd, codd[:, k0:k0 + dfield.shape[1]], dfield,
+                         alive, k0)
     return alive
 
 
 class _GlueArgs(ctypes.Structure):
     """Mirror of struct GlueArgs in csrc/bis_glue.cu."""
     _fields_ = [(n, ctypes.c_longlong) for n in (
-        "sPw", "sPm", "sPn", "sA", "bead0", "rbead0")] + [
-        ("sig", ctypes.c_double)] + [
+        "sPw", "sPm", "sPn", "sA", "bead0", "rbead0", "sCw", "sCk", "sCn",
+        "k0")] + [("sig", ctypes.c_double)] + [
         (n, ctypes.c_int) for n in ("dir", "ip", "W", "nlev", "D", "B",
-                                    "gate")]
+                                    "gate", "mo", "N")]
 
 
 def _glue_args(system, paths, nlev: int, gate: bool) -> _GlueArgs:
     """The argument block of one kind of move (window depth, end or
     interior, paths' layout), built once and kept with the System.  The
-    caller sets the window (bead0, rbead0, dir), ip and active's stride."""
+    caller sets the window (bead0, rbead0, dir), ip, active's stride and,
+    with the cache, its strides, k0 and mo."""
     key = ("glue_args", nlev, gate, paths.shape, paths.stride())
     a = system._consts.get(key)
     if a is None:
@@ -926,7 +935,8 @@ def _glue_args(system, paths, nlev: int, gate: bool) -> _GlueArgs:
         sPw, sPm, sPn, _ = paths.stride()
         a = _GlueArgs(sPw=sPw, sPm=sPm, sPn=sPn,
                       sig=(2 ** nlev * system.cfg.dt) ** 0.5, W=W, nlev=nlev,
-                      D=D, B=L if gate else L - 1, gate=int(gate))
+                      D=D, B=L if gate else L - 1, gate=int(gate),
+                      N=paths.shape[2])
         system._consts[key] = a
     return a
 
@@ -979,18 +989,23 @@ bis_propose.launches = 0
 
 
 def bis_accept(system, paths, ip: int, nlev: int, rows, u, active, seg,
-               bead0: int, step: int, gate: bool):
+               bead0: int, step: int, gate: bool, codd=None, dfield=None,
+               k0: int = None):
     """The accepts and the write-back of one monoshot bisection move, in
-    one launch: from kernel A's rows [W, B] (the window's displaced beads
-    in forward order: the interior's positions 1..L-1, an end's 0..L-1),
-    each accept group's row sum (level ilev; an end move's terminal gate
-    first), alive = active AND_k u[:, k] < exp(-sum_k) with u [W, nlev+1]
-    by group (the interior leaves column 0 unread), and the accepted
-    walkers' displaced positions of seg (bis_propose's window) written into
-    paths in place.  Returns alive [W]."""
+    one launch: from the pair pass's rows [W, B] (the window's displaced
+    beads in forward order: the interior's positions 1..L-1, an end's
+    0..L-1), each accept group's row sum (level ilev; an end move's
+    terminal gate first), alive = active AND_k u[:, k] < exp(-sum_k) with
+    u [W, nlev+1] by group (the interior leaves column 0 unread), and the
+    accepted walkers' displaced positions of seg (bis_propose's window)
+    written into paths in place.  With the exact-F^2 cache codd [W, Nb, N,
+    D] the same launch adds each accepted walker's field increments dfield
+    [W, mo, N, D] (the fold's, contiguous) into the cache rows k0..k0+mo-1
+    in place, and leaves a rejected walker's rows as they were.
+    Returns alive [W]."""
     if paths.device.type == "cpu" or not bis_route(system):
         return bis_accept_ref(system, paths, ip, nlev, rows, u, active, seg,
-                              bead0, step, gate)
+                              bead0, step, gate, codd, dfield, k0)
     W, M, N, D = paths.shape
     L = 2 ** nlev
     B = L if gate else L - 1
@@ -1012,12 +1027,30 @@ def bis_accept(system, paths, ip: int, nlev: int, rows, u, active, seg,
                          f"bead0 {bead0}, step {step}, ip {ip}")
     a = _glue_args(system, paths, nlev, gate)
     a.bead0, a.dir, a.ip, a.sA = bead0, step, ip, active.stride(0)
-    # kernel A's row 0: the first displaced bead in forward order
+    # the rows' row 0: the first displaced bead in forward order
     a.rbead0 = bead0 + (0 if gate else 1) if step > 0 else bead0 - L + 1
+    if codd is not None:
+        mo = dfield.shape[1]
+        if (codd.dim() != 4 or codd.shape[0] != W or codd.shape[2:] != (N, D)
+                or codd.stride(-1) != 1 or not 0 <= k0 <= codd.shape[1] - mo
+                or dfield.shape != (W, mo, N, D)
+                or not dfield.is_contiguous()
+                or any(t.dtype != paths.dtype or t.device != paths.device
+                       for t in (codd, dfield))):
+            raise ValueError(f"bis_accept: the cache [W, Nb, N, D] with its "
+                             f"coordinates at stride 1 and a contiguous "
+                             f"dfield [W, mo, N, D] of its rows k0.., beside "
+                             f"paths in {system.dtype}; got "
+                             f"{tuple(codd.shape)}, "
+                             f"{tuple(dfield.shape)}, k0 {k0}")
+        a.sCw, a.sCk, a.sCn, _ = codd.stride()
+        a.k0, a.mo = k0, mo
     alive = torch.empty(W, dtype=torch.bool, device=paths.device)
     err = getattr(kernels(), "pigs_bis_accept_" + _suffix(paths.dtype))(
         ctypes.byref(a), rows.data_ptr(), u.data_ptr(), active.data_ptr(),
-        seg.data_ptr(), paths.data_ptr(), alive.data_ptr(), _stream(paths))
+        seg.data_ptr(), paths.data_ptr(), alive.data_ptr(),
+        dfield.data_ptr() if codd is not None else None,
+        codd.data_ptr() if codd is not None else None, _stream(paths))
     if err:
         raise RuntimeError(f"bis_accept: kernel launch failed, cudaError "
                            f"{err}")

@@ -124,7 +124,7 @@ _DELTA_ARGS = [_P] * 6 + [_I] * 2 + [_P] * 5
 _CASCADE_ARGS = [_P, _P, _P, _LL, _LL, _LL, _P, _P, _P, _LL, _LL, _P, _I, _I,
                  _I, _I, _I, _I, _I, _P]
 _PROPOSE_ARGS = [_P] * 9
-_ACCEPT_ARGS = [_P] * 8
+_ACCEPT_ARGS = [_P] * 10
 _FOLD_ARGS = [_P] * 13
 # csrc/bis_glue.cu and csrc/pair_fold.cu: no bfloat16 entries
 GLUE_STORAGE = ("f32", "f64")

@@ -7,7 +7,12 @@ the composition the moves ran before (the construction, the accepts and
 the write-back as separate PyTorch operations, kept below as
 `_old_interior` and `_old_end`) bit for bit, at D = 1, 2, 3, under PBC and
 the trap, in float64 and float32, with inactive walkers; and so does each
-plain form on its own.
+plain form on its own.  With the exact-F^2 cache: bis_accept_ref with the
+cache's arguments equals the cached moves' composition (the accepts, the
+window's write-back, ops/moves._cache_win_write; the tail's in head
+orientation) bit for bit and leaves a rejected walker's cache rows as they
+were; and the cached moves on the glue route (forced on the CPU, so its
+plain forms run) equal the same moves on their PyTorch glue bit for bit.
 
 On the card (marked cuda, skipped without one): each kernel against its
 plain form for the three kinds of move, both types, D = 1..4 under PBC,
@@ -15,6 +20,10 @@ inactive walkers and rows that sit exactly on a gate; two launches per
 routed move; the trap's moves on the plain glue (the route asks for PBC);
 one whole flagship step (the unfused, reference order of moves) with the
 kernels on against the same step with the plain glue, from the same draws.
+With the cache: the routed moves against the same moves on their PyTorch
+glue (the fold kernel in both), three launches a routed move (bis_propose,
+pair_fold, bis_accept), and no glue launch under bfloat16, the tables or
+the trap.
 The file imports no JAX, so on a machine with a card it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_bis_glue.py
@@ -26,9 +35,12 @@ import torch
 from pathintegralgroundstate_torch.flagship import flagship_cfg
 from pathintegralgroundstate_torch.ops import bisection as bis
 from pathintegralgroundstate_torch.ops import kernels
-from pathintegralgroundstate_torch.ops.moves import (_where, _win_write,
-                                                     bead_index)
-from pathintegralgroundstate_torch.ops.pairwise import delta_action_rows
+from pathintegralgroundstate_torch.ops.moves import (_cache_win_write,
+                                                     _codd_window,
+                                                     _codd_window_rev, _where,
+                                                     _win_write, bead_index)
+from pathintegralgroundstate_torch.ops.pairwise import (delta_action_rows,
+                                                        force_field)
 from pathintegralgroundstate_torch.system import make_system
 from pathintegralgroundstate_torch.utils.pbc import wrap
 
@@ -39,8 +51,9 @@ KINDS = ("interior", "head", "tail")
 W = 16
 
 
-def _system(dim, trap, dtype, device="cpu", W=W):
-    cfg = flagship_cfg(W).replace(dim=dim, Np=8, density=DENSITY[dim])
+def _system(dim, trap, dtype, device="cpu", W=W, **over):
+    cfg = flagship_cfg(W).replace(dim=dim, Np=8, density=DENSITY[dim],
+                                  **over)
     if trap:
         # ideal bosons in the trap, as the port's trapped configurations
         cfg = cfg.replace(trap=True, a_ho=(1.0,) * dim, potential="none",
@@ -111,14 +124,16 @@ def _old_end(system, paths, ip, active, nlev, tail, rand):
     return paths, alive, seg
 
 
-def _move(kind, system, paths, ip, active, rand):
-    """(paths, alive) of the move function of `kind`."""
+def _move(kind, system, paths, ip, active, rand, fodd=None):
+    """(paths, alive) of the move function of `kind`; fodd: the exact-F^2
+    cache."""
     nlev = system.cfg.Nlev
     if kind == "interior":
-        return bis.bisection(system, paths, ip, active, nlev, rand)
+        return bis.bisection(system, paths, ip, active, nlev, rand,
+                             fodd=fodd)
     fn = bis.move_head_bisection if kind == "head" \
         else bis.move_tail_bisection
-    return fn(system, paths, ip, active, nlev, rand)
+    return fn(system, paths, ip, active, nlev, rand, fodd=fodd)
 
 
 def _window(kind, system):
@@ -190,6 +205,149 @@ def test_plain_accept_writes_only_the_accepted_windows(kind):
 
 
 # ---------------------------------------------------------------------------
+# The exact-F^2 cache on the glue route
+# ---------------------------------------------------------------------------
+
+EXACT = dict(exact_f2=True, f2_cache=True)
+
+
+def _cache(system, paths, seed):
+    """A cache [W, Nb, N, D] of the odd beads' field, plus noise of its
+    own size, so that no increment is lost against it."""
+    f = force_field(system, paths[:, 1::2])
+    gen = torch.Generator().manual_seed(seed)
+    noise = torch.randn(f.shape, generator=gen, dtype=torch.float64)
+    return f + (f.abs() + 1.0) * noise.to(f.device, f.dtype)
+
+
+def _accept_case(kind, system, seed):
+    """The arguments of one cached accept in the orientation of the cached
+    moves' PyTorch glue (the tail's window, rows and increments in head
+    orientation, its cache rows _codd_window_rev's reversed copy), with
+    rows of multiples of 1/8 (their group sums exact in any order) and
+    increments dfield of the cache's size: (paths, codd, ip, active, u,
+    seg, rows, dfield, (f_seg, k0))."""
+    paths, ip, active, (ii, g, u) = _inputs(system, seed)
+    codd = _cache(system, paths, seed)
+    nlev, L, M = system.cfg.Nlev, 2 ** system.cfg.Nlev, system.M
+    N, D = system.cfg.Np, system.cfg.dim
+    if kind == "interior":
+        seg = bis._construct_levels(system, paths[:, ii:ii + L + 1, ip],
+                                    nlev, L, g)
+        f_seg, _, k0 = _codd_window(codd, ii, L, 0)
+        B = L - 1
+    else:
+        seg0, _, _ = bis._end_window(system, paths, ip, nlev, kind == "tail")
+        seg = bis._end_proposal(system, seg0, nlev, g)
+        f_seg, k0 = bis._end_cache(system, codd, nlev, kind == "tail")
+        B = L
+    gen = torch.Generator().manual_seed(seed + 1)
+    rows = (torch.randint(-4, 5, (W, B), generator=gen) / 8).double()
+    dfield = torch.randn((W, L // 2, N, D), generator=gen,
+                         dtype=torch.float64) * (codd.abs().amax() + 1.0)
+    return paths, codd, ip, active, u, seg, rows, dfield, (f_seg, k0)
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_accept_with_the_cache_equals_the_composition(kind, dim):
+    """bis_accept_ref with the cache (codd, dfield, k0) equals, bit for
+    bit in float64, the cached moves' composition: _monoshot_accept, the
+    window's write-back (_where, _win_write / _end_write), then
+    _cache_win_write; the tail handed its window, rows and increments in
+    forward bead order and its cache rows as the forward view at row
+    (M-L)/2, the composition taking them in head orientation."""
+    system = _system(dim, False, torch.float64, **EXACT)
+    paths, codd, ip, active, u, seg, rows, dfield, (f_seg, k0) = \
+        _accept_case(kind, system, seed=20 + dim)
+    nlev, L, M = system.cfg.Nlev, 2 ** system.cfg.Nlev, system.M
+    old_p, old_c = paths.clone(), codd.clone()
+    if kind == "interior":
+        seg0 = old_p[:, 10:10 + L + 1, ip]
+        acc_old = bis._monoshot_accept(system, active, rows, u[:, 1:], nlev,
+                                       False)
+        _win_write(old_p, 10, ip, _where(acc_old, seg, seg0))
+        f_old, _, k_old = _codd_window(old_c, 10, L, 0)
+    else:
+        tail = kind == "tail"
+        seg0, _, _ = bis._end_window(system, old_p, ip, nlev, tail)
+        acc_old = bis._monoshot_accept(system, active, rows, u, nlev, True)
+        bis._end_write(system, old_p, ip, nlev, tail,
+                       _where(acc_old, seg, seg0))
+        f_old, k_old = bis._end_cache(system, old_c, nlev, tail)
+    _cache_win_write(old_c, f_old, dfield, acc_old, k_old,
+                     reverse=kind == "tail")
+    bead0, step, gate = _window(kind, system)
+    if kind == "tail":
+        # forward bead order: window row r at bead M-1-L+r, the rows and
+        # the increments at beads M-L.., the cache rows a forward view
+        seg, rows, dfield = seg.flip(1), rows.flip(1), dfield.flip(1)
+        _, sub, k0 = _codd_window(codd, M - L, L)
+        assert sub == (0, 2) and k0 == (M - L) // 2 == k_old
+    alive = kernels.bis_accept_ref(system, paths, ip, nlev, rows, u, active,
+                                   seg.contiguous(), bead0, step, gate, codd,
+                                   dfield.contiguous(), k0)
+    assert torch.equal(alive, acc_old)
+    assert 0 < int(alive.sum()) < int(active.sum()), "both outcomes exercised"
+    assert torch.equal(paths, old_p) and torch.equal(codd, old_c)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_accept_leaves_rejected_cache_rows(kind):
+    """bis_accept_ref with the cache leaves a rejected or inactive
+    walker's cache rows bit for bit as they were, and every row outside
+    the window's for every walker; an accepted walker's window rows are the
+    old rows plus its increments."""
+    system = _system(3, False, torch.float64, **EXACT)
+    paths, codd, ip, active, u, seg, rows, dfield, _ = \
+        _accept_case(kind, system, seed=40)
+    nlev, L, M = system.cfg.Nlev, 2 ** system.cfg.Nlev, system.M
+    bead0, step, gate = _window(kind, system)
+    k0 = {"interior": 5, "head": 0, "tail": (M - L) // 2}[kind]
+    before = codd.clone()
+    alive = kernels.bis_accept_ref(system, paths, ip, nlev, rows, u, active,
+                                   seg, bead0, step, gate, codd, dfield, k0)
+    assert 0 < int(alive.sum()) < int(active.sum()), "both outcomes exercised"
+    rej = ~alive
+    assert torch.equal(codd[rej].view(torch.int64),
+                       before[rej].view(torch.int64))
+    win = slice(k0, k0 + L // 2)
+    outside = torch.ones(codd.shape[1], dtype=torch.bool)
+    outside[win] = False
+    assert torch.equal(codd[:, outside], before[:, outside])
+    assert torch.equal(codd[alive, win], before[alive, win] + dfield[alive])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cached_moves_on_the_route_equal_their_pytorch_glue(kind, dim, dtype,
+                                                           monkeypatch):
+    """The cached moves with the glue route forced on the CPU (the glue
+    wrappers and the fold through their plain forms; the tail's window,
+    rows and cache rows in forward bead order) equal the same moves on the
+    cached moves' PyTorch glue (the tail in head orientation) bit for bit:
+    decisions, paths and cache; each routed move calls each glue wrapper
+    once."""
+    system = _system(dim, False, dtype, **EXACT)
+    paths, ip, active, rand = _inputs(system, seed=60 + dim)
+    codd = _cache(system, paths, seed=60 + dim)
+    ref_p, ref_c = paths.clone(), codd.clone()
+    _, acc_ref = _move(kind, system, ref_p, ip, active, rand, ref_c)
+    calls = []
+    for name in ("bis_propose", "bis_accept"):
+        fn = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    monkeypatch.setattr(bis, "_glue_cache", lambda s, p: True)
+    _, acc = _move(kind, system, paths, ip, active, rand, codd)
+    assert calls == ["bis_propose", "bis_accept"]
+    assert torch.equal(acc, acc_ref)
+    assert 0 < int(acc.sum()) < int(active.sum()), "both outcomes exercised"
+    assert torch.equal(paths, ref_p) and torch.equal(codd, ref_c)
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -208,6 +366,14 @@ def _close(a, b, system, what):
         d = wrap(d, system.L, system.half)
     tol = 1e-12 if a.dtype == torch.float64 else 2e-5
     assert float(d.abs().max()) <= tol, what
+
+
+def _close_rel(a, b, what):
+    """a == b within _close's tolerance relative to b's size (at least 1):
+    the cache's fields reach far beyond the box."""
+    tol = 1e-12 if a.dtype == torch.float64 else 2e-5
+    d = (a - b).abs() / b.abs().clamp(min=1.0)
+    assert float(d.max()) <= tol, what
 
 
 @pytest.mark.cuda
@@ -317,6 +483,19 @@ def test_glue_refuses_what_it_cannot_take(cuda):
         with pytest.raises(ValueError):
             kernels.bis_accept(system, paths, bad_ip, nlev, rows, u, active,
                                seg, bead0, 1, False)
+    # the cache: its particles, a strided dfield, rows past its end
+    codd = _cache(system, paths, 9)
+    mo = 2 ** nlev // 2
+    df = torch.zeros((W, mo) + codd.shape[2:], dtype=paths.dtype,
+                     device=cuda)
+    for bad_c, bad_df, k0 in ((codd[:, :, :-1], df[:, :, :-1], 5),
+                              (codd, df.transpose(0, 1).contiguous()
+                               .transpose(0, 1), 5),
+                              (codd, df, codd.shape[1] - mo + 1),
+                              (codd, df.float(), 5)):
+        with pytest.raises(ValueError):
+            kernels.bis_accept(system, paths, ip, nlev, rows, u, active, seg,
+                               10, 1, False, bad_c, bad_df, k0)
     assert kernels.bis_accept.launches == n
 
 
@@ -355,3 +534,68 @@ def test_flagship_step_glue_kernels_match_plain_glue(cuda, monkeypatch):
     assert (a["counters"] == b["counters"]).all()
     for k in ("isopen", "iworm", "iperm"):
         assert torch.equal(getattr(s1, k), getattr(s2, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cached_moves_on_the_route_match_their_pytorch_glue(
+        cuda, kind, dim, dtype, monkeypatch):
+    """With the exact-F^2 cache on the card: the moves on the glue route
+    (bis_propose, the fold kernel, bis_accept writing the cache back)
+    against the same moves on their PyTorch glue (the fold kernel there
+    too), from the same inputs: decisions equal, both outcomes exercised,
+    the paths through the minimum image and the cache relative to its size
+    within test_glue_kernels_match_plain's tolerances."""
+    system = _system(dim, False, dtype, cuda, **EXACT)
+    paths, ip, active, rand = _inputs(system, seed=80 + dim, device=cuda)
+    assert bis._glue_cache(system, paths)
+    codd = _cache(system, paths, seed=80 + dim)
+    ref_p, ref_c = paths.clone(), codd.clone()
+    n = kernels.bis_accept.launches
+    _, acc = _move(kind, system, paths, ip, active, rand, codd)
+    assert kernels.bis_accept.launches == n + 1
+    monkeypatch.setattr(bis, "_glue_cache", lambda s, p: False)
+    _, acc_ref = _move(kind, system, ref_p, ip, active, rand, ref_c)
+    assert kernels.bis_accept.launches == n + 1
+    assert torch.equal(acc, acc_ref)
+    assert 0 < int(acc.sum()) < int(active.sum()), "both outcomes exercised"
+    _close(paths, ref_p, system, "paths")
+    _close_rel(codd, ref_c, "cache")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_routed_cached_move_is_three_launches(cuda, kind):
+    """A cached move on the glue route is one bis_propose, one pair_fold
+    and one bis_accept launch, and no kernel-A launch (float64, D = 3)."""
+    system = _system(3, False, torch.float64, cuda, **EXACT)
+    paths, ip, active, rand = _inputs(system, seed=3, device=cuda)
+    codd = _cache(system, paths, 3)
+    fns = (kernels.bis_propose, kernels.pair_fold, kernels.bis_accept,
+           kernels.pair_rows)
+    n = [fn.launches for fn in fns]
+    _move(kind, system, paths, ip, active, rand, codd)
+    assert [fn.launches - k for fn, k in zip(fns, n)] == [1, 1, 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bfloat16", "tables", "trap"])
+def test_cached_moves_off_the_route_launch_no_glue(cuda, case):
+    """bfloat16 (off bis_route and fold_route), the tables and the trap
+    (off fold_route) keep the cached moves' PyTorch glue on the card: no
+    glue kernel launches over a head, a tail and an interior move."""
+    system = {
+        "bfloat16": lambda: _system(3, False, torch.bfloat16, cuda, **EXACT),
+        "tables": lambda: _system(3, False, torch.float64, cuda,
+                                  v_table=True, wf_table=True, **EXACT),
+        "trap": lambda: _system(2, True, torch.float64, cuda, **EXACT)}[case]()
+    paths, ip, active, rand = _inputs(system, seed=6, device=cuda)
+    assert not bis._glue_cache(system, paths)
+    codd = _cache(system, paths, 6)
+    n = kernels.bis_propose.launches, kernels.bis_accept.launches
+    for kind in KINDS:
+        _move(kind, system, paths, ip, active, rand, codd)
+    assert (kernels.bis_propose.launches,
+            kernels.bis_accept.launches) == n

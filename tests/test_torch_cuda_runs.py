@@ -64,15 +64,18 @@ def cuda():
 # Launches from the move sites a step visits
 # ---------------------------------------------------------------------------
 
-def _glue_launches(cfg, sweeper, visits):
+def _glue_launches(cfg, sweeper, visits, cache=False):
     """Launches of each glue kernel over `visits` particle visits of the
-    unfused monoshot sweep without the cache: the head and the tail unless
-    paired (paired ends defer their write), the interior with a shared
-    window start; none off bis_route."""
-    if not kernels.bis_route(sweeper.system):
+    unfused monoshot sweep: the head and the tail unless paired (paired
+    ends defer their write; with the exact-F^2 cache the ends are never
+    paired), the interior with a shared window start; none off bis_route,
+    and with the cache none off fold_route."""
+    system = sweeper.system
+    if not kernels.bis_route(system) or (cache
+                                         and not kernels.fold_route(system)):
         return 0
-    return visits * ((0 if sweeper.paired_ends else 2)
-                     + (1 if cfg.shared_windows else 0))
+    paired = sweeper.paired_ends and not cache
+    return visits * ((0 if paired else 2) + (1 if cfg.shared_windows else 0))
 
 
 class _Depths:
@@ -162,15 +165,15 @@ def exact_launches(cfg, sweeper, nstep, use_rand, calls, visits):
     ThermEnergy and, without the cache, twice per F^2-carrying window call
     (every call of the monoshot sweep; the field difference of R' and R),
     kernels 3 and 4 never (batched randoms: no dense gate); the glue
-    kernels never with the cache, else as without exact F^2; the fold
-    kernel once per window call with the cache (the calls that carry F^2
-    without it) on fold_route, else never."""
+    kernels as without exact F^2, with the cache only on fold_route
+    (_glue_launches); the fold kernel once per window call with the cache
+    (the calls that carry F^2 without it) on fold_route, else never."""
     if sweeper.fused_diag or cfg.sampling != "bis" or not cfg.bis_monoshot \
             or not use_rand:
         raise ValueError("exact_launches models the unfused monoshot sweep "
                          "with batched randoms only")
     brute = 0 if cfg.f2_cache else 2 * (calls + 3 * visits)
-    glue = 0 if cfg.f2_cache else _glue_launches(cfg, sweeper, visits)
+    glue = _glue_launches(cfg, sweeper, visits, cfg.f2_cache)
     fold = (_fold_calls(cfg, nstep) if cfg.f2_cache
             and kernels.fold_route(sweeper.system) else 0)
     return {"pair_rows": 0, "pair_pot": 2 * nstep + brute, "cascade": 0,
@@ -562,18 +565,20 @@ def test_cli_reference_order_runs_the_dense_gate(cuda, tmp_path, W=64):
 
 def test_cli_exact_f2_with_mala(cuda, tmp_path, W=64):
     """cli.main on the flagship with exact_f2 = T and smart_mc > 0, 2
-    blocks of Nstep=2: a MALA line per block; kernels A, 3, 4, 5 and the
-    glue never launch, kernel B twice per step (ThermEnergy) and the fold
-    kernel once per window call of the cache (_fold_calls; the MALA move
-    folds nothing)."""
+    blocks of Nstep=2: a MALA line per block; kernels A, 3, 4 and 5 never
+    launch, kernel B twice per step (ThermEnergy), the fold kernel once per
+    window call of the cache (_fold_calls; the MALA move folds nothing) and
+    each glue kernel once per monoshot move (a head, a tail and an interior
+    move per particle visit)."""
     cfg = flagship_cfg(W).replace(exact_f2=True, smart_mc=1e-6)
     nstep, nblk = 2, 2
     launches, log = cli_run(_namelist(tmp_path, "exact", cfg),
                             tmp_path / "exact", "--set", f"Nstep={nstep}",
                             "--blocks", str(nblk))
+    glue = 3 * cfg.Nstag * cfg.Np * nstep * nblk
     assert launches == dict(pair_rows=0, pair_pot=2 * nstep * nblk,
-                            cascade=0, pair_delta=0, pair_u=0, bis_propose=0,
-                            bis_accept=0,
+                            cascade=0, pair_delta=0, pair_u=0,
+                            bis_propose=glue, bis_accept=glue,
                             pair_fold=_fold_calls(cfg, nstep * nblk))
     assert log.count("> MALA movements") == nblk
 

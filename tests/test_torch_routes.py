@@ -15,8 +15,9 @@ tests/test_torch_cuda_runs.py::test_routes_off_launch_nothing_and_equal_the_kern
 The monoshot bisection glue (kernels.bis_propose, bis_accept) runs its
 kernels only on bis_route and only from the moves that a kernel can run:
 bfloat16 and use_pallas=False turn the route off; per-walker windows (the
-interior move), the exact-F^2 cache, the per-level forms and paired ends
-never reach the wrappers.
+interior move), the exact-F^2 cache on the CPU (on the card it takes the
+route with the fold kernel, tests/test_torch_bis_glue.py), the per-level
+forms and paired ends never reach the wrappers.
 """
 
 from collections import Counter

@@ -9,9 +9,11 @@ its numbers against the float64 reference (the lower readings: the
 program's sound runs), and for the first k seeds the control's: the
 reference in the next lower precision than the configuration states
 (bfloat16 for float32, float32 for float64) in the program's place, on
-the same captured inputs and final state (the upper readings).  Under
-exact F^2, the first k seeds also read each fault of judge.F2_FAULTS
-planted in the float64 reference put in the program's place.  One JSON
+the same captured inputs and final state (the upper readings).  The first
+k seeds also read each fault that the cell's path can have
+(judge.faults: under exact F^2, with per-level bisections, with
+per-walker windows) planted in the float64 reference put in the
+program's place.  One JSON
 line per seed, then one with the largest program reading and the
 smallest control reading of each number, and each fault's smallest."""
 
@@ -64,8 +66,7 @@ def main(argv=None) -> int:
             line["control"] = ctl
             high = ctl if high is None else {
                 k: min(high[k], ctl[k]) for k in ctl}
-            for f in (judge.F2_FAULTS if judge.carries_cache(run.fields)
-                      else ()):
+            for f in judge.faults(run.fields):
                 fv = judge.judge(run, judge.control_answers(
                     run, torch.float64, fault=f), limits)[0]
                 line[f] = fv

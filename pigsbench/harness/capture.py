@@ -11,20 +11,26 @@ terms, installed for set-up and window alike:
              arguments (particle, active mask, depth, uniforms and
              gaussians), every output of the window pair pass
              (`ops.kernels.pair_rows`, kernel A) inside the call, the
-             decisions it returned and the positions after it.  Under
-             exact F^2 with the cache, each call inside it that carries
-             the cache's rows (`fold`) is read where every route enters
-             the pass, `ops.pairwise.delta_action_rows` and
-             `delta_action_sum` (under whatever name a module of the
-             program binds them): its rows or their sum, its field
-             increments `dfield`, its bead indices and its `fold_sub`;
-             the pair passes nested inside such a call are not read
-             again.  Copied to
+             decisions it returned and the positions after it, and every
+             pair pass that the call makes, in order (`passes`), read
+             where every route enters the pass: `ops.pairwise.
+             delta_action_rows`, `delta_action_sum` and the dense
+             `delta_action` (the per-level end gate's, kernel 3 with
+             kernel 4's u), under whatever name a module of the program
+             binds them, a pass nested inside one being read not read
+             again: its rows or their sum and its bead indices (per
+             walker where they are [W, B]); under exact F^2 with the
+             cache, where the call carries the cache's rows (`fold`),
+             also its field increments `dfield` and its `fold_sub`.  The
+             depth an end move was handed, the random end depth that the
+             sweep drew as a host int, is among its arguments.  Copied to
              host memory (pinned on the card) as the window runs.  The
              whole-move cascades (`ops.cascade`: the rigid one, whose pair
              pass is kernel A, the ends and the interior, kernel 5) are
              kinds of their own; kernel 5 exposes no rows, so only its
              arguments, decisions and write-back are kept.
+  depths     with random end depths (`random_depth`), the depth handed to
+             every end move of the window, counted by depth.
   last step  the last step of each block (the window's last step is kept):
              the statistics before and after it, the open masks and
              permutation counts before and after it, the open ends that
@@ -81,9 +87,11 @@ COUNTS = {
     "sta_half": [("acc_bd_half", 2)], "swap": [("acc_swap", 2)],
 }
 _SKIP = ("system", "paths", "xend", "fodd")
-# the window pair pass's entry points (ops.pairwise), read where a call
-# carries the exact-F^2 cache's rows
-ENTRIES = ("delta_action_rows", "delta_action_sum")
+# the pair pass's entry points (ops.pairwise): every pass of a captured
+# call is read there
+PASSES = ("delta_action_rows", "delta_action_sum", "delta_action")
+# the end moves, whose depth the sweep draws with random end depths
+ENDS = ("bis_head", "bis_tail")
 
 
 def expected_kinds(f: dict) -> list:
@@ -112,6 +120,12 @@ def expected_kinds(f: dict) -> list:
     if f["CWorm"] > 0.0 and f["Nobdm"] > 0:
         kinds.append("worm_cm")
     return kinds
+
+
+def random_depth(f: dict) -> bool:
+    """Whether the sweep draws each end move's depth, U{2..Nlev} (the
+    reference's random end depth; the paired and fused ends keep theirs)."""
+    return bool(f["bis_end_random_depth"]) and "bis_head" in expected_kinds(f)
 
 
 def _host(t: torch.Tensor, pinned: bool) -> torch.Tensor:
@@ -150,8 +164,10 @@ class Capture:
         self.obdm = []
         self.last = None          # the window's last step
         self.rows = None          # kernel A's outputs inside a captured call
-        self.folds = None         # the fold calls inside a captured call
-        self.inside = False       # inside a fold call being read
+        self.passes = None        # every pass inside a captured call
+        self.nested = False       # inside a pass being read
+        # the window's end moves by the depth handed to them
+        self.depths = {} if random_depth(vars(sweeper.system.cfg)) else None
         self.fodd = None          # the cache handed to the last step's moves
         self._saved = []
 
@@ -173,27 +189,32 @@ class Capture:
             n = self.calls.get(kind, 0)
             self.calls[kind] = n + 1
             rec = args = None
-            if self.counting or (self.on and self.target.get(kind) == n):
+            tally = self.on and self.depths is not None and kind in ENDS
+            if (self.counting or tally
+                    or (self.on and self.target.get(kind) == n)):
                 bound = sig.bind(*a, **k)
                 bound.apply_defaults()
                 args = bound.arguments
+            if tally:
+                lv = int(args["level"])
+                self.depths[lv] = self.depths.get(lv, 0) + 1
             if self.on and self.target.get(kind) == n:
                 rec = {"kind": kind, "block": self.blocks,
                        "before": self._get(args["paths"]),
                        "xend": self._get(args.get("xend")),
                        "args": {k_: self._get(v) for k_, v in args.items()
                                 if k_ not in _SKIP}}
-                self.rows, self.folds = [], []
+                self.rows, self.passes = [], []
             if self.counting and args.get("fodd") is not None:
                 self.fodd = args["fodd"]
             try:
                 out = orig(*a, **k)
             finally:
                 rows, self.rows = self.rows, None
-                folds, self.folds = self.folds, None
+                passes, self.passes = self.passes, None
             if rec is not None:
                 rec["rows"] = [self._get(r) for r in rows]
-                rec["folds"] = folds
+                rec["passes"] = passes
                 rec["after"] = self._get(out[0])
                 rec["xend_after"] = (self._get(out[1]) if kind == "worm_cm"
                                      else None)
@@ -217,7 +238,7 @@ class Capture:
     def _rows_tap(self, orig):
         def rows(*a, **k):
             out = orig(*a, **k)
-            if self.rows is not None and not self.inside:
+            if self.rows is not None:
                 self.rows.append(out)
             return out
         # the program counts its launches on the attribute of the function
@@ -225,26 +246,29 @@ class Capture:
         rows.launches = orig.launches
         return rows
 
-    def _entry_tap(self, orig):
+    def _entry_tap(self, name, orig):
         sig = inspect.signature(orig)
 
         def entry(*a, **k):
-            if self.folds is None or self.inside:
+            if self.passes is None or self.nested:
                 return orig(*a, **k)
             bound = sig.bind(*a, **k)
             bound.apply_defaults()
             args = bound.arguments
-            if args["fold"] is None:
-                return orig(*a, **k)
-            self.inside = True
+            fold = args.get("fold") is not None
+            self.nested = True
             try:
                 out = orig(*a, **k)
             finally:
-                self.inside = False
-            self.folds.append({
-                "dS": self._get(out[0]), "dfield": self._get(out[1]),
-                "ib": _host(args["ib"], self.pinned),
-                "sub": tuple(args["fold_sub"])})
+                self.nested = False
+            ib = args["ib"]
+            rec = {"entry": name, "dS": self._get(out[0] if fold else out),
+                   "ib": self._get(ib) if ib.dim() == 2
+                   else _host(ib, self.pinned)}
+            if fold:
+                rec["dfield"] = self._get(out[1])
+                rec["sub"] = tuple(args["fold_sub"])
+            self.passes.append(rec)
             return out
         return entry
 
@@ -296,9 +320,9 @@ class Capture:
         top = p.pairwise.__name__.split(".")[0]
         mods = [m for n, m in list(sys.modules.items())
                 if m is not None and (n == top or n.startswith(top + "."))]
-        for name in ENTRIES:
+        for name in PASSES:
             orig = getattr(p.pairwise, name)
-            tap = self._entry_tap(orig)
+            tap = self._entry_tap(name, orig)
             for mod in mods:
                 for attr, v in list(vars(mod).items()):
                     if v is orig:

@@ -10,7 +10,23 @@ Numbers compared, each against its limit in the cell's file
                  head, tail, interior and their composites; worm: the worm
                  half's rigid move): per compared row of each sampled
                  walker whose particle is active, |dS - dS_ref| / max(1,
-                 |dS_ref|), the worst;
+                 |dS_ref|), the worst.  A per-level bisection's rows are
+                 its passes, one per level, each its level's sum, matched
+                 to the reference's accept groups by bead (per walker with
+                 per-walker windows) and compared with the group's sum; a
+                 per-walker window's pass must read each walker's own
+                 beads;
+  gate_dS_gap    the end gate of the per-level end bisections, its own
+                 pass (the dense delta_action, kernel 3 with kernel 4's u
+                 on the chain-end row, or delta_action_sum), against the
+                 reference's gate row, normalised as the dS gaps are;
+  depth_gap      with random end depths (capture.random_depth): the depths
+                 handed to the window's end moves (every call of the head and
+                 tail moves in its blocks) against the law that the
+                 configuration states, U{2..Nlev}: with n calls and K depths
+                 due, the largest |n_d - n/K| / (n/K) over the depths d due
+                 or drawn (a depth not due counts against 0); a window
+                 without such calls reads `missing`;
   <f>_state_gap  those moves' decisions and write-backs: the walker's
                  positions (and the worm's open ends) after the move
                  against the reference's (the proposal where it accepts,
@@ -65,8 +81,12 @@ Numbers compared, each against its limit in the cell's file
                  histogram from the walkers that closed);
   missing        per window block, each kind of move the configuration
                  runs without a captured call, captured calls whose pair
-                 pass output was not seen in the form expected, and a
-                 missing last step: limit 0.
+                 pass output was not seen in the form expected (a
+                 per-level move: a group of the reference's rows with no
+                 pass over its beads, or a pass over no group's beads; a
+                 per-walker window's pass over other beads; randoms of
+                 another depth than the move was handed), and a missing
+                 last step: limit 0.
 
 The control puts the reference, computed in the next lower precision,
 in the program's place (`control_answers`), and is judged the same way."""
@@ -82,16 +102,17 @@ from ..reference import estimators as ref_est
 from ..reference import exact_f2 as ref_f2
 from ..reference import moves as ref_mv
 from ..reference.physics import PairModel, geometry, wrap
-from .capture import expected_kinds
+from .capture import expected_kinds, random_depth
 from .counting import COUNTER_NAMES
 
 FAMILY = {"cm": "cm", "cm_cascade": "cm", "worm_cm": "worm"}  # else "bis"
 # kernel 5's kinds, judged by their decisions and write-backs alone
 CASCADES = ("cascade_ends", "cascade_int")
 NUMBERS = ("cm_dS_gap", "cm_state_gap", "bis_dS_gap", "bis_state_gap",
-           "worm_dS_gap", "worm_state_gap", "cascade_flip_gap",
-           "cascade_state_gap", "dfield_gap", "fcache_gap", "energy_gap",
-           "therm_gap", "structure_gap", "obdm_gap", "count_gap", "missing")
+           "gate_dS_gap", "depth_gap", "worm_dS_gap", "worm_state_gap",
+           "cascade_flip_gap", "cascade_state_gap", "dfield_gap",
+           "fcache_gap", "energy_gap", "therm_gap", "structure_gap",
+           "obdm_gap", "count_gap", "missing")
 LOWER = {"float32": torch.bfloat16, "float64": torch.float32}
 
 
@@ -124,13 +145,14 @@ def _worst(x):
     return x.amax(-1) if x.shape[1] else x.new_zeros(x.shape[0])
 
 
-def _fold_slots(folds, slots):
-    """The program's rows and field increments of a captured move's calls
+def _fold_slots(passes, slots):
+    """The program's rows and field increments of a captured move's passes
     that carry the cache, as each slot's (the reference's order), matched
     by bead: (rows, dfield) lists, or (None, None) where a slot's bead is
-    in no call.  A rigid move's call returns its rows' sum, its one row."""
+    in no such pass.  A rigid move's pass returns its rows' sum, its one
+    row."""
     calls = []
-    for f in folds:
+    for f in (p for p in passes if "dfield" in p):
         if f["ib"].dim() != 1:
             return None, None
         beads = f["ib"].tolist()
@@ -154,6 +176,58 @@ def _fold_slots(folds, slots):
             rows.append(dS[:, [rm[b] for b in want]])
         dfield.append(f["dfield"][:, [dm[b] for b in f2]])
     return rows, dfield
+
+
+def per_level(fields, kind) -> bool:
+    """Whether a captured move of `kind` is a per-level bisection (one pass
+    per level, and an end move's gate), judged by its accept groups."""
+    return not fields["bis_monoshot"] and kind in ("bis", "bis_head",
+                                                   "bis_tail")
+
+
+def _same_beads(ib, beads) -> bool:
+    """Whether a pass's bead indices ib ([B] or per walker [s, B]) are the
+    beads [B] or [s, B] of some reference rows, as sets per walker."""
+    ib = ib.to(beads.device)
+    if ib.shape[-1] != beads.shape[-1]:
+        return False
+    return bool((ib.sort(-1).values == beads.sort(-1).values).all())
+
+
+def _grouped(slot, used):
+    """The slot with one row per accept group in `used` [G'], each the
+    reference's sum of the group's rows; `gate` marks the end gate's."""
+    return {**slot, "dS": ref_mv.group_sums(slot, slot["dS"])[:, used],
+            "group": used, "gate": used == 0}
+
+
+def _level_rows(rec, slots):
+    """(rows, slots) of a per-level move: each slot's rows by accept group
+    (its group sums), from the program's passes matched by bead, or from
+    the rows of the reference put in the program's place; (None, None)
+    where a group has no pass over its beads or a pass is over none."""
+    passes, out, grouped = rec.get("passes"), [], []
+    if passes is None and rec["rows"] is None:
+        return None, None
+    left = list(range(len(passes))) if passes is not None else []
+    for k, sl in enumerate(slots):
+        used = torch.unique(sl["group"])
+        grouped.append(_grouped(sl, used))
+        if passes is None:
+            out.append(ref_mv.group_sums(sl, rec["rows"][k])[:, used])
+            continue
+        sums = []
+        for g in used.tolist():
+            beads = sl["beads"][..., sl["group"].to(sl["beads"].device) == g]
+            hit = next((i for i in left
+                        if _same_beads(passes[i]["ib"], beads)), None)
+            if hit is None:
+                return None, None
+            left.remove(hit)
+            dS = passes[hit]["dS"]
+            sums.append(dS.sum(-1) if dS.dim() == 2 else dS)
+        out.append(torch.stack(sums, -1))
+    return (None, None) if left else (out, grouped)
 
 
 def _f64(st) -> dict:
@@ -190,7 +264,8 @@ def program_answers(run) -> dict:
     last step, and that step's bookkeeping."""
     cap = run.capture
     moves = [{**rec, "rows": _slot_rows(rec)} for rec in cap.moves]
-    ans = {"moves": moves, "stats": None, "book": None, "fcache": None}
+    ans = {"moves": moves, "stats": None, "book": None, "fcache": None,
+           "depths": cap.depths}
     last = cap.last
     if last is not None:
         ans["fcache"] = last.get("fcache")
@@ -261,17 +336,30 @@ def _count_gap(book, ref) -> int:
     return bad
 
 
-# faults of the exact-F^2 path that control_answers can plant in the
-# reference put in the program's place
+# faults that control_answers can plant in the reference put in the
+# program's place: of the exact-F^2 path, of the per-level bisections, of
+# the random end depths and of the per-walker windows
 F2_FAULTS = ("partial_f2", "dg_flipped", "bis_cache_skipped")
+LEVEL_FAULTS = ("gate_altered", "level_accept_ignored")
+DEPTH_FAULTS = ("end_depth_fixed",)
+PERWALKER_FAULTS = ("windows_at_walker0",)
+
+
+def faults(fields) -> tuple:
+    """The faults of F2_FAULTS, LEVEL_FAULTS, DEPTH_FAULTS and
+    PERWALKER_FAULTS that a configuration's path can have."""
+    return ((F2_FAULTS if carries_cache(fields) else ())
+            + (LEVEL_FAULTS if not fields["bis_monoshot"] else ())
+            + (DEPTH_FAULTS if random_depth(fields) else ())
+            + (PERWALKER_FAULTS if not fields["shared_windows"] else ()))
 
 
 def control_answers(run, dtype, fault: str = None) -> dict:
     """The reference in `dtype` in the program's place, on the same
     captured inputs, the same final state and the same OBDM rounds; the
     bookkeeping, integer counts that no precision changes, is the
-    program's.  fault, under exact F^2 (one of F2_FAULTS): planted in the
-    reference so put in the program's place --
+    program's.  fault (one of faults(fields)): planted in the reference so
+    put in the program's place --
       partial_f2         the moves' rows and decisions with the reference
                          code's partial dF^2 in place of the exact one;
       dg_flipped         the partners' field increments with the wrong
@@ -279,7 +367,18 @@ def control_answers(run, dtype, fault: str = None) -> dict:
       bis_cache_skipped  the cache without the increments that the last
                          block's captured interior bisection made for its
                          accepted walkers (increments add, so the moves
-                         after it leave them missing)."""
+                         after it leave them missing);
+      gate_altered       the per-level end moves' gate rows (kernel 3's)
+                         off by a tenth, max(1, |dS|) / 10, and their
+                         decisions taken from them;
+      level_accept_ignored
+                         the per-level moves' proposals written back for
+                         every active walker, whatever its gates;
+      end_depth_fixed    every end move of the window handed depth 2, the
+                         lowest, in place of the depths the sweep drew;
+      windows_at_walker0 the interior bisections' per-walker windows
+                         written back at the first sampled walker's
+                         beads."""
     fields = run.fields
     dev = run.final_paths.device
     prog = program_answers(run)
@@ -293,12 +392,23 @@ def control_answers(run, dtype, fault: str = None) -> dict:
             part = ref_mv.move({**fields, "exact_f2": False}, rec["kind"], R,
                                _dev(rec["args"], dev), xend)
             slots = [{**sl, "dS": q["dS"]} for sl, q in zip(slots, part)]
-        dec = [ref_mv.decide(sl, sl["dS"]) for sl in slots]
-        after, xa = ref_mv.apply(slots, R, xend, dec)
+        levels = per_level(fields, rec["kind"])
+        if fault == "gate_altered" and levels:
+            slots = [{**sl, "dS": sl["dS"] + torch.where(
+                (sl["group"] == 0).to(dev), 0.1 * sl["dS"].abs().clamp(
+                    min=1.0), torch.zeros_like(sl["dS"]))} for sl in slots]
+        dec = [sl["active"] if fault == "level_accept_ignored" and levels
+               else ref_mv.decide(sl, sl["dS"]) for sl in slots]
+        written = slots
+        if fault == "windows_at_walker0" and rec["kind"] == "bis":
+            written = [{**sl, "beads": sl["beads"][..., :1, :].expand_as(
+                sl["beads"]) if sl["beads"].dim() == 2 else sl["beads"]}
+                for sl in slots]
+        after, xa = ref_mv.apply(written, R, xend, dec)
         dfield = [_dfield(sl, fault) if "dfield" in sl else None
                   for sl in slots]
         moves.append({**rec, "rows": [sl["dS"] for sl in slots],
-                      "folds": None, "dfield": dfield,
+                      "passes": None, "dfield": dfield,
                       "after": after, "xend_after": xa, "accept": dec})
         if rec["kind"] == "bis" and rec["block"] == run.blocks:
             skipped = (slots[0], dec[0])
@@ -322,8 +432,11 @@ def control_answers(run, dtype, fault: str = None) -> dict:
                  for k, v in sums.items()}
         stats["nrho"] = ref_est.obdm(fields, last["obdm"],
                                      last["isopen_out"], dtype)[0]
+    depths = prog["depths"]
+    if fault == "end_depth_fixed":
+        depths = {2: sum(depths.values())}
     return {"moves": moves, "stats": stats, "book": prog["book"],
-            "fcache": fcache}
+            "fcache": fcache, "depths": depths}
 
 
 def _dfield(slot, fault):
@@ -347,19 +460,35 @@ def _field_odd(run, dtype):
 
 
 def _judge_move(run, rec, geo, dev):
-    """(family, dS gap, state gap, dfield gap or None) per sampled walker
-    of one captured move, or None where its rows are missing."""
+    """(family, dS gap, state gap, dfield gap or None, gate gap or None)
+    per sampled walker of one captured move, or None where its rows are
+    missing."""
     f64 = torch.float64
     rows, dfield = rec["rows"], rec.get("dfield")
-    cache = carries_cache(run.fields) and rec.get("folds") is not None
-    if rows is None and not cache:
+    levels = per_level(run.fields, rec["kind"])
+    cache = (carries_cache(run.fields) and rec.get("passes") is not None
+             and not levels)
+    if rows is None and not cache and not levels:
         return None
     R = rec["before"].to(dev, f64)
     xend = None if rec["xend"] is None else rec["xend"].to(dev, f64)
-    slots = ref_mv.move(run.fields, rec["kind"], R, _dev(rec["args"], dev),
-                        xend)
+    try:
+        slots = ref_mv.move(run.fields, rec["kind"], R,
+                            _dev(rec["args"], dev), xend)
+    except ValueError:      # randoms of another depth than it was handed
+        return None
+    passes = rec.get("passes")
+    if levels:
+        rows, slots = _level_rows(rec, slots)
+        if rows is None:
+            return None
+    elif (rec["kind"] == "bis" and passes is not None
+          and not run.fields["shared_windows"]
+          and not _same_beads(torch.cat([p["ib"].to(dev) for p in passes], -1),
+                              torch.cat([sl["beads"] for sl in slots], -1))):
+        return None
     if cache:
-        rows, dfield = _fold_slots(rec["folds"], slots)
+        rows, dfield = _fold_slots(passes, slots)
     if rows is None or len(rows) != len(slots) or any(
             r.shape != sl["dS"].shape for r, sl in zip(rows, slots)):
         return None
@@ -374,15 +503,20 @@ def _judge_move(run, rec, geo, dev):
             _vec_gap(d.to(dev, f64), sl["dfield"][:, sl["f2"]]),
             torch.zeros((), dtype=f64, device=dev)))
             for d, sl in zip(dfield, slots)]).amax(0)
-    gaps, decisions, wrong = [], [], torch.zeros(R.shape[0], dtype=torch.bool,
-                                                 device=dev)
+    gaps, gates, decisions = [], [], []
+    wrong = torch.zeros(R.shape[0], dtype=torch.bool, device=dev)
     for sl, r, acc in zip(slots, rows, rec["accept"]):
         dS, ref = r.to(dev, f64), sl["dS"]
         gap = (dS - ref).abs() / ref.abs().clamp(min=1.0)
         gap = torch.where(torch.isfinite(gap), gap,
                           torch.full_like(gap, math.inf))
-        gaps.append(torch.where(sl["active"][:, None], gap,
-                                torch.zeros_like(gap)).amax(-1))
+        gap = torch.where(sl["active"][:, None], gap, torch.zeros_like(gap))
+        if sl.get("gate") is not None and bool(sl["gate"].any()):
+            gate = sl["gate"].to(dev)
+            gates.append(torch.where(gate, gap, torch.zeros_like(gap))
+                          .amax(-1))
+            gap = torch.where(gate, torch.zeros_like(gap), gap)
+        gaps.append(gap.amax(-1))
         # where the program's sums and the reference's fall on the two
         # sides of u in some group, either decision stands
         tie = (ref_mv.passes(sl, dS) != ref_mv.passes(sl, ref)).any(-1)
@@ -400,7 +534,8 @@ def _judge_move(run, rec, geo, dev):
                        torch.where(wrong, torch.ones_like(dist),
                                    torch.full_like(dist, math.inf)))
     gap = torch.stack(gaps).amax(0)
-    return FAMILY.get(rec["kind"], "bis"), gap, dist, dfgap
+    gate = torch.stack(gates).amax(0) if gates else None
+    return FAMILY.get(rec["kind"], "bis"), gap, dist, dfgap, gate
 
 
 def _flip_gap(slot, acc):
@@ -444,6 +579,15 @@ def _judge_cascade(run, rec, geo, dev):
     return flip.amax(0), dist
 
 
+def _depth_gap(depths: dict, nlev: int) -> float:
+    """depth_gap of the window's end moves, counted by depth."""
+    due = range(2, max(nlev, 2) + 1)
+    n = sum(depths.values())
+    e = n / len(due)
+    return max(abs(depths.get(d, 0) - (e if d in due else 0.0)) / e
+               for d in set(due) | set(depths))
+
+
 def judge(run, answers: dict, limits: dict) -> tuple:
     """({number: value}, attempted, failed) of the answers against the
     float64 reference."""
@@ -470,16 +614,28 @@ def judge(run, answers: dict, limits: dict) -> tuple:
         if out is None:
             missing += 1
             continue
-        fam, gap, dist, dfgap = out
+        fam, gap, dist, dfgap, gate = out
         g, s = f"{fam}_dS_gap", f"{fam}_state_gap"
         vals[g] = max(vals[g], float(gap.max()))
         vals[s] = max(vals[s], float(dist.max()))
         attempted += gap.numel()
         bad = (gap > lim[g]) | (dist > lim[s])
+        if gate is not None:
+            vals["gate_dS_gap"] = max(vals["gate_dS_gap"], float(gate.max()))
+            bad |= gate > lim["gate_dS_gap"]
         if dfgap is not None:
             vals["dfield_gap"] = max(vals["dfield_gap"], float(dfgap.max()))
             bad |= dfgap > lim["dfield_gap"]
         failed += int(bad.sum())
+    if random_depth(fields):
+        depths = answers.get("depths")
+        if not depths:
+            missing += 1
+        else:
+            g = _depth_gap(depths, fields["Nlev"])
+            vals["depth_gap"] = g
+            attempted += 1
+            failed += int(g > lim["depth_gap"])
     stats, last = answers["stats"], run.capture.last
     if stats is None or last is None:
         missing += 1

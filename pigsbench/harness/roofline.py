@@ -1,6 +1,6 @@
 """The table of peaks and the bytes and operations of each launch of the
-pair kernels and of the whole-move cascade, counted from the launch's own
-shapes.
+pair kernels (the window pass, the all-pairs pass, the dense gate) and of
+the whole-move cascade, counted from the launch's own shapes.
 
 Peaks: one NVIDIA H100 SXM by its data sheet (dense, 700 W): 3.35 TB/s of
 HBM3, 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the tensor
@@ -57,6 +57,24 @@ def window_pairs(rec: dict) -> tuple:
     per_row = 2 * (2 * D if rec["need_f2"] else 0) + 6
     ops = W * B * (2 * (N - 1) * per_pair + per_row)
     return nbytes, ops
+
+
+# the dense kernel's modes (enum Mode in the program's csrc/pair_delta.cu)
+DENSE_RAW, DENSE_U, DENSE_ACTION = 0, 1, 2
+
+
+def dense_gate(rec: dict) -> tuple:
+    """(bytes, operations) of one launch of the dense pass in its action
+    mode (kernel 3 with kernel 4's u pass, the per-level end gate): W x B
+    rows, each the moved particle at its new and old place against N - 1
+    partners, counted as the window pass's rows (window_pairs) with the
+    force when the launch asks for it and u on every row (the gate's one
+    row is a chain end), the rows written out.  ValueError for the other
+    modes."""
+    if rec["mode"] != DENSE_ACTION:
+        raise ValueError(f"not the action mode: {rec['mode']}")
+    return window_pairs({**rec, "need_wf": 1, "need_f2": rec["force"],
+                         "reduce": 0, "row_weights": False})
 
 
 def all_pairs(rec: dict) -> tuple:

@@ -1,8 +1,8 @@
 """The traced run's readings: one window block under `torch.profiler`
 (CPU and CUDA activities, kept in memory), and the shapes of each launch
-of the program's pair kernels and of its whole-move cascade (kernel 5),
-read at the benchmark's own span around the call into the kernels'
-library.
+of the program's pair kernels (kernels A, B and the dense kernel 3) and of
+its whole-move cascade (kernel 5), read at the benchmark's own span around
+the call into the kernels' library.
 
 From the trace: the device intervals (kernels, memcpy, memset) and their
 union (busy seconds), the host's launch calls (kernel launches, memcpy,
@@ -153,7 +153,8 @@ def breakdown(td: TraceData, top: int = 10) -> dict:
 class LaunchTap:
     """Records each launch's shapes from the argument structs the program
     hands its kernels' library: pass-through wrappers on the library's
-    entry points for the window pair pass, the all-pairs pass and the
+    entry points for the window pair pass, the all-pairs pass, the dense
+    pass (kernel 3, with kernel 4's u: the per-level end gate) and the
     whole-move cascade."""
 
     def __init__(self, lib):
@@ -180,6 +181,17 @@ class LaunchTap:
                              force=int(args[3]), pot_kind=p.pot_kind))
             return fn(*args)
 
+        def dense(*args):
+            # (params, rows, R, xnew, xold, ip, mode, with_force, ib, tab,
+            #  out0, out1, stream); ib_mode and M are set in the action mode
+            p, a = args[0]._obj, args[1]._obj
+            recs.append(dict(dtype=dtype, mode=int(args[6]),
+                             force=int(args[7]), W=a.W, B=a.B, N=a.N,
+                             D=p.dim, M=a.M, ip_mode=a.ip_mode,
+                             ib_mode=a.ib_mode, pot_kind=p.pot_kind,
+                             jas_kind=p.jas_kind))
+            return fn(*args)
+
         def cascade(*args):
             # (params, move, paths, 3 strides, rg, ru, act, 2 strides, acc,
             #  W, S, N, L, nlev, ends, bulk, stream)
@@ -195,11 +207,12 @@ class LaunchTap:
 
         self._saved[name] = fn
         setattr(self.lib, name, {"pair_rows": rows, "pair_pot": pot,
+                                 "pair_delta": dense,
                                  "cascade": cascade}[kind])
 
     def install(self):
         for dtype in ("f32", "f64", "bf16"):
-            for kind in ("pair_rows", "pair_pot", "cascade"):
+            for kind in ("pair_rows", "pair_pot", "pair_delta", "cascade"):
                 self._wrap(f"pigs_{kind}_{dtype}", kind, dtype)
 
     def uninstall(self):

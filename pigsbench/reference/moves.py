@@ -8,11 +8,14 @@ and the move's own random numbers:
              0..Nb or Nb..2Nb), bead Nb first pinned to its open end
              xend[half] for the walkers whose worm is open;
   bis        Bisection: the interior window of 2**level links from the
-             even bead ii, its midpoints built level by level
+             even bead ii (shared, or with per-walker windows each
+             walker's own ii [s]), its midpoints built level by level
              (vpi_mod.f90:905-907), sigma = sqrt(delta dt / 4);
   bis_head   MoveHeadBisection / MoveTailBisection at the depth
-  bis_tail   max(level, 2): the free-gaussian guess of the chain's end bead
-             about the window's far anchor, sigma sqrt(2**nlev dt), then
+  bis_tail   max(level, 2), whatever depth the move was handed (the
+             random end depth U{2..Nlev} included): the free-gaussian guess
+             of the chain's end bead about the window's far anchor, sigma
+             sqrt(2**nlev dt), its gate row carrying the end bead's u, then
              the levels as above;
   bis_ends   the head and tail bisections of one particle as one composite
              (both proposed from the same positions);
@@ -33,11 +36,15 @@ the configuration's `exact_f2` the change of every particle's |F_i|^2
 (exact_f2.py), whatever its `f2_cache`.  A move's rows fall into accept
 groups (the end gate, then level by level; one group for a rigid move),
 and it is accepted where the walker is active and u_g < exp(-sum of its
-group's dS) for every group g.
+group's dS) for every group g.  This is the law of the per-level form
+(bis_monoshot off) too: each level's proposal is fixed by the gaussians,
+so its pass sums the rows of its group, and its accept chain, the active
+mask and every gate, is the same conjunction.
 
 A move is returned as its slots (one per particle moved), each a dict:
   p       [s] long: the particle;
-  beads   [B] long: the beads the slot writes;
+  beads   [B] long: the beads the slot writes (per-walker windows: [s, B],
+          each walker's own);
   xold    [s, B, D]: what stands there if the move is rejected (for the
           worm move the pinned centre);
   xnew    [s, B, D]: the proposal;
@@ -61,11 +68,18 @@ from . import exact_f2
 from .physics import PairModel, chin_weights, geometry, wrap
 
 
+def _at(R, beads):
+    """[s, B, ...]: R [s, M, ...] at beads [B], or per walker at [s, B]."""
+    if beads.dim() == 1:
+        return R[:, beads]
+    return R[torch.arange(R.shape[0], device=R.device)[:, None], beads]
+
+
 def _rows_dS(cfg, geo, model, R, xnew, xold, p, beads):
     """[s, B]: dS of particle p [s] moved from xold to xnew [s, B, D] at
-    beads [B], against the other particles of R [s, M, N, D]; with
-    exact F^2, (dS, the F^2 rows [B] bool, dfield [s, B, N, D])."""
-    Rb = R[:, beads]                                    # [s, B, N, D]
+    beads [B] (or [s, B]), against the other particles of R [s, M, N, D];
+    with exact F^2, (dS, the F^2 rows [B] bool, dfield [s, B, N, D])."""
+    Rb = _at(R, beads)                                  # [s, B, N, D]
     N = Rb.shape[2]
     self_ = (torch.arange(N, device=R.device)[None, :] == p[:, None])
     self_ = self_[:, None, :]                            # [s, 1, N]
@@ -100,10 +114,10 @@ def _exact(slot, out):
 
 
 def _chain(R, p, beads):
-    """[s, B, D]: particle p [s] at beads [B]."""
+    """[s, B, D]: particle p [s] at beads [B] (or [s, B])."""
     s = R.shape[0]
-    return R[torch.arange(s, device=R.device)[:, None], beads[None, :],
-             p[:, None]]
+    return R[torch.arange(s, device=R.device)[:, None],
+             beads if beads.dim() == 2 else beads[None, :], p[:, None]]
 
 
 def _rigid(cfg, R, p, beads, xold, u_dx, u_acc, active, extra=None):
@@ -152,11 +166,15 @@ def _level_of(pos: int, level: int) -> int:
 
 
 def _window(cfg, R, p, beads, level, g, u, active, gate):
-    """One bisection window of particle p [s] over beads [L+1] (in head
-    orientation: bead 0 of the window is the chain's end for an end move),
-    gaussians g [s, L, D] by window position, uniforms u [s, level+1]."""
+    """One bisection window of particle p [s] over beads [L+1] or per
+    walker [s, L+1] (in head orientation: bead 0 of the window is the
+    chain's end for an end move), gaussians g [s, L, D] by window position,
+    uniforms u [s, level+1] (randoms of another depth: ValueError)."""
     geo, model = geometry(cfg), PairModel(cfg)
     L, dt = 2 ** level, cfg["dt"]
+    if not L <= g.shape[1] <= L + 1 or u.shape[1] != level + 1:
+        raise ValueError(f"randoms of depth {level}: g {tuple(g.shape)}, "
+                         f"u {tuple(u.shape)}")
     g = g.to(R.dtype)
     seg0 = _chain(R, p, beads)
     seg = seg0.clone()
@@ -173,7 +191,7 @@ def _window(cfg, R, p, beads, level, g, u, active, gate):
         seg[:, d2::delta] = wrap(0.5 * (xprev + xnext) + math.sqrt(
             0.25 * delta * dt) * g[:, d2::delta], geo.L)
     pos = list(range(0 if gate else 1, L))
-    rows = beads[pos]
+    rows = beads[..., pos]
     out = _rows_dS(cfg, geo, model, R, seg[:, pos], seg0[:, pos], p, rows)
     group = torch.tensor([0 if q == 0 else _level_of(q, level) for q in pos],
                          dtype=torch.long)
@@ -196,7 +214,8 @@ def _full(R, ip):
 
 def bis(cfg, R, a):
     ii, g, u = a["rand"]
-    beads = torch.arange(ii, ii + 2 ** a["level"] + 1, device=R.device)
+    beads = torch.arange(2 ** a["level"] + 1, device=R.device)
+    beads = beads + (ii.to(R.device)[:, None] if torch.is_tensor(ii) else ii)
     return [_window(cfg, R, _full(R, a["ip"]), beads, a["level"], g, u,
                     a["active"], False)]
 
@@ -266,7 +285,9 @@ def apply(slots, R, xend, decisions):
     rows = torch.arange(s, device=R.device)[:, None]
     for slot, dec in zip(slots, decisions):
         fin = torch.where(dec[:, None, None], slot["xnew"], slot["xold"])
-        R[rows, slot["beads"][None, :], slot["p"][:, None]] = fin.to(R.dtype)
+        b = slot["beads"]
+        R[rows, b if b.dim() == 2 else b[None, :], slot["p"][:, None]] = \
+            fin.to(R.dtype)
         if "xend" in slot:
             h, c = slot["xend"]
             xend[:, h] = torch.where(slot["active"][:, None],

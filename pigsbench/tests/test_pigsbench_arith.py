@@ -57,6 +57,16 @@ def test_exact_f2_count():
     assert counting.bead_updates_per_step(fields) == 22100
 
 
+@pytest.mark.parametrize("cell", ["he4.reforder_w1024",
+                                  "he4.perwalker_w16384"])
+def test_reference_order_and_per_walker_counts(cell):
+    # the flagship's count: 3 x 2^Nlev a visit whatever end depth is drawn,
+    # and per-walker windows move as many beads as shared ones
+    wl = manifest.workload(cell)
+    fields = window.sim_fields(wl, manifest.config(wl["config"]))
+    assert counting.bead_updates_per_step(fields) == 22100
+
+
 def test_rate_is_all_the_work_over_all_the_time():
     # three 5-step blocks of 0.5, 0.5 and 2.0 s: the window's rate is the
     # work over 3 s, not the median block's rate
@@ -86,6 +96,22 @@ def test_window_pairs_bytes_and_operations():
     # 8 (48 + 24 + 15 + 6) + 24; per pair 8 + 2 + 1 + 5 + 5 + 7
     assert roofline.window_pairs(dip) == (8 * 93 + 24,
                                           6 * (2 * 3 * 28 + 14))
+
+
+def test_dense_gate_bytes_and_operations():
+    rec = dict(dtype="f32", mode=roofline.DENSE_ACTION, force=1, W=2, B=1,
+               N=4, D=3, M=5, ip_mode=0, ib_mode=0, pot_kind=0, jas_kind=0)
+    # bytes: 4 (24 partners + 12 positions + 15 table + 2 rows) + 8 x 1 ib
+    # ops per pair and side: 12 + 2 + 1 + 45 (V, dV) + 7 (force) + 9 (u on
+    # the end row); per row both sides' |F|^2 2 x 6 and the weighting 6
+    assert roofline.dense_gate(rec) == (4 * 53 + 8, 2 * (2 * 3 * 76 + 18))
+    dip = {**rec, "dtype": "f64", "force": 0, "B": 3, "D": 2, "ip_mode": 1,
+           "ib_mode": 1, "pot_kind": 2, "jas_kind": 1}
+    # 8 (48 + 24 + 15 + 6) + 8 (6 ib + 2 ip); per pair 8 + 2 + 1 + 3 (V)
+    # + 7 (u), no force
+    assert roofline.dense_gate(dip) == (8 * 93 + 8 * 8, 6 * (2 * 3 * 21 + 6))
+    with pytest.raises(ValueError):
+        roofline.dense_gate({**rec, "mode": roofline.DENSE_RAW})
 
 
 def test_all_pairs_bytes_and_operations():
@@ -199,13 +225,64 @@ def test_cascade_metrics_on_a_trace():
         SimpleNamespace(trace=None)) is None
 
 
+def test_dense_gate_metrics_on_a_trace():
+    rec = dict(dtype="f32", mode=roofline.DENSE_ACTION, force=1, W=2, B=1,
+               N=4, D=3, M=5, ip_mode=0, ib_mode=0, pot_kind=0, jas_kind=0)
+    name = ("void (anonymous namespace)::pair_delta_kernel<float, 2, true, "
+            "0, 0, 3>(Consts<float>, RowArgs, float const*)")
+    td = trace.TraceData(steps=2, window_s=1.0,
+                         kernels=[(name, 0, 1000), (name, 2000, 3000),
+                                  ("void pair_rows_kernel<float, 4>", 3000,
+                                   4000)],
+                         launches={"pair_delta": [rec, rec]})
+    run = SimpleNamespace(trace=td)
+    read = manifest.metric_reader
+    assert read("dense_gate_launches_per_step")(run) == 1.0
+    assert read("roofline_pct.dense_gate")(run) == pytest.approx(
+        100 * 2 * (220 / 3.35e12) / 2000e-9)
+    td.launches["pair_delta"][1] = {**rec, "mode": roofline.DENSE_U}
+    assert read("roofline_pct.dense_gate")(run) is None
+    td.launches["pair_delta"].pop()
+    assert read("roofline_pct.dense_gate")(run) is None
+    td.kernels = td.kernels[2:]
+    assert read("dense_gate_launches_per_step")(run) == 0.0
+    assert read("dense_gate_launches_per_step")(
+        SimpleNamespace(trace=None)) is None
+
+
+def test_launch_tap_reads_a_dense_launch():
+    import ctypes
+
+    from pathintegralgroundstate_torch.ops import kernels
+    seen = []
+    lib = SimpleNamespace(**{f"pigs_{k}_{d}": (lambda *a: seen.append(a) or 0)
+                             for k in ("pair_rows", "pair_pot", "pair_delta",
+                                       "cascade")
+                             for d in ("f32", "f64", "bf16")})
+    p = kernels._PairParams(dim=3, pot_kind=0, jas_kind=0)
+    a = kernels._RowArgs(ip_mode=0, W=1024, B=1, N=64, ib_mode=0, M=65)
+    tap = trace.LaunchTap(lib)
+    tap.install()
+    # (params, rows, R, xnew, xold, ip, mode, with_force, ib, tab, out0,
+    #  out1, stream), as ops/kernels._dense hands them over
+    lib.pigs_pair_delta_f64(ctypes.byref(p), ctypes.byref(a), 0, 1, 2, None,
+                            kernels._ACTION, 1, 3, 4, 5, 5, None)
+    tap.uninstall()
+    assert len(seen) == 1 and tap.records["pair_delta"] == [dict(
+        dtype="f64", mode=roofline.DENSE_ACTION, force=1, W=1024, B=1,
+        N=64, D=3, M=65, ip_mode=0, ib_mode=0, pot_kind=0, jas_kind=0)]
+    assert (kernels._RAW, kernels._U, kernels._ACTION) == (
+        roofline.DENSE_RAW, roofline.DENSE_U, roofline.DENSE_ACTION)
+
+
 def test_launch_tap_reads_a_cascade_launch():
     import ctypes
 
     from pathintegralgroundstate_torch.ops import kernels
     seen = []
     lib = SimpleNamespace(**{f"pigs_{k}_{d}": (lambda *a: seen.append(a) or 0)
-                             for k in ("pair_rows", "pair_pot", "cascade")
+                             for k in ("pair_rows", "pair_pot", "pair_delta",
+                                       "cascade")
                              for d in ("f32", "f64", "bf16")})
     p = kernels._PairParams(dim=3, pot_kind=0, jas_kind=0)
     a = kernels._CascadeArgs()

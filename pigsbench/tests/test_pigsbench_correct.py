@@ -25,13 +25,17 @@ TINY = {"he4_n64": dict(Np=8, Nb=8, Nlev=2, Lstag=4, Nstag=1, Nobdm=2,
                         CWorm=50.0),   # fused + cascade: L = 4, K = 3
         "dipolar2d_n256": dict(Np=16)}
 TINY["he4_exact_f2_n64"] = TINY["he4_n64"]
+# a cell's own: the random end depths drawn from two (U{2..3}), over 128
+# end moves in the window
+TINY_CELL = {"he4.reforder_w1024": dict(Nlev=3, Nstag=4)}
 CELLS = [w["name"] for w in manifest.manifest()["workloads"]]
 
 
 def _tiny_run(cell, seed=2 ** 31 + 77, port=None):
     wl = manifest.workload(cell)
     conf = manifest.config(wl["config"])
-    conf = {**conf, "fields": {**conf["fields"], **TINY[wl["config"]]}}
+    conf = {**conf, "fields": {**conf["fields"], **TINY[wl["config"]],
+                               **TINY_CELL.get(cell, {})}}
     wl = {**wl, "walkers": 6, "steps_per_block": 2}
     run = window.run_cell(cell, seed, 0.0, False, "cpu", workload=wl,
                           config=conf, port=port)
@@ -132,9 +136,12 @@ class _Faulty:
                 self._patch(mod, fn, skipped(getattr(mod, fn)))
         elif f == "bisection_accept_ignored":
             # every bisection's proposal written back, whatever its dS (the
-            # cascades' gates given uniforms of 0)
+            # per-level forms' accept chain ignoring every rejected level
+            # and gate; the cascades' gates given uniforms of 0)
             self._patch(p.bisection, "_monoshot_accept",
                         lambda system, active, *a, **k: active)
+            self._patch(p.bisection, "metropolis_u",
+                        lambda u, dS: torch.ones_like(u, dtype=torch.bool))
             self._cascade(lambda orig, system, mode, paths, slots, rg, ru,
                           *a: orig(system, mode, paths, slots, rg,
                                    ru if mode == "rigid"
@@ -219,6 +226,62 @@ class _Faulty:
                                  xold.clone(), ip, ib.clone(), fold.clone(),
                                  *a)
             self._patch(p.pairwise, "_fold_rows", rerouted)
+        elif f == "gate_dS_altered":
+            # kernel 3's action rows (the per-level end gates) off by 10 %
+            orig = p.kernels.pair_delta
+
+            def altered(*a, **k):
+                out = orig(*a, **k)
+                if not torch.is_tensor(out):     # the raw mode's two rows
+                    return out
+                return out + 0.1 * out.abs().clamp(min=1.0)
+            altered.launches = orig.launches
+            self._patch(p.kernels, "pair_delta", altered)
+        elif f == "level_rows_dropped":
+            # the per-level moves' last level taken without its pass (dS 0)
+            orig = p.bisection.delta_action_sum
+            pairwise = p.pairwise
+
+            def dropped(system, R, xnew, xold, ip, ib, *a, **k):
+                if k.get("need_f2") is True and k.get("fold") is None:
+                    return xnew.new_zeros(xnew.shape[0])
+                return pairwise.delta_action_sum(system, R, xnew, xold, ip,
+                                                 ib, *a, **k)
+            assert orig is pairwise.delta_action_sum
+            self._patch(p.bisection, "delta_action_sum", dropped)
+        elif f == "end_depth_misreported":
+            # the per-level end moves run one level deeper than the depth
+            # they were handed (and recorded): the gaussians and uniforms
+            # of the extra level 0 (a uniform of 0 always passes)
+            orig = p.bisection._end_bisection_per_level
+
+            def deeper(system, paths, ip, active, nlev, tail, rand, *a):
+                _, g, u = rand
+                n = 2 ** (nlev + 1)
+                g = torch.cat([g, g.new_zeros((g.shape[0], n - g.shape[1],
+                                               g.shape[2]))], 1)
+                u = torch.cat([u, u.new_zeros((u.shape[0], 1))], 1)
+                return orig(system, paths, ip, active, nlev + 1, tail,
+                            (None, g, u), *a)
+            self._patch(p.bisection, "_end_bisection_per_level", deeper)
+        elif f == "end_depth_fixed":
+            # the sweep hands every end move depth 2, whatever it drew
+            draws = sys.modules[p.sweep.DeviceDraws.__module__]
+            orig = draws.DeviceDraws.end_bisect
+
+            def fixed(self, tag, it, W, level, *a):
+                orig(self, tag, it, W, level, *a)
+                return 2, self.bisect(tag, it, W, 2)
+            self._patch(draws.DeviceDraws, "end_bisect", fixed)
+        elif f == "windows_at_walker0":
+            # the per-walker windows written back at walker 0's start
+            write = p.bisection._win_write
+
+            def at0(paths, lo, ip, seg):
+                if torch.is_tensor(lo):
+                    lo = lo[:1].expand_as(lo)
+                return write(paths, lo, ip, seg)
+            self._patch(p.bisection, "_win_write", at0)
         elif f == "worm_answer_altered":
             orig = p.moves.translate_half_chain
 
@@ -333,28 +396,70 @@ CACHE_FAULTS = {
 }
 
 
+# the cells whose bisections run level by level (kernel 3's end gates) and
+# those whose windows start per walker, and each fault of those paths with
+# the number that has to catch it
+LEVEL_CELLS = [c for c in CELLS if manifest.workload(c).get(
+    "overrides", {}).get("bis_monoshot") is False]
+LEVEL_FAULTS = {
+    "gate_dS_altered": "gate_dS_gap",
+    "level_rows_dropped": "missing",
+    "bisection_accept_ignored": "bis_state_gap",
+    "end_depth_misreported": "missing",
+}
+PERWALKER_CELLS = [c for c in CELLS if manifest.workload(c).get(
+    "overrides", {}).get("shared_windows") is False]
+PERWALKER_FAULTS = {"windows_at_walker0": "bis_state_gap"}
+# the cells whose sweep draws the end moves' depths
+DEPTH_CELLS = [c for c in CELLS if manifest.workload(c).get(
+    "overrides", {}).get("bis_end_random_depth")]
+DEPTH_FAULTS = {"end_depth_fixed": "depth_gap"}
+NAMED = ([(c, f) for f in LEVEL_FAULTS for c in LEVEL_CELLS
+          if f not in WORM_FAULTS]
+         + [(c, f) for f in PERWALKER_FAULTS for c in PERWALKER_CELLS]
+         + [(c, f) for f in DEPTH_FAULTS for c in DEPTH_CELLS])
+
+
 @pytest.mark.parametrize("cell, fault", [(c, f) for f in FAULTS for c in CELLS]
                          + [(c, f) for f in WORM_FAULTS for c in WORM_CELLS]
                          + [(c, f) for f in CASCADE_FAULTS
                             for c in CASCADE_CELLS]
                          + [(c, f) for f in CACHE_FAULTS
-                            for c in CACHE_CELLS])
+                            for c in CACHE_CELLS] + NAMED)
 def test_fault_in_the_timed_path_is_not_correct(cell, fault):
     with _Faulty(fault) as port:
         run, limits = _tiny_run(cell, port=port)
         ok, vals, failed = _verdict(run, limits)
     assert not ok and failed > 0, (fault, vals)
-    number = CASCADE_FAULTS.get(fault) or CACHE_FAULTS.get(fault)
+    number = (CASCADE_FAULTS.get(fault) or CACHE_FAULTS.get(fault)
+              or (LEVEL_FAULTS.get(fault) if cell in LEVEL_CELLS else None)
+              or (PERWALKER_FAULTS.get(fault) if cell in PERWALKER_CELLS
+                  else None)
+              or (DEPTH_FAULTS.get(fault) if cell in DEPTH_CELLS else None))
     assert number is None or vals[number] > limits[number], (fault, vals)
 
 
-@pytest.mark.parametrize("fault", judge.F2_FAULTS)
-@pytest.mark.parametrize("cell", CACHE_CELLS)
+# each fault that control.py plants in the float64 reference put in the
+# program's place, with the number that has to catch it
+REFERENCE_FAULTS = {"partial_f2": "bis_dS_gap", "dg_flipped": "dfield_gap",
+                    "bis_cache_skipped": "fcache_gap",
+                    "gate_altered": "gate_dS_gap",
+                    "level_accept_ignored": "bis_state_gap",
+                    "end_depth_fixed": "depth_gap",
+                    "windows_at_walker0": "bis_state_gap"}
+
+
+def _fields(cell):
+    wl = manifest.workload(cell)
+    return window.sim_fields(wl, manifest.config(wl["config"]))
+
+
+@pytest.mark.parametrize("cell, fault", [
+    (c, f) for c in CELLS for f in judge.faults(_fields(c))])
 def test_fault_planted_in_the_reference_is_not_correct(cell, fault):
     # control.py reads these on the card (the float64 reference in the
     # program's place, with the fault): each fails its own number
-    number = {"partial_f2": "bis_dS_gap", "dg_flipped": "dfield_gap",
-              "bis_cache_skipped": "fcache_gap"}[fault]
+    number = REFERENCE_FAULTS[fault]
     run, limits = _tiny_run(cell)
     ok, vals, failed = _verdict(run, limits, judge.control_answers(
         run, torch.float64, fault=fault))
@@ -369,5 +474,6 @@ def test_the_fold_read_on_another_route_is_correct(cell):
         run, limits = _tiny_run(cell, port=port)
         ok, vals, failed = _verdict(run, limits)
     assert ok and failed == 0, vals
-    assert all(rec["folds"] for rec in run.capture.moves), vals
+    assert all(any("dfield" in p for p in rec["passes"])
+               for rec in run.capture.moves), vals
     assert run.capture.last["fcache"] is not None

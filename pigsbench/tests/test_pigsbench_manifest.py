@@ -101,19 +101,70 @@ def test_configs_and_cells():
 
 EXACT_CELL = "he4_exact_f2.w1024"
 # the per-layer metrics that read something in the exact-F^2 cell: kernel A,
-# the bisection glue and kernel 5 do not run there
+# kernel 3 and kernel 5 do not run there; the fold kernel and the glue
+# kernels (the 960 cached bisections a step) do
+STAGES = {f"stage_{q}_per_step.{s}" for q in ("launches", "idle_ms",
+                                              "device_ms")
+          for s in ("cm", "diag", "worm", "measure")}
 EXACT_METRICS = {"device_idle_pct", "host_launches_per_step",
                  "torch_ops_device_ms_per_step", "roofline_pct.all_pairs",
-                 "host_ints_per_step"} | {
-    f"stage_{q}_per_step.{s}" for q in ("launches", "idle_ms", "device_ms")
-    for s in ("cm", "diag", "worm", "measure")}
+                 "host_ints_per_step", "bis_glue_moves_per_step",
+                 "fold_launches_per_step"} | STAGES
+# the two cells of the reference's move order and of the per-walker windows
+# (no fold, no cascade): kernel A, kernel B, the stages; kernel 3's two
+# metrics in the reference order, the glue kernels' count with per-walker
+# windows (the 640 end moves a step)
+NEW_METRICS = {"device_idle_pct", "host_launches_per_step",
+               "torch_ops_device_ms_per_step", "roofline_pct.window_pairs",
+               "roofline_pct.all_pairs", "host_ints_per_step"} | STAGES
+CELL_METRICS = {
+    EXACT_CELL: EXACT_METRICS,
+    "he4.reforder_w1024": NEW_METRICS | {"roofline_pct.dense_gate",
+                                         "dense_gate_launches_per_step",
+                                         "bis_glue_moves_per_step"},
+    "he4.perwalker_w16384": NEW_METRICS | {"bis_glue_moves_per_step"},
+}
 
 
-def test_the_exact_f2_cell_is_in_the_metrics_that_read_it():
-    assert len(EXACT_METRICS) == 17
+@pytest.mark.parametrize("cell", sorted(CELL_METRICS))
+def test_the_exact_f2_cell_is_in_the_metrics_that_read_it(cell):
+    assert len(EXACT_METRICS) == 19 and len(NEW_METRICS) == 18
     for m in BENCH["per_layer"]:
-        assert (EXACT_CELL in m.get("workloads", [])) == (
-            m["name"] in EXACT_METRICS), m["name"]
+        assert (cell in m.get("workloads", [])) == (
+            m["name"] in CELL_METRICS[cell]), (cell, m["name"])
+
+
+def test_fold_launches_list_the_five_accepted_cells():
+    fold = next(m for m in BENCH["per_layer"]
+                if m["name"] == "fold_launches_per_step")
+    assert fold["workloads"] == [
+        "he4.vpi_w4096", "dipolar2d.w1024", "he4.vpi_w65536",
+        "he4.cascade_w16384", EXACT_CELL]
+    for cell in fold["workloads"]:
+        assert "bead_updates_per_s" in {
+            m["name"] for m in manifest.cell_metrics(BENCH, cell,
+                                                     "end_to_end")}
+
+
+def test_the_reference_order_and_per_walker_cells():
+    he4 = manifest.config("he4_n64")["fields"]
+    for cell, walkers, steps, over in (
+            ("he4.reforder_w1024", 1024, 1,
+             {"bis_monoshot": False, "bis_end_random_depth": True}),
+            ("he4.perwalker_w16384", 16384, 5, {"shared_windows": False})):
+        wl = manifest.workload(cell)
+        assert {k: v for k, v in wl.items() if k != "check"} == {
+            "config": "he4_n64", "walkers": walkers,
+            "steps_per_block": steps, "overrides": over}
+        assert all(he4[k] != v for k, v in over.items())
+        assert {"bis_dS_gap", "bis_state_gap", "count_gap", "missing"} <= set(
+            wl["check"]["limits"])
+        assert wl["check"]["limits"]["missing"] == 0
+        assert wl["check"]["limits"]["count_gap"] == 0
+        entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
+        assert entry["chips"] == 1 and entry["config"] == "he4_n64"
+    assert {"gate_dS_gap", "depth_gap"} <= set(manifest.workload(
+        "he4.reforder_w1024")["check"]["limits"])
 
 
 def test_the_exact_f2_configuration_and_cell():
